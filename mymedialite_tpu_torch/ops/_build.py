@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
+into one shared library with a plain C interface under
+``mymedialite_tpu_torch/build/`` (not committed), and ctypes loads it.
+The library's file name carries a hash of the sources and flags, so an
+edited source is never served by a stale build. Nothing here runs at
+import time: this module imports on machines without nvcc or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels cannot be built on this machine")
+
+
+class KernelLibrary:
+    """The loaded kernel library, with how it was built."""
+
+    def __init__(self, path: str, build_seconds: float, compiler_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.compiler_log = compiler_log
+        self.lib = ctypes.CDLL(path)
+        fn = self.lib.mml_sgd_epoch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> KernelLibrary:
+    """Compile (if needed) and load the kernels; cached per process."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR,
+                        f"libmml_kernels-{digest.hexdigest()[:16]}.so")
+    log_path = path + ".log"
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        with open(log_path, "w") as f:
+            f.write(log)
+        os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+    return KernelLibrary(path, build_seconds, log)
