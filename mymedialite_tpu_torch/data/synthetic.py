@@ -6,13 +6,18 @@ The same generator, with the same seeds giving the same ratings, as
 Zipf-like item popularity, log-normal user activity, a low-rank plus
 biases score on a half-star 1..5 scale. Numpy only; the ratings are
 ``RatingData``, the dataset type the port's models and CLI take.
+
+``posonly_from_ratings`` views the rated (user, item) pairs as
+positive-only feedback for the item-recommendation path, and
+``split_posonly`` splits it as the JAX package's function of that name
+does, with the same seeds.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from mymedialite_tpu.data.arrays import RatingData
+from mymedialite_tpu.data.arrays import PosOnlyData, RatingData
 
 
 def synthetic_ratings(num_users: int = 943, num_items: int = 1682,
@@ -48,6 +53,23 @@ def synthetic_ratings(num_users: int = 943, num_items: int = 1682,
 def split_ratings(data: RatingData, test_fraction: float = 0.2,
                   seed: int = 1):
     """(train, test): a random ``test_fraction`` of the ratings held out,
+    both parts in their original order."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(data))
+    n_test = int(len(data) * test_fraction)
+    return (data.select(np.sort(perm[n_test:])),
+            data.select(np.sort(perm[:n_test])))
+
+
+def posonly_from_ratings(data: RatingData) -> PosOnlyData:
+    """The rated (user, item) pairs as positive-only feedback."""
+    return PosOnlyData(data.users, data.items, num_users=data.num_users,
+                       num_items=data.num_items)
+
+
+def split_posonly(data: PosOnlyData, test_fraction: float = 0.2,
+                  seed: int = 1):
+    """(train, test): a random ``test_fraction`` of the events held out,
     both parts in their original order."""
     rng = np.random.default_rng(seed)
     perm = rng.permutation(len(data))

@@ -1,0 +1,158 @@
+"""Item-recommendation (ranking) evaluation of the port.
+
+Port of ``mymedialite_tpu/eval/ranking.py`` ``evaluate_items``
+(reference ``Eval/Items.cs:62-209``), with the same protocol: candidate
+modes TRAINING / TEST / OVERLAP / UNION / EXPLICIT, the per-user skip
+rules, training items ignored unless ``repeated_events``, list length
+``n``, and measures averaged over the evaluated users. The candidate
+sets and the per-batch measure math are the JAX package's own jax-free
+helpers.
+
+Per batch of users, the score-and-rank step runs in torch on the
+model's device: the model's ``catalog_scorer`` (one matmul; host
+``score_catalog`` for models without one), the candidate and ignore
+masks, and the stable descending rank of each correct item — # greater
++ # equal with a smaller index, -inf ties included — read off a stable
+``torch.sort``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from mymedialite_tpu.eval.ranking import _measures_batch, candidates_for_mode
+from mymedialite_tpu.eval.results import ItemRecommendationResults
+
+
+def rank_correct_items(scores, cand_mask, ignore_rows, correct_rows,
+                       num_items: int):
+    """[B, P2] int64 ranks of ``correct_rows`` in each row's stable
+    descending order of ``scores`` [B, <= num_items] after masking:
+    non-candidates and ``ignore_rows`` get -inf, items past the scores'
+    width -1e30. Pad entries (== num_items) of ``correct_rows`` get rank
+    ``num_items``; pad entries of ``ignore_rows`` are dropped."""
+    B = scores.shape[0]
+    dev = scores.device
+    if scores.shape[1] < num_items:
+        # items unknown to the model rank last, deterministically
+        scores = torch.cat([scores, torch.full(
+            (B, num_items - scores.shape[1]), -1e30, dtype=scores.dtype,
+            device=dev)], dim=1)
+    s = torch.where(cand_mask[None, :], scores, float("-inf"))
+    # one spare column takes the pad entries of the ignore rows
+    s = torch.cat([s, torch.zeros((B, 1), dtype=s.dtype, device=dev)], 1)
+    s.scatter_(1, ignore_rows, float("-inf"))
+    s = s[:, :num_items]
+    order = torch.sort(s, dim=1, descending=True, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(num_items, device=dev).expand(B, -1))
+    r = rank.gather(1, correct_rows.clamp(max=num_items - 1))
+    return torch.where(correct_rows < num_items, r,
+                       torch.full_like(r, num_items))
+
+
+def evaluate_items(recommender, test, training,
+                   test_users: Optional[Sequence[int]] = None,
+                   candidate_items: Optional[Sequence[int]] = None,
+                   candidate_item_mode: str = "OVERLAP",
+                   repeated_events: bool = False,
+                   n: int = -1,
+                   batch_size: int = 512) -> ItemRecommendationResults:
+    """Ranking evaluation (reference Eval/Items.Evaluate,
+    Items.cs:126-209)."""
+    if test_users is None:
+        test_users = test.all_users
+    test_users = np.asarray(test_users, dtype=np.int32)
+    cand = candidates_for_mode(candidate_item_mode, test, training,
+                               candidate_items)
+    num_items = max(recommender.num_items_trained,
+                    int(cand.max()) + 1 if cand.size else 0,
+                    training.num_items, test.num_items)
+    cand_mask = np.zeros(num_items, dtype=bool)
+    cand_mask[cand] = True
+    num_candidates = int(cand_mask.sum())
+
+    scorer = recommender.catalog_scorer()
+    if scorer is not None:
+        dev = recommender.params["user_factors"].device
+    else:
+        dev = torch.device("cpu")
+    cand_mask_dev = torch.from_numpy(cand_mask).to(dev)
+    cand_mask_ext = np.append(cand_mask, False)   # pad id num_items
+    te_csr = test.by_user
+    tr_csr = None if repeated_events else training.by_user
+
+    def ragged_rows(csr, batch, num_rows, width):
+        """[B, width] per-user sorted item rows from the CSR, padded with
+        num_items; users >= num_rows get empty rows."""
+        B = batch.size
+        out = np.full((B, width), num_items, np.int64)
+        if num_rows == 0:
+            return out
+        u = np.minimum(batch.astype(np.int64), num_rows - 1)
+        ok = batch < num_rows
+        starts = np.where(ok, csr.indptr[u], 0)
+        cnt = np.where(ok, csr.indptr[u + 1] - csr.indptr[u], 0)
+        total = int(cnt.sum())
+        if total:
+            row = np.repeat(np.arange(B), cnt)
+            within = np.arange(total, dtype=np.int64) - np.repeat(
+                np.cumsum(cnt) - cnt, cnt)
+            out[row, within] = csr.keys[np.repeat(starts, cnt) + within]
+        return out
+
+    def row_width(csr, num_rows):
+        if num_rows == 0 or test_users.size == 0:
+            return 1
+        u = np.minimum(test_users.astype(np.int64), num_rows - 1)
+        cnt = np.where(test_users < num_rows,
+                       csr.indptr[u + 1] - csr.indptr[u], 0)
+        return max(int(cnt.max()), 1)
+
+    def first_of_each(mat):
+        """First occurrence of each real item per (sorted) row."""
+        keep = mat < num_items
+        keep[:, 1:] &= mat[:, 1:] != mat[:, :-1]
+        return keep
+
+    w_ignore = 1 if tr_csr is None else row_width(tr_csr, training.num_users)
+    w_correct = row_width(te_csr, test.num_users)
+    sums = {m: 0.0 for m in ItemRecommendationResults.ALL_MEASURES}
+    num_evaluated = 0
+    for start in range(0, test_users.size, batch_size):
+        batch = test_users[start:start + batch_size]
+        if tr_csr is not None:
+            tmat = ragged_rows(tr_csr, batch, training.num_users, w_ignore)
+            tkeep = first_of_each(tmat)
+            ignore_rows = np.where(tkeep, tmat, num_items)
+            ignored_in_cand = (tkeep & cand_mask_ext[tmat]).sum(axis=1)
+        else:
+            ignore_rows = np.full((batch.size, 1), num_items, np.int64)
+            ignored_in_cand = np.zeros(batch.size, np.int64)
+        cmat = ragged_rows(te_csr, batch, test.num_users, w_correct)
+        ckeep = first_of_each(cmat) & cand_mask_ext[cmat]
+        correct_rows = np.sort(np.where(ckeep, cmat, num_items), axis=1)
+        with torch.no_grad():
+            if scorer is not None:
+                scores = scorer(torch.from_numpy(batch.astype(np.int64))
+                                .to(dev))
+            else:
+                scores = torch.from_numpy(np.asarray(
+                    recommender.score_catalog(batch), dtype=np.float32))
+            ranks = rank_correct_items(
+                scores, cand_mask_dev, torch.from_numpy(ignore_rows).to(dev),
+                torch.from_numpy(correct_rows).to(dev), num_items)
+        num_evaluated += _measures_batch(
+            ranks.cpu().numpy(), ckeep.sum(axis=1),
+            num_candidates - ignored_in_cand, n, sums)
+
+    result = ItemRecommendationResults()
+    for key in sums:
+        result[key] = sums[key] / num_evaluated if num_evaluated else 0.0
+    result["num_users"] = num_evaluated
+    result["num_lists"] = num_evaluated
+    result["num_items"] = int(cand.size)
+    return result

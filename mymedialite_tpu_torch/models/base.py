@@ -2,11 +2,12 @@
 
 The same interfaces as ``mymedialite_tpu/models/base.py`` (reference
 ``IRecommender.cs:33-82``, ``RatingPrediction/RatingPredictor.cs:26-52``,
-``IIterativeModel.cs``): ``predict_batch`` over rating pairs is the
-primitive, ``pair_scorer`` hands the evaluator a scorer on device
-tensors, ``train``, ``save_model`` and ``load_model``. The incremental
-API (``add_ratings``, ``_retrain``, ``retrain_user``) is not ported yet
-and raises.
+``IIterativeModel.cs``, ``ItemRecommendation/ItemRecommender.cs``):
+``predict_batch`` over pairs is the primitive, ``pair_scorer`` and
+``catalog_scorer`` hand the evaluators scorers on device tensors,
+``train``, ``save_model`` and ``load_model``. The incremental APIs
+(``add_ratings`` / ``add_feedback``, ``_retrain``, ``retrain_user``) and
+fold-in are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +46,18 @@ class Recommender(nn.Module):
         tensors on the model's device, so that the evaluator predicts and
         reduces without leaving the device. None = host scoring only."""
         return None
+
+    def catalog_scorer(self):
+        """Optional scorer ``fn(users) -> [len(users), num_items_trained]``
+        float32 scores, users an int64 tensor on the model's device, so
+        that the ranking evaluator scores and ranks on the device. None =
+        host scoring only (``score_catalog``)."""
+        return None
+
+    def score_catalog(self, users) -> np.ndarray:
+        """[len(users), num_items_trained] float32 scores (numpy), for
+        models without a ``catalog_scorer``."""
+        raise NotImplementedError
 
     def can_predict(self, user_id: int, item_id: int) -> bool:
         return (0 <= user_id < self.num_users_trained
@@ -100,6 +113,56 @@ class RatingPredictor(Recommender):
 
     def _retrain(self, users, items) -> None:
         raise NotImplementedError(f"_retrain is {_NOT_PORTED}")
+
+
+class ItemRecommender(Recommender):
+    """Implicit-feedback recommender (reference ItemRecommender.cs:42-55)."""
+
+    def __init__(self):
+        super().__init__()
+        self._feedback = None
+
+    @property
+    def feedback(self):
+        return self._feedback
+
+    @feedback.setter
+    def feedback(self, data):
+        self._feedback = data
+        if data is not None:
+            self.num_users_trained = data.num_users
+            self.num_items_trained = data.num_items
+
+
+class IncrementalItemRecommender(ItemRecommender):
+    """Online updates for implicit feedback (reference
+    IncrementalItemRecommender.cs:29-102); not ported yet."""
+
+    update_users = False
+    update_items = False
+
+    def add_feedback(self, users, items) -> None:
+        raise NotImplementedError(f"add_feedback is {_NOT_PORTED}")
+
+    def remove_feedback(self, users, items) -> None:
+        raise NotImplementedError(f"remove_feedback is {_NOT_PORTED}")
+
+    def remove_user(self, user_id: int) -> None:
+        raise NotImplementedError(f"remove_user is {_NOT_PORTED}")
+
+    def remove_item(self, item_id: int) -> None:
+        raise NotImplementedError(f"remove_item is {_NOT_PORTED}")
+
+    def _retrain(self, users, items) -> None:
+        raise NotImplementedError(f"_retrain is {_NOT_PORTED}")
+
+
+class FoldInItemRecommender:
+    """Reference IFoldInItemRecommender: score candidates for an unseen
+    user given the items they accessed; not ported yet."""
+
+    def score_items_foldin(self, accessed_items, candidates):
+        raise NotImplementedError(f"score_items_foldin is {_NOT_PORTED}")
 
 
 class IterativeModel:

@@ -1,0 +1,384 @@
+"""BPR-family item recommenders of the port.
+
+Counterparts of ``mymedialite_tpu/models/bpr.py`` (reference
+``ItemRecommendation/MF.cs:29``, ``BPRMF.cs:73``, ``WeightedBPRMF.cs:32``,
+``SoftMarginRankingMF.cs:52``). Training runs the fused BPR epoch of
+``ops/bpr_epoch.py`` — on a CUDA device the hand-written kernel
+``csrc/bpr_epoch.cu``, one launch per epoch — over the chunk plan and
+sampling state of ``ops/bpr_plan.py``, in the same order, with the same
+negative-block draws and the same update semantics as the JAX package's
+resident Pallas epoch.
+
+Tables: ``params`` (user_factors [U, f], item_factors [I, f], item_bias
+[I]) is what predict, the objective and save/load read; the epoch runs
+on kernel-layout copies that stay resident across ``iterate()`` calls
+and fold back into ``params`` when it is read.
+
+Everything computes in float32; ``mxu_dtype`` and ``batch_size`` are
+accepted so that the JAX package's option strings configure the port,
+and have no effect. Catalogs past ``bpr_plan.mxu_supported``, where the
+JAX package runs its slab-tiled kernel, raise: that kernel is not ported
+yet. ``MultiCoreBPRMF``, the incremental API and fold-in are not ported
+yet either.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from mymedialite_tpu.io.model_io import ModelReader, ModelWriter
+from mymedialite_tpu_torch.device import resolve_device
+from mymedialite_tpu_torch.models.base import (
+    FoldInItemRecommender, IncrementalItemRecommender, IterativeModel,
+)
+from mymedialite_tpu_torch.ops import bpr_plan
+from mymedialite_tpu_torch.ops.bpr import (
+    bpr_objective, sample_uniform_user_triples,
+)
+from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch
+from mymedialite_tpu_torch.ops.plan import fused_width
+
+_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
+# unknown users and items score float.MinValue (reference MF.Predict)
+_UNKNOWN = -np.float32(3.4e38)
+
+
+class ItemMF(IncrementalItemRecommender, IterativeModel):
+    """Factor storage, init, prediction and save/load of the implicit-MF
+    models (reference ItemRecommendation/MF.cs:29-196)."""
+
+    EXTRA_PARAMS = {
+        "init_mean": float,
+        "init_stdev": float,
+        "batch_size": int,
+        "mxu_dtype": str,
+        "device": str,
+    }
+    HAS_ITEM_BIAS = False
+
+    def __init__(self):
+        super().__init__()
+        self.num_factors = 10
+        self.num_iter = 30
+        self.init_mean = 0.0
+        self.init_stdev = 0.1
+        self.batch_size = 8192
+        self.mxu_dtype = "bf16"
+        self.random_seed = 42
+        self.device = "cuda"
+        self._params = None
+        self._mxu_tables = None     # resident kernel-layout (W, H)
+        self._gen = None
+
+    # --- params with lazy write-back of the kernel-layout tables ---
+
+    @property
+    def params(self):
+        if self._mxu_tables is not None:
+            self._params = self._materialize_params(self._mxu_tables)
+            self._mxu_tables = None
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        self._params = value
+        self._mxu_tables = None
+
+    def _materialize_params(self, tabs):
+        raise NotImplementedError
+
+    def init_model(self, tables=None):
+        """N(mean, stdev) factors from a ``torch.Generator`` seeded by
+        ``random_seed``; ``tables`` (from ``convert.bpr_tables_from_jax``)
+        starts from given tables instead."""
+        f = self.feedback
+        dev = resolve_device(self.device)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(self.random_seed)
+        if tables is None:
+            def normal(shape):
+                return self.init_mean + self.init_stdev * torch.randn(
+                    shape, generator=self._gen, device=dev)
+            self.params = dict(
+                user_factors=normal((f.num_users, self.num_factors)),
+                item_factors=normal((f.num_items, self.num_factors)))
+        else:
+            self.params = {k: torch.as_tensor(v, dtype=torch.float32,
+                                              device=dev).clone()
+                           for k, v in tables.items()}
+            self.num_factors = self.params["user_factors"].shape[1]
+
+    def train(self):
+        self.init_model()
+        for _ in range(self.num_iter):
+            self.iterate()
+
+    def iterate(self):
+        raise NotImplementedError
+
+    def predict_batch(self, users, items):
+        p = self.params
+        W, H = p["user_factors"], p["item_factors"]
+        U, I = W.shape[0], H.shape[0]
+        u = torch.from_numpy(np.asarray(users, dtype=np.int64)).to(W.device)
+        i = torch.from_numpy(np.asarray(items, dtype=np.int64)).to(W.device)
+        ok = (u >= 0) & (u < U) & (i >= 0) & (i < I)
+        uc, ic = u.clamp(0, U - 1), i.clamp(0, I - 1)
+        with torch.no_grad():
+            score = (W[uc] * H[ic]).sum(dim=-1)
+            if "item_bias" in p:
+                score = score + p["item_bias"][ic]
+            score = torch.where(ok, score, torch.full_like(score, _UNKNOWN))
+        return score.cpu().numpy()
+
+    def catalog_scorer(self):
+        if self.params is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        p = self.params
+        W, H, bias = p["user_factors"], p["item_factors"], p.get("item_bias")
+
+        def score(users):
+            s = W[users.clamp(0, W.shape[0] - 1)] @ H.T
+            return s if bias is None else s + bias[None, :]
+        return score
+
+    def save_model(self, path):
+        p = self.params
+        with ModelWriter(path, type(self).__name__, "2.99") as w:
+            w.matrix(p["user_factors"].cpu().numpy())
+            if "item_bias" in p:
+                w.vector(p["item_bias"].cpu().numpy())
+            w.matrix(p["item_factors"].cpu().numpy())
+
+    def load_model(self, path):
+        has_bias = "item_bias" in (self._params or {}) or self.HAS_ITEM_BIAS
+        with ModelReader(path, type(self).__name__) as r:
+            wu = r.matrix()
+            bias = r.vector() if has_bias else None
+            hi = r.matrix()
+        if wu.shape[1] != hi.shape[1]:
+            raise IOError("number of user and item factors must match")
+        self.num_factors = wu.shape[1]
+        self.num_users_trained = wu.shape[0]
+        self.num_items_trained = hi.shape[0]
+        dev = resolve_device(self.device)
+
+        def tensor(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        params = dict(user_factors=tensor(wu), item_factors=tensor(hi))
+        if bias is not None:
+            params["item_bias"] = tensor(bias)
+        self.params = params
+        self._loaded()
+
+    def _loaded(self):
+        """Hook: drop the training state of the previous tables."""
+
+
+class BPRMF(ItemMF, FoldInItemRecommender):
+    """Bayesian Personalized Ranking MF (reference BPRMF.cs:73-553): SGD
+    over (user, positive item, sampled negative item) triples, with an
+    item bias and separate RegU / RegI / RegJ. One iteration is one pass
+    of |feedback| triple updates through the fused epoch."""
+
+    HYPERPARAMS = {
+        "num_factors": int,
+        "bias_reg": float,
+        "reg_u": float,
+        "reg_i": float,
+        "reg_j": float,
+        "num_iter": int,
+        "learn_rate": float,
+        "uniform_user_sampling": bool,
+        "with_replacement": bool,
+        "update_j": bool,
+    }
+    EXTRA_PARAMS = dict(ItemMF.EXTRA_PARAMS, num_neg_trials=int)
+
+    HAS_ITEM_BIAS = True
+    SOFT_MARGIN = False
+    # WBPR popularity negatives (WeightedBPRMF): the negative block is
+    # drawn by popularity mass and the local slot by inverse CDF
+    MXU_POPULARITY = False
+
+    def __init__(self):
+        super().__init__()
+        # defaults per reference BPRMF.cs:78-101
+        self.bias_reg = 0.0
+        self.reg_u = 0.0025
+        self.reg_i = 0.0025
+        self.reg_j = 0.00025
+        self.learn_rate = 0.05
+        self.uniform_user_sampling = True
+        self.with_replacement = False
+        self.update_j = True
+        self.num_neg_trials = 8
+        self._loss_sample = None
+        self._plan = None
+        self._epoch_counter = 0
+
+    def _hp(self):
+        return dict(learn_rate=self.learn_rate, reg_u=self.reg_u,
+                    reg_i=self.reg_i, reg_j=self.reg_j,
+                    bias_reg=self.bias_reg)
+
+    def init_model(self, tables=None):
+        super().init_model(tables)
+        if tables is None:
+            self.params["item_bias"] = torch.zeros(
+                self.feedback.num_items, dtype=torch.float32,
+                device=self.params["user_factors"].device)
+        self._build_epoch_state()
+
+    def _build_epoch_state(self):
+        """The feedback-derived training state: the fixed loss sample of
+        sqrt(|U|) * 100 uniform-user triples (reference BPRMF.cs:135-150);
+        the chunk plan is built at the next iterate()."""
+        f = self.feedback
+        dev = resolve_device(self.device)
+        if self._gen is None:
+            self._gen = torch.Generator(device=dev)
+            self._gen.manual_seed(self.random_seed)
+        n = int(math.isqrt(max(f.num_users - 1, 1))) * 100
+        self._loss_sample = sample_uniform_user_triples(
+            f, max(n, 1), self.num_neg_trials, self._gen, dev)
+        self._plan = None
+
+    def _loaded(self):
+        self._loss_sample = None
+        self._plan = None
+        self._epoch_counter = 0
+
+    def _ensure_epoch_ready(self):
+        """Build the feedback-derived state when missing, e.g. after
+        ``load_model``, so that iterate() continues training a loaded
+        model."""
+        if self._loss_sample is not None:
+            return
+        if self.feedback is None:
+            raise RuntimeError(
+                f"{type(self).__name__}: no feedback set; assign "
+                ".feedback before iterating a loaded model")
+        p = self.params
+        if (p["user_factors"].shape[0] != self.feedback.num_users
+                or p["item_factors"].shape[0] != self.feedback.num_items):
+            raise NotImplementedError(
+                f"growing the tables to new users or items is {_NOT_PORTED}")
+        self._build_epoch_state()
+
+    def _prepare_plan(self):
+        f = self.feedback
+        if not bpr_plan.mxu_supported(f.num_items, self.num_factors):
+            raise NotImplementedError(
+                f"{type(self).__name__}: {f.num_items} items x "
+                f"{self.num_factors} factors needs the slab-tiled BPR kernel, "
+                f"{_NOT_PORTED} (ROADMAP B4)")
+        # a new plan means a new item permutation: fold resident tables
+        # back into params first
+        params = self.params
+        self._plan, self._neg_state, self._neg_meta = bpr_plan.prepare_bpr_mxu(
+            f, uniform_user=self.uniform_user_sampling
+            and not self.MXU_POPULARITY,
+            shuffle_seed=self.random_seed,
+            num_neg_trials=self.num_neg_trials, chunk=640, bitmask="auto",
+            device=params["user_factors"].device)
+        self._new_of_old = torch.from_numpy(
+            self._plan.new_of_old.astype(np.int64)).to(self._plan.packed.device)
+
+    def _materialize_params(self, tabs):
+        W, H, bias = bpr_plan.bpr_tables_from_mxu(
+            *tabs, self._new_of_old, num_users=self._mxu_num_users,
+            num_factors=self.num_factors)
+        return dict(user_factors=W, item_factors=H, item_bias=bias)
+
+    def _epoch_bits(self, seed: int, nc: int, trials: int, C: int):
+        """[nc, trials, C] int32 random bits for the epoch's sampler, from
+        a ``torch.Generator`` seeded with ``seed & 0x7FFFFFFF``. The
+        sampler reads the low 31 bits only, so the draws span [0, 2^31)."""
+        dev = self._plan.packed.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed & 0x7FFFFFFF)
+        return torch.randint(0, 2 ** 31, (nc, trials, C), dtype=torch.int32,
+                             generator=gen, device=dev)
+
+    def iterate(self):
+        """One epoch through ``bpr_epoch`` on the resident kernel-layout
+        tables (JAX: ``_iterate_mxu``)."""
+        self._ensure_epoch_ready()
+        if self._plan is None:
+            self._prepare_plan()
+        plan = self._plan
+        f = self.num_factors
+        fe = fused_width(f)
+        if self._mxu_tables is not None:
+            We, He = self._mxu_tables
+        else:
+            p = self._params
+            self._mxu_num_users = p["user_factors"].shape[0]
+            We, He = bpr_plan.bpr_tables_to_mxu(
+                p["user_factors"], p["item_factors"], p["item_bias"],
+                self._new_of_old, u_pad=plan.u_pad, i_pad=plan.i_pad, fe=fe)
+        rates = bpr_plan.bpr_mxu_column_rates(
+            f, fe, self.learn_rate, self.reg_u, self.reg_i, self.reg_j,
+            self.bias_reg, self.update_j, device=We.device)
+        self._epoch_counter += 1
+        trials, num_items = self._neg_meta[2], self._neg_meta[3]
+        seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
+        order = plan.epoch_order(seed)
+        state = self._neg_state
+        jb, nval, bkt = bpr_plan.epoch_negative_plan(
+            plan, state["nvalid"], order[0].cpu().numpy(), num_items,
+            (self.random_seed + 7) * 999_983 + self._epoch_counter,
+            block_mass=state["block_mass"] if self.MXU_POPULARITY else None)
+        bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
+        bpr_epoch(We, He, plan.packed, state["keys_tbl"], state["cdf_tbl"],
+                  bits, order, jb, nval, bkt, rates,
+                  user_block=plan.user_block, item_block=plan.item_block,
+                  soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
+                  bitmask_tbl=state.get("bitmask_tbl"))
+        self._mxu_tables = (We, He)
+
+    def compute_objective(self):
+        self._ensure_epoch_ready()
+        u, i, j = self._loss_sample
+        with torch.no_grad():
+            return float(bpr_objective(self.params, self._hp(), u, i, j))
+
+    # --- incremental updates: not ported yet ---
+
+    def retrain_user(self, user_id):
+        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
+
+    def retrain_item(self, item_id):
+        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")
+
+
+class WeightedBPRMF(BPRMF):
+    """WBPR (reference WeightedBPRMF.cs:32): (u, i) uniform over events,
+    negatives by popularity."""
+
+    HYPERPARAMS = {
+        "num_factors": int,
+        "bias_reg": float,
+        "reg_u": float,
+        "reg_i": float,
+        "reg_j": float,
+        "num_iter": int,
+        "learn_rate": float,
+    }
+
+    MXU_POPULARITY = True
+
+
+class SoftMarginRankingMF(BPRMF):
+    """Hinge-loss ranking MF (reference SoftMarginRankingMF.cs:52):
+    updates only on margin violations."""
+
+    SOFT_MARGIN = True
+
+    def __init__(self):
+        super().__init__()
+        self.learn_rate = 0.1  # reference default

@@ -18,7 +18,13 @@ PORTED_RATING_PREDICTORS = {
     "BiasedMatrixFactorization":
         "mymedialite_tpu_torch.models.mf:BiasedMatrixFactorization",
 }
-PORTED_ITEM_RECOMMENDERS: dict = {}
+PORTED_ITEM_RECOMMENDERS = {
+    "MostPopular": "mymedialite_tpu_torch.models.item_baselines:MostPopular",
+    "BPRMF": "mymedialite_tpu_torch.models.bpr:BPRMF",
+    "WeightedBPRMF": "mymedialite_tpu_torch.models.bpr:WeightedBPRMF",
+    "SoftMarginRankingMF":
+        "mymedialite_tpu_torch.models.bpr:SoftMarginRankingMF",
+}
 
 
 def _create(ported, known, name: str):
@@ -41,9 +47,13 @@ def create_rating_predictor(name: str, options: str = ""):
     return model
 
 
-def create_item_recommender(name: str):
-    return _create(PORTED_ITEM_RECOMMENDERS,
-                   _jax_registry.ITEM_RECOMMENDERS, name)
+def create_item_recommender(name: str, options: str = ""):
+    """A new item recommender, configured from ``options``."""
+    model = _create(PORTED_ITEM_RECOMMENDERS,
+                    _jax_registry.ITEM_RECOMMENDERS, name)
+    if options:
+        configure(model, options)
+    return model
 
 
 def list_rating_predictors():

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
-into one shared library with a plain C interface under
-``mymedialite_tpu_torch/build/`` (not committed), and ctypes loads it.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``,
+one process per file, all started together, and links the objects into
+one shared library with a plain C interface under
+``mymedialite_tpu_torch/build/`` (not committed); ctypes loads it.
 The library's file name carries a hash of the sources and flags, so an
 edited source is never served by a stale build. Nothing here runs at
 import time: this module imports on machines without nvcc or a GPU.
@@ -22,8 +23,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -51,6 +53,10 @@ class KernelLibrary:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
+        fn = self.lib.mml_bpr_epoch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=1)
@@ -68,11 +74,29 @@ def load_library() -> KernelLibrary:
     t0 = time.perf_counter()
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        nvcc = _nvcc()
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [(src, p.communicate()[0], p.returncode)
+                for src, p in zip(sources, procs)]
+        log = "".join(out for _, out, _ in outs)
+        failed = [f"{os.path.basename(src)} ({rc})" for src, _, rc in outs
+                  if rc != 0]
+        if not failed:
+            proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                                   *objs],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode})")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
         with open(log_path, "w") as f:
             f.write(log)
         os.replace(tmp, path)

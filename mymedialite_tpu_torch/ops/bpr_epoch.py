@@ -1,0 +1,207 @@
+"""One BPR epoch over the chunk plan, negatives sampled inside: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+``bpr_epoch`` replaces ``mymedialite_tpu/ops/pallas_bpr.py:691
+bpr_epoch_mxu`` (kernel body ``_mxu_bpr_kernel`` :451). It updates the
+kernel-layout tables ``W`` [n_ub*UB, fe] and ``H`` [n_ib*IB, fe] in
+place, where the JAX version aliases its outputs to its inputs. On CUDA
+tensors it launches ``csrc/bpr_epoch.cu`` (one launch per epoch) or
+raises; on CPU tensors it runs ``bpr_epoch_reference``.
+
+Arguments shared by both (``ops/bpr_plan.py`` builds them):
+
+- ``packed`` [nc, 4, C] int32: per chunk u_loc, i_loc, the bits of the
+  event's base weight and the bits of the padding weight;
+- ``keys_tbl`` [*, Kcap] int32 or ``bitmask_tbl`` [n_bkt, UB, IB/8]
+  int8: the membership tables (the bitmask is used when given);
+- ``cdf_tbl`` [*, IB] float32: per-block popularity CDF (WBPR only);
+- ``bits`` [nc, T, C] int32: the epoch's random bits, in visit order;
+- ``order`` = (ub, ib, row) int32 [nc]: the chunk visit order;
+- ``jb``, ``nval``, ``bkt`` int32 [nc]: the negative block of each
+  visited chunk, its real item count, its membership bucket;
+- ``rates`` [fe, 6] float32: (w_lr, w_reg, i_lr, i_reg, j_lr, j_reg).
+
+With ``return_negatives`` the epoch also returns ``neg`` [nc, 2, C]
+int32 in visit order: the sampled local negative of every slot and the
+bits of its 0/1 success weight, as the JAX kernel's ``neg_dbg``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# the kernel keeps up to 8 columns per lane in registers
+MAX_FE = 256
+# the kernel stages rates, the chunk and the CDF row in the default 48 KB
+# of shared memory
+MAX_SHARED_BYTES = 48 * 1024
+
+
+def sample_negatives_reference(bits, jb, nval, bkt, u_loc, *, item_block,
+                               keys_tbl=None, bitmask_tbl=None, cdf_tbl=None,
+                               wbpr=False):
+    """Plain sampler, vectorized over chunks: bits [nc, T, C], jb / nval
+    / bkt [nc], u_loc [nc, C]. Returns (j_loc [nc, C] int32, ok [nc, C]
+    bool), bit for bit what the kernel samples."""
+    IB = item_block
+    r = bits & 0x7FFFFFFF                                   # [nc, T, C]
+    if wbpr:
+        u01 = r.to(torch.float32) * (1.0 / 2147483648.0)
+        cdf = cdf_tbl[jb.long()]                           # [nc, IB]
+        cand = (cdf[:, None, None, :] < u01[..., None]).sum(-1)
+    else:
+        cand = r % nval[:, None, None]
+    cand = cand.to(torch.int32)
+    u = u_loc[:, None, :].long()
+    if bitmask_tbl is not None:
+        byte = bitmask_tbl[bkt.long()[:, None, None], u,
+                           (cand >> 3).long().clamp(max=IB // 8 - 1)]
+        is_pos = (((byte.to(torch.int32) & 255) >> (cand & 7)) & 1) != 0
+        is_pos &= (cand >> 3) < IB // 8
+    else:
+        keys = keys_tbl[bkt.long()]                         # [nc, Kcap]
+        ckey = u * IB + cand
+        is_pos = (keys[:, None, None, :] == ckey[..., None]).any(-1)
+    good = ~is_pos
+    ok = good.any(1)
+    first = good.to(torch.uint8).argmax(1, keepdim=True)  # first success
+    j = cand.gather(1, first).squeeze(1)
+    return torch.where(ok, j, torch.zeros_like(j)), ok
+
+
+def bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb,
+                        nval, bkt, rates, *, user_block: int, item_block: int,
+                        soft_margin: bool = False, wbpr: bool = False,
+                        bitmask_tbl=None, return_negatives: bool = False):
+    """Plain PyTorch epoch: a Python loop over the chunks, the plain
+    sampler per chunk, gathers by indexing and scatter-adds with
+    ``index_add_``. In place on W and H."""
+    ub, ib, row = (t.tolist() for t in order)
+    jbs = jb.tolist()
+    w_lr, w_reg, i_lr, i_reg, j_lr, j_reg = rates.unbind(1)
+    nc, C = len(row), packed.shape[2]
+    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device) \
+        if return_negatives else None
+    for k in range(nc):
+        d = packed[row[k]]
+        j_loc, ok = sample_negatives_reference(
+            bits[k:k + 1], jb[k:k + 1], nval[k:k + 1], bkt[k:k + 1], d[0:1],
+            item_block=item_block, keys_tbl=keys_tbl, bitmask_tbl=bitmask_tbl,
+            cdf_tbl=cdf_tbl, wbpr=wbpr)
+        okf = ok[0].to(torch.float32)
+        if neg is not None:
+            neg[k, 0] = j_loc[0]
+            neg[k, 1] = okf.view(torch.int32)
+        wgt = d[2].view(torch.float32) * d[3].view(torch.float32) * okf
+        u = d[0].long() + ub[k] * user_block
+        i = d[1].long() + ib[k] * item_block
+        j = j_loc[0].long() + jbs[k] * item_block
+        wu, hi, hj = W[u], H[i], H[j]
+        x = (wu * (hi - hj)).sum(dim=1)
+        if soft_margin:
+            g = (x < 1.0).to(torch.float32) * wgt
+        else:
+            g = torch.sigmoid(-x) * wgt
+        g, wgt = g[:, None], wgt[:, None]
+        W.index_add_(0, u, w_lr * (g * (hi - hj) - wgt * w_reg * wu))
+        H.index_add_(0, i, i_lr * (g * wu - wgt * i_reg * hi))
+        H.index_add_(0, j, j_lr * (-g * wu - wgt * j_reg * hj))
+    return W, H, neg
+
+
+def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, jb,
+           nval, bkt, rates, item_block, wbpr):
+    dev = W.device
+    named = [("W", W, torch.float32), ("H", H, torch.float32),
+             ("packed", packed, torch.int32), ("bits", bits, torch.int32),
+             ("rates", rates, torch.float32), ("jb", jb, torch.int32),
+             ("nval", nval, torch.int32), ("bkt", bkt, torch.int32),
+             ("order.ub", order[0], torch.int32),
+             ("order.ib", order[1], torch.int32),
+             ("order.row", order[2], torch.int32)]
+    if bitmask_tbl is None:
+        named.append(("keys_tbl", keys_tbl, torch.int32))
+    else:
+        named.append(("bitmask_tbl", bitmask_tbl, torch.int8))
+    if wbpr:
+        named.append(("cdf_tbl", cdf_tbl, torch.float32))
+    for name, t, dtype in named:
+        if t is None:
+            raise ValueError(f"bpr_epoch: {name} is required")
+        if t.device != dev:
+            raise ValueError(f"bpr_epoch: {name} is on {t.device}, W on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"bpr_epoch: {name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"bpr_epoch: {name} must be contiguous")
+    fe = W.shape[1]
+    if W.dim() != 2 or H.dim() != 2 or H.shape[1] != fe:
+        raise ValueError("bpr_epoch: W and H must be 2-D with equal widths")
+    if tuple(rates.shape) != (fe, 6):
+        raise ValueError(f"bpr_epoch: rates must be [{fe}, 6]")
+    if packed.dim() != 3 or packed.shape[1] != 4:
+        raise ValueError("bpr_epoch: packed must be [nc, 4, C]")
+    nc, C = order[0].numel(), packed.shape[2]
+    if not all(t.dim() == 1 and t.numel() == nc
+               for t in (*order, jb, nval, bkt)):
+        raise ValueError("bpr_epoch: order, jb, nval and bkt must be equal "
+                         "1-D tensors")
+    if bits.dim() != 3 or bits.shape[0] != nc or bits.shape[2] != C:
+        raise ValueError(f"bpr_epoch: bits must be [{nc}, T, {C}]")
+    if bitmask_tbl is not None and (bitmask_tbl.dim() != 3
+                                    or bitmask_tbl.shape[2] * 8 != item_block):
+        raise ValueError("bpr_epoch: bitmask_tbl must be [n_bkt, UB, IB/8]")
+    if wbpr and (cdf_tbl.dim() != 2 or cdf_tbl.shape[1] != item_block):
+        raise ValueError("bpr_epoch: cdf_tbl must be [*, IB]")
+
+
+def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
+              rates, *, user_block: int, item_block: int,
+              soft_margin: bool = False, wbpr: bool = False,
+              bitmask_tbl=None, return_negatives: bool = False):
+    """One epoch, in place on ``W`` and ``H``; returns (W, H, neg), neg
+    None unless ``return_negatives``."""
+    _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, jb,
+           nval, bkt, rates, item_block, wbpr)
+    kw = dict(user_block=user_block, item_block=item_block,
+              soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
+              return_negatives=return_negatives)
+    if W.device.type == "cpu":
+        return bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits,
+                                   order, jb, nval, bkt, rates, **kw)
+    if W.device.type != "cuda":
+        raise ValueError(f"bpr_epoch: no kernel for device {W.device}")
+    nc, C = order[0].numel(), packed.shape[2]
+    fe, trials = W.shape[1], bits.shape[1]
+    smem = 4 * (6 * fe + 6 * C + (item_block if wbpr else 0))
+    if fe > MAX_FE or smem > MAX_SHARED_BYTES:
+        raise ValueError(f"bpr_epoch: kernel takes fe <= {MAX_FE} and "
+                         f"{MAX_SHARED_BYTES} B of shared memory, got fe={fe} "
+                         f"chunk={C} item_block={item_block}")
+    from mymedialite_tpu_torch.ops._build import load_library
+    lib = load_library().lib
+    scratch = torch.empty(3 * C * fe, dtype=torch.float32, device=W.device)
+    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device) \
+        if return_negatives else None
+    use_bitmask = bitmask_tbl is not None
+    keys = keys_tbl if keys_tbl is not None else bits  # unread when absent
+    ub, ib, row = order
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    err = lib.mml_bpr_epoch(
+        W.data_ptr(), H.data_ptr(), packed.data_ptr(), ub.data_ptr(),
+        ib.data_ptr(), row.data_ptr(), jb.data_ptr(), nval.data_ptr(),
+        bkt.data_ptr(), keys.data_ptr(),
+        bitmask_tbl.data_ptr() if use_bitmask else None,
+        cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
+        rates.data_ptr(), scratch.data_ptr(),
+        neg.data_ptr() if neg is not None else None,
+        nc, C, user_block, item_block, fe, trials,
+        keys.shape[1] if not use_bitmask else 0,
+        int(bool(soft_margin)), int(bool(wbpr)), int(use_bitmask), stream)
+    if err != 0:
+        raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
+    bpr_epoch.launches += 1
+    return W, H, neg
+
+
+bpr_epoch.launches = 0

@@ -1,5 +1,6 @@
 """``chip_smoke.py`` on a machine without a CUDA card: it imports nothing
-of jax or of the JAX package, and without a card (or alone, outside the
+of jax or of the JAX package, it names every kernel source of the port
+in its kernels line, and without a card (or alone, outside the
 repository) it exits non-zero and prints no result line."""
 
 import ast
@@ -29,6 +30,23 @@ def test_smoke_imports_only_the_port():
     bad = [m for m in mods
            if m.split(".")[0] in ("jax", "jaxlib", "mymedialite_tpu")]
     assert not bad, bad
+
+
+def test_smoke_reports_every_kernel():
+    """Each ``csrc/*.cu`` file is the source of an entry of the kernels
+    line, with the TPU kernel it replaces."""
+    text = open(SMOKE).read()
+    csrc = os.path.join(REPO, "mymedialite_tpu_torch", "csrc")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert sources == ["bpr_epoch.cu", "sgd_epoch.cu"]
+    for src in sources:
+        assert f'"mymedialite_tpu_torch/csrc/{src}"' in text, src
+    for replaced in ("mymedialite_tpu/ops/pallas_sgd.py:324",
+                     "mymedialite_tpu/ops/pallas_bpr.py:451"):
+        assert f'"{replaced}"' in text
+        path, line = replaced.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            assert f.read().splitlines()[int(line) - 1].startswith("def _mxu_")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,5 +1,5 @@
-"""GPU tier of the port: the CUDA kernels against their plain PyTorch
-versions on the card. Marked ``cuda``; every test skips without a CUDA
+"""GPU tier of the port: the CUDA kernels (SGD epoch, BPR epoch) against
+their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
 ``test_duplicate_heavy_spread`` measures):
@@ -13,9 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from mymedialite_tpu_torch.data.synthetic import synthetic_ratings
+from mymedialite_tpu.data.arrays import PosOnlyData
+from mymedialite_tpu_torch.data.synthetic import (
+    posonly_from_ratings, synthetic_ratings,
+)
+from mymedialite_tpu_torch.eval.ranking import evaluate_items
+from mymedialite_tpu_torch.models.registry import create_item_recommender
+from mymedialite_tpu_torch.ops import bpr_plan as BP
 from mymedialite_tpu_torch.ops import plan as P
 from mymedialite_tpu_torch.ops import sgd as S
+from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_reference
 from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_reference
 
 pytestmark = pytest.mark.cuda
@@ -200,3 +207,181 @@ def test_kernel_rejects_bad_input(cuda):
         sgd_epoch(W.double(), H, plan.packed, order, (0., 1., 4.), rates, **kw)
     with pytest.raises(ValueError):
         sgd_epoch(W, H.cpu(), plan.packed, order, (0., 1., 4.), rates, **kw)
+
+
+# --- the BPR epoch kernel -------------------------------------------------
+
+ONE_BITS = 0x3F800000   # bits of 1.0f: a slot whose negative was found
+
+
+def _bpr_tables(device, plan, num_users, num_items, num_factors, seed):
+    rng = np.random.default_rng(seed)
+    tabs = [torch.from_numpy((0.1 * rng.standard_normal(shape))
+                             .astype(np.float32)).to(device)
+            for shape in ((num_users, num_factors), (num_items, num_factors),
+                          (num_items,))]
+    nof = torch.from_numpy(plan.new_of_old.astype(np.int64)).to(device)
+    return BP.bpr_tables_to_mxu(*tabs, nof, u_pad=plan.u_pad,
+                                i_pad=plan.i_pad,
+                                fe=P.fused_width(num_factors))
+
+
+def _bpr_epoch_args(plan, state, meta, rates, seed, wbpr):
+    """Order, negative plan and random bits of one epoch (bits over the
+    whole int32 range: the sampler must mask the sign bit)."""
+    dev = plan.packed.device
+    order = plan.epoch_order(seed)
+    neg_plan = BP.epoch_negative_plan(
+        plan, state["nvalid"], order[0].cpu().numpy(), meta[3], seed + 1,
+        block_mass=state["block_mass"] if wbpr else None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = (torch.randint(0, 2 ** 32, (plan.num_chunks, meta[2], plan.chunk),
+                          generator=gen, device=dev) - 2 ** 31).to(torch.int32)
+    return (plan.packed, state["keys_tbl"], state["cdf_tbl"], bits, order,
+            *neg_plan, rates)
+
+
+BPR_COMBOS = [(sm, wbpr, bm, 40) for sm, wbpr in ((False, False),
+                                                  (True, False), (False, True))
+              for bm in (False, True)]
+# the wider register layouts: fe 104 (4 columns per lane) and fe 208 (8)
+BPR_COMBOS += [(False, False, True, 100), (False, True, False, 100),
+               (True, False, True, 200), (False, True, True, 200)]
+
+
+@pytest.mark.parametrize("soft_margin,wbpr,bitmask,num_factors", BPR_COMBOS)
+def test_bpr_kernel_matches_reference(cuda, soft_margin, wbpr, bitmask,
+                                      num_factors):
+    """Two epochs from the same tables, orders, negative plans and bits, on
+    _setup's rated pairs as positive-only feedback: the sampled negatives
+    are identical, the tables agree to 1e-4 (atomics add in a
+    run-dependent order)."""
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    plan, state, meta = BP.prepare_bpr_mxu(fb, uniform_user=not wbpr,
+                                           shuffle_seed=1, bitmask=True,
+                                           device=cuda)
+    W, H = _bpr_tables(cuda, plan, fb.num_users, fb.num_items, num_factors, 0)
+    H0 = H.clone()
+    rates = BP.bpr_mxu_column_rates(num_factors, W.shape[1], 0.05, 0.0025,
+                                    0.0025, 0.00025, 0.01, True, device=cuda)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              soft_margin=soft_margin, wbpr=wbpr,
+              bitmask_tbl=state["bitmask_tbl"] if bitmask else None,
+              return_negatives=True)
+    Wk, Hk = W.clone(), H.clone()
+    before = bpr_epoch.launches
+    for epoch in range(2):
+        args = _bpr_epoch_args(plan, state, meta, rates, 11 + epoch, wbpr)
+        _, _, neg_r = bpr_epoch_reference(W, H, *args, **kw)
+        _, _, neg_k = bpr_epoch(Wk, Hk, *args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(neg_k, neg_r)
+        assert (neg_k[:, 1] == ONE_BITS).float().mean().item() > 0.99
+    assert bpr_epoch.launches == before + 2
+    assert torch.isfinite(Wk).all() and torch.isfinite(Hk).all()
+    assert (Wk - W).abs().max().item() <= 1e-4
+    assert (Hk - H).abs().max().item() <= 1e-4
+    # the item-bias column moved
+    assert (Hk[:, num_factors] - H0[:, num_factors]).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("bitmask", [False, True], ids=["keys", "bitmask"])
+def test_bpr_duplicate_heavy_one_chunk_at_a_time(cuda, bitmask):
+    """Chunks full of duplicate rows: a Zipf(1.3) catalog (one item in
+    about a quarter of the slots), C=640, uniform-user weights up to ~30.
+    Each chunk stepped alone from the plain version's own state agrees
+    with the plain step to 1e-5, so no update among duplicate rows is
+    lost. After the whole epoch the kernel's distance from the plain
+    version is printed beside the plain version's own CUDA spread (two
+    runs; index_add_ on the card also adds in a run-dependent order)."""
+    rng = np.random.default_rng(0)
+    U, I, n = 700, 900, 20000
+    fb = PosOnlyData(rng.integers(0, U, n), rng.zipf(1.3, n) % I,
+                     num_users=U, num_items=I)
+    plan, state, meta = BP.prepare_bpr_mxu(fb, uniform_user=True,
+                                           shuffle_seed=1, bitmask=bitmask,
+                                           device=cuda)
+    W, H = _bpr_tables(cuda, plan, U, I, 40, 1)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.01, True, device=cuda)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              bitmask_tbl=state.get("bitmask_tbl"))
+    packed, keys, cdf, bits, order, jb, nval, bkt, _ = _bpr_epoch_args(
+        plan, state, meta, rates, 5, False)
+    real = packed[:, 3] != 0
+    top = max(torch.bincount(packed[c, 1][real[c]].long()).max().item()
+              for c in range(plan.num_chunks))
+    assert top > 100          # one item fills many slots of a chunk
+
+    Wp, Hp = W.clone(), H.clone()
+    steps = []
+    for k in range(plan.num_chunks):
+        one = [t[k:k + 1].contiguous() for t in (bits, *order, jb, nval, bkt)]
+        args = (packed, keys, cdf, one[0], tuple(one[1:4]), *one[4:], rates)
+        Wk, Hk = Wp.clone(), Hp.clone()
+        bpr_epoch(Wk, Hk, *args, **kw)
+        bpr_epoch_reference(Wp, Hp, *args, **kw)
+        torch.cuda.synchronize()
+        steps.append(max((Wk - Wp).abs().max().item(),
+                         (Hk - Hp).abs().max().item()))
+
+    args = (packed, keys, cdf, bits, order, jb, nval, bkt, rates)
+    runs = []
+    for epoch in (bpr_epoch, bpr_epoch_reference, bpr_epoch_reference):
+        Wr, Hr = W.clone(), H.clone()
+        epoch(Wr, Hr, *args, **kw)
+        runs.append((Wr, Hr))
+    torch.cuda.synchronize()
+    gap, spread = _dist(runs[0], runs[1]), _dist(runs[1], runs[2])
+    print(f"\nbpr duplicate-heavy ({'bitmask' if bitmask else 'keys'}), "
+          f"{plan.num_chunks} chunks, up to {top} slots on one item: one-step "
+          f"max err {max(steps):.3e}; whole epoch kernel vs plain {gap:.3e}, "
+          f"plain vs plain {spread:.3e}")
+    assert max(steps) <= 1e-5
+    assert math.isfinite(gap)
+    assert gap <= max(1e-4, 4 * spread)
+
+
+def test_bprmf_trains_on_the_card(cuda):
+    """BPRMF through the registry launches the kernel once per epoch and
+    keeps its kernel-layout tables on the card; it ranks held-out pairs
+    above chance."""
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=2))
+    perm = np.random.default_rng(3).permutation(len(fb))
+    cut = len(fb) // 5
+    train, test = fb.select(np.sort(perm[cut:])), fb.select(np.sort(perm[:cut]))
+    m = create_item_recommender("BPRMF", "num_factors=40 num_iter=3 "
+                                "device=cuda")
+    m.feedback = train
+    before = bpr_epoch.launches
+    m.train()
+    torch.cuda.synchronize()
+    assert bpr_epoch.launches == before + 3
+    assert all(t.device.type == "cuda" for t in m._mxu_tables)
+    res = evaluate_items(m, test, train)
+    assert math.isfinite(res["AUC"]) and res["AUC"] > 0.6
+
+
+def test_bpr_kernel_rejects_bad_input(cuda):
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    plan, state, meta = BP.prepare_bpr_mxu(fb, uniform_user=True,
+                                           shuffle_seed=1, device=cuda)
+    W, H = _bpr_tables(cuda, plan, fb.num_users, fb.num_items, 40, 0)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.0, True, device=cuda)
+    args = _bpr_epoch_args(plan, state, meta, rates, 1, False)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block)
+    with pytest.raises(TypeError):
+        bpr_epoch(W.double(), H, *args, **kw)
+    with pytest.raises(ValueError):
+        bpr_epoch(W, H.cpu(), *args, **kw)
+    with pytest.raises(ValueError, match="bits"):
+        bpr_epoch(W, H, *args[:3], args[3][:, :, :8].contiguous(), *args[4:],
+                  **kw)
+    wide = torch.zeros((W.shape[0], 264), device=cuda)
+    with pytest.raises(ValueError, match="fe <="):
+        bpr_epoch(wide, torch.zeros((H.shape[0], 264), device=cuda),
+                  *args[:-1], torch.zeros((264, 6), device=cuda), **kw)

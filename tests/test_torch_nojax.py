@@ -1,6 +1,8 @@
 """The port never imports jax: a fresh interpreter in which any import of
-jax raises runs the port's CLI end to end on the CPU (train, evaluate,
-save, load) and must exit 0."""
+jax raises runs the port's two CLIs end to end on the CPU (train,
+evaluate, save, load; rating prediction with BiasedMatrixFactorization,
+item recommendation with BPRMF, WeightedBPRMF and MostPopular) and must
+exit 0."""
 
 import os
 import subprocess
@@ -23,7 +25,7 @@ SCRIPT = textwrap.dedent("""
 
     import os
     from mymedialite_tpu.data.synthetic import synthetic_ratings, split_ratings
-    from mymedialite_tpu_torch.cli import rating_prediction
+    from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
 
     d = os.getcwd()
     train, test = split_ratings(synthetic_ratings(
@@ -38,6 +40,17 @@ SCRIPT = textwrap.dedent("""
     assert rating_prediction.main(
         base + ["--save-model", f"{d}/m.model", "--compute-fit"]) == 0
     assert rating_prediction.main(base + ["--load-model", f"{d}/m.model"]) == 0
+    items = ["--training-file", f"{d}/train.tsv", "--test-file",
+             f"{d}/test.tsv", "--predict-items-number", "5"]
+    for name in ("BPRMF", "WeightedBPRMF"):
+        opts = ["--recommender", name, "--recommender-options",
+                "num_factors=6 num_iter=2 device=cpu"]
+        assert item_recommendation.main(
+            items + opts + ["--save-model", f"{d}/{name}.model",
+                            "--prediction-file", f"{d}/{name}.txt"]) == 0
+        assert item_recommendation.main(
+            items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
+    assert item_recommendation.main(items) == 0
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     assert not bad, bad
 """)
@@ -50,3 +63,4 @@ def test_port_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RMSE" in proc.stdout
+    assert proc.stdout.count("AUC") == 5
