@@ -1,15 +1,17 @@
 """mymedialite_tpu_torch — the PyTorch / CUDA port of mymedialite_tpu.
 
-A second package beside ``mymedialite_tpu`` (the JAX reference, which it
-imports only for its jax-free data, IO, metric and CLI helpers). Plain
-tensor code is PyTorch; every TPU kernel on a ported path is a CUDA
-kernel written for Hopper (``csrc/``), built with nvcc at first use.
-The package never imports jax.
+A second package beside ``mymedialite_tpu`` (the JAX reference). It
+imports neither jax nor the JAX package: the jax-free data, IO, metric,
+CLI and native helpers it shares with the reference are its own copies.
+Plain tensor code is PyTorch; every TPU kernel on a ported path is a
+CUDA kernel written for Hopper (``csrc/``), built with nvcc at first
+use.
 
 Ported so far: rating prediction with ``MatrixFactorization`` and
 ``BiasedMatrixFactorization``, and item recommendation with ``BPRMF``,
 ``WeightedBPRMF``, ``SoftMarginRankingMF`` and ``MostPopular`` (train,
-evaluate, save/load, CLIs).
+evaluate, save/load, CLIs), on the resident and on the slab-tiled
+(big-catalog) schedule.
 """
 
 __version__ = "0.1.0"

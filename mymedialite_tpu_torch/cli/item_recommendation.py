@@ -3,7 +3,7 @@ shell, on the port.
 
 The same flags and result lines as ``mymedialite_tpu/cli/
 item_recommendation.py`` (reference ``ItemRecommendation.cs:33-497``),
-built on the JAX package's jax-free CLI and data helpers. Covered: the
+built on the port's CLI and data helpers. Covered: the
 standard train/evaluate path, ``--test-ratio``, ``--test-users``,
 ``--num-test-users``, the candidate-item flags, ``--predict-items-number``,
 ``--repeated-items``, ``--prediction-file``, ``--save-model`` /
@@ -24,14 +24,14 @@ import sys
 
 import numpy as np
 
-from mymedialite_tpu.cli import common
-from mymedialite_tpu.data.io import (
+from mymedialite_tpu_torch.cli import common
+from mymedialite_tpu_torch.data.io import (
     read_item_data, read_item_data_rating_threshold,
 )
-from mymedialite_tpu.data.splits import posonly_simple_split
-from mymedialite_tpu.data.statistics import posonly_statistics
-from mymedialite_tpu.eval.results import ItemRecommendationResults
-from mymedialite_tpu.utils.params import configure
+from mymedialite_tpu_torch.data.splits import posonly_simple_split
+from mymedialite_tpu_torch.data.statistics import posonly_statistics
+from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
+from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (

@@ -3,7 +3,7 @@ shell, on the port.
 
 The same flags and result lines as ``mymedialite_tpu/cli/
 rating_prediction.py`` (reference ``RatingPrediction.cs:34-442``), built
-on the JAX package's jax-free CLI helpers (``cli/common.py``). Covered:
+on the port's CLI helpers (``cli/common.py``). Covered:
 the standard train/evaluate path, ``--test-ratio``,
 ``--chronological-split``, ``--save-model`` / ``--load-model``,
 ``--prediction-file``, ``--compute-fit`` and ``--find-iter``. The flags
@@ -24,15 +24,15 @@ import sys
 
 import numpy as np
 
-from mymedialite_tpu.cli import common
-from mymedialite_tpu.data.io import (
+from mymedialite_tpu_torch.cli import common
+from mymedialite_tpu_torch.data.io import (
     read_movielens_1m_rating_data, read_rating_data, read_timed_rating_data,
 )
-from mymedialite_tpu.data.splits import (
+from mymedialite_tpu_torch.data.splits import (
     chronological_split_ratio, chronological_split_time, simple_split,
 )
-from mymedialite_tpu.data.statistics import ratings_statistics
-from mymedialite_tpu.utils.params import configure
+from mymedialite_tpu_torch.data.statistics import ratings_statistics
+from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.rating import compute_fit, evaluate_ratings
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
@@ -150,7 +150,7 @@ def main(argv=None):
             if not args.prediction_file:
                 common.abort("--test-no-ratings requires "
                              "--prediction-file=FILE.")
-            from mymedialite_tpu.data.io import read_rating_data_no_ratings
+            from mymedialite_tpu_torch.data.io import read_rating_data_no_ratings
             test_data = read_rating_data_no_ratings(
                 common.data_path(args, args.test_file),
                 user_mapping, item_mapping,
@@ -176,7 +176,7 @@ def main(argv=None):
             training_data, test_data = chronological_split_ratio(
                 training_data, ratio)
         except ValueError:
-            from mymedialite_tpu.data.io import _parse_time
+            from mymedialite_tpu_torch.data.io import _parse_time
             training_data, test_data = chronological_split_time(
                 training_data, _parse_time(args.chronological_split))
 

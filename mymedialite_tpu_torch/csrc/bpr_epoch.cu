@@ -1,17 +1,31 @@
 // One BPR epoch over the chunk plan, negatives sampled inside the kernel,
 // in one launch.
 //
-// Replaces mymedialite_tpu/ops/pallas_bpr.py:451 _mxu_bpr_kernel (the
-// TPU kernel with the item table resident in VMEM). Same semantics:
-// every chunk of C positive events (u, i) is one minibatch step.
+// Replaces two TPU kernels of the same epoch, through one entry point:
+// - mymedialite_tpu/ops/pallas_bpr.py:451 _mxu_bpr_kernel, the item table
+//   resident in VMEM;
+// - mymedialite_tpu/ops/pallas_bpr.py:979 _mxu_bpr_tiled_kernel, the
+//   slab-tiled schedule of big catalogs, with the user block, the
+//   positive slab and the negative slab in VMEM, swapped by blocking DMA.
+//   Its chunk's positive block is isl * B + ibr and its negative block
+//   jb = jsl * B + jbr, both absolute by the time they reach the kernel
+//   (ops/bpr_epoch.py bpr_epoch_tiled); the order (sorted by isl, then
+//   jsl, then user block) keeps the two slabs hot in L2, which takes the
+//   place of the slabs in VMEM. The TPU kernel's transposed tables, pad
+//   chunk, pass split and refetch flags are not carried over.
+// Same semantics: every chunk of C positive events (u, i) is one
+// minibatch step.
 //
 // Sampling, per slot, from the epoch's random bits (bits[k][t][s], T
 // trials): a uniform candidate is (bits & 0x7fffffff) % nval[k]; a WBPR
 // candidate is #(cdf_row < u01) with u01 = float(bits & 0x7fffffff) *
 // 2^-31 over the IB entries of the negative block's popularity CDF
 // (found by binary search: the row is nondecreasing). A candidate is a
-// positive when key u_loc*IB + cand lies in bucket (ub, jb): in the
-// bucket's packed bitmask, or in its ascending, -1 padded key row. The
+// positive when key u_loc*IB + cand lies in bucket bkt = (ub, jb): in
+// the bucket's packed bitmask, in its ascending, -1 padded key row, or
+// (sub-bucketed keys, the tiled sampler's table [n_bkt * 8, Ksub]) in row
+// bkt * 8 + (u_loc & 7), ascending and -1 padded too, which holds only
+// the keys of the users that share the slot's u_loc & 7. The
 // first trial that is not a positive wins; when all T trials hit
 // positives, j = 0 and the slot's weight is 0. Padding slots are sampled
 // too, so neg_out covers every slot.
@@ -24,10 +38,12 @@
 //   dW[u] += w_lr * (g * (h_i - h_j) - wgt * w_reg * w_u)
 //   dH[i] += i_lr * (g * w_u - wgt * i_reg * h_i)
 //   dH[j] += j_lr * (-g * w_u - wgt * j_reg * h_j)
-// with duplicate rows (and i == j rows across the two item blocks)
-// summing. The TPU idioms (one-hot matmul gathers and scatters, the
-// [.., C] orientation, the byte-row matmul of the bitmask, bf16
-// operands, the VMEM copy of H) are not carried over: on Hopper the
+// with duplicate rows (and i == j rows across the two item blocks, which
+// on the tiled schedule means isl == jsl and ibr == jbr) summing, as the
+// TPU kernels' i-block write before the j-block read-modify-write. The
+// TPU idioms (one-hot matmul gathers and scatters, the [.., C]
+// orientation, the byte-row matmul of the bitmask, bf16 operands, the
+// VMEM copy of H) are not carried over: on Hopper the
 // gathers are indexed loads, the membership test one byte load or a
 // binary search, the scatter atomic adds.
 //
@@ -52,6 +68,12 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kOneBits = 0x3f800000;  // bits of 1.0f
+
+// membership forms
+constexpr int kKeys = 0;
+constexpr int kBitmask = 1;
+constexpr int kSubkeys = 2;
+constexpr int kSubBuckets = 8;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -100,7 +122,7 @@ bpr_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
                  float* __restrict__ scratch,
                  int32_t* __restrict__ neg_out,
                  int nc, int C, int UB, int IB, int fe, int trials,
-                 int kcap, int soft_margin, int wbpr, int use_bitmask) {
+                 int kcap, int soft_margin, int wbpr, int membership) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_rates = reinterpret_cast<float*>(smem);             // [fe][6]
   int32_t* s_d = reinterpret_cast<int32_t*>(s_rates + fe * 6);  // [4][C]
@@ -135,6 +157,10 @@ bpr_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
       const int u = s_d[s];
       const int32_t* b = bits + (int64_t)k * trials * C + s;
       const unsigned char* mrow = bitmask + (bkt * UB + u) * nb8;
+      const int32_t* srow =
+          membership == kSubkeys
+              ? keys + (bkt * kSubBuckets + (u & (kSubBuckets - 1))) * kcap
+              : krow;
       int j = 0;
       bool ok = false;
 #pragma unroll 8
@@ -147,11 +173,11 @@ bpr_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
           cand = r % nv;
         }
         bool pos;
-        if (use_bitmask) {
+        if (membership == kBitmask) {
           pos = (cand >> 3) < nb8 &&
                 ((__ldg(mrow + (cand >> 3)) >> (cand & 7)) & 1);
         } else {
-          pos = in_key_row(krow, kcap, u * IB + cand);
+          pos = in_key_row(srow, kcap, u * IB + cand);
         }
         if (!ok && !pos) j = cand;
         ok = ok || !pos;
@@ -235,9 +261,11 @@ bpr_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
 }  // namespace
 
 // C interface (bound with ctypes). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch. `keys`
-// is read when use_bitmask is 0, `bitmask` when it is 1, `cdf` when
-// wbpr is 1; `neg_out` may be null.
+// synchronise, and returns cudaGetLastError() after the launch. Chunk k's
+// positive block is order_ib[k] and its negative block jb[k], absolute
+// item blocks on either schedule. membership: 0 reads the key rows `keys`
+// [*, kcap], 1 the bitmask, 2 the sub-bucketed key rows `keys`
+// [n_bkt * 8, kcap]; `cdf` is read when wbpr is 1; `neg_out` may be null.
 extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
                              const int32_t* order_ub, const int32_t* order_ib,
                              const int32_t* order_row, const int32_t* jb,
@@ -247,7 +275,7 @@ extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
                              const float* rates, float* scratch,
                              int32_t* neg_out, int nc, int C, int UB, int IB,
                              int fe, int trials, int kcap, int soft_margin,
-                             int wbpr, int use_bitmask, void* stream) {
+                             int wbpr, int membership, void* stream) {
   const size_t smem = (size_t)fe * 6 * sizeof(float) +
                       (size_t)6 * C * sizeof(int32_t) +
                       (wbpr ? (size_t)IB * sizeof(float) : 0);
@@ -257,7 +285,7 @@ extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
   bpr_epoch_kernel<CPL><<<1, kThreads, smem, st>>>(                          \
       W, H, packed, order_ub, order_ib, order_row, jb, nval, bkt, keys, bm,  \
       cdf, bits, rates, scratch, neg_out, nc, C, UB, IB, fe, trials, kcap,   \
-      soft_margin, wbpr, use_bitmask)
+      soft_margin, wbpr, membership)
   if (fe <= 64) {
     MML_LAUNCH(2);
   } else if (fe <= 128) {

@@ -1,11 +1,16 @@
 // One rating-SGD epoch over the chunk plan, in one launch.
 //
-// Replaces mymedialite_tpu/ops/pallas_sgd.py:324 _mxu_sgd_kernel (the
-// TPU kernel with the item table resident in VMEM). Same update
-// semantics: every chunk of C slots is one minibatch step. All slots of
-// a chunk read W and H as they stood before the chunk, the loss gradient
-// is taken in closed form, and the user and item deltas are scatter-added
-// with duplicates summing. Padded slots (weight 0) contribute nothing.
+// Replaces two TPU kernels of the same update, through one entry point:
+// - mymedialite_tpu/ops/pallas_sgd.py:324 _mxu_sgd_kernel, the item table
+//   resident in VMEM;
+// - mymedialite_tpu/ops/pallas_sgd.py:745 _mxu_sgd_tiled_kernel, the
+//   slab-tiled schedule for catalogs past the resident bound, with one
+//   user block and one item slab in VMEM, swapped by blocking DMA.
+// Same update semantics: every chunk of C slots is one minibatch step. All
+// slots of a chunk read W and H as they stood before the chunk, the loss
+// gradient is taken in closed form, and the user and item deltas are
+// scatter-added with duplicates summing. Padded slots (weight 0)
+// contribute nothing.
 //
 //   biased: pred = min + sigmoid(<w_u, h_i> + gb) * range  (the fused
 //           bias columns are inside the dot product)
@@ -14,8 +19,16 @@
 //   dH[i] += h_lr * (g * w_u - wt * h_reg * h_i)
 //
 // The TPU idioms (one-hot matmul gathers/scatters, the [.., C]
-// orientation, bf16 operands, the VMEM copy of H) are not carried over:
-// on Hopper the gather is an indexed load and the scatter an atomic add.
+// orientation, bf16 operands, the VMEM copy of H, and for the tiled
+// schedule the transposed tables, the slab and user-block DMAs, the pad
+// chunk, the pass split and the refetch flags) are not carried over: on
+// Hopper the gather is an indexed load and the scatter an atomic add,
+// straight on the tables in device memory. The tiled schedule is the
+// same walk over another order: chunks sorted by item slab, grouped by
+// user block within a slab, with the absolute item block sl * B + ibr
+// formed by the wrapper (ops/sgd_epoch.py sgd_epoch_tiled). That order
+// keeps one slab (4 MB at k=40) hot in the 50 MB L2, which takes the
+// place of the TPU's slab in VMEM.
 //
 // Design and bound. The chunk order walks user blocks one after another
 // and consecutive chunks share a user or an item block, so there is
@@ -155,7 +168,9 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
 }  // namespace
 
 // C interface (bound with ctypes). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch.
+// synchronise, and returns cudaGetLastError() after the launch. Chunk k
+// touches W rows order_ub[k] * UB + u_loc and H rows order_ib[k] * IB +
+// i_loc: order_ib holds absolute item blocks on either schedule.
 extern "C" int mml_sgd_epoch(float* W, float* H, const int32_t* packed,
                              const int32_t* order_ub, const int32_t* order_ib,
                              const int32_t* order_row, const float* rates,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mymedialite_tpu.data.arrays import PosOnlyData, RatingData
+from mymedialite_tpu_torch.data.arrays import PosOnlyData, RatingData
 
 
 def synthetic_ratings(num_users: int = 943, num_items: int = 1682,

@@ -5,8 +5,8 @@ Port of ``mymedialite_tpu/eval/ranking.py`` ``evaluate_items``
 modes TRAINING / TEST / OVERLAP / UNION / EXPLICIT, the per-user skip
 rules, training items ignored unless ``repeated_events``, list length
 ``n``, and measures averaged over the evaluated users. The candidate
-sets and the per-batch measure math are the JAX package's own jax-free
-helpers.
+sets and the per-batch measure math (``candidates_for_mode``,
+``_measures_batch``) are copies of the JAX package's jax-free helpers.
 
 Per batch of users, the score-and-rank step runs in torch on the
 model's device: the model's ``catalog_scorer`` (one matmul; host
@@ -23,8 +23,93 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from mymedialite_tpu.eval.ranking import _measures_batch, candidates_for_mode
-from mymedialite_tpu.eval.results import ItemRecommendationResults
+from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
+
+
+def candidates_for_mode(mode: str, test, training,
+                        explicit: Optional[Sequence[int]] = None) -> np.ndarray:
+    """Candidate item set (reference Items.Candidates, Eval/Items.cs:62-96)."""
+    mode = mode.upper()
+    test_items = test.all_items if test is not None else np.array([], dtype=np.int32)
+    if mode == "TRAINING":
+        return np.asarray(training.all_items)
+    if mode == "TEST":
+        return np.asarray(test_items)
+    if mode == "OVERLAP":
+        return np.intersect1d(test_items, training.all_items)
+    if mode == "UNION":
+        return np.union1d(test_items, training.all_items)
+    if mode == "EXPLICIT":
+        if explicit is None:
+            raise ValueError("EXPLICIT mode requires a candidate_items list")
+        return np.unique(np.asarray(list(explicit), dtype=np.int64))
+    raise ValueError(f"Unknown candidate_item_mode: {mode}")
+
+
+def _measures_batch(ranks, m_arr, n_cand_arr, n, sums):
+    """Vectorized ``_user_measures`` over a [B, P2] rank matrix (the
+    per-user loop was the steady-state bottleneck of ranking eval at
+    bench scale). Rows hold the kernel's ranks for each user's correct
+    slots; pad slots return num_items-scale sentinels that sort past
+    every real rank. Accumulates measure sums into ``sums`` and returns
+    the number of evaluated users. Copied from the JAX package with
+    its candidate helper; tests hold the two equal."""
+    B, P2 = ranks.shape
+    m = m_arr.astype(np.int64)
+    n_cand = n_cand_arr.astype(np.int64)
+    ok = (m > 0) & (m != n_cand)       # reference Items.cs:152-163
+    if not ok.any():
+        return 0
+    ranks = np.sort(ranks, axis=1).astype(np.int64)
+    slot = np.arange(P2, dtype=np.int64)[None, :]
+    L = n_cand if n < 0 else np.minimum(n, n_cand)
+    valid = slot < m[:, None]
+    in_mask = valid & (ranks < L[:, None])
+    m_in = in_mask.sum(axis=1)
+    m_safe = np.maximum(m, 1)
+
+    # AUC with dropped-items correction (AUC.cs:42-68); sorted ranks
+    # make the in-list exactly the first m_in valid slots, so the
+    # in-list position k equals the slot index
+    dropped = n_cand - L
+    pairs = (n_cand - m_in) * m_in
+    term = np.where(in_mask,
+                    (L[:, None] - 1 - ranks) - (m_in[:, None] - 1 - slot),
+                    0)
+    missing_relevant = m - m_in
+    bad = ok & (pairs > 0) & (dropped - missing_relevant < 0)
+    if bad.any():
+        raise ValueError(
+            "more missing relevant items than dropped items — "
+            "train/test overlap with full-list evaluation (reference "
+            "AUC.cs:64 'Should not happen')")
+    correct_pairs = term.sum(axis=1) + m_in * (dropped - missing_relevant)
+    auc = np.where(pairs > 0, correct_pairs / np.maximum(pairs, 1), 0.5)
+
+    # AP (PrecisionAndRecall.cs:45-66)
+    ap = np.where(in_mask, (slot + 1) / (ranks + 1.0), 0.0).sum(axis=1) \
+        / m_safe
+    # NDCG (NDCG.cs:36-55): idcg via one cumulative table over max m
+    dcg = np.where(in_mask, 1.0 / np.log2(ranks + 2.0), 0.0).sum(axis=1)
+    max_m = int(m.max())
+    idcg_tab = np.concatenate(
+        [[1.0], np.cumsum(1.0 / np.log2(np.arange(max_m) + 2))])
+    ndcg = dcg / idcg_tab[np.minimum(m, max_m)]
+    # MRR (ReciprocalRank.cs:39-56): smallest rank = sorted slot 0
+    mrr = np.where(m_in > 0, 1.0 / (ranks[:, 0] + 1.0), 0.0)
+
+    okf = ok.astype(np.float64)
+    sums["AUC"] += float((auc * okf).sum())
+    sums["MAP"] += float((ap * okf).sum())
+    sums["NDCG"] += float((ndcg * okf).sum())
+    sums["MRR"] += float((mrr * okf).sum())
+    # prec@/recall@ (PrecisionAndRecall.cs:68-141)
+    for N in (5, 10):
+        cut = np.minimum(N, L)
+        hits = (valid & (ranks < cut[:, None])).sum(axis=1)
+        sums[f"prec@{N}"] += float((hits / N * okf).sum())
+        sums[f"recall@{N}"] += float((hits / m_safe * okf).sum())
+    return int(ok.sum())
 
 
 def rank_correct_items(scores, cand_mask, ignore_rows, correct_rows,

@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from mymedialite_tpu.eval.results import RatingPredictionResults
+from mymedialite_tpu_torch.eval.results import RatingPredictionResults
 from mymedialite_tpu_torch.device import resolve_device
 
 _CHUNK = 1024

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 from torch import nn
 
-from mymedialite_tpu.utils.params import echo
+from mymedialite_tpu_torch.utils.params import echo
 
 _NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 

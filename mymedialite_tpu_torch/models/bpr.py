@@ -7,7 +7,9 @@ Counterparts of ``mymedialite_tpu/models/bpr.py`` (reference
 ``csrc/bpr_epoch.cu``, one launch per epoch — over the chunk plan and
 sampling state of ``ops/bpr_plan.py``, in the same order, with the same
 negative-block draws and the same update semantics as the JAX package's
-resident Pallas epoch.
+Pallas epoch: the resident schedule while the item table fits
+``plan.RESIDENT_ITEM_TABLE_BYTES``, the slab-tiled one (sub-bucketed
+membership keys, negative slabs drawn per group) past it.
 
 Tables: ``params`` (user_factors [U, f], item_factors [I, f], item_bias
 [I]) is what predict, the objective and save/load read; the epoch runs
@@ -16,10 +18,8 @@ and fold back into ``params`` when it is read.
 
 Everything computes in float32; ``mxu_dtype`` and ``batch_size`` are
 accepted so that the JAX package's option strings configure the port,
-and have no effect. Catalogs past ``bpr_plan.mxu_supported``, where the
-JAX package runs its slab-tiled kernel, raise: that kernel is not ported
-yet. ``MultiCoreBPRMF``, the incremental API and fold-in are not ported
-yet either.
+and have no effect. ``MultiCoreBPRMF``, the incremental API and fold-in
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from mymedialite_tpu.io.model_io import ModelReader, ModelWriter
+from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.device import resolve_device
 from mymedialite_tpu_torch.models.base import (
     FoldInItemRecommender, IncrementalItemRecommender, IterativeModel,
@@ -38,8 +38,10 @@ from mymedialite_tpu_torch.ops import bpr_plan
 from mymedialite_tpu_torch.ops.bpr import (
     bpr_objective, sample_uniform_user_triples,
 )
-from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch
-from mymedialite_tpu_torch.ops.plan import fused_width
+from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
+from mymedialite_tpu_torch.ops.plan import (
+    default_slab_blocks, fused_width, select_schedule,
+)
 
 _NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 # unknown users and items score float.MinValue (reference MF.Predict)
@@ -218,6 +220,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self.num_neg_trials = 8
         self._loss_sample = None
         self._plan = None
+        self._tiled = None
         self._epoch_counter = 0
 
     def _hp(self):
@@ -271,11 +274,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
 
     def _prepare_plan(self):
         f = self.feedback
-        if not bpr_plan.mxu_supported(f.num_items, self.num_factors):
-            raise NotImplementedError(
-                f"{type(self).__name__}: {f.num_items} items x "
-                f"{self.num_factors} factors needs the slab-tiled BPR kernel, "
-                f"{_NOT_PORTED} (ROADMAP B4)")
+        tiled = select_schedule(f.num_items, self.num_factors) == "tiled"
         # a new plan means a new item permutation: fold resident tables
         # back into params first
         params = self.params
@@ -283,10 +282,25 @@ class BPRMF(ItemMF, FoldInItemRecommender):
             f, uniform_user=self.uniform_user_sampling
             and not self.MXU_POPULARITY,
             shuffle_seed=self.random_seed,
-            num_neg_trials=self.num_neg_trials, chunk=640, bitmask="auto",
+            num_neg_trials=self.num_neg_trials,
+            # tiled: the histogram-optimal chunk, at a fixed cost of 256
+            # slots per chunk, and sub-bucketed membership keys (the flat
+            # key table stays small and unused), as the JAX model
+            chunk=None if tiled else 640, kcap=128 if tiled else None,
+            subkeys=tiled, ksub_cap=256 if tiled else None,
+            bitmask=False if tiled else "auto",
+            chunk_overhead=256 if tiled else 0,
             device=params["user_factors"].device)
         self._new_of_old = torch.from_numpy(
             self._plan.new_of_old.astype(np.int64)).to(self._plan.packed.device)
+        self._tiled = None
+        if tiled:
+            # half the rating path's slab: each chunk reads two slabs
+            B, S, slab_items = bpr_plan.bpr_tiled_plan(
+                self._plan, self._neg_state["nvalid"],
+                slab_blocks=max(default_slab_blocks(self.num_factors) // 2, 1))
+            self._tiled = dict(slab_blocks=B, num_slabs=S,
+                               slab_items=slab_items)
 
     def _materialize_params(self, tabs):
         W, H, bias = bpr_plan.bpr_tables_from_mxu(
@@ -305,8 +319,8 @@ class BPRMF(ItemMF, FoldInItemRecommender):
                              generator=gen, device=dev)
 
     def iterate(self):
-        """One epoch through ``bpr_epoch`` on the resident kernel-layout
-        tables (JAX: ``_iterate_mxu``)."""
+        """One epoch through ``bpr_epoch`` (or ``bpr_epoch_tiled``) on the
+        resident kernel-layout tables (JAX: ``_iterate_mxu``)."""
         self._ensure_epoch_ready()
         if self._plan is None:
             self._prepare_plan()
@@ -327,13 +341,28 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._epoch_counter += 1
         trials, num_items = self._neg_meta[2], self._neg_meta[3]
         seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
-        order = plan.epoch_order(seed)
         state = self._neg_state
+        block_mass = state["block_mass"] if self.MXU_POPULARITY else None
+        bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
+        if self._tiled is not None:
+            tl = self._tiled
+            order = bpr_plan.bpr_tiled_epoch_order(
+                plan, state["nvalid"], tl["slab_items"],
+                slab_blocks=tl["slab_blocks"], num_slabs=tl["num_slabs"],
+                num_items=num_items, seed=seed, block_mass=block_mass)
+            bpr_epoch_tiled(
+                We, He, plan.packed, state["subkeys_tbl"], state["cdf_tbl"],
+                bits, order, rates, slab_blocks=tl["slab_blocks"],
+                user_block=plan.user_block, item_block=plan.item_block,
+                soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
+                subkeys=True)
+            self._mxu_tables = (We, He)
+            return
+        order = plan.epoch_order(seed)
         jb, nval, bkt = bpr_plan.epoch_negative_plan(
             plan, state["nvalid"], order[0].cpu().numpy(), num_items,
             (self.random_seed + 7) * 999_983 + self._epoch_counter,
-            block_mass=state["block_mass"] if self.MXU_POPULARITY else None)
-        bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
+            block_mass=block_mass)
         bpr_epoch(We, He, plan.packed, state["keys_tbl"], state["cdf_tbl"],
                   bits, order, jb, nval, bkt, rates,
                   user_block=plan.user_block, item_block=plan.item_block,

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mymedialite_tpu.io.model_io import ModelReader, ModelWriter
+from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.models.base import IncrementalItemRecommender
 
 

@@ -31,12 +31,12 @@ import math
 import numpy as np
 import torch
 
-from mymedialite_tpu.io.model_io import ModelReader, ModelWriter
+from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.device import resolve_device
 from mymedialite_tpu_torch.models.base import IterativeModel, RatingPredictor
 from mymedialite_tpu_torch.ops import plan as mxu
 from mymedialite_tpu_torch.ops import sgd
-from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch
+from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
 
 _NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 
@@ -211,10 +211,19 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         self._sync_std_tables()
         data = self.ratings
         dev = resolve_device(self.device)
-        self._plan = mxu.prepare_mxu_data(
-            data.users, data.items, data.values, data.num_users,
-            data.num_items, user_block=512, item_block=1024, chunk=640,
-            shuffle_seed=self.random_seed, device=dev)
+        if mxu.select_schedule(data.num_items, self.num_factors) == "tiled":
+            # big catalogs: the histogram-optimal chunk keeps padding
+            # bounded in their sparse (512 x 1024) cells
+            self._plan = mxu.prepare_mxu_tiled(
+                data.users, data.items, data.values, data.num_users,
+                data.num_items, user_block=512, item_block=1024, chunk=None,
+                slab_blocks=mxu.default_slab_blocks(self.num_factors),
+                shuffle_seed=self.random_seed, device=dev)
+        else:
+            self._plan = mxu.prepare_mxu_data(
+                data.users, data.items, data.values, data.num_users,
+                data.num_items, user_block=512, item_block=1024, chunk=640,
+                shuffle_seed=self.random_seed, device=dev)
         self._new_of_old = torch.from_numpy(
             self._plan.new_of_old.astype(np.int64)).to(dev)
         self._flat_cache = None
@@ -275,9 +284,14 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         hp = (self.global_bias, self.min_rating, self._rating_range())
         self._epoch_counter += 1
         seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
-        sgd_epoch(We, He, plan.packed, plan.epoch_order(seed), hp, rates,
-                  user_block=plan.user_block, item_block=plan.item_block,
+        kw = dict(user_block=plan.user_block, item_block=plan.item_block,
                   loss=self.loss_id, biased=self.BIASED)
+        if isinstance(plan, mxu.MxuTiledPlan):
+            sgd_epoch_tiled(We, He, plan.packed, plan.epoch_order(seed), hp,
+                            rates, slab_blocks=plan.slab_blocks, **kw)
+        else:
+            sgd_epoch(We, He, plan.packed, plan.epoch_order(seed), hp, rates,
+                      **kw)
         self._mxu_tables = (We, He)
         self.update_learn_rate()
 

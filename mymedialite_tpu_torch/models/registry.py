@@ -1,15 +1,34 @@
 """Lazy model registry of the port, under the JAX package's names.
 
-Every name of ``mymedialite_tpu/models/registry.py`` is listed; the ones
-whose port is not written yet raise ``KeyError`` saying so.
+Every name of ``mymedialite_tpu/models/registry.py`` is listed (the
+port keeps its own copy of the name tables); the ones whose port is not
+written yet raise ``KeyError`` saying so.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from mymedialite_tpu.models import registry as _jax_registry
-from mymedialite_tpu.utils.params import configure
+from mymedialite_tpu_torch.utils.params import configure
+
+# every model name of the framework, as in mymedialite_tpu/models/registry.py
+RATING_PREDICTORS = frozenset((
+    "GlobalAverage", "UserAverage", "ItemAverage", "Constant", "Random",
+    "UserItemBaseline", "MatrixFactorization", "BiasedMatrixFactorization",
+    "SocialMF", "TimeAwareBaseline", "TimeAwareBaselineWithFrequencies",
+    "ExternalRatingPredictor", "SVDPlusPlus", "GSVDPlusPlus",
+    "SigmoidSVDPlusPlus", "SigmoidItemAsymmetricFactorModel",
+    "SigmoidUserAsymmetricFactorModel",
+    "SigmoidCombinedAsymmetricFactorModel", "UserKNN", "ItemKNN",
+    "UserAttributeKNN", "ItemAttributeKNN",
+))
+ITEM_RECOMMENDERS = frozenset((
+    "MostPopular", "Zero", "Random", "BPRMF", "MultiCoreBPRMF",
+    "WeightedBPRMF", "SoftMarginRankingMF", "WRMF", "LeastSquareSLIM",
+    "BPRSLIM", "MostPopularByAttributes", "BigramRules",
+    "ExternalItemRecommender", "UserKNN", "ItemKNN", "UserAttributeKNN",
+    "ItemAttributeKNN",
+))
 
 # name -> "module:Class" of the models ported so far
 PORTED_RATING_PREDICTORS = {
@@ -41,7 +60,7 @@ def create_rating_predictor(name: str, options: str = ""):
     """A new rating predictor, configured from ``options`` (the
     ``--recommender-options`` syntax, e.g. "num_factors=40 device=cuda")."""
     model = _create(PORTED_RATING_PREDICTORS,
-                    _jax_registry.RATING_PREDICTORS, name)
+                    RATING_PREDICTORS, name)
     if options:
         configure(model, options)
     return model
@@ -50,7 +69,7 @@ def create_rating_predictor(name: str, options: str = ""):
 def create_item_recommender(name: str, options: str = ""):
     """A new item recommender, configured from ``options``."""
     model = _create(PORTED_ITEM_RECOMMENDERS,
-                    _jax_registry.ITEM_RECOMMENDERS, name)
+                    ITEM_RECOMMENDERS, name)
     if options:
         configure(model, options)
     return model
@@ -58,8 +77,8 @@ def create_item_recommender(name: str, options: str = ""):
 
 def list_rating_predictors():
     """Every rating predictor name the framework knows, ported or not."""
-    return sorted(_jax_registry.RATING_PREDICTORS)
+    return sorted(RATING_PREDICTORS)
 
 
 def list_item_recommenders():
-    return sorted(_jax_registry.ITEM_RECOMMENDERS)
+    return sorted(ITEM_RECOMMENDERS)

@@ -1,48 +1,66 @@
 """One BPR epoch over the chunk plan, negatives sampled inside: the CUDA
-kernel's wrapper and its plain PyTorch version.
+kernel's wrappers and their plain PyTorch versions.
 
 ``bpr_epoch`` replaces ``mymedialite_tpu/ops/pallas_bpr.py:691
-bpr_epoch_mxu`` (kernel body ``_mxu_bpr_kernel`` :451). It updates the
-kernel-layout tables ``W`` [n_ub*UB, fe] and ``H`` [n_ib*IB, fe] in
-place, where the JAX version aliases its outputs to its inputs. On CUDA
-tensors it launches ``csrc/bpr_epoch.cu`` (one launch per epoch) or
-raises; on CPU tensors it runs ``bpr_epoch_reference``.
+bpr_epoch_mxu`` (kernel body ``_mxu_bpr_kernel`` :451), the resident
+schedule; ``bpr_epoch_tiled`` replaces ``bpr_epoch_mxu_tiled`` :1220
+(kernel body ``_mxu_bpr_tiled_kernel`` :979), the slab-tiled schedule of
+big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
+and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
+outputs to their inputs. On CUDA tensors they launch
+``csrc/bpr_epoch.cu`` (one launch per epoch; the tiled wrapper passes the
+absolute positive blocks isl * slab_blocks + ibr and the order's absolute
+negative blocks jb) or raise; on CPU tensors they run
+``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
+own launches.
 
 Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
 - ``packed`` [nc, 4, C] int32: per chunk u_loc, i_loc, the bits of the
   event's base weight and the bits of the padding weight;
-- ``keys_tbl`` [*, Kcap] int32 or ``bitmask_tbl`` [n_bkt, UB, IB/8]
-  int8: the membership tables (the bitmask is used when given);
+- the membership table: ``keys_tbl`` [*, Kcap] int32 (one ascending,
+  -1 padded key row per bucket), with ``subkeys=True`` the sub-bucketed
+  ``subkeys_tbl`` [n_bkt * 8, Ksub] (row bkt * 8 + (u_loc & 7)), or
+  ``bitmask_tbl`` [n_bkt, UB, IB/8] int8 (used when given);
 - ``cdf_tbl`` [*, IB] float32: per-block popularity CDF (WBPR only);
 - ``bits`` [nc, T, C] int32: the epoch's random bits, in visit order;
-- ``order`` = (ub, ib, row) int32 [nc]: the chunk visit order;
-- ``jb``, ``nval``, ``bkt`` int32 [nc]: the negative block of each
-  visited chunk, its real item count, its membership bucket;
-- ``rates`` [fe, 6] float32: (w_lr, w_reg, i_lr, i_reg, j_lr, j_reg).
+- ``rates`` [fe, 6] float32: (w_lr, w_reg, i_lr, i_reg, j_lr, j_reg);
+- the visit order. Resident: ``order`` = (ub, ib, row) and ``jb``,
+  ``nval``, ``bkt``, int32 [nc] each (the negative block of each visited
+  chunk, its real item count, its membership bucket). Tiled: ``order``
+  = (ub, ibr, isl, jb, jbr, jsl, nval, bkt, row) from
+  ``bpr_plan.bpr_tiled_epoch_order``, the positive block being
+  isl * slab_blocks + ibr and the negative one jb = jsl * slab_blocks +
+  jbr.
 
 With ``return_negatives`` the epoch also returns ``neg`` [nc, 2, C]
 int32 in visit order: the sampled local negative of every slot and the
-bits of its 0/1 success weight, as the JAX kernel's ``neg_dbg``.
+bits of its 0/1 success weight, as the JAX kernels' ``neg_dbg``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops.bpr_plan import SUBKEY_BUCKETS
+
 # the kernel keeps up to 8 columns per lane in registers
 MAX_FE = 256
 # the kernel stages rates, the chunk and the CDF row in the default 48 KB
 # of shared memory
 MAX_SHARED_BYTES = 48 * 1024
+# membership forms of the kernel (csrc/bpr_epoch.cu)
+_KEYS, _BITMASK, _SUBKEYS = 0, 1, 2
 
 
 def sample_negatives_reference(bits, jb, nval, bkt, u_loc, *, item_block,
                                keys_tbl=None, bitmask_tbl=None, cdf_tbl=None,
-                               wbpr=False):
+                               wbpr=False, subkeys=False):
     """Plain sampler, vectorized over chunks: bits [nc, T, C], jb / nval
-    / bkt [nc], u_loc [nc, C]. Returns (j_loc [nc, C] int32, ok [nc, C]
-    bool), bit for bit what the kernel samples."""
+    / bkt [nc], u_loc [nc, C]. With ``subkeys`` the keys table is the
+    sub-bucketed one and each slot tests its own u_loc & 7 row. Returns
+    (j_loc [nc, C] int32, ok [nc, C] bool), bit for bit what the kernel
+    samples."""
     IB = item_block
     r = bits & 0x7FFFFFFF                                   # [nc, T, C]
     if wbpr:
@@ -58,6 +76,12 @@ def sample_negatives_reference(bits, jb, nval, bkt, u_loc, *, item_block,
                            (cand >> 3).long().clamp(max=IB // 8 - 1)]
         is_pos = (((byte.to(torch.int32) & 255) >> (cand & 7)) & 1) != 0
         is_pos &= (cand >> 3) < IB // 8
+    elif subkeys:
+        rows = bkt.long()[:, None] * SUBKEY_BUCKETS \
+            + (u_loc.long() & (SUBKEY_BUCKETS - 1))         # [nc, C]
+        keys = keys_tbl[rows]                               # [nc, C, Ksub]
+        ckey = u * IB + cand                                # [nc, T, C]
+        is_pos = (keys[:, None] == ckey[..., None]).any(-1)
     else:
         keys = keys_tbl[bkt.long()]                         # [nc, Kcap]
         ckey = u * IB + cand
@@ -69,32 +93,28 @@ def sample_negatives_reference(bits, jb, nval, bkt, u_loc, *, item_block,
     return torch.where(ok, j, torch.zeros_like(j)), ok
 
 
-def bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb,
-                        nval, bkt, rates, *, user_block: int, item_block: int,
-                        soft_margin: bool = False, wbpr: bool = False,
-                        bitmask_tbl=None, return_negatives: bool = False):
-    """Plain PyTorch epoch: a Python loop over the chunks, the plain
-    sampler per chunk, gathers by indexing and scatter-adds with
-    ``index_add_``. In place on W and H."""
-    ub, ib, row = (t.tolist() for t in order)
-    jbs = jb.tolist()
+def _reference_loop(W, H, packed, keys_tbl, cdf_tbl, bits, ub, ib, row, jb,
+                    nval, bkt, rates, *, user_block, item_block, soft_margin,
+                    wbpr, bitmask_tbl, subkeys, return_negatives):
+    """The plain epoch over visited chunks given by absolute blocks."""
+    ubs, ibs, rows, jbs = (t.tolist() for t in (ub, ib, row, jb))
     w_lr, w_reg, i_lr, i_reg, j_lr, j_reg = rates.unbind(1)
-    nc, C = len(row), packed.shape[2]
+    nc, C = len(rows), packed.shape[2]
     neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device) \
         if return_negatives else None
     for k in range(nc):
-        d = packed[row[k]]
+        d = packed[rows[k]]
         j_loc, ok = sample_negatives_reference(
             bits[k:k + 1], jb[k:k + 1], nval[k:k + 1], bkt[k:k + 1], d[0:1],
             item_block=item_block, keys_tbl=keys_tbl, bitmask_tbl=bitmask_tbl,
-            cdf_tbl=cdf_tbl, wbpr=wbpr)
+            cdf_tbl=cdf_tbl, wbpr=wbpr, subkeys=subkeys)
         okf = ok[0].to(torch.float32)
         if neg is not None:
             neg[k, 0] = j_loc[0]
             neg[k, 1] = okf.view(torch.int32)
         wgt = d[2].view(torch.float32) * d[3].view(torch.float32) * okf
-        u = d[0].long() + ub[k] * user_block
-        i = d[1].long() + ib[k] * item_block
+        u = d[0].long() + ubs[k] * user_block
+        i = d[1].long() + ibs[k] * item_block
         j = j_loc[0].long() + jbs[k] * item_block
         wu, hi, hj = W[u], H[i], H[j]
         x = (wu * (hi - hj)).sum(dim=1)
@@ -109,16 +129,46 @@ def bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb,
     return W, H, neg
 
 
-def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, jb,
-           nval, bkt, rates, item_block, wbpr):
+def bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb,
+                        nval, bkt, rates, *, user_block: int, item_block: int,
+                        soft_margin: bool = False, wbpr: bool = False,
+                        bitmask_tbl=None, subkeys: bool = False,
+                        return_negatives: bool = False):
+    """Plain PyTorch epoch of the resident schedule: a Python loop over
+    the chunks, the plain sampler per chunk, gathers by indexing and
+    scatter-adds with ``index_add_``. In place on W and H."""
+    ub, ib, row = order
+    return _reference_loop(
+        W, H, packed, keys_tbl, cdf_tbl, bits, ub, ib, row, jb, nval, bkt,
+        rates, user_block=user_block, item_block=item_block,
+        soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
+        subkeys=subkeys, return_negatives=return_negatives)
+
+
+def bpr_epoch_tiled_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order,
+                              rates, *, slab_blocks: int, user_block: int,
+                              item_block: int, soft_margin: bool = False,
+                              wbpr: bool = False, bitmask_tbl=None,
+                              subkeys: bool = False,
+                              return_negatives: bool = False):
+    """Plain PyTorch epoch of the slab-tiled schedule: the resident loop
+    with the absolute blocks isl * B + ibr and jb = jsl * B + jbr."""
+    ub, ibr, isl, jb, _jbr, _jsl, nval, bkt, row = order
+    return _reference_loop(
+        W, H, packed, keys_tbl, cdf_tbl, bits, ub, isl * slab_blocks + ibr,
+        row, jb, nval, bkt, rates, user_block=user_block,
+        item_block=item_block, soft_margin=soft_margin, wbpr=wbpr,
+        bitmask_tbl=bitmask_tbl, subkeys=subkeys,
+        return_negatives=return_negatives)
+
+
+def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, rates,
+           item_block, wbpr, subkeys):
     dev = W.device
     named = [("W", W, torch.float32), ("H", H, torch.float32),
              ("packed", packed, torch.int32), ("bits", bits, torch.int32),
-             ("rates", rates, torch.float32), ("jb", jb, torch.int32),
-             ("nval", nval, torch.int32), ("bkt", bkt, torch.int32),
-             ("order.ub", order[0], torch.int32),
-             ("order.ib", order[1], torch.int32),
-             ("order.row", order[2], torch.int32)]
+             ("rates", rates, torch.float32)]
+    named += [(f"order[{n}]", t, torch.int32) for n, t in enumerate(order)]
     if bitmask_tbl is None:
         named.append(("keys_tbl", keys_tbl, torch.int32))
     else:
@@ -142,36 +192,30 @@ def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, jb,
     if packed.dim() != 3 or packed.shape[1] != 4:
         raise ValueError("bpr_epoch: packed must be [nc, 4, C]")
     nc, C = order[0].numel(), packed.shape[2]
-    if not all(t.dim() == 1 and t.numel() == nc
-               for t in (*order, jb, nval, bkt)):
-        raise ValueError("bpr_epoch: order, jb, nval and bkt must be equal "
-                         "1-D tensors")
+    if not all(t.dim() == 1 and t.numel() == nc for t in order):
+        raise ValueError("bpr_epoch: the order, jb, nval and bkt must be "
+                         "equal 1-D tensors")
     if bits.dim() != 3 or bits.shape[0] != nc or bits.shape[2] != C:
         raise ValueError(f"bpr_epoch: bits must be [{nc}, T, {C}]")
     if bitmask_tbl is not None and (bitmask_tbl.dim() != 3
                                     or bitmask_tbl.shape[2] * 8 != item_block):
         raise ValueError("bpr_epoch: bitmask_tbl must be [n_bkt, UB, IB/8]")
+    if bitmask_tbl is not None and subkeys:
+        raise ValueError("bpr_epoch: subkeys and bitmask_tbl exclude each "
+                         "other")
     if wbpr and (cdf_tbl.dim() != 2 or cdf_tbl.shape[1] != item_block):
         raise ValueError("bpr_epoch: cdf_tbl must be [*, IB]")
 
 
-def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
-              rates, *, user_block: int, item_block: int,
-              soft_margin: bool = False, wbpr: bool = False,
-              bitmask_tbl=None, return_negatives: bool = False):
-    """One epoch, in place on ``W`` and ``H``; returns (W, H, neg), neg
-    None unless ``return_negatives``."""
-    _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, jb,
-           nval, bkt, rates, item_block, wbpr)
-    kw = dict(user_block=user_block, item_block=item_block,
-              soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
-              return_negatives=return_negatives)
-    if W.device.type == "cpu":
-        return bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits,
-                                   order, jb, nval, bkt, rates, **kw)
+def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
+            user_block, item_block, soft_margin, wbpr, bitmask_tbl, subkeys,
+            return_negatives):
+    """Launch mml_bpr_epoch on W's stream over the visit-order columns
+    ``cols`` = (ub, ib, row, jb, nval, bkt), blocks absolute; returns
+    ``neg`` or None."""
     if W.device.type != "cuda":
         raise ValueError(f"bpr_epoch: no kernel for device {W.device}")
-    nc, C = order[0].numel(), packed.shape[2]
+    nc, C = cols[0].numel(), packed.shape[2]
     fe, trials = W.shape[1], bits.shape[1]
     smem = 4 * (6 * fe + 6 * C + (item_block if wbpr else 0))
     if fe > MAX_FE or smem > MAX_SHARED_BYTES:
@@ -179,29 +223,77 @@ def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
                          f"{MAX_SHARED_BYTES} B of shared memory, got fe={fe} "
                          f"chunk={C} item_block={item_block}")
     from mymedialite_tpu_torch.ops._build import load_library
-    lib = load_library().lib
+    fn = load_library().lib.mml_bpr_epoch
     scratch = torch.empty(3 * C * fe, dtype=torch.float32, device=W.device)
     neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device) \
         if return_negatives else None
-    use_bitmask = bitmask_tbl is not None
-    keys = keys_tbl if keys_tbl is not None else bits  # unread when absent
-    ub, ib, row = order
+    if bitmask_tbl is not None:
+        membership, keys = _BITMASK, bits       # keys unread
+    else:
+        membership, keys = (_SUBKEYS if subkeys else _KEYS), keys_tbl
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.mml_bpr_epoch(
-        W.data_ptr(), H.data_ptr(), packed.data_ptr(), ub.data_ptr(),
-        ib.data_ptr(), row.data_ptr(), jb.data_ptr(), nval.data_ptr(),
-        bkt.data_ptr(), keys.data_ptr(),
-        bitmask_tbl.data_ptr() if use_bitmask else None,
+    err = fn(
+        W.data_ptr(), H.data_ptr(), packed.data_ptr(),
+        *(t.data_ptr() for t in cols), keys.data_ptr(),
+        bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
         cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
         rates.data_ptr(), scratch.data_ptr(),
         neg.data_ptr() if neg is not None else None,
         nc, C, user_block, item_block, fe, trials,
-        keys.shape[1] if not use_bitmask else 0,
-        int(bool(soft_margin)), int(bool(wbpr)), int(use_bitmask), stream)
+        keys.shape[1] if membership != _BITMASK else 0,
+        int(bool(soft_margin)), int(bool(wbpr)), membership, stream)
     if err != 0:
         raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
+    return neg
+
+
+def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
+              rates, *, user_block: int, item_block: int,
+              soft_margin: bool = False, wbpr: bool = False,
+              bitmask_tbl=None, subkeys: bool = False,
+              return_negatives: bool = False):
+    """One epoch of the resident schedule, in place on ``W`` and ``H``;
+    returns (W, H, neg), neg None unless ``return_negatives``."""
+    _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits,
+           (*order, jb, nval, bkt), rates, item_block, wbpr, subkeys)
+    kw = dict(soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
+              subkeys=subkeys, return_negatives=return_negatives)
+    if W.device.type == "cpu":
+        return bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits,
+                                   order, jb, nval, bkt, rates,
+                                   user_block=user_block,
+                                   item_block=item_block, **kw)
+    ub, ib, row = order
+    neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
+                  (ub, ib, row, jb, nval, bkt), rates, user_block=user_block,
+                  item_block=item_block, **kw)
     bpr_epoch.launches += 1
     return W, H, neg
 
 
+def bpr_epoch_tiled(W, H, packed, keys_tbl, cdf_tbl, bits, order, rates, *,
+                    slab_blocks: int, user_block: int, item_block: int,
+                    soft_margin: bool = False, wbpr: bool = False,
+                    bitmask_tbl=None, subkeys: bool = False,
+                    return_negatives: bool = False):
+    """One epoch of the slab-tiled schedule, in place on ``W`` and ``H``;
+    returns (W, H, neg), neg None unless ``return_negatives``."""
+    _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, rates,
+           item_block, wbpr, subkeys)
+    kw = dict(soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
+              subkeys=subkeys, return_negatives=return_negatives)
+    if W.device.type == "cpu":
+        return bpr_epoch_tiled_reference(
+            W, H, packed, keys_tbl, cdf_tbl, bits, order, rates,
+            slab_blocks=slab_blocks, user_block=user_block,
+            item_block=item_block, **kw)
+    ub, ibr, isl, jb, _jbr, _jsl, nval, bkt, row = order
+    neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
+                  (ub, isl * slab_blocks + ibr, row, jb, nval, bkt), rates,
+                  user_block=user_block, item_block=item_block, **kw)
+    bpr_epoch_tiled.launches += 1
+    return W, H, neg
+
+
 bpr_epoch.launches = 0
+bpr_epoch_tiled.launches = 0

@@ -1,10 +1,9 @@
-"""Chunk plan and negative-sampling state for the BPR epoch kernel.
+"""Chunk plan and negative-sampling state for the BPR epoch kernels.
 
 Port of the host-side half of ``mymedialite_tpu/ops/pallas_bpr.py``
-(``prepare_bpr_mxu``, ``epoch_negative_plan``, ``bpr_mxu_column_rates``,
-``bpr_tables_to_mxu`` / ``bpr_tables_from_mxu``) for the resident path:
-the item table is one array, the chunk size is fixed, membership keys
-are uncapped. The positive events are bucketed like ratings
+(``prepare_bpr_mxu``, ``epoch_negative_plan``, ``bpr_tiled_plan``,
+``bpr_tiled_epoch_order``, ``bpr_mxu_column_rates``,
+``bpr_tables_to_mxu`` / ``bpr_tables_from_mxu``). The positive events are bucketed like ratings
 (``ops/plan.py prepare_mxu_data``); row 2 of ``packed`` carries the
 per-event base weight (the uniform-user importance weight, or 1) and
 row 3 the padding weight (1 real, 0 pad). The outputs are bit-identical
@@ -16,15 +15,23 @@ uses it):
 
 - ``keys_tbl`` [round8(n_bkt), Kcap] int32: per (user block, item
   block) bucket, the unique keys ``u_loc * IB + i_loc`` of its events,
-  ascending, -1 padded at the end;
+  ascending, -1 padded at the end (truncated at ``kcap`` when given);
+- ``subkeys_tbl`` [n_bkt * 8, Ksub] int32 (``subkeys=True``, the tiled
+  sampler's table): each bucket's keys split into 8 sub-buckets by
+  ``u_loc & 7``, each row ascending and -1 padded, so a slot tests only
+  the keys of users that share its ``u_loc & 7``;
 - ``bitmask_tbl`` [n_bkt, UB, IB/8] int8 (when it fits 2 GiB): the same
   predicate as packed bits, bit ``i_loc & 7`` of byte ``i_loc >> 3``;
 - ``cdf_tbl`` [round8(n_ib), IB] float32: per item block the popularity
   CDF over its local slots (padding slots 1.0), nondecreasing;
 - ``nvalid`` [n_ib] and ``block_mass`` [n_ib] on the host.
 
-The slab-tiled plan (sub-bucketed keys, capped key tables) belongs to
-the tiled kernel and is not ported yet.
+Big catalogs (past ``plan.RESIDENT_ITEM_TABLE_BYTES``) take the
+slab-tiled schedule: ``bpr_tiled_plan`` groups the item blocks into
+slabs and ``bpr_tiled_epoch_order`` draws each epoch's visit order and
+negative blocks, array for array the JAX package's, without its pad
+entries, pass split and refetch flags (TPU-only: they bound scalar
+memory and stand in for buffer aliasing under interpret mode).
 """
 
 from __future__ import annotations
@@ -34,33 +41,37 @@ import dataclasses
 import numpy as np
 import torch
 
-from mymedialite_tpu_torch.ops.plan import MxuPlan, _round_up, prepare_mxu_data
+from mymedialite_tpu_torch.ops.plan import (  # noqa: F401  (re-exported)
+    MxuPlan, _round_up, mxu_supported, prepare_mxu_data,
+)
 
 BITMASK_HBM_BYTES = 2 * 1024 ** 3
-# the JAX package keeps the whole item table resident up to this size and
-# switches to the slab-tiled kernel past it (pallas_sgd.mxu_supported)
-RESIDENT_ITEM_TABLE_BYTES = 10 * 1024 * 1024
-
-
-def mxu_supported(num_items: int, num_factors: int,
-                  item_block: int = 1024) -> bool:
-    """Whether the JAX package runs the resident BPR kernel at this shape
-    (``pallas_sgd.mxu_supported``); past it, it runs the tiled kernel."""
-    fe = max(64, _round_up(num_factors + 2, 8))
-    n_ib = max((num_items + item_block - 1) // item_block, 1)
-    return n_ib * item_block * fe * 4 <= RESIDENT_ITEM_TABLE_BYTES
+# sub-buckets per (user block, item block) bucket, split by u_loc & 7
+SUBKEY_BUCKETS = 8
+# the bound on the expected fraction of corrupted triples (a truncated
+# positive drawn as a negative) below which key tables may be capped
+MAX_KEY_CORRUPTION = 1e-3
 
 
 def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
-                    item_block: int = 1024, chunk: int = 640,
-                    shuffle_seed=0, num_neg_trials: int = 8,
-                    bitmask="auto", device="cpu"):
+                    item_block: int = 1024, chunk=640, shuffle_seed=0,
+                    num_neg_trials: int = 8, kcap=None,
+                    chunk_overhead: int = 0, bitmask="auto",
+                    subkeys: bool = False, ksub_cap=None, device="cpu"):
     """Bucket the positive events and build the negative-sampling state.
+
+    ``chunk=None`` picks the histogram-optimal chunk with
+    ``chunk_overhead`` slots of fixed cost per chunk. ``kcap`` caps the
+    flat key rows (keys past it are dropped; a warning names the
+    expected corrupted-triple rate when it passes 1e-3). ``subkeys``
+    also builds the sub-bucketed table, its rows capped at ``ksub_cap``
+    and the cap doubled until the corrupted-triple rate is at most 1e-3.
 
     Returns (plan, neg_state, neg_meta) as the JAX function does:
     ``plan.packed`` on ``device``, ``neg_state`` with the tables above on
-    ``device`` (``bitmask_tbl`` only when built), ``neg_meta`` =
-    (n_ib, Kcap, num_neg_trials, num_items, IB)."""
+    ``device`` (``bitmask_tbl`` only when built, ``subkeys_tbl`` and
+    ``ksub`` only with ``subkeys``), ``neg_meta`` = (n_ib, Kcap,
+    num_neg_trials, num_items, IB)."""
     users = np.asarray(feedback.users, dtype=np.int32)
     items = np.asarray(feedback.items, dtype=np.int32)
     U, I = feedback.num_users, feedback.num_items
@@ -81,7 +92,7 @@ def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
     plan = prepare_mxu_data(users, items, weights, U, I,
                             user_block=user_block, item_block=item_block,
                             chunk=chunk, shuffle_seed=shuffle_seed,
-                            device="cpu")
+                            chunk_overhead=chunk_overhead, device="cpu")
     n_ib, IB, UB = plan.n_iblocks, plan.item_block, plan.user_block
     # real items per block: the popularity round robin fills block b's
     # first nvalid_b slots
@@ -105,11 +116,35 @@ def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
     keys = (uniq % (UB * IB)).astype(np.int32)
     cnt = np.bincount(bkt_r, minlength=n_bkt)
     Kcap = _round_up(max(int(cnt.max()) if cnt.size else 1, 1), 128)
+    if kcap is not None and Kcap > kcap:
+        Kcap = _round_up(kcap, 128)
+    # uniq is sorted, so each bucket's keys are one ascending run
+    within = np.arange(keys.size) - np.concatenate([[0], np.cumsum(cnt)])[bkt_r]
+    keep = within < Kcap
     keys_tbl = np.full((_round_up(n_bkt, 8), Kcap), -1, np.int32)
-    order = np.argsort(bkt_r, kind="stable")
-    off = np.concatenate([[0], np.cumsum(cnt)])
-    sb = bkt_r[order]
-    keys_tbl[sb, np.arange(keys.size) - off[sb]] = keys[order]
+    keys_tbl[bkt_r[keep], within[keep]] = keys[keep]
+
+    def corruption_rate(dropped_keys, dropped_bkt):
+        """Expected fraction of triples whose negative is a dropped key:
+        sum over users of |events_u| * dropped(u) / (|events| * I)."""
+        if dropped_keys.size == 0:
+            return 0.0
+        g_user = (dropped_bkt // n_ib) * UB + dropped_keys // IB
+        du = np.bincount(g_user, minlength=max(U, 1))
+        ev = np.zeros(max(U, 1), np.float64)
+        ev[:counts.shape[0]] = counts
+        return float((ev * du[:ev.shape[0]]).sum()) / (
+            max(len(users), 1) * max(I, 1))
+
+    dropped = 1.0 - float(keep.sum()) / max(keys.size, 1)
+    corrupt = corruption_rate(keys[~keep], bkt_r[~keep])
+    if corrupt > MAX_KEY_CORRUPTION and not subkeys:
+        import warnings
+        warnings.warn(
+            f"prepare_bpr_mxu: membership-key cap Kcap={Kcap} drops "
+            f"{dropped:.2%} of unique keys; estimated corrupted-triple "
+            f"rate {corrupt:.2e} exceeds 1e-3 — raise kcap",
+            RuntimeWarning)
 
     # per-block popularity CDF over local slots; padding slots get 1.0 so
     # the inverse CDF never lands on them
@@ -129,7 +164,31 @@ def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     neg_state = dict(keys_tbl=dev(keys_tbl), nvalid=nvalid,
-                     cdf_tbl=dev(cdf), block_mass=block_mass)
+                     cdf_tbl=dev(cdf), block_mass=block_mass,
+                     key_truncation=dropped, key_corruption=corrupt)
+    if subkeys:
+        S = SUBKEY_BUCKETS
+        skey = bkt_r * S + ((keys // IB) & (S - 1))
+        scnt = np.bincount(skey, minlength=n_bkt * S)
+        Kmax = _round_up(max(int(scnt.max()) if scnt.size else 1, 1), 128)
+        Ksub = min(Kmax, _round_up(ksub_cap, 128)) if ksub_cap else Kmax
+        order2 = np.argsort(skey, kind="stable")
+        sk, skeys = skey[order2], keys[order2]
+        within2 = np.arange(keys.size) - np.concatenate(
+            [[0], np.cumsum(scnt)])[sk]
+        while True:
+            keep2 = within2 < Ksub
+            sub_dropped = 1.0 - float(keep2.sum()) / max(keys.size, 1)
+            sub_corrupt = corruption_rate(skeys[~keep2], sk[~keep2] // S)
+            if sub_corrupt <= MAX_KEY_CORRUPTION or Ksub >= Kmax:
+                break
+            # the cap bounds the compare cost; sampling bias is not traded
+            Ksub = min(Ksub * 2, Kmax)
+        sub_tbl = np.full((n_bkt * S, Ksub), -1, np.int32)
+        sub_tbl[sk[keep2], within2[keep2]] = skeys[keep2]
+        neg_state.update(subkeys_tbl=dev(sub_tbl), ksub=Ksub,
+                         subkey_truncation=sub_dropped,
+                         subkey_corruption=sub_corrupt)
     if bitmask == "auto":
         bitmask = n_bkt * UB * (IB // 8) <= BITMASK_HBM_BYTES
     if bitmask:
@@ -169,6 +228,87 @@ def epoch_negative_plan(plan: MxuPlan, nvalid: np.ndarray,
            * plan.n_iblocks + jb).astype(np.int32)
     dev = plan.packed.device
     return tuple(torch.from_numpy(a).to(dev) for a in (jb, nval, bkt))
+
+
+def bpr_tiled_plan(plan: MxuPlan, nvalid: np.ndarray, *, slab_blocks: int):
+    """Static geometry of the slab-tiled schedule: (B, num_slabs,
+    slab_items), B = slab_blocks capped at the block count and
+    slab_items [num_slabs] the real items of each slab
+    (``pallas_bpr.bpr_tiled_plan`` without its pad chunk and pass
+    split)."""
+    B = min(slab_blocks, plan.n_iblocks)
+    S = (plan.n_iblocks + B - 1) // B
+    slab_items = np.concatenate([
+        nvalid.astype(np.int64),
+        np.zeros(S * B - plan.n_iblocks, np.int64)]).reshape(S, B).sum(axis=1)
+    return B, S, slab_items
+
+
+def bpr_tiled_epoch_order(plan: MxuPlan, nvalid: np.ndarray,
+                          slab_items: np.ndarray, *, slab_blocks: int,
+                          num_slabs: int, num_items: int, seed,
+                          block_mass=None):
+    """One epoch of the tiled schedule: (ub, ibr, isl, jb, jbr, jsl,
+    nval, bkt, row) int32 tensors [nc] on the plan's device, in visit
+    order, equal to the real entries of ``pallas_bpr.
+    bpr_tiled_epoch_order``. Chunks are sorted by (positive slab isl,
+    negative slab jsl, user block) and shuffled within each cell. One
+    negative slab is drawn per (isl, user block) group with P(slab) =
+    slab_items / num_items, then one negative block per chunk within it,
+    uniform by item count, so P(block b) = nvalid_b / num_items as on the
+    resident path; WBPR draws both by popularity mass. The chunk's
+    positive block is isl * B + ibr, its negative block jb = jsl * B +
+    jbr, and bkt = ub * n_ib + jb its membership bucket."""
+    rng = np.random.default_rng(seed)
+    nc = plan.num_chunks
+    B = min(slab_blocks, plan.n_iblocks)
+    n_ib, n_ub = plan.n_iblocks, plan.n_ublocks
+    isl_c = (plan.ib_c // B).astype(np.int32)
+    ibr_c = (plan.ib_c - isl_c * B).astype(np.int32)
+
+    # one negative slab per (isl, user block) group
+    gid = isl_c.astype(np.int64) * n_ub + plan.ub_c
+    uniq, inv = np.unique(gid, return_inverse=True)
+    if block_mass is not None:
+        pm = np.concatenate([np.asarray(block_mass, dtype=np.float64),
+                             np.zeros(num_slabs * B - n_ib)])
+        sm = pm.reshape(num_slabs, B).sum(axis=1)
+        jsl_g = rng.choice(num_slabs, size=uniq.size,
+                           p=sm / sm.sum()).astype(np.int32)
+    else:
+        r = rng.integers(0, max(num_items, 1), uniq.size)
+        jsl_g = ((r % n_ib) // B).astype(np.int32)
+    jsl_c = jsl_g[inv]
+
+    # one negative block per chunk within its group's slab
+    if block_mass is not None:
+        jbr_c = np.zeros(nc, np.int32)
+        for s in range(num_slabs):
+            sel = np.nonzero(jsl_c == s)[0]
+            if sel.size == 0:
+                continue
+            lo, hi = s * B, min((s + 1) * B, n_ib)
+            m = np.asarray(block_mass[lo:hi], dtype=np.float64)
+            jbr_c[sel] = rng.choice(hi - lo, size=sel.size,
+                                    p=m / m.sum()).astype(np.int32)
+    else:
+        si = np.maximum(slab_items[jsl_c], 1)
+        r2 = (rng.random(nc) * si).astype(np.int64)
+        n_blocks_of = np.minimum((jsl_c + 1) * B, n_ib) - jsl_c * B
+        jbr_c = (r2 % n_blocks_of).astype(np.int32)
+    jb_c = (jsl_c * B + jbr_c).astype(np.int32)
+
+    perm = np.argsort(
+        isl_c.astype(np.float64) * (2.0 * num_slabs * n_ub)
+        + jsl_c * (2.0 * n_ub) + plan.ub_c * 2.0 + rng.random(nc),
+        kind="stable")
+    nval_c = np.maximum(nvalid[jb_c], 1).astype(np.int32)
+    bkt_c = (plan.ub_c.astype(np.int64) * n_ib + jb_c).astype(np.int32)
+    dev = plan.packed.device
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[perm], np.int32))
+                 .to(dev)
+                 for a in (plan.ub_c, ibr_c, isl_c, jb_c, jbr_c, jsl_c,
+                           nval_c, bkt_c, np.arange(nc)))
 
 
 def bpr_mxu_column_rates(num_factors: int, fe: int, learn_rate, reg_u,

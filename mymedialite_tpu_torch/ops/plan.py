@@ -14,6 +14,19 @@ one.
 The epoch order is the host ``MxuPlan.epoch_order`` (numpy
 ``default_rng``): chunks stay grouped by user block and are shuffled
 within each group.
+
+Catalogs whose item table passes ``RESIDENT_ITEM_TABLE_BYTES`` take the
+slab-tiled schedule instead (``MxuTiledPlan``, ``prepare_mxu_tiled``;
+JAX: ``pallas_sgd.py:534-742``): the same chunks, visited slab-major —
+sorted by item slab, grouped by user block within the slab, shuffled
+within each (slab, user block) cell. On the TPU that order lets one
+slab and one user block stay in VMEM; on the H100 the kernels gather
+rows from device memory and the order keeps one slab hot in L2. The
+TPU-only parts of the JAX plan stay behind: the all-zero pad chunk, the
+pass split (``pass_len``, a scalar-memory bound), the refetch flags and
+the table padding to whole slabs. ``select_schedule`` is the port of the
+single-device choice of ``ops/kernel_select.py:53-96``, for both model
+families.
 """
 
 from __future__ import annotations
@@ -26,6 +39,16 @@ import torch
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# the JAX package keeps the whole item table resident (in VMEM) up to this
+# size and runs the slab-tiled schedule past it (pallas_sgd.py:53,508-513);
+# the port keeps the bound so that both packages pick the same schedule
+RESIDENT_ITEM_TABLE_BYTES = 10 * 1024 * 1024
+# one item slab of the tiled schedule (pallas_sgd.py:657)
+TILED_SLAB_BYTES = 4 * 1024 * 1024
+# the tiled schedule covers catalogs of up to this many slabs
+MAX_SLABS = 128
 
 
 def fused_width(num_factors: int) -> int:
@@ -82,11 +105,14 @@ class MxuPlan:
 
 def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
                      user_block: int = 512, item_block: int = 1024,
-                     chunk=256, shuffle_seed=0, device="cpu") -> MxuPlan:
+                     chunk=256, shuffle_seed=0, chunk_overhead: int = 0,
+                     device="cpu") -> MxuPlan:
     """Bucket the rating stream by (user_block x item_block) cells with
     popularity-balanced item blocks; pad each cell to chunk multiples.
-    ``chunk=None`` picks the histogram-optimal chunk size."""
-    from mymedialite_tpu import native
+    ``chunk=None`` picks the histogram-optimal chunk size: the candidate
+    with the fewest padded slots plus ``chunk_overhead`` slots per chunk
+    (a fixed per-chunk cost), preferring larger chunks on near-ties."""
+    from mymedialite_tpu_torch import native
 
     n = len(users)
     users = np.asarray(users, dtype=np.int32)
@@ -119,7 +145,9 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
         if chunk is not None:
             return chunk
         cands = (128, 256, 384, 512, 640)
-        tots = [int((((bcount + c - 1) // c) * c).sum()) for c in cands]
+        tots = [int((((bcount + c - 1) // c) * c).sum())
+                + int(((bcount + c - 1) // c).sum()) * chunk_overhead
+                for c in cands]
         lo = min(tots)
         return max(c for c, t in zip(cands, tots) if t <= 1.03 * lo)
 
@@ -174,6 +202,127 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
         num_items=num_items, n_ratings=n,
         packed=torch.from_numpy(np.ascontiguousarray(packed_np)).to(device),
         ub_c=ub_c, ib_c=ib_c, new_of_old=new_of_old, old_of_new=old_of_new)
+
+
+def mxu_supported(num_items: int, num_factors: int,
+                  item_block: int = 1024) -> bool:
+    """Whether the item table fits ``RESIDENT_ITEM_TABLE_BYTES``: the
+    resident schedule (``pallas_sgd.mxu_supported``)."""
+    n_ib = max((num_items + item_block - 1) // item_block, 1)
+    return (n_ib * item_block * fused_width(num_factors) * 4
+            <= RESIDENT_ITEM_TABLE_BYTES)
+
+
+def default_slab_blocks(num_factors: int, item_block: int = 1024) -> int:
+    """Item blocks per slab of the tiled schedule: the largest slab within
+    ``TILED_SLAB_BYTES`` (``pallas_sgd.default_slab_blocks``)."""
+    return max(TILED_SLAB_BYTES // (item_block * fused_width(num_factors)
+                                    * 4), 1)
+
+
+def mxu_tiled_supported(num_items: int, num_factors: int,
+                        item_block: int = 1024) -> bool:
+    """Whether the tiled schedule applies: a default slab within the
+    resident bound, the catalog within ``MAX_SLABS`` slabs
+    (``pallas_sgd.mxu_tiled_supported``)."""
+    slab_blocks = default_slab_blocks(num_factors, item_block)
+    if (slab_blocks * item_block * fused_width(num_factors) * 4
+            > RESIDENT_ITEM_TABLE_BYTES):
+        return False
+    n_ib = max((num_items + item_block - 1) // item_block, 1)
+    return (n_ib + slab_blocks - 1) // slab_blocks <= MAX_SLABS
+
+
+def select_schedule(num_items: int, num_factors: int) -> str:
+    """The epoch schedule of the MF and BPR families for one device:
+    "resident" while the item table fits the resident bound, "tiled"
+    past it (``ops/kernel_select.py:53-96``). Past the tiled bound the
+    JAX package runs its XLA epoch, which the port does not have yet."""
+    if mxu_supported(num_items, num_factors):
+        return "resident"
+    if mxu_tiled_supported(num_items, num_factors):
+        return "tiled"
+    raise NotImplementedError(
+        f"{num_items} items x {num_factors} factors passes the tiled "
+        f"schedule's {MAX_SLABS} slabs: the XLA epoch the JAX package runs "
+        "there is not yet ported to mymedialite_tpu_torch")
+
+
+@dataclass
+class MxuTiledPlan:
+    """Host-side layout of the slab-tiled schedule: the resident plan's
+    chunks, visited slab-major. A slab is ``slab_blocks`` consecutive
+    item blocks; slab ``s`` holds item blocks [s*B, (s+1)*B)."""
+    num_slabs: int
+    chunk: int
+    user_block: int
+    item_block: int
+    slab_blocks: int         # item blocks per slab
+    n_ublocks: int
+    n_iblocks: int
+    num_users: int
+    num_items: int
+    n_ratings: int
+    # [nc, 4, C] int32 on the model's device, as MxuPlan.packed
+    packed: torch.Tensor = field(repr=False)
+    ub_c: np.ndarray = field(repr=False)      # [nc] layout order (host)
+    ib_c: np.ndarray = field(repr=False)
+    new_of_old: np.ndarray = field(repr=False)
+    old_of_new: np.ndarray = field(repr=False)
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.ub_c.size)
+
+    @property
+    def u_pad(self) -> int:
+        return self.n_ublocks * self.user_block
+
+    @property
+    def i_pad(self) -> int:
+        return self.n_iblocks * self.item_block
+
+    def epoch_order(self, seed) -> tuple:
+        """Per-epoch visit order (``pallas_sgd.MxuTiledPlan.epoch_order``
+        without its pad entries): chunks sorted by slab, grouped by user
+        block within the slab, shuffled within each (slab, user block)
+        cell. Returns (ub, ibr, sl, row) int32 tensors of length
+        num_chunks on the device of ``packed``; the chunk's item block
+        is sl * slab_blocks + ibr. With one slab the order is the
+        resident plan's."""
+        nc = self.num_chunks
+        sl_c = (self.ib_c // self.slab_blocks).astype(np.int32)
+        key = sl_c.astype(np.float64) * (2.0 * self.n_ublocks) \
+            + self.ub_c * 2.0
+        if seed is not None:
+            key = key + np.random.default_rng(seed).random(nc)
+        perm = np.argsort(key, kind="stable")
+        sl = sl_c[perm]
+        cols = (self.ub_c[perm], self.ib_c[perm] - sl * self.slab_blocks,
+                sl, perm)
+        dev = self.packed.device
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                     .to(dev) for a in cols)
+
+
+def prepare_mxu_tiled(users, items, values, num_users: int, num_items: int,
+                      *, user_block: int = 512, item_block: int = 1024,
+                      chunk=None, slab_blocks: int = 8, shuffle_seed=0,
+                      device="cpu") -> MxuTiledPlan:
+    """``prepare_mxu_data``, then the chunks grouped into slabs of
+    ``slab_blocks`` item blocks (``pallas_sgd.prepare_mxu_tiled``)."""
+    plan = prepare_mxu_data(users, items, values, num_users, num_items,
+                            user_block=user_block, item_block=item_block,
+                            chunk=chunk, shuffle_seed=shuffle_seed,
+                            device=device)
+    B = min(slab_blocks, plan.n_iblocks)
+    return MxuTiledPlan(
+        num_slabs=(plan.n_iblocks + B - 1) // B, chunk=plan.chunk,
+        user_block=plan.user_block, item_block=plan.item_block,
+        slab_blocks=B, n_ublocks=plan.n_ublocks, n_iblocks=plan.n_iblocks,
+        num_users=num_users, num_items=num_items, n_ratings=plan.n_ratings,
+        packed=plan.packed, ub_c=plan.ub_c, ib_c=plan.ib_c,
+        new_of_old=plan.new_of_old, old_of_new=plan.old_of_new)
 
 
 def extend_tables_mxu(plan: MxuPlan, user_factors, item_factors,

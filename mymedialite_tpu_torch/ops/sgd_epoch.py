@@ -1,18 +1,25 @@
-"""One rating-SGD epoch over the chunk plan: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""One rating-SGD epoch over the chunk plan: the CUDA kernel's wrappers
+and their plain PyTorch versions.
 
 ``sgd_epoch`` replaces ``mymedialite_tpu/ops/pallas_sgd.py:461
-sgd_epoch_mxu`` (kernel body ``_mxu_sgd_kernel`` :324). It updates the
-kernel-layout tables ``W`` [n_ub*UB, fe] and ``H`` [n_ib*IB, fe] in
-place, where the JAX version aliases its outputs to its inputs. On CUDA
-tensors it launches ``csrc/sgd_epoch.cu`` (one launch per epoch) or
-raises; on CPU tensors it runs ``sgd_epoch_reference``.
+sgd_epoch_mxu`` (kernel body ``_mxu_sgd_kernel`` :324), the resident
+schedule; ``sgd_epoch_tiled`` replaces ``sgd_epoch_mxu_tiled`` :939
+(kernel body ``_mxu_sgd_tiled_kernel`` :745), the slab-tiled schedule of
+big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
+and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
+outputs to their inputs. On CUDA tensors they launch
+``csrc/sgd_epoch.cu`` (one launch per epoch; the tiled wrapper first
+forms the absolute item blocks) or raise; on CPU tensors they run
+``sgd_epoch_reference`` / ``sgd_epoch_tiled_reference``. Each counts its
+own launches.
 
 Arguments shared by both:
 
 - ``packed`` [nc, 4, C] int32: per chunk, rows u_loc, i_loc, the bits
   of the rating and the bits of the slot weight (``ops/plan.py``);
 - ``order`` = (ub, ib, row) int32 [nc]: the epoch's chunk visit order;
+  for the tiled schedule (ub, ibr, sl, row), the chunk's item block
+  being ``sl * slab_blocks + ibr`` (``MxuTiledPlan.epoch_order``);
 - ``hp`` = (global_bias, min_rating, rating_range) floats;
 - ``rates`` [fe, 4] float32: per-column (w_lr, w_reg, h_lr, h_reg),
   already scaled by the current learn rate;
@@ -58,14 +65,26 @@ def sgd_epoch_reference(W, H, packed, order, hp, rates, *, user_block: int,
     return W, H
 
 
+def sgd_epoch_tiled_reference(W, H, packed, order, hp, rates, *,
+                              slab_blocks: int, user_block: int,
+                              item_block: int, loss: int, biased: bool):
+    """Plain PyTorch epoch over the slab-tiled order (ub, ibr, sl, row):
+    ``sgd_epoch_reference`` with the absolute item block sl * B + ibr."""
+    ub, ibr, sl, row = order
+    return sgd_epoch_reference(W, H, packed, (ub, sl * slab_blocks + ibr, row),
+                               hp, rates, user_block=user_block,
+                               item_block=item_block, loss=loss, biased=biased)
+
+
 def _check(W, H, packed, order, rates):
     dev = W.device
+    names = ("ub", "ib", "row") if len(order) == 3 else \
+        ("ub", "ibr", "sl", "row")
     for name, t, dtype in (("W", W, torch.float32), ("H", H, torch.float32),
                            ("packed", packed, torch.int32),
                            ("rates", rates, torch.float32),
-                           ("order.ub", order[0], torch.int32),
-                           ("order.ib", order[1], torch.int32),
-                           ("order.row", order[2], torch.int32)):
+                           *((f"order.{n}", o, torch.int32)
+                             for n, o in zip(names, order))):
         if t.device != dev:
             raise ValueError(f"sgd_epoch: {name} is on {t.device}, W on {dev}")
         if t.dtype != dtype:
@@ -81,18 +100,13 @@ def _check(W, H, packed, order, rates):
         raise ValueError("sgd_epoch: packed must be [nc, 4, C]")
     if not all(t.dim() == 1 and t.numel() == order[0].numel()
                for t in order):
-        raise ValueError("sgd_epoch: order must be three equal 1-D tensors")
+        raise ValueError("sgd_epoch: order must be equal 1-D tensors")
 
 
-def sgd_epoch(W, H, packed, order, hp, rates, *, user_block: int,
-              item_block: int, loss: int, biased: bool):
-    """One epoch, in place on ``W`` and ``H``; returns them."""
-    _check(W, H, packed, order, rates)
-    if W.device.type == "cpu":
-        return sgd_epoch_reference(W, H, packed, order, hp, rates,
-                                   user_block=user_block,
-                                   item_block=item_block, loss=loss,
-                                   biased=biased)
+def _launch(W, H, packed, order, hp, rates, *, user_block: int,
+            item_block: int, loss: int, biased: bool):
+    """Launch mml_sgd_epoch over the order (ub, ib, row), ib absolute, on
+    W's stream."""
     if W.device.type != "cuda":
         raise ValueError(f"sgd_epoch: no kernel for device {W.device}")
     C = packed.shape[2]
@@ -101,20 +115,48 @@ def sgd_epoch(W, H, packed, order, hp, rates, *, user_block: int,
         raise ValueError(f"sgd_epoch: kernel takes fe <= {MAX_FE} and "
                          f"chunk <= {MAX_CHUNK}, got fe={fe} chunk={C}")
     from mymedialite_tpu_torch.ops._build import load_library
-    lib = load_library().lib
+    fn = load_library().lib.mml_sgd_epoch
     scratch = torch.empty(2 * C * fe, dtype=torch.float32, device=W.device)
-    ub, ib, row = order
     gb, min_rating, rating_range = (float(x) for x in hp)
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.mml_sgd_epoch(
-        W.data_ptr(), H.data_ptr(), packed.data_ptr(), ub.data_ptr(),
-        ib.data_ptr(), row.data_ptr(), rates.data_ptr(), scratch.data_ptr(),
-        order[0].numel(), C, user_block, item_block, fe, gb, min_rating,
-        rating_range, int(loss), int(bool(biased)), stream)
+    err = fn(W.data_ptr(), H.data_ptr(), packed.data_ptr(),
+             *(o.data_ptr() for o in order), rates.data_ptr(),
+             scratch.data_ptr(), order[0].numel(), C, user_block, item_block, fe, gb,
+             min_rating, rating_range, int(loss), int(bool(biased)), stream)
     if err != 0:
         raise RuntimeError(f"sgd_epoch: kernel launch failed, CUDA error {err}")
+
+
+def sgd_epoch(W, H, packed, order, hp, rates, *, user_block: int,
+              item_block: int, loss: int, biased: bool):
+    """One epoch of the resident schedule, in place on ``W`` and ``H``;
+    returns them."""
+    _check(W, H, packed, order, rates)
+    kw = dict(user_block=user_block, item_block=item_block, loss=loss,
+              biased=biased)
+    if W.device.type == "cpu":
+        return sgd_epoch_reference(W, H, packed, order, hp, rates, **kw)
+    _launch(W, H, packed, order, hp, rates, **kw)
     sgd_epoch.launches += 1
     return W, H
 
 
+def sgd_epoch_tiled(W, H, packed, order, hp, rates, *, slab_blocks: int,
+                    user_block: int, item_block: int, loss: int,
+                    biased: bool):
+    """One epoch of the slab-tiled schedule, in place on ``W`` and ``H``;
+    returns them."""
+    _check(W, H, packed, order, rates)
+    kw = dict(user_block=user_block, item_block=item_block, loss=loss,
+              biased=biased)
+    if W.device.type == "cpu":
+        return sgd_epoch_tiled_reference(W, H, packed, order, hp, rates,
+                                         slab_blocks=slab_blocks, **kw)
+    ub, ibr, sl, row = order
+    _launch(W, H, packed, (ub, sl * slab_blocks + ibr, row), hp, rates, **kw)
+    sgd_epoch_tiled.launches += 1
+    return W, H
+
+
 sgd_epoch.launches = 0
+sgd_epoch_tiled.launches = 0

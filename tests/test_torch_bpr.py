@@ -31,7 +31,7 @@ from mymedialite_tpu_torch.convert import bpr_tables_from_jax
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.models import bpr as tbpr
 from mymedialite_tpu_torch.models.registry import create_item_recommender
-from mymedialite_tpu_torch.ops import bpr_plan as tp
+from mymedialite_tpu_torch.ops import plan as tplan
 from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch
 from mymedialite_tpu_torch.ops.topk import recommend_batch
 from torch_threads import one_torch_thread  # noqa: F401
@@ -243,12 +243,31 @@ def test_train_from_seeded_generator(data):
     assert evaluate_items(a, test, train)["AUC"] > 0.6
 
 
-def test_tiled_catalog_raises(data, monkeypatch):
+def test_tiled_catalog_trains(data, monkeypatch):
+    """The setup that raised before the tiled schedule was ported: past
+    the resident bound, BPRMF trains on the tiled path."""
     train, _ = data
-    monkeypatch.setattr(tp, "RESIDENT_ITEM_TABLE_BYTES", 64 * 1024)
+    monkeypatch.setattr(tplan, "RESIDENT_ITEM_TABLE_BYTES", 256 * 1024)
+    monkeypatch.setattr(tplan, "TILED_SLAB_BYTES", 256 * 1024)
+    m = create_item_recommender("BPRMF", "num_factors=8 num_iter=2 "
+                                "device=cpu")
+    m.feedback = train
+    m.train()
+    assert m._tiled is not None and m._tiled["num_slabs"] == 2
+    assert "subkeys_tbl" in m._neg_state
+    assert "bitmask_tbl" not in m._neg_state
+    assert torch.isfinite(m.params["item_factors"]).all()
+
+
+def test_tiled_catalog_raises(data, monkeypatch):
+    """Where neither the resident nor the tiled schedule applies (here a
+    slab passes the shrunk resident bound) the JAX package runs its XLA
+    epoch, which the port does not have: training raises."""
+    train, _ = data
+    monkeypatch.setattr(tplan, "RESIDENT_ITEM_TABLE_BYTES", 64 * 1024)
     m = create_item_recommender("BPRMF", "num_factors=8 device=cpu")
     m.feedback = train
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
         m.train()
 
 

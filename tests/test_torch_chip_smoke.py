@@ -34,7 +34,8 @@ def test_smoke_imports_only_the_port():
 
 def test_smoke_reports_every_kernel():
     """Each ``csrc/*.cu`` file is the source of an entry of the kernels
-    line, with the TPU kernel it replaces."""
+    line, with the TPU kernels it replaces (resident and slab-tiled), and
+    every entry carries the keys of the line."""
     text = open(SMOKE).read()
     csrc = os.path.join(REPO, "mymedialite_tpu_torch", "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
@@ -42,11 +43,17 @@ def test_smoke_reports_every_kernel():
     for src in sources:
         assert f'"mymedialite_tpu_torch/csrc/{src}"' in text, src
     for replaced in ("mymedialite_tpu/ops/pallas_sgd.py:324",
-                     "mymedialite_tpu/ops/pallas_bpr.py:451"):
+                     "mymedialite_tpu/ops/pallas_sgd.py:745",
+                     "mymedialite_tpu/ops/pallas_bpr.py:451",
+                     "mymedialite_tpu/ops/pallas_bpr.py:979"):
         assert f'"{replaced}"' in text
         path, line = replaced.split(":")
         with open(os.path.join(REPO, path)) as f:
             assert f.read().splitlines()[int(line) - 1].startswith("def _mxu_")
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert f"{key}=" in text, key
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,5 +1,6 @@
-"""GPU tier of the port: the CUDA kernels (SGD epoch, BPR epoch) against
-their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
+"""GPU tier of the port: the CUDA kernels (SGD epoch and BPR epoch, each
+on the resident and on the slab-tiled schedule) against their plain
+PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
 ``test_duplicate_heavy_spread`` measures):
@@ -13,17 +14,23 @@ import numpy as np
 import pytest
 import torch
 
-from mymedialite_tpu.data.arrays import PosOnlyData
+from mymedialite_tpu_torch.data.arrays import PosOnlyData
 from mymedialite_tpu_torch.data.synthetic import (
     posonly_from_ratings, synthetic_ratings,
 )
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
-from mymedialite_tpu_torch.models.registry import create_item_recommender
+from mymedialite_tpu_torch.models.registry import (
+    create_item_recommender, create_rating_predictor,
+)
 from mymedialite_tpu_torch.ops import bpr_plan as BP
 from mymedialite_tpu_torch.ops import plan as P
 from mymedialite_tpu_torch.ops import sgd as S
-from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_reference
-from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_reference
+from mymedialite_tpu_torch.ops.bpr_epoch import (
+    bpr_epoch, bpr_epoch_reference, bpr_epoch_tiled, bpr_epoch_tiled_reference,
+)
+from mymedialite_tpu_torch.ops.sgd_epoch import (
+    sgd_epoch, sgd_epoch_reference, sgd_epoch_tiled, sgd_epoch_tiled_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -385,3 +392,204 @@ def test_bpr_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="fe <="):
         bpr_epoch(wide, torch.zeros((H.shape[0], 264), device=cuda),
                   *args[:-1], torch.zeros((264, 6), device=cuda), **kw)
+
+
+# --- the slab-tiled schedule (kernels 2 and 4) -----------------------------
+
+def shrink_budgets(mp):
+    """At k=40 an item block is 256 KB: a 3,000-item catalog (three
+    blocks) passes a 512 KB resident bound, and a 256 KB slab budget gives
+    one block per slab, so three slabs."""
+    mp.setattr(P, "RESIDENT_ITEM_TABLE_BYTES", 512 * 1024)
+    mp.setattr(P, "TILED_SLAB_BYTES", 256 * 1024)
+
+
+@pytest.mark.parametrize("loss,biased", [
+    (loss, biased) for loss in (S.LOSS_RMSE, S.LOSS_MAE, S.LOSS_LOGISTIC)
+    for biased in (True, False)])
+def test_sgd_tiled_kernel_matches_reference(cuda, loss, biased):
+    """Two tiled epochs (three one-block slabs, the histogram-chosen
+    chunk) from the same tables and orders: atol 1e-4, as the resident
+    kernel's check."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=0)
+    plan = P.prepare_mxu_tiled(data.users, data.items, data.values, 2000,
+                               3000, user_block=512, item_block=1024,
+                               chunk=None, slab_blocks=1, shuffle_seed=1,
+                               device=cuda)
+    assert plan.num_slabs == 3
+    rng = np.random.default_rng(0)
+    W, H = P.extend_tables_mxu(
+        plan, 0.1 * rng.standard_normal((2000, 40)),
+        0.1 * rng.standard_normal((3000, 40)),
+        0.1 * rng.standard_normal(2000) if biased else None,
+        0.1 * rng.standard_normal(3000) if biased else None)
+    rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0, 0.01,
+                               biased, True, True, device=cuda)
+    hp = (0.5, 1.0, 4.0) if biased else (3.5, 1.0, 4.0)
+    kw = dict(slab_blocks=plan.slab_blocks, user_block=plan.user_block,
+              item_block=plan.item_block, loss=loss, biased=biased)
+    Wk, Hk = W.clone(), H.clone()
+    before = (sgd_epoch.launches, sgd_epoch_tiled.launches)
+    for epoch in range(2):
+        order = plan.epoch_order(11 + epoch)
+        sgd_epoch_tiled_reference(W, H, plan.packed, order, hp, rates, **kw)
+        sgd_epoch_tiled(Wk, Hk, plan.packed, order, hp, rates, **kw)
+    torch.cuda.synchronize()
+    assert (sgd_epoch.launches, sgd_epoch_tiled.launches) == \
+        (before[0], before[1] + 2)
+    assert torch.isfinite(Wk).all() and torch.isfinite(Hk).all()
+    assert (Wk - W).abs().max().item() <= 1e-4
+    assert (Hk - H).abs().max().item() <= 1e-4
+
+
+def _bpr_tiled_state(device, fb, wbpr):
+    """The models' tiled plan options, with one-block slabs."""
+    plan, state, meta = BP.prepare_bpr_mxu(
+        fb, uniform_user=not wbpr, shuffle_seed=1, chunk=None, kcap=128,
+        subkeys=True, ksub_cap=256, bitmask=False, chunk_overhead=256,
+        device=device)
+    tl = BP.bpr_tiled_plan(plan, state["nvalid"], slab_blocks=1)
+    return plan, state, meta, tl
+
+
+def _bpr_tiled_args(plan, state, meta, tl, rates, seed, wbpr):
+    """Order and random bits of one tiled epoch (bits over the whole
+    int32 range)."""
+    B, num_slabs, slab_items = tl
+    dev = plan.packed.device
+    order = BP.bpr_tiled_epoch_order(
+        plan, state["nvalid"], slab_items, slab_blocks=B,
+        num_slabs=num_slabs, num_items=meta[3], seed=seed,
+        block_mass=state["block_mass"] if wbpr else None)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = (torch.randint(0, 2 ** 32, (plan.num_chunks, meta[2], plan.chunk),
+                          generator=gen, device=dev) - 2 ** 31).to(torch.int32)
+    return (plan.packed, state["subkeys_tbl"], state["cdf_tbl"], bits, order,
+            rates)
+
+
+@pytest.mark.parametrize("soft_margin,wbpr,num_factors", [
+    (False, False, 40), (True, False, 40), (False, True, 40),
+    (True, True, 40), (False, False, 100), (False, True, 200)])
+def test_bpr_tiled_kernel_matches_reference(cuda, soft_margin, wbpr,
+                                            num_factors):
+    """Two tiled epochs with sub-bucketed membership keys from the same
+    tables, orders and bits: identical negatives, tables within 1e-4."""
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    plan, state, meta, tl = _bpr_tiled_state(cuda, fb, wbpr)
+    assert tl[1] == 3
+    W, H = _bpr_tables(cuda, plan, fb.num_users, fb.num_items, num_factors, 0)
+    rates = BP.bpr_mxu_column_rates(num_factors, W.shape[1], 0.05, 0.0025,
+                                    0.0025, 0.00025, 0.01, True, device=cuda)
+    kw = dict(slab_blocks=tl[0], user_block=plan.user_block,
+              item_block=plan.item_block, soft_margin=soft_margin, wbpr=wbpr,
+              subkeys=True, return_negatives=True)
+    Wk, Hk = W.clone(), H.clone()
+    before = (bpr_epoch.launches, bpr_epoch_tiled.launches)
+    for epoch in range(2):
+        args = _bpr_tiled_args(plan, state, meta, tl, rates, 11 + epoch, wbpr)
+        _, _, neg_r = bpr_epoch_tiled_reference(W, H, *args, **kw)
+        _, _, neg_k = bpr_epoch_tiled(Wk, Hk, *args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(neg_k, neg_r)
+        assert (neg_k[:, 1] == ONE_BITS).float().mean().item() > 0.99
+    assert (bpr_epoch.launches, bpr_epoch_tiled.launches) == \
+        (before[0], before[1] + 2)
+    assert torch.isfinite(Wk).all() and torch.isfinite(Hk).all()
+    assert (Wk - W).abs().max().item() <= 1e-4
+    assert (Hk - H).abs().max().item() <= 1e-4
+
+
+def test_bpr_tiled_duplicate_heavy_one_chunk_at_a_time(cuda):
+    """test_bpr_duplicate_heavy_one_chunk_at_a_time for the sub-bucketed
+    keys on the tiled schedule: Zipf(1.3) over 3,000 items in three
+    one-block slabs, so chunks hold hundreds of slots on one item and some
+    draw their negatives from their own positive block. Each chunk
+    stepped alone from the plain version's state agrees with the plain
+    step to 1e-5."""
+    rng = np.random.default_rng(0)
+    U, I, n = 700, 3000, 20000
+    fb = PosOnlyData(rng.integers(0, U, n), rng.zipf(1.3, n) % I,
+                     num_users=U, num_items=I)
+    plan, state, meta, tl = _bpr_tiled_state(cuda, fb, False)
+    W, H = _bpr_tables(cuda, plan, U, I, 40, 1)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.01, True, device=cuda)
+    kw = dict(slab_blocks=tl[0], user_block=plan.user_block,
+              item_block=plan.item_block, subkeys=True)
+    packed, keys, cdf, bits, order, _ = _bpr_tiled_args(
+        plan, state, meta, tl, rates, 5, False)
+    real = packed[:, 3] != 0
+    top = max(torch.bincount(packed[c, 1][real[c]].long()).max().item()
+              for c in range(plan.num_chunks))
+    assert top > 100
+    _, ibr, isl, _, jbr, jsl, *_ = order
+    same = ((isl == jsl) & (ibr == jbr)).sum().item()
+    assert same > 0           # i and j rows from one block in one chunk
+
+    Wp, Hp = W.clone(), H.clone()
+    steps = []
+    for k in range(plan.num_chunks):
+        one = tuple(t[k:k + 1].contiguous() for t in order)
+        args = (packed, keys, cdf, bits[k:k + 1].contiguous(), one, rates)
+        Wk, Hk = Wp.clone(), Hp.clone()
+        bpr_epoch_tiled(Wk, Hk, *args, **kw)
+        bpr_epoch_tiled_reference(Wp, Hp, *args, **kw)
+        torch.cuda.synchronize()
+        steps.append(max((Wk - Wp).abs().max().item(),
+                         (Hk - Hp).abs().max().item()))
+
+    args = (packed, keys, cdf, bits, order, rates)
+    runs = []
+    for epoch in (bpr_epoch_tiled, bpr_epoch_tiled_reference,
+                  bpr_epoch_tiled_reference):
+        Wr, Hr = W.clone(), H.clone()
+        epoch(Wr, Hr, *args, **kw)
+        runs.append((Wr, Hr))
+    torch.cuda.synchronize()
+    gap, spread = _dist(runs[0], runs[1]), _dist(runs[1], runs[2])
+    print(f"\nbpr tiled duplicate-heavy (subkeys), {plan.num_chunks} chunks, "
+          f"up to {top} slots on one item, {same} chunks with i and j in one "
+          f"block: one-step max err {max(steps):.3e}; whole epoch kernel vs "
+          f"plain {gap:.3e}, plain vs plain {spread:.3e}")
+    assert max(steps) <= 1e-5
+    assert math.isfinite(gap)
+    assert gap <= max(1e-4, 4 * spread)
+
+
+def test_models_take_the_tiled_kernels_on_the_card(cuda, monkeypatch):
+    """BiasedMatrixFactorization and BPRMF through the registry on a
+    catalog past the (shrunk) resident bound launch the tiled kernels once
+    per epoch and the resident ones never."""
+    shrink_budgets(monkeypatch)
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=2)
+    perm = np.random.default_rng(3).permutation(len(data))
+    cut = len(data) // 5
+    train = data.select(np.sort(perm[cut:]))
+    test = data.select(np.sort(perm[:cut]))
+    counts = lambda: (sgd_epoch.launches, sgd_epoch_tiled.launches,  # noqa: E731
+                      bpr_epoch.launches, bpr_epoch_tiled.launches)
+    before = counts()
+    mf = create_rating_predictor("BiasedMatrixFactorization",
+                                 "num_factors=40 num_iter=3 device=cuda")
+    mf.ratings = train
+    mf.train()
+    bpr = create_item_recommender("BPRMF", "num_factors=40 num_iter=3 "
+                                  "device=cuda")
+    bpr.feedback = posonly_from_ratings(train)
+    bpr.train()
+    torch.cuda.synchronize()
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0, 3, 0, 3]
+    assert isinstance(mf._plan, P.MxuTiledPlan) and mf._plan.num_slabs == 3
+    assert bpr._tiled["num_slabs"] == 3
+    pred = mf.predict_batch(test.users, test.items)
+    rmse = float(np.sqrt(np.mean((pred - test.values) ** 2)))
+    base = float(np.sqrt(np.mean((test.values - train.values.mean()) ** 2)))
+    assert rmse < base
+    res = evaluate_items(bpr, posonly_from_ratings(test),
+                         posonly_from_ratings(train))
+    assert math.isfinite(res["AUC"]) and res["AUC"] > 0.6

@@ -1,8 +1,10 @@
-"""The port never imports jax: a fresh interpreter in which any import of
-jax raises runs the port's two CLIs end to end on the CPU (train,
+"""The port never imports jax or the JAX package: a fresh interpreter in
+which any import of jax or of ``mymedialite_tpu`` (the name itself or a
+submodule; ``mymedialite_tpu_torch`` shares the prefix and stays
+allowed) raises runs the port's two CLIs end to end on the CPU (train,
 evaluate, save, load; rating prediction with BiasedMatrixFactorization,
-item recommendation with BPRMF, WeightedBPRMF and MostPopular) and must
-exit 0."""
+item recommendation with BPRMF, WeightedBPRMF and MostPopular) from the
+port's own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -15,16 +17,22 @@ SCRIPT = textwrap.dedent("""
     import importlib.abc
     import sys
 
+    BLOCKED = ("jax", "jaxlib", "mymedialite_tpu")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax imported by the port: " + name)
+            if blocked(name):
+                raise ImportError("imported by the port: " + name)
             return None
 
     sys.meta_path.insert(0, NoJax())
 
     import os
-    from mymedialite_tpu.data.synthetic import synthetic_ratings, split_ratings
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings)
     from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
 
     d = os.getcwd()
@@ -51,7 +59,7 @@ SCRIPT = textwrap.dedent("""
         assert item_recommendation.main(
             items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
     assert item_recommendation.main(items) == 0
-    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
 
