@@ -28,26 +28,35 @@ Phases (any failure raises and the script exits non-zero):
    3 epochs) on the same pairs as positive-only feedback; the BPR kernel
    against the plain version at this shape, both timed; ranking
    evaluation of 4,096 seeded test users against MostPopular;
-8. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
-   25,000,095 draws, the published ml-25m catalog), split 80/20: 61 item
-   blocks at k=40, past the resident bound of 40, so both model families
-   take the slab-tiled schedule; phases 9 and 10 share them;
-9. the rating main path on the tiled schedule: BiasedMatrixFactorization
-   as in phase 6, through the tiled SGD kernel, compared with its plain
-   version at this shape on the shortest prefix of an epoch's order that
-   crosses three slab boundaries (plus 256 chunks);
-10. the item main path on the tiled schedule: BPRMF as in phase 7, through
+8. the SVD++-epoch kernel against its plain PyTorch version on the card
+   at phase 3's shape, k=20, one epoch from the same tables: plain, sigmoid
+   RMSE, sigmoid MAE and without p (the asymmetric factor models);
+9. the SVD++ rating main path on phase 5's data: SVDPlusPlus (k=20, learn
+   rate 0.003, 3 epochs) trained through the registry with the test pairs
+   as additional feedback (as the CLI sets them), evaluated against the
+   global average; the SVD++ kernel against the plain version on the
+   schedule's first 64 user blocks, both timed;
+10. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
+    25,000,095 draws, the published ml-25m catalog), split 80/20: 61 item
+    blocks at k=40, past the resident bound of 40, so both model families
+    take the slab-tiled schedule; phases 11 and 12 share them;
+11. the rating main path on the tiled schedule: BiasedMatrixFactorization
+    as in phase 6, through the tiled SGD kernel, compared with its plain
+    version at this shape on the shortest prefix of an epoch's order that
+    crosses three slab boundaries (plus 256 chunks);
+12. the item main path on the tiled schedule: BPRMF as in phase 7, through
     the tiled BPR kernel with sub-bucketed keys, compared with its plain
     version at this shape on such a prefix (identical negatives), ranked
     against MostPopular;
-11. the rating_prediction CLI in process at 6,040 x 3,706 x 1M ratings,
-    then its model saved and loaded through the CLI;
-12. the item_recommendation CLI at the same size with BPRMF, then its
+13. the rating_prediction CLI in process at 6,040 x 3,706 x 1M ratings,
+    with BiasedMatrixFactorization and with SVDPlusPlus (``--test-file``,
+    so transductive), each model then saved and loaded through the CLI;
+14. the item_recommendation CLI at the same size with BPRMF, then its
     model saved and loaded through the CLI.
 
 Before each main path every kernel's launch count is set to 0, and after
-it the path's kernel must have run once per epoch and the other
-schedule's kernel never. The line before the last is one JSON object
+it the path's kernel must have run once per epoch and every other kernel
+never. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of jax and nothing of the JAX package: only the
 port, numpy and torch.
@@ -91,8 +100,10 @@ def card_line() -> str:
 def epoch_functions():
     from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
     from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
+    from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
     return dict(sgd_epoch=sgd_epoch, sgd_epoch_tiled=sgd_epoch_tiled,
-                bpr_epoch=bpr_epoch, bpr_epoch_tiled=bpr_epoch_tiled)
+                bpr_epoch=bpr_epoch, bpr_epoch_tiled=bpr_epoch_tiled,
+                svdpp_epoch=svdpp_epoch)
 
 
 @contextlib.contextmanager
@@ -171,6 +182,41 @@ def bpr_bound(plan, ub, ib, row, jb, neg, num_factors: int, *,
     moved = 2 * rows * cols * 4 + n_real * (16 + 4) \
         + min(n_real * probe_bytes, table_bytes) + 6 * row.numel() * 4
     return bound_ms(moved, 18.0 * cols * n_upd)
+
+
+def svdpp_bound(plan, ph, ub, ib, row, num_factors: int):
+    """The least an SVD++ epoch over the scheduled steps (ph, ub, ib, row)
+    needs, at the tables' live columns (f = num_factors): each W row that a
+    real rating touches read at f + 2 (p, b_u, inv_sqrt; the constant-1
+    column need not be read) and written at f + 1 (p, b_u); each such Q
+    row read and written at f + 1 (q, b_i); each Y row that a real edge
+    touches read and written at f; each real rating's (u, i, value) and
+    each real edge's (u, i) read once (an edge's value is 0 and a real
+    slot's weight 1, so neither need be read; an edge chunk is scheduled
+    in S and in Y, its slots count once); the schedule (4 int32 per step);
+    per real rating the score, the gradient and the W, Q and c updates,
+    about 14 float32 operations per live column (f + 1), per S edge 3 and
+    per Y edge 5 per factor column."""
+    f = num_factors
+    moved, flops = 4 * row.numel() * 4, 0.0
+    for phase, ops in ((0, 3.0), (1, 14.0), (2, 5.0)):
+        sel = ph == phase
+        d = plan.packed[row[sel].long()]              # [n, 4, C]
+        real = d[:, 3] != 0
+        n_real = int(real.sum())
+        flops += ops * (f + 1 if phase == 1 else f) * n_real
+        if phase == 1:
+            w_rows = distinct_rows(ub[sel], d[:, 0], real,
+                                   plan.user_block).numel()
+            q_rows = distinct_rows(ib[sel], d[:, 1], real,
+                                   plan.item_block).numel()
+            moved += (w_rows * (2 * f + 3) + q_rows * 2 * (f + 1)) * 4 \
+                + n_real * 12
+        if phase == 0:
+            y_rows = distinct_rows(ib[sel], d[:, 1], real,
+                                   plan.item_block).numel()
+            moved += y_rows * 2 * f * 4 + n_real * 8
+    return bound_ms(moved, flops)
 
 
 def slab_prefix(slabs, crossings: int = 3, extra: int = 256) -> int:
@@ -663,6 +709,144 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
+                          num_factors, loss, sigmoid):
+    """One SVD++ epoch (or a prefix of whole user blocks) of the kernel
+    and of the plain version from the same tables. Returns (max |diff|,
+    kernel ms, plain ms)."""
+    from mymedialite_tpu_torch.ops.svdpp_epoch import (
+        svdpp_epoch, svdpp_epoch_reference,
+    )
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              num_factors=num_factors, loss=loss, sigmoid=sigmoid)
+    k_tabs = tuple(t.clone() for t in tables)
+    r_tabs = tuple(t.clone() for t in tables)
+    _, _, kernel_ms, plain_ms = time_kernel_and_plain(
+        lambda: svdpp_epoch(*k_tabs, plan.packed, schedule, hp, rates, **kw),
+        lambda: svdpp_epoch_reference(*r_tabs, plan.packed, schedule, hp,
+                                      rates, **kw))
+    return table_error(k_tabs, r_tabs), kernel_ms, plain_ms
+
+
+# (label, sigmoid, loss, use_p): SVDPlusPlus, SigmoidSVDPlusPlus with the
+# RMSE and the MAE loss, and the asymmetric factor models (no p)
+SVDPP_VARIANTS = (("plain", False, 0, True), ("sigmoid rmse", True, 0, True),
+                  ("sigmoid mae", True, 1, True),
+                  ("no p (afm)", True, 0, False))
+
+
+def phase_svdpp_kernel_check(dev):
+    from mymedialite_tpu_torch.data.synthetic import synthetic_ratings
+    from mymedialite_tpu_torch.ops import svdpp_plan as sp
+    from mymedialite_tpu_torch.ops.svdpp import history_edges
+    U, I, f = 2000, 3000, 20
+    data = synthetic_ratings(num_users=U, num_items=I, num_ratings=100_000,
+                             seed=3)
+    hu, hi = history_edges(data.users, data.items, I)
+    plan = sp.prepare_svdpp_mxu(data.users, data.items, data.values, hu, hi,
+                                U, I, shuffle_seed=4, device=dev)
+    fe = sp.svdpp_fe(f)
+    rng = np.random.default_rng(5)
+    p, bu, q, bi, y = (torch.from_numpy(
+        (0.1 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        for shape in ((U, f), (U,), (I, f), (I,), (I, f)))
+    noo = torch.from_numpy(plan.new_of_old.astype(np.int64)).to(dev)
+    worst = 0.0
+    for label, sigmoid, loss, use_p in SVDPP_VARIANTS:
+        tables = sp.svdpp_tables_to_mxu(
+            p if use_p else torch.zeros_like(p), bu, plan.inv_sqrt, q, bi, y,
+            noo, u_pad=plan.u_pad, i_pad=plan.i_pad, fe=fe)
+        # SVDPlusPlus's defaults at quality.py's learn rate
+        rates = sp.svdpp_mxu_rates(f, fe, 0.003, 0.7, 0.015, 0.33, 0.015,
+                                   use_p=use_p, update_user=True,
+                                   update_item=True, device=dev)
+        hp = (0.6, 1.0, 4.0) if sigmoid else (3.6, 1.0, 4.0)
+        err, k_ms, p_ms = svdpp_kernel_vs_plain(
+            plan, tables, plan.schedule, hp, rates, num_factors=f, loss=loss,
+            sigmoid=sigmoid)
+        log(f"svdpp kernel check {label}: max_abs_err {err:.3e} (tol "
+            f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain {p_ms:.1f} ms "
+            f"({plan.num_steps} steps over {plan.packed.shape[0]} chunks of "
+            f"{plan.chunk})")
+        check(err, f"svdpp {label}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
+    """SVDPlusPlus at k=20 (quality.py's learn rate 0.003) for 3 epochs
+    through the registry, transductive on the test pairs; the epoch kernel
+    against its plain version on the schedule's first ``prefix_blocks``
+    user blocks (s and c start from zero at each block, so such a prefix
+    is a whole piece of the epoch); RMSE against the global average.
+    Returns the kernel's numbers for the kernels line."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import svdpp as svdpp_module
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    from mymedialite_tpu_torch.ops import svdpp_plan as sp
+
+    model = create_rating_predictor(
+        "SVDPlusPlus",
+        f"num_factors=20 num_iter=3 learn_rate=0.003 device={dev.type}")
+    model.ratings = train
+    model.additional_feedback = (test.users, test.items)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_training((sp, "prepare_svdpp_mxu"),
+                        (svdpp_module, "svdpp_epoch")) as timings, \
+            counted_path("svdpp_epoch", model.num_iter) as counted:
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    tables = model._mxu_tables
+    if any(t.device.type != dev.type for t in tables):
+        raise AssertionError("kernel-layout tables are not on the card")
+    plan = model._plan
+    ph, ub, ib, row = plan.schedule
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    full_ms, full_by = svdpp_bound(plan, ph, ub, ib, row, model.num_factors)
+    log(f"svdpp train: {train_s:.2f} s; plan prep {timings['plan_s'][0]:.2f} "
+        f"s ({plan.n_edges} edges, {plan.n_ratings} ratings; "
+        f"{int((ph == 0).sum())} S + {int((ph == 1).sum())} R + "
+        f"{int((ph == 2).sum())} Y = {plan.num_steps} steps of "
+        f"{plan.chunk}, {plan.n_ublocks} x {plan.n_iblocks} blocks, largest "
+        f"user block {int(torch.bincount(ub.long()).max())} steps); "
+        f"svdpp_epoch launches {counted['launches']}; epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
+        f"{len(train) / (epoch_ms / 1e3):.4g} rating updates/s; epoch bound "
+        f"{full_ms:.4f} ms ({full_by}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the kernel against the plain version on the first user blocks, from
+    # the trained tables (one more pass over them each)
+    n = int((ub < prefix_blocks).sum())
+    prefix = tuple(t[:n].contiguous() for t in plan.schedule)
+    hp, rates = model._epoch_args()
+    err, kernel_ms, plain_ms = svdpp_kernel_vs_plain(
+        plan, tables, prefix, hp, rates, num_factors=model.num_factors,
+        loss=0, sigmoid=False)
+    b_ms, b_by = svdpp_bound(plan, *prefix, model.num_factors)
+    log(f"full-shape svdpp_epoch (first {prefix_blocks} of "
+        f"{plan.n_ublocks} user blocks, {n} of {plan.num_steps} steps): "
+        f"kernel {kernel_ms:.1f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (tol {KERNEL_TOL})")
+    check(err, "svdpp_epoch at full shape")
+
+    t0 = time.perf_counter()
+    res = evaluate_ratings(model, test, train)
+    eval_s = time.perf_counter() - t0
+    baseline = float(np.sqrt(np.mean(
+        (test.values.astype(np.float64) - train.values.mean()) ** 2)))
+    log(f"svdpp eval: {res} ({eval_s:.2f} s); global-average RMSE "
+        f"{baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError("SVD++ RMSE does not beat the global average")
+    return dict(launches=counted["launches"], max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def run_cli(main, argv):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -707,15 +891,22 @@ def phase_cli(dev, tmp):
                                           part.values]),
                    fmt=("%d", "%d", "%g"), delimiter="\t")
         paths.append(path)
-    argv = ["--training-file", paths[0], "--test-file", paths[1],
-            "--recommender-options",
-            f"num_factors=40 num_iter=3 device={dev.type}"]
-    with counted_path("sgd_epoch", 3):
-        text = save_load_same(rating_prediction.main, argv,
-                              os.path.join(tmp, "biasedmf.model"))
-    rmse = result_value(text, "RMSE")
-    if not (math.isfinite(rmse) and 0 < rmse < 2):
-        raise AssertionError(f"bad CLI result: RMSE {rmse}")
+    files = ["--training-file", paths[0], "--test-file", paths[1]]
+    # BiasedMatrixFactorization (the default), then SVDPlusPlus, which the
+    # CLI makes transductive on the test pairs
+    for kernel, model, opts in (
+            ("sgd_epoch", "biasedmf", "num_factors=40 num_iter=3"),
+            ("svdpp_epoch", "svdpp",
+             "num_factors=20 num_iter=3 learn_rate=0.003")):
+        argv = files + ["--recommender-options", f"{opts} device={dev.type}"]
+        if model == "svdpp":
+            argv += ["--recommender", "SVDPlusPlus"]
+        with counted_path(kernel, 3):
+            text = save_load_same(rating_prediction.main, argv,
+                                  os.path.join(tmp, f"{model}.model"))
+        rmse = result_value(text, "RMSE")
+        if not (math.isfinite(rmse) and 0 < rmse < 2):
+            raise AssertionError(f"bad CLI result ({model}): RMSE {rmse}")
 
 
 def phase_item_cli(dev, tmp):
@@ -753,6 +944,8 @@ KERNELS = {
                   "mymedialite_tpu/ops/pallas_bpr.py:451"),
     "bpr_epoch_tiled": ("mymedialite_tpu_torch/csrc/bpr_epoch.cu",
                         "mymedialite_tpu/ops/pallas_bpr.py:979"),
+    "svdpp_epoch": ("mymedialite_tpu_torch/csrc/svdpp_epoch.cu",
+                    "mymedialite_tpu/ops/pallas_svdpp.py:308"),
 }
 
 
@@ -790,6 +983,8 @@ def main() -> int:
                                  num_ratings=20_000_000, seed=1)
     runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
     runs["bpr_epoch"] = phase_bpr_path(dev, train, test, tiled=False)
+    worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
+    runs["svdpp_epoch"] = phase_svdpp_path(dev, train, test)
     del train, test
     torch.cuda.empty_cache()
     log(f"resident paths: {time.perf_counter() - t_start:.1f} s")

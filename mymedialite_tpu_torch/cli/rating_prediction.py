@@ -165,6 +165,13 @@ def main(argv=None):
             n_items = max(training_data.num_items, test_data.num_items)
             training_data = training_data.select(
                 np.arange(len(training_data)), n_users, n_items)
+        # transductive predictors (the SVD++ family) see the test users'
+        # rated items as implicit feedback (reference
+        # RatingPrediction.cs:424-425)
+        if hasattr(recommender, "additional_feedback") and \
+                not args.test_no_ratings:
+            recommender.additional_feedback = (test_data.users,
+                                               test_data.items)
     elif args.test_ratio > 0:
         rng = np.random.default_rng(args.random_seed or 0)
         print(f"test ratio {args.test_ratio}", file=sys.stderr)

@@ -36,6 +36,11 @@ PORTED_RATING_PREDICTORS = {
         "mymedialite_tpu_torch.models.mf:MatrixFactorization",
     "BiasedMatrixFactorization":
         "mymedialite_tpu_torch.models.mf:BiasedMatrixFactorization",
+    **{name: f"mymedialite_tpu_torch.models.svdpp:{name}" for name in (
+        "SVDPlusPlus", "SigmoidSVDPlusPlus",
+        "SigmoidItemAsymmetricFactorModel",
+        "SigmoidUserAsymmetricFactorModel",
+        "SigmoidCombinedAsymmetricFactorModel")},
 }
 PORTED_ITEM_RECOMMENDERS = {
     "MostPopular": "mymedialite_tpu_torch.models.item_baselines:MostPopular",

@@ -57,6 +57,11 @@ class KernelLibrary:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
+        fn = self.lib.mml_svdpp_epoch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=1)

@@ -106,12 +106,16 @@ class MxuPlan:
 def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
                      user_block: int = 512, item_block: int = 1024,
                      chunk=256, shuffle_seed=0, chunk_overhead: int = 0,
-                     device="cpu") -> MxuPlan:
+                     item_perm=None, device="cpu") -> MxuPlan:
     """Bucket the rating stream by (user_block x item_block) cells with
     popularity-balanced item blocks; pad each cell to chunk multiples.
     ``chunk=None`` picks the histogram-optimal chunk size: the candidate
     with the fewest padded slots plus ``chunk_overhead`` slots per chunk
-    (a fixed per-chunk cost), preferring larger chunks on near-ties."""
+    (a fixed per-chunk cost), preferring larger chunks on near-ties.
+    ``item_perm`` (the ``new_of_old`` of another plan over the same
+    items and item block) replaces the popularity permutation, so that
+    two event streams address one permuted item table (SVD++: ratings and
+    history edges)."""
     from mymedialite_tpu_torch import native
 
     n = len(users)
@@ -126,16 +130,20 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
     n_ub = max((num_users + UB - 1) // UB, 1)
     n_ib = max((num_items + IB - 1) // IB, 1)
 
-    # popularity round-robin: the j-th most rated item goes to block
-    # j % n_ib, so every item block gets about equal rating mass
-    counts = native.count_items(items, num_items) if n else None
-    if counts is None:
-        counts = np.bincount(items, minlength=num_items) if n else \
-            np.zeros(num_items, np.int64)
-    rank = np.argsort(-counts, kind="stable")
-    j = np.arange(num_items)
-    new_of_old = np.empty(num_items, np.int32)
-    new_of_old[rank] = ((j % n_ib) * IB + j // n_ib).astype(np.int32)
+    if item_perm is not None:
+        new_of_old = np.asarray(item_perm, dtype=np.int32)
+        assert new_of_old.shape[0] == num_items
+    else:
+        # popularity round-robin: the j-th most rated item goes to block
+        # j % n_ib, so every item block gets about equal rating mass
+        counts = native.count_items(items, num_items) if n else None
+        if counts is None:
+            counts = np.bincount(items, minlength=num_items) if n else \
+                np.zeros(num_items, np.int64)
+        rank = np.argsort(-counts, kind="stable")
+        j = np.arange(num_items)
+        new_of_old = np.empty(num_items, np.int32)
+        new_of_old[rank] = ((j % n_ib) * IB + j // n_ib).astype(np.int32)
     old_of_new = np.full(n_ib * IB, -1, np.int32)
     old_of_new[new_of_old] = np.arange(num_items, dtype=np.int32)
 

@@ -152,7 +152,7 @@ def test_save_load_and_prediction_file(files, aligned, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--cross-validation", "3"], ["--online-evaluation"], ["--search-hp"],
-    ["--profile", "trace"], ["--recommender", "SVDPlusPlus"]],
+    ["--profile", "trace"], ["--recommender", "GSVDPlusPlus"]],
     ids=["cross-validation", "online-evaluation", "search-hp", "profile",
          "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):

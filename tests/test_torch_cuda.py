@@ -1,6 +1,6 @@
 """GPU tier of the port: the CUDA kernels (SGD epoch and BPR epoch, each
-on the resident and on the slab-tiled schedule) against their plain
-PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
+on the resident and on the slab-tiled schedule; the SVD++ epoch) against
+their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
 ``test_duplicate_heavy_spread`` measures):
@@ -28,8 +28,14 @@ from mymedialite_tpu_torch.ops import sgd as S
 from mymedialite_tpu_torch.ops.bpr_epoch import (
     bpr_epoch, bpr_epoch_reference, bpr_epoch_tiled, bpr_epoch_tiled_reference,
 )
+from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+from mymedialite_tpu_torch.ops import svdpp_plan as SVP
 from mymedialite_tpu_torch.ops.sgd_epoch import (
     sgd_epoch, sgd_epoch_reference, sgd_epoch_tiled, sgd_epoch_tiled_reference,
+)
+from mymedialite_tpu_torch.ops.svdpp import history_edges
+from mymedialite_tpu_torch.ops.svdpp_epoch import (
+    svdpp_epoch, svdpp_epoch_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -593,3 +599,222 @@ def test_models_take_the_tiled_kernels_on_the_card(cuda, monkeypatch):
     res = evaluate_items(bpr, posonly_from_ratings(test),
                          posonly_from_ratings(train))
     assert math.isfinite(res["AUC"]) and res["AUC"] > 0.6
+
+
+# --- the SVD++ epoch kernel -----------------------------------------------
+
+SVDPP_VARIANTS = [(False, S.LOSS_RMSE, True), (True, S.LOSS_RMSE, True),
+                  (True, S.LOSS_MAE, True), (True, S.LOSS_RMSE, False)]
+SVDPP_IDS = ["plain", "sigmoid-rmse", "sigmoid-mae", "no-p"]
+
+
+def _svdpp_setup(device, users, items, values, U, I, f=20, seed=0, **kw):
+    """Plan (edges = the rated pairs) and random tables N(0, 0.1)."""
+    edges = history_edges(users, items, I)
+    plan = SVP.prepare_svdpp_mxu(users, items, values, *edges, U, I,
+                                 shuffle_seed=1, device=device, **kw)
+    rng = np.random.default_rng(seed)
+    p, bu, q, bi, y = (torch.from_numpy(
+        (0.1 * rng.standard_normal(shape)).astype(np.float32)).to(device)
+        for shape in ((U, f), (U,), (I, f), (I,), (I, f)))
+    noo = torch.from_numpy(plan.new_of_old.astype(np.int64)).to(device)
+
+    def tables(use_p):
+        return SVP.svdpp_tables_to_mxu(
+            p if use_p else torch.zeros_like(p), bu, plan.inv_sqrt, q, bi, y,
+            noo, u_pad=plan.u_pad, i_pad=plan.i_pad, fe=SVP.svdpp_fe(f))
+    return plan, tables
+
+
+def _svdpp_args(plan, device, sigmoid, loss, use_p, f=20, lr=0.003):
+    rates = SVP.svdpp_mxu_rates(f, SVP.svdpp_fe(f), lr, 0.7, 0.015, 0.33,
+                                0.015, use_p=use_p, update_user=True,
+                                update_item=True, device=device)
+    hp = (0.6, 1.0, 4.0) if sigmoid else (3.6, 1.0, 4.0)
+    return hp, rates, dict(user_block=plan.user_block,
+                           item_block=plan.item_block, num_factors=f,
+                           loss=loss, sigmoid=sigmoid)
+
+
+def _block_slices(plan):
+    """[(start, end)) of each user block's steps in the schedule."""
+    ub = plan.schedule[1].cpu().numpy()
+    cut = np.flatnonzero(np.diff(ub)) + 1
+    bounds = np.concatenate([[0], cut, [ub.size]])
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _svdpp_blockwise(plan, tables, hp, rates, kw, steps, reference):
+    """One launch (kernel) or one plain call per user block, each from the
+    float64 plain trajectory's state before the block; returns the
+    largest distance to that trajectory after a block."""
+    cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
+    packed_c, rates_c = plan.packed.cpu(), rates.cpu()
+    state = tuple(t.double().cpu() for t in tables)
+    worst = 0.0
+    for a, b in steps:
+        one = tuple(t[a:b].contiguous() for t in plan.schedule)
+        nxt = tuple(t.clone() for t in state)
+        svdpp_epoch_reference(*nxt, packed_c, cpu(one), hp, rates_c.double(),
+                              **kw)
+        got = tuple(t.float().to(rates.device) for t in state)
+        if reference:
+            svdpp_epoch_reference(*got, plan.packed, one, hp, rates, **kw)
+        else:
+            svdpp_epoch(*got, plan.packed, one, hp, rates, **kw)
+        worst = max(worst, _dist(got, nxt))
+        state = nxt
+    return worst
+
+
+@pytest.mark.parametrize("sigmoid,loss,use_p", SVDPP_VARIANTS, ids=SVDPP_IDS)
+def test_svdpp_kernel_matches_reference_by_user_block(cuda, sigmoid, loss,
+                                                      use_p):
+    """At 2,000 x 3,000 x 100k (k=20, fe=32, four user blocks): one launch
+    per user block from the float64 plain trajectory's state before it,
+    the kernel and the plain float32 version on the card both within 1e-5
+    of float64 (whole epochs measured 1.2e-7 to 1.9e-7 apart); then one
+    whole epoch, kernel against plain, within 1e-4."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=3)
+    plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
+                                2000, 3000)
+    hp, rates, kw = _svdpp_args(plan, cuda, sigmoid, loss, use_p)
+    blocks = _block_slices(plan)
+    assert len(blocks) == plan.n_ublocks == 4
+    before = svdpp_epoch.launches
+    k_err = _svdpp_blockwise(plan, tables(use_p), hp, rates, kw, blocks,
+                             reference=False)
+    p_err = _svdpp_blockwise(plan, tables(use_p), hp, rates, kw, blocks,
+                             reference=True)
+    assert svdpp_epoch.launches == before + len(blocks)
+    print(f"\nsvdpp by user block: kernel {k_err:.3e}, plain {p_err:.3e}")
+    assert k_err <= 1e-5 and p_err <= 1e-5
+    Wk, Qk, Yk = tables(use_p)
+    Wr, Qr, Yr = tables(use_p)
+    svdpp_epoch(Wk, Qk, Yk, plan.packed, plan.schedule, hp, rates, **kw)
+    svdpp_epoch_reference(Wr, Qr, Yr, plan.packed, plan.schedule, hp, rates,
+                          **kw)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (Wk, Qk, Yk))
+    assert _dist((Wk, Qk, Yk), (Wr, Qr, Yr)) <= 1e-4
+    if not use_p:
+        assert not Wk[:, :20].any()
+
+
+def test_svdpp_duplicate_items_within_a_chunk(cuda):
+    """An 8-item catalog: every 512-slot chunk names each item about 64
+    times, in R (Q rows) and in S and Y (Y rows), so a scatter that is not
+    atomic loses most of a chunk's updates (about 0.4 of a row here).
+    Learn rate 0.05. One launch per user block, from the float64
+    trajectory's state: at this rate float32 rounding alone drifts by
+    about 6e-5 over a block (the plain version on the CPU, measured), so
+    the kernel is held within 1e-4 or 4x the plain float32 version's
+    drift on the card, whichever is larger."""
+    rng = np.random.default_rng(4)
+    U, I, n = 1200, 8, 9000
+    users = rng.integers(0, U, n).astype(np.int32)
+    items = rng.integers(0, I, n).astype(np.int32)
+    values = rng.integers(1, 11, n).astype(np.float32) / 2
+    plan, tables = _svdpp_setup(cuda, users, items, values, U, I, f=20)
+    d = plan.packed.cpu().numpy()
+    real = d[:, 3] != 0
+    top = max(np.bincount(d[k, 1][real[k]]).max() for k in range(len(d)))
+    assert top >= 64
+    hp, rates, kw = _svdpp_args(plan, cuda, True, S.LOSS_RMSE, True, lr=0.05)
+    blocks = _block_slices(plan)
+    err = _svdpp_blockwise(plan, tables(True), hp, rates, kw, blocks,
+                           reference=False)
+    plain = _svdpp_blockwise(plan, tables(True), hp, rates, kw, blocks,
+                             reference=True)
+    print(f"\nsvdpp duplicate items (up to {top} slots on one item in a "
+          f"chunk): vs float64 by user block, kernel {err:.3e}, plain "
+          f"{plain:.3e}")
+    assert err <= max(1e-4, 4 * plain)
+
+
+def test_svdpp_scratch_resets_at_each_user_block(cuda):
+    """s and c start from zero at each user block inside one launch: the
+    whole schedule in one launch equals one launch per user block (each
+    launch starts from a fresh scratch) and the plain version. The blocks
+    use the same local user rows, so sums carried over from the block
+    before would land on them."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=6)
+    plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
+                                2000, 3000)
+    hp, rates, kw = _svdpp_args(plan, cuda, False, S.LOSS_RMSE, True)
+    blocks = _block_slices(plan)
+    d = plan.packed
+    local = []
+    for a, b in blocks:
+        chunks = d[plan.schedule[3][a:b].long()]
+        local.append(set(chunks[:, 0][chunks[:, 3] != 0].tolist()))
+    assert all(local[k] & local[k + 1] for k in range(len(local) - 1))
+    whole, split, plain = tables(True), tables(True), tables(True)
+    svdpp_epoch(*whole, d, plan.schedule, hp, rates, **kw)
+    for a, b in blocks:
+        svdpp_epoch(*split, d, tuple(t[a:b].contiguous()
+                                     for t in plan.schedule), hp, rates, **kw)
+    svdpp_epoch_reference(*plain, d, plan.schedule, hp, rates, **kw)
+    torch.cuda.synchronize()
+    assert _dist(whole, split) <= 1e-5
+    assert _dist(whole, plain) <= 1e-5
+
+
+def test_svdpp_kernel_refuses_bad_shapes(cuda):
+    """The wrapper refuses, before any launch, what the kernel does not
+    take: mismatched widths, rates of the wrong shape, a width past
+    MAX_FE, a chunk past MAX_CHUNK, tensors on two devices."""
+    data = synthetic_ratings(num_users=300, num_items=200,
+                             num_ratings=5000, seed=1)
+    plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
+                                300, 200)
+    W, Q, Y = tables(True)
+    hp, rates, kw = _svdpp_args(plan, cuda, False, S.LOSS_RMSE, True)
+    args = (plan.packed, plan.schedule, hp)
+    wide = torch.zeros((W.shape[0], 264), device=cuda)
+    wide_qy = torch.zeros((Q.shape[0], 264), device=cuda)
+    long_chunks = torch.zeros((2, 4, 4096), dtype=torch.int32, device=cuda)
+    before = svdpp_epoch.launches
+    for bad, err in (
+            (lambda: svdpp_epoch(W, Q, Y[:, :24].contiguous(), *args, rates,
+                                 **kw), ValueError),
+            (lambda: svdpp_epoch(W, Q, Y, *args, rates[:, :4].contiguous(),
+                                 **kw), ValueError),
+            (lambda: svdpp_epoch(wide, wide_qy, wide_qy.clone(), *args,
+                                 torch.zeros((264, 8), device=cuda), **kw),
+             ValueError),
+            (lambda: svdpp_epoch(W, Q, Y, long_chunks, plan.schedule, hp,
+                                 rates, **kw), ValueError),
+            (lambda: svdpp_epoch(W, Q.cpu(), Y, *args, rates, **kw),
+             ValueError),
+            (lambda: svdpp_epoch(W, Q, Y.double(), *args, rates, **kw),
+             TypeError)):
+        with pytest.raises(err):
+            bad()
+    assert svdpp_epoch.launches == before
+
+
+def test_svdpp_trains_on_the_card(cuda):
+    """SVDPlusPlus through the registry, transductive on the held-out
+    pairs, launches the kernel once per epoch and beats the global
+    average."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=2)
+    perm = np.random.default_rng(3).permutation(len(data))
+    cut = len(data) // 5
+    train = data.select(np.sort(perm[cut:]))
+    test = data.select(np.sort(perm[:cut]))
+    m = create_rating_predictor("SVDPlusPlus", "num_factors=20 num_iter=5 "
+                                "learn_rate=0.01 device=cuda")
+    m.ratings = train
+    m.additional_feedback = (test.users, test.items)
+    before = svdpp_epoch.launches
+    m.train()
+    torch.cuda.synchronize()
+    assert svdpp_epoch.launches == before + 5
+    assert all(t.device.type == "cuda" for t in m._mxu_tables)
+    res = evaluate_ratings(m, test, train)
+    base = float(np.sqrt(np.mean((test.values - train.values.mean()) ** 2)))
+    assert math.isfinite(res["RMSE"]) and res["RMSE"] < base

@@ -216,7 +216,7 @@ def test_unported_paths_raise(data):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
     with pytest.raises(KeyError, match="not yet ported"):
-        create_rating_predictor("SVDPlusPlus")
+        create_rating_predictor("GSVDPlusPlus")
     with pytest.raises(KeyError, match="Unknown recommender"):
         create_rating_predictor("NoSuchModel")
 

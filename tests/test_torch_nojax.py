@@ -4,7 +4,8 @@ submodule; ``mymedialite_tpu_torch`` shares the prefix and stays
 allowed) raises runs the port's two CLIs end to end on the CPU (train,
 evaluate, save, load; rating prediction with BiasedMatrixFactorization,
 item recommendation with BPRMF, WeightedBPRMF and MostPopular) from the
-port's own synthetic data, and must exit 0."""
+port's own synthetic data, and must exit 0. The rating CLI runs
+BiasedMatrixFactorization and SVDPlusPlus."""
 
 import os
 import subprocess
@@ -48,6 +49,9 @@ SCRIPT = textwrap.dedent("""
     assert rating_prediction.main(
         base + ["--save-model", f"{d}/m.model", "--compute-fit"]) == 0
     assert rating_prediction.main(base + ["--load-model", f"{d}/m.model"]) == 0
+    svdpp = base + ["--recommender", "SVDPlusPlus"]
+    assert rating_prediction.main(svdpp + ["--save-model", f"{d}/s.model"]) == 0
+    assert rating_prediction.main(svdpp + ["--load-model", f"{d}/s.model"]) == 0
     items = ["--training-file", f"{d}/train.tsv", "--test-file",
              f"{d}/test.tsv", "--predict-items-number", "5"]
     for name in ("BPRMF", "WeightedBPRMF"):
@@ -71,4 +75,5 @@ def test_port_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RMSE" in proc.stdout
+    assert proc.stdout.count("SVDPlusPlus num_factors=6") == 2
     assert proc.stdout.count("AUC") == 5
