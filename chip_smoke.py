@@ -19,44 +19,59 @@ Phases (any failure raises and the script exits non-zero):
    tables, on the tiled schedule (three slabs) for every (hinge, WBPR)
    variant with the sub-bucketed keys; identical sampled negatives,
    tables within the tolerance;
-5. Netflix-shaped synthetic ratings (480,000 users x 17,770 items x 20M
-   draws), split 80/20, shared by phases 6 and 7;
-6. the rating main path on the resident schedule: BiasedMatrixFactorization
+5. the fused top-k kernel against its plain version on the cases of
+   tests/test_pallas_topk.py and at the serving shape (1,024 users x
+   62,423 items, f=41, k=64); k=65 refused;
+6. Netflix-shaped synthetic ratings (480,000 users x 17,770 items x 20M
+   draws), split 80/20, shared by phases 7-11;
+7. the rating main path on the resident schedule: BiasedMatrixFactorization
    (k=40, 3 epochs) trained through the registry and evaluated; the SGD
    kernel against the plain version at this shape, both timed;
-7. the item-recommendation main path on the resident schedule: BPRMF (k=40,
+8. the item-recommendation main path on the resident schedule: BPRMF (k=40,
    3 epochs) on the same pairs as positive-only feedback; the BPR kernel
    against the plain version at this shape, both timed; ranking
    evaluation of 4,096 seeded test users against MostPopular;
-8. the SVD++-epoch kernel against its plain PyTorch version on the card
-   at phase 3's shape, k=20, one epoch from the same tables: plain, sigmoid
-   RMSE, sigmoid MAE and without p (the asymmetric factor models);
-9. the SVD++ rating main path on phase 5's data: SVDPlusPlus (k=20, learn
-   rate 0.003, 3 epochs) trained through the registry with the test pairs
-   as additional feedback (as the CLI sets them), evaluated against the
-   global average; the SVD++ kernel against the plain version on the
-   schedule's first 64 user blocks, both timed;
-10. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
+9. serving phase 8's BPRMF: the top-10 of all 480,000 users, training
+   items excluded, through ``recommend_batch`` (the top-k kernel once per
+   block of 1,024 users, 469 launches, no other kernel); each block's
+   inputs are kept, and the kernel, the plain version and torch.matmul +
+   torch.topk are timed over them back to back; the lists against the
+   plain version's;
+10. the SVD++-epoch kernel against its plain PyTorch version on the card
+    at phase 3's shape, k=20, one epoch from the same tables: plain,
+    sigmoid RMSE, sigmoid MAE and without p (the asymmetric factor models);
+11. the SVD++ rating main path on phase 6's data: SVDPlusPlus (k=20, learn
+    rate 0.003, 3 epochs) trained through the registry with the test pairs
+    as additional feedback (as the CLI sets them), evaluated against the
+    global average; the SVD++ kernel against the plain version on the
+    schedule's first 64 user blocks, both timed;
+12. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
     25,000,095 draws, the published ml-25m catalog), split 80/20: 61 item
     blocks at k=40, past the resident bound of 40, so both model families
-    take the slab-tiled schedule; phases 11 and 12 share them;
-11. the rating main path on the tiled schedule: BiasedMatrixFactorization
-    as in phase 6, through the tiled SGD kernel, compared with its plain
+    take the slab-tiled schedule; phases 13-15 share them;
+13. the rating main path on the tiled schedule: BiasedMatrixFactorization
+    as in phase 7, through the tiled SGD kernel, compared with its plain
     version at this shape on the shortest prefix of an epoch's order that
     crosses three slab boundaries (plus 256 chunks);
-12. the item main path on the tiled schedule: BPRMF as in phase 7, through
+14. the item main path on the tiled schedule: BPRMF as in phase 8, through
     the tiled BPR kernel with sub-bucketed keys, compared with its plain
     version at this shape on such a prefix (identical negatives), ranked
     against MostPopular;
-13. the rating_prediction CLI in process at 6,040 x 3,706 x 1M ratings,
+15. serving phase 14's BPRMF as in phase 9: 162,541 users, 159 launches;
+16. the rating_prediction CLI in process at 6,040 x 3,706 x 1M ratings,
     with BiasedMatrixFactorization and with SVDPlusPlus (``--test-file``,
     so transductive), each model then saved and loaded through the CLI;
-14. the item_recommendation CLI at the same size with BPRMF, then its
-    model saved and loaded through the CLI.
+17. the item_recommendation CLI at the same size with BPRMF and a top-10
+    ``--prediction-file``, then its model saved and loaded through the
+    CLI, then ``--user-prediction``; every prediction file is read back
+    and held against the plain version's lists;
+18. the rating_based_ranking CLI on phase 16's files with
+    BiasedMatrixFactorization, save -> load.
 
 Before each main path every kernel's launch count is set to 0, and after
-it the path's kernel must have run once per epoch and every other kernel
-never. The line before the last is one JSON object
+it the path's kernels must have run as often as it needs (an epoch
+kernel once per epoch, the top-k kernel once per block of users) and
+every other kernel never. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of jax and nothing of the JAX package: only the
 port, numpy and torch.
@@ -97,30 +112,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def epoch_functions():
+def kernel_functions():
     from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
+    from mymedialite_tpu_torch.ops.catalog_topk import catalog_topk
     from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
     from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
     return dict(sgd_epoch=sgd_epoch, sgd_epoch_tiled=sgd_epoch_tiled,
                 bpr_epoch=bpr_epoch, bpr_epoch_tiled=bpr_epoch_tiled,
-                svdpp_epoch=svdpp_epoch)
+                svdpp_epoch=svdpp_epoch, catalog_topk=catalog_topk)
 
 
 @contextlib.contextmanager
-def counted_path(kernel: str, epochs: int):
+def counted_path(expected: dict):
     """Set every kernel's launch count to 0, drive the path inside the
-    block, then require ``epochs`` launches of ``kernel`` and none of any
-    other. Yields a dict that holds the launches afterwards."""
-    fns = epoch_functions()
+    block, then require the ``expected`` launches ({kernel: count}) and
+    none of any other kernel. Yields a dict that holds every kernel's
+    launches afterwards."""
+    fns = kernel_functions()
     for fn in fns.values():
         fn.launches = 0
     out = {}
     yield out
-    counts = {name: fn.launches for name, fn in fns.items()}
-    out["launches"] = counts[kernel]
-    want = {name: epochs if name == kernel else 0 for name in fns}
-    if counts != want:
-        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    out.update({name: fn.launches for name, fn in fns.items()})
+    want = {name: expected.get(name, 0) for name in fns}
+    if out != want:
+        raise AssertionError(f"kernel launches {out}, expected {want}")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -217,6 +233,46 @@ def svdpp_bound(plan, ph, ub, ib, row, num_factors: int):
                                    plan.item_block).numel()
             moved += y_rows * 2 * f * 4 + n_real * 8
     return bound_ms(moved, flops)
+
+
+def topk_bound(block_sizes, num_items: int, width: int, k: int):
+    """The least the fused top-k needs over calls on blocks of
+    ``block_sizes`` users, each against the whole catalog: per call its
+    user rows (B x width floats), the item table (num_items x width
+    floats) and the byte mask (B x num_items) read once, its B x k ids
+    and values written once, and 2 B num_items width float32
+    operations."""
+    B = np.asarray(block_sizes, dtype=np.float64)
+    nbytes = (B * width * 4 + num_items * width * 4 + B * num_items
+              + B * k * 8).sum()
+    return bound_ms(float(nbytes), float((2.0 * B * num_items * width).sum()))
+
+
+def tie_free(vals, gap: float = 1e-5):
+    """[U, c] numpy: True where a value differs from both neighbours in
+    its row by more than ``gap``; a list's last position is judged by the
+    value after it, so callers pass one column more than they compare."""
+    v = np.asarray(vals, dtype=np.float64)
+    d = np.abs(np.diff(v, axis=1)) > gap
+    ok = np.ones(v.shape, dtype=bool)
+    ok[:, 1:] &= d
+    ok[:, :-1] &= d
+    return ok
+
+
+def topk_agreement(ids, vals, ref_ids, ref_vals, *, exact=False):
+    """(max |value error|, ids that differ where the reference has no
+    near-tie) of a top-k result [U, k] against a reference of k + 1
+    columns (k when the catalog has no more); ``exact`` compares every
+    id."""
+    ids, vals, ref_ids, ref_vals = (np.asarray(a) for a in (
+        ids, vals, ref_ids, ref_vals))
+    k = min(ids.shape[1], ref_ids.shape[1])
+    sure = np.ones((ids.shape[0], k), bool) if exact else \
+        tie_free(ref_vals)[:, :k]
+    err = float(np.abs(vals[:, :k].astype(np.float64)
+                       - ref_vals[:, :k]).max()) if ids.size else 0.0
+    return err, int(((ids[:, :k] != ref_ids[:, :k]) & sure).sum())
 
 
 def slab_prefix(slabs, crossings: int = 3, extra: int = 256) -> int:
@@ -545,7 +601,7 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     torch.cuda.reset_peak_memory_stats()
     prepare = "prepare_mxu_tiled" if tiled else "prepare_mxu_data"
     with timed_training((mxu, prepare), (mf_module, name)) as timings, \
-            counted_path(name, model.num_iter) as counted:
+            counted_path({name: model.num_iter}) as counted:
         t0 = time.perf_counter()
         model.train()
         torch.cuda.synchronize()
@@ -559,7 +615,7 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     log(f"mf {'tiled' if tiled else 'resident'} train: {train_s:.2f} s; "
         f"plan prep {timings['plan_s'][0]:.2f} s ({plan.num_chunks} chunks "
         f"of {plan.chunk}, {plan.n_ublocks} x {plan.n_iblocks} blocks{slabs}); "
-        f"{name} launches {counted['launches']}; epochs "
+        f"{name} launches {counted[name]}; epochs "
         f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
         f"{len(train) / (epoch_ms / 1e3):.4g} real-rating updates/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -595,7 +651,7 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     log(f"eval: {res} ({eval_s:.2f} s); global-average RMSE {baseline:.5f}")
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("RMSE does not beat the global average")
-    return dict(launches=counted["launches"], max_abs_err=err, ms=kernel_ms,
+    return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -603,7 +659,8 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     """BPRMF at k=40 for 3 epochs through the registry on the same pairs
     as positive-only feedback; the epoch kernel against its plain version
     at this shape; ranking evaluation against MostPopular. Returns the
-    kernel's numbers for the kernels line."""
+    kernel's numbers for the kernels line, the trained model and its
+    feedback."""
     from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
     from mymedialite_tpu_torch.eval.ranking import evaluate_items
     from mymedialite_tpu_torch.models import bpr as bpr_module
@@ -620,7 +677,7 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     torch.cuda.reset_peak_memory_stats()
     with timed_training((bpr_plan, "prepare_bpr_mxu"),
                         (bpr_module, name)) as timings, \
-            counted_path(name, model.num_iter) as counted:
+            counted_path({name: model.num_iter}) as counted:
         t0 = time.perf_counter()
         model.train()
         torch.cuda.synchronize()
@@ -641,7 +698,7 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     log(f"bpr {'tiled' if tiled else 'resident'} train: {train_s:.2f} s; "
         f"plan prep {timings['plan_s'][0]:.2f} s ({plan.num_chunks} chunks "
         f"of {plan.chunk}, {plan.n_ublocks} x {plan.n_iblocks} blocks, "
-        f"membership {membership}); {name} launches {counted['launches']}; "
+        f"membership {membership}); {name} launches {counted[name]}; "
         f"epochs {', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
         f"{len(train) / (epoch_ms / 1e3):.4g} training triples/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -705,8 +762,8 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         results[label] = res
     if not results["BPRMF"]["AUC"] > 0.6:
         raise AssertionError(f"BPRMF AUC {results['BPRMF']['AUC']} <= 0.6")
-    return dict(launches=counted["launches"], max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), model, train
 
 
 def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
@@ -795,7 +852,7 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
     torch.cuda.reset_peak_memory_stats()
     with timed_training((sp, "prepare_svdpp_mxu"),
                         (svdpp_module, "svdpp_epoch")) as timings, \
-            counted_path("svdpp_epoch", model.num_iter) as counted:
+            counted_path({"svdpp_epoch": model.num_iter}) as counted:
         t0 = time.perf_counter()
         model.train()
         torch.cuda.synchronize()
@@ -813,7 +870,7 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
         f"{int((ph == 2).sum())} Y = {plan.num_steps} steps of "
         f"{plan.chunk}, {plan.n_ublocks} x {plan.n_iblocks} blocks, largest "
         f"user block {int(torch.bincount(ub.long()).max())} steps); "
-        f"svdpp_epoch launches {counted['launches']}; epochs "
+        f"svdpp_epoch launches {counted['svdpp_epoch']}; epochs "
         f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
         f"{len(train) / (epoch_ms / 1e3):.4g} rating updates/s; epoch bound "
         f"{full_ms:.4f} ms ({full_by}); peak device memory "
@@ -843,8 +900,191 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
         f"{baseline:.5f}")
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("SVD++ RMSE does not beat the global average")
-    return dict(launches=counted["launches"], max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(launches=counted["svdpp_epoch"], max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# the cases of tests/test_pallas_topk.py, then the serving shape:
+# (label, B, N, f, k, mask)
+TOPK_CASES = (("basic", 16, 1000, 24, 10, None),
+              ("users and tiles", 300, 1537, 17, 7, None),
+              ("half mask", 32, 700, 8, 5, 0.5),
+              ("nearly all masked", 4, 50, 6, 4, "nearly"),
+              ("k > N", 8, 6, 4, 10, None),
+              ("ties", 3, 600, 4, 5, "ties"),
+              ("serving shape", 1024, 62_423, 41, 64, None))
+
+
+def phase_topk_kernel_check(dev):
+    """Kernel 6 against ``topk_reference`` on the card: values to
+    KERNEL_TOL, ids equal where the reference has no near-tie (1e-5),
+    every id in the tie case; k = 65 must be refused."""
+    from mymedialite_tpu_torch.ops.catalog_topk import (
+        catalog_topk, topk_reference,
+    )
+    worst = 0.0
+    for label, B, N, f, k, mask_kind in TOPK_CASES:
+        rng = np.random.default_rng(B + N)
+        W = rng.normal(size=(B, f)).astype(np.float32)
+        H = rng.normal(size=(N, f)).astype(np.float32)
+        mask = None
+        if mask_kind == "ties":
+            W, H = np.ones_like(W), np.ones_like(H)
+        elif mask_kind == "nearly":
+            mask = np.zeros((B, N), np.int8)
+            mask[0, [3, 10]] = 1
+            mask[1, :] = 1
+        elif mask_kind is not None:
+            mask = (rng.random((B, N)) > mask_kind).astype(np.int8)
+        W, H = torch.from_numpy(W).to(dev), torch.from_numpy(H).to(dev)
+        if mask is not None:
+            mask = torch.from_numpy(mask).to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        ids, vals = catalog_topk(W, H, mask, k=k)
+        end.record()
+        torch.cuda.synchronize()
+        ref = topk_reference(W, H, mask, k=k + 1 if k < N else k)
+        err, bad = topk_agreement(ids.cpu(), vals.cpu(), *(
+            t.cpu() for t in ref), exact=mask_kind == "ties")
+        log(f"topk kernel check {label} (B={B} N={N} f={f} k={k}): "
+            f"max_abs_err {err:.3e} (tol {KERNEL_TOL}), ids differing "
+            f"outside near-ties {bad}, kernel {start.elapsed_time(end):.3f} "
+            f"ms")
+        check(err, f"topk {label}")
+        if bad:
+            raise AssertionError(f"topk {label}: {bad} ids differ")
+        worst = max(worst, err)
+    try:
+        catalog_topk(W, H, k=65)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("catalog_topk took k=65")
+    return worst
+
+
+@contextlib.contextmanager
+def substituted_topk(fn):
+    """Inside the block ``recommend_batch``'s top-k step is ``fn``."""
+    from mymedialite_tpu_torch.ops import topk as topk_module
+    real = topk_module.catalog_topk
+    topk_module.catalog_topk = fn
+    try:
+        yield
+    finally:
+        topk_module.catalog_topk = real
+
+
+@contextlib.contextmanager
+def recorded_topk():
+    """Inside the block ``recommend_batch`` launches the kernel as usual
+    and the arguments of each call are kept. Yields the list of (args,
+    kwargs)."""
+    from mymedialite_tpu_torch.ops.catalog_topk import catalog_topk
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return catalog_topk(*a, **kw)
+    with substituted_topk(record):
+        yield calls
+
+
+def replay_ms(fn, calls):
+    """``fn`` over the recorded calls back to back, after one warm-up
+    call: (device ms between two CUDA events around the whole replay,
+    the outputs). The kernel takes far longer than the host needs to
+    enqueue the next call, so the host's time per call stays hidden."""
+    fn(*calls[0][0], **calls[0][1])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [fn(*a, **kw) for a, kw in calls]
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), outs
+
+
+def library_topk(user_rows, item_table, mask8=None, *, k):
+    """The library yardstick of kernel 6 (timed here, never used by the
+    port): torch.matmul, the mask and torch.topk, whose tie order is
+    open."""
+    from mymedialite_tpu_torch.ops.catalog_topk import NEG_INF
+    scores = torch.matmul(user_rows, item_table.T)
+    if mask8 is not None:
+        scores.masked_fill_(mask8 == 0, NEG_INF)
+    vals, ids = torch.topk(scores, k, dim=1)
+    return ids.to(torch.int32), vals
+
+
+def phase_serving(dev, model, train, label, n=10):
+    """Top-n for every user of ``model`` with the training items
+    excluded, through ``recommend_batch``: on the kernel route, kernel 6
+    launched once per block of 1,024 users and no other kernel. Each
+    block's inputs are kept, and the kernel, the plain version (one
+    column more, for the near-tie rule) and the library call are then
+    timed over them back to back. Returns the kernel's numbers for the
+    kernels line."""
+    from mymedialite_tpu_torch.ops.catalog_topk import (
+        catalog_topk, topk_reference,
+    )
+    from mymedialite_tpu_torch.ops.topk import (
+        recommend_batch, takes_topk_kernel,
+    )
+    users = np.arange(model.num_users_trained, dtype=np.int32)
+    if not takes_topk_kernel(model, n):
+        raise AssertionError("the model does not take the kernel route")
+    train.by_user                                  # the host CSR, once
+    blocks = -(-users.size // 1024)
+    torch.cuda.synchronize()
+    with recorded_topk() as calls, \
+            counted_path({"catalog_topk": blocks}) as counted:
+        t0 = time.perf_counter()
+        ids, scores = recommend_batch(model, users, n, training=train)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if not ((ids >= 0).all() and np.isfinite(scores).all()):
+        raise AssertionError(f"{label} serving: a list is short or not "
+                             "finite")
+    kernel_ms, k_out = replay_ms(catalog_topk, calls)
+    plain_ms, p_out = replay_ms(
+        lambda *a, k: topk_reference(*a, k=k + 1), calls)
+    lib_ms, l_out = replay_ms(library_topk, calls)
+
+    def joined(outs, j):
+        return torch.cat([o[j] for o in outs]).cpu().numpy()
+    if not np.array_equal(joined(k_out, 0), ids):
+        raise AssertionError(f"{label} serving: the replayed kernel gave "
+                             "other lists than the main path")
+    ref_ids, ref_vals = joined(p_out, 0), joined(p_out, 1)
+    err, bad = topk_agreement(ids, scores, ref_ids, ref_vals)
+    _, lib_bad = topk_agreement(joined(l_out, 0), joined(l_out, 1), ref_ids,
+                                ref_vals)
+    _, items_rows = model.fused_rows()
+    sizes = [a[0].shape[0] for a, _ in calls]
+    b_ms, b_by = topk_bound(sizes, items_rows.shape[0], items_rows.shape[1],
+                            n)
+    log(f"{label} serving: top-{n} for {users.size} users x "
+        f"{items_rows.shape[0]} items (f'={items_rows.shape[1]}), training "
+        f"items excluded: recommend_batch {wall_s:.2f} s, catalog_topk "
+        f"launches {counted['catalog_topk']}; on the same blocks back to "
+        f"back: kernel {kernel_ms:.1f} ms ({kernel_ms / blocks:.3f} ms per "
+        f"block), bound {b_ms:.4f} ms ({b_by}), plain version "
+        f"{plain_ms:.1f} ms, torch.matmul + torch.topk {lib_ms:.1f} ms; "
+        f"max_abs_err {err:.3e} (tol {KERNEL_TOL}), ids differing outside "
+        f"near-ties {bad} (library call: {lib_bad})")
+    check(err, f"{label} serving")
+    if bad:
+        raise AssertionError(f"{label} serving: {bad} ids differ from the "
+                             "plain version outside near-ties")
+    del calls, k_out, p_out, l_out
+    torch.cuda.empty_cache()
+    return dict(launches=counted["catalog_topk"], max_abs_err=err,
+                ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def run_cli(main, argv):
@@ -901,12 +1141,83 @@ def phase_cli(dev, tmp):
         argv = files + ["--recommender-options", f"{opts} device={dev.type}"]
         if model == "svdpp":
             argv += ["--recommender", "SVDPlusPlus"]
-        with counted_path(kernel, 3):
+        with counted_path({kernel: 3}):
             text = save_load_same(rating_prediction.main, argv,
                                   os.path.join(tmp, f"{model}.model"))
         rmse = result_value(text, "RMSE")
         if not (math.isfinite(rmse) and 0 < rmse < 2):
             raise AssertionError(f"bad CLI result ({model}): RMSE {rmse}")
+    return files
+
+
+def phase_ranking_cli(dev, tmp, files):
+    """The rating_based_ranking CLI on phase 16's files with
+    BiasedMatrixFactorization, then save -> load: a finite result line,
+    the same after loading."""
+    from mymedialite_tpu_torch.cli import rating_based_ranking
+    argv = files + ["--recommender-options",
+                    f"num_factors=40 num_iter=3 device={dev.type}"]
+    with counted_path({"sgd_epoch": 3}):
+        text = save_load_same(rating_based_ranking.main, argv,
+                              os.path.join(tmp, "ranking.model"))
+    for key in ("AUC", "prec@5"):
+        value = result_value(text, key)
+        if not (math.isfinite(value) and 0 <= value <= 1):
+            raise AssertionError(f"bad ranking CLI result: {key} {value}")
+
+
+@contextlib.contextmanager
+def checked_prediction_files(cli):
+    """Inside the block every prediction file that ``cli`` writes is read
+    back and held against the plain version's lists on the same fused
+    rows and masks (``recommend_batch`` with ``topk_reference`` in the
+    kernel's place, one item more for the near-tie rule): the same item
+    at every position outside near-ties, scores to 1e-4 (the file keeps
+    six digits). Yields the list of the checks' reports, which it logs
+    when the block ends (the CLI's standard output is captured inside)."""
+    from mymedialite_tpu_torch.ops.catalog_topk import topk_reference
+    from mymedialite_tpu_torch.ops.topk import recommend_batch
+    real = cli.write_predictions
+    checked = []
+
+    def write_and_check(recommender, training, path, user_mapping,
+                        item_mapping, n, test_users=None, candidates=None):
+        real(recommender, training, path, user_mapping, item_mapping, n,
+             test_users, candidates)
+        users = np.arange(recommender.num_users_trained) \
+            if test_users is None else np.asarray(test_users)
+        with substituted_topk(topk_reference):
+            ref_ids, ref_s = recommend_batch(recommender, users, n + 1,
+                                             training=training,
+                                             candidates=candidates)
+        ids, scores = np.full((users.size, n), -1), np.zeros((users.size, n))
+        with open(path) as f:
+            lines = f.read().splitlines()
+        if len(lines) != users.size:
+            raise AssertionError(f"{path}: {len(lines)} lines for "
+                                 f"{users.size} users")
+        for r, line in enumerate(lines):
+            user, items = line.split("\t")
+            if user != str(user_mapping.to_original(int(users[r]))):
+                raise AssertionError(f"{path}: line {r} names user {user}")
+            for c, pair in enumerate(items.strip("[]").split(",")):
+                item, score = pair.split(":")
+                ids[r, c] = item_mapping.to_internal(item)
+                scores[r, c] = float(score)
+        err, bad = topk_agreement(ids, scores, ref_ids, ref_s)
+        report = (f"prediction file: {users.size} lists of {n}, max score "
+                  f"error {err:.3e}, items differing outside near-ties {bad}")
+        if err > 1e-4 or bad:
+            raise AssertionError(f"{path} disagrees with the plain version: "
+                                 f"{report}")
+        checked.append(report)
+    cli.write_predictions = write_and_check
+    try:
+        yield checked
+    finally:
+        cli.write_predictions = real
+        for report in checked:
+            log(report)
 
 
 def phase_item_cli(dev, tmp):
@@ -926,13 +1237,30 @@ def phase_item_cli(dev, tmp):
         paths.append(path)
     argv = ["--training-file", paths[0], "--test-file", paths[1],
             "--recommender", "BPRMF", "--recommender-options",
-            f"num_factors=40 num_iter=3 device={dev.type}"]
-    with counted_path("bpr_epoch", 3):
+            f"num_factors=40 num_iter=3 device={dev.type}",
+            "--predict-items-number", "10", "--prediction-file",
+            os.path.join(tmp, "predictions.txt")]
+    # both runs write the top-10 of every user the files name: kernel 6
+    # once per block of 1,024
+    n_users, n_items = (np.unique(np.concatenate([a, b])).size for a, b in (
+        (train.users, test.users), (train.items, test.items)))
+    blocks = -(-n_users // 1024)
+    with counted_path({"bpr_epoch": 3, "catalog_topk": 2 * blocks}), \
+            checked_prediction_files(item_recommendation) as checked:
         text = save_load_same(item_recommendation.main, argv,
                               os.path.join(tmp, "bprmf.model"))
     auc = result_value(text, "AUC")
-    if not (math.isfinite(auc) and 0.5 < auc <= 1):
+    if not (math.isfinite(auc) and 0.5 < auc <= 1) or len(checked) != 2:
         raise AssertionError(f"bad item CLI result: AUC {auc}")
+    # users recommended for items: the transposed feedback, one list per
+    # item
+    blocks = -(-n_items // 1024)
+    with counted_path({"bpr_epoch": 3, "catalog_topk": blocks}), \
+            checked_prediction_files(item_recommendation) as checked:
+        text = run_cli(item_recommendation.main, argv + ["--user-prediction"])
+    auc = result_value(text, "AUC")
+    if not (math.isfinite(auc) and 0.5 < auc <= 1) or len(checked) != 1:
+        raise AssertionError(f"bad --user-prediction result: AUC {auc}")
 
 
 KERNELS = {
@@ -946,6 +1274,8 @@ KERNELS = {
                         "mymedialite_tpu/ops/pallas_bpr.py:979"),
     "svdpp_epoch": ("mymedialite_tpu_torch/csrc/svdpp_epoch.cu",
                     "mymedialite_tpu/ops/pallas_svdpp.py:308"),
+    "catalog_topk": ("mymedialite_tpu_torch/csrc/catalog_topk.cu",
+                     "mymedialite_tpu/ops/pallas_topk.py:55"),
 }
 
 
@@ -975,14 +1305,19 @@ def main() -> int:
     worst = {"sgd_epoch": sgd_worst["resident"],
              "sgd_epoch_tiled": sgd_worst["tiled"],
              "bpr_epoch": bpr_worst["resident"],
-             "bpr_epoch_tiled": bpr_worst["tiled"]}
+             "bpr_epoch_tiled": bpr_worst["tiled"],
+             "catalog_topk": phase_topk_kernel_check(dev)}
     log(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
     runs = {}
     train, test = shaped_ratings("Netflix-shaped", num_users=480_000,
                                  num_items=17_770,
                                  num_ratings=20_000_000, seed=1)
     runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
-    runs["bpr_epoch"] = phase_bpr_path(dev, train, test, tiled=False)
+    runs["bpr_epoch"], model, feedback = phase_bpr_path(dev, train, test,
+                                                        tiled=False)
+    runs["catalog_topk"] = phase_serving(dev, model, feedback,
+                                         "Netflix-shaped")
+    del model, feedback
     worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
     runs["svdpp_epoch"] = phase_svdpp_path(dev, train, test)
     del train, test
@@ -994,13 +1329,17 @@ def main() -> int:
                                  num_items=62_423, num_ratings=25_000_095,
                                  seed=25)
     runs["sgd_epoch_tiled"] = phase_mf_path(dev, train, test, tiled=True)
-    runs["bpr_epoch_tiled"] = phase_bpr_path(dev, train, test, tiled=True)
-    del train, test
+    runs["bpr_epoch_tiled"], model, feedback = phase_bpr_path(
+        dev, train, test, tiled=True)
+    ml25m = phase_serving(dev, model, feedback, "MovieLens-25M-shaped")
+    worst["catalog_topk"] = max(worst["catalog_topk"], ml25m["max_abs_err"])
+    del train, test, model, feedback
     torch.cuda.empty_cache()
     log(f"tiled paths: {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(dev, tmp)
+        files = phase_cli(dev, tmp)
         phase_item_cli(dev, tmp)
+        phase_ranking_cli(dev, tmp, files)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
 
     kernels = []
@@ -1013,8 +1352,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],
             # a sequential epoch of dependent minibatch steps is no single
-            # PyTorch call
-            library_ms=None))
+            # PyTorch call; the top-k's is torch.matmul + torch.topk
+            library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@ item_recommendation.py`` (reference ``ItemRecommendation.cs:33-497``),
 built on the port's CLI and data helpers. Covered: the
 standard train/evaluate path, ``--test-ratio``, ``--test-users``,
 ``--num-test-users``, the candidate-item flags, ``--predict-items-number``,
-``--repeated-items``, ``--prediction-file``, ``--save-model`` /
-``--load-model`` and ``--find-iter``. The flags whose protocols are not
-ported yet (``--cross-validation``, ``--online-evaluation``,
-``--user-prediction``, ``--profile``) abort with "not yet ported".
+``--repeated-items``, ``--prediction-file``, ``--user-prediction``
+(users recommended for items), ``--save-model`` / ``--load-model`` and
+``--find-iter``. The flags whose protocols are not ported yet
+(``--cross-validation``, ``--online-evaluation``, ``--profile``) abort
+with "not yet ported".
 
     python -m mymedialite_tpu_torch.cli.item_recommendation \\
         --training-file train.tsv --test-file test.tsv \\
@@ -111,7 +112,6 @@ def write_predictions(recommender, training, path, user_mapping, item_mapping,
 def _reject_unported(args):
     for flag, on in (("--cross-validation", args.cross_validation > 1),
                      ("--online-evaluation", args.online_evaluation),
-                     ("--user-prediction", args.user_prediction),
                      ("--profile", args.profile is not None)):
         if on:
             common.abort(f"{flag} {_NOT_PORTED}.")
@@ -171,6 +171,18 @@ def main(argv=None):
         rng = np.random.default_rng(args.random_seed or 0)
         training_data, test_data = posonly_simple_split(
             training_data, args.test_ratio, rng)
+
+    if args.user_prediction:
+        # recommend users for items (reference ItemRecommendation.cs:389-409):
+        # swap the test-users/candidate-items files and the mappings, then
+        # transpose the feedback matrices
+        args.test_users, args.candidate_items = \
+            args.candidate_items, args.test_users
+        user_mapping, item_mapping = item_mapping, user_mapping
+        if training_data is not None:
+            training_data = training_data.transpose()
+        if test_data is not None:
+            test_data = test_data.transpose()
 
     explicit_candidates = None
     if args.candidate_items:

@@ -9,8 +9,9 @@ sets and the per-batch measure math (``candidates_for_mode``,
 ``_measures_batch``) are copies of the JAX package's jax-free helpers.
 
 Per batch of users, the score-and-rank step runs in torch on the
-model's device: the model's ``catalog_scorer`` (one matmul; host
-``score_catalog`` for models without one), the candidate and ignore
+device of the model's tables (``tables_device``): the model's
+``catalog_scorer`` (one matmul; host ``score_catalog`` for models
+without one), the candidate and ignore
 masks, and the stable descending rank of each correct item — # greater
 + # equal with a smaller index, -inf ties included — read off a stable
 ``torch.sort``.
@@ -112,6 +113,36 @@ def _measures_batch(ranks, m_arr, n_cand_arr, n, sums):
     return int(ok.sum())
 
 
+def ragged_rows(csr, batch, num_rows: int, width: int, pad: int):
+    """[len(batch), width] int64: row r holds the CSR keys of user
+    batch[r] in their order (sorted item ids), then ``pad``; users >=
+    ``num_rows`` get empty rows. One vectorised gather, no loop over the
+    users."""
+    B = batch.size
+    out = np.full((B, width), pad, np.int64)
+    if num_rows == 0:
+        return out
+    u = np.minimum(batch.astype(np.int64), num_rows - 1)
+    ok = batch < num_rows
+    starts = np.where(ok, csr.indptr[u], 0)
+    cnt = np.where(ok, csr.indptr[u + 1] - csr.indptr[u], 0)
+    total = int(cnt.sum())
+    if total:
+        row = np.repeat(np.arange(B), cnt)
+        within = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(cnt) - cnt, cnt)
+        out[row, within] = csr.keys[np.repeat(starts, cnt) + within]
+    return out
+
+
+def row_counts(csr, users, num_rows: int) -> np.ndarray:
+    """Per-user CSR row lengths, 0 for users >= ``num_rows``."""
+    if num_rows == 0:
+        return np.zeros(users.size, np.int64)
+    u = np.minimum(users.astype(np.int64), num_rows - 1)
+    return np.where(users < num_rows, csr.indptr[u + 1] - csr.indptr[u], 0)
+
+
 def rank_correct_items(scores, cand_mask, ignore_rows, correct_rows,
                        num_items: int):
     """[B, P2] int64 ranks of ``correct_rows`` in each row's stable
@@ -161,41 +192,16 @@ def evaluate_items(recommender, test, training,
     num_candidates = int(cand_mask.sum())
 
     scorer = recommender.catalog_scorer()
-    if scorer is not None:
-        dev = recommender.params["user_factors"].device
-    else:
-        dev = torch.device("cpu")
+    dev = recommender.tables_device()
     cand_mask_dev = torch.from_numpy(cand_mask).to(dev)
     cand_mask_ext = np.append(cand_mask, False)   # pad id num_items
     te_csr = test.by_user
     tr_csr = None if repeated_events else training.by_user
 
-    def ragged_rows(csr, batch, num_rows, width):
-        """[B, width] per-user sorted item rows from the CSR, padded with
-        num_items; users >= num_rows get empty rows."""
-        B = batch.size
-        out = np.full((B, width), num_items, np.int64)
-        if num_rows == 0:
-            return out
-        u = np.minimum(batch.astype(np.int64), num_rows - 1)
-        ok = batch < num_rows
-        starts = np.where(ok, csr.indptr[u], 0)
-        cnt = np.where(ok, csr.indptr[u + 1] - csr.indptr[u], 0)
-        total = int(cnt.sum())
-        if total:
-            row = np.repeat(np.arange(B), cnt)
-            within = np.arange(total, dtype=np.int64) - np.repeat(
-                np.cumsum(cnt) - cnt, cnt)
-            out[row, within] = csr.keys[np.repeat(starts, cnt) + within]
-        return out
-
     def row_width(csr, num_rows):
-        if num_rows == 0 or test_users.size == 0:
+        if test_users.size == 0:
             return 1
-        u = np.minimum(test_users.astype(np.int64), num_rows - 1)
-        cnt = np.where(test_users < num_rows,
-                       csr.indptr[u + 1] - csr.indptr[u], 0)
-        return max(int(cnt.max()), 1)
+        return max(int(row_counts(csr, test_users, num_rows).max()), 1)
 
     def first_of_each(mat):
         """First occurrence of each real item per (sorted) row."""
@@ -210,14 +216,16 @@ def evaluate_items(recommender, test, training,
     for start in range(0, test_users.size, batch_size):
         batch = test_users[start:start + batch_size]
         if tr_csr is not None:
-            tmat = ragged_rows(tr_csr, batch, training.num_users, w_ignore)
+            tmat = ragged_rows(tr_csr, batch, training.num_users, w_ignore,
+                               num_items)
             tkeep = first_of_each(tmat)
             ignore_rows = np.where(tkeep, tmat, num_items)
             ignored_in_cand = (tkeep & cand_mask_ext[tmat]).sum(axis=1)
         else:
             ignore_rows = np.full((batch.size, 1), num_items, np.int64)
             ignored_in_cand = np.zeros(batch.size, np.int64)
-        cmat = ragged_rows(te_csr, batch, test.num_users, w_correct)
+        cmat = ragged_rows(te_csr, batch, test.num_users, w_correct,
+                           num_items)
         ckeep = first_of_each(cmat) & cand_mask_ext[cmat]
         correct_rows = np.sort(np.where(ckeep, cmat, num_items), axis=1)
         with torch.no_grad():
@@ -226,7 +234,8 @@ def evaluate_items(recommender, test, training,
                                 .to(dev))
             else:
                 scores = torch.from_numpy(np.asarray(
-                    recommender.score_catalog(batch), dtype=np.float32))
+                    recommender.score_catalog(batch), dtype=np.float32)
+                    ).to(dev)
             ranks = rank_correct_items(
                 scores, cand_mask_dev, torch.from_numpy(ignore_rows).to(dev),
                 torch.from_numpy(correct_rows).to(dev), num_items)

@@ -4,15 +4,20 @@ The same interfaces as ``mymedialite_tpu/models/base.py`` (reference
 ``IRecommender.cs:33-82``, ``RatingPrediction/RatingPredictor.cs:26-52``,
 ``IIterativeModel.cs``, ``ItemRecommendation/ItemRecommender.cs``):
 ``predict_batch`` over pairs is the primitive, ``pair_scorer`` and
-``catalog_scorer`` hand the evaluators scorers on device tensors,
-``train``, ``save_model`` and ``load_model``. The incremental APIs
+``catalog_scorer`` hand the evaluators scorers on device tensors on the
+device that ``tables_device`` names, ``score_catalog`` and ``recommend``
+(reference ``Recommender.cs:52-103``) serve from them, ``train``,
+``save_model`` and ``load_model``. The incremental APIs
 (``add_ratings`` / ``add_feedback``, ``_retrain``, ``retrain_user``) and
 fold-in are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
+import torch
 from torch import nn
 
 from mymedialite_tpu_torch.utils.params import echo
@@ -54,10 +59,61 @@ class Recommender(nn.Module):
         host scoring only (``score_catalog``)."""
         return None
 
+    def tables_device(self) -> torch.device:
+        """The device the model's tables live on, where its scorers take
+        their tensors; the CPU for models that keep none (MostPopular)."""
+        return torch.device("cpu")
+
     def score_catalog(self, users) -> np.ndarray:
-        """[len(users), num_items_trained] float32 scores (numpy), for
-        models without a ``catalog_scorer``."""
-        raise NotImplementedError
+        """[len(users), num_items_trained] float32 scores (numpy).
+        Default: ``predict_batch`` over the catalog, one user at a time;
+        models with a ``catalog_scorer`` override it with
+        ``_scores_from_scorer``."""
+        users = np.asarray(users, dtype=np.int32)
+        n_items = self.num_items_trained
+        out = np.empty((users.size, n_items), dtype=np.float32)
+        all_items = np.arange(n_items, dtype=np.int32)
+        for r, u in enumerate(users):
+            out[r] = self.predict_batch(np.full(n_items, u, dtype=np.int32),
+                                        all_items)
+        return out
+
+    def _scores_from_scorer(self, users) -> np.ndarray:
+        """``score_catalog`` through the model's ``catalog_scorer``."""
+        scorer = self.catalog_scorer()
+        u = torch.from_numpy(np.asarray(users, dtype=np.int64)).to(
+            self.tables_device())
+        with torch.no_grad():
+            return scorer(u).cpu().numpy()
+
+    def recommend(self, user_id: int, n: int = -1,
+                  candidates: Optional[Sequence[int]] = None,
+                  ignore_items: Optional[Sequence[int]] = None):
+        """Top-n (item_id, score) pairs by descending score (reference
+        Recommender.Recommend, Recommender.cs:52-103): the host selection
+        of the JAX package (``np.argpartition``, then a stable sort),
+        which settles exact ties at the cut as it does."""
+        scores = self.score_catalog(np.array([user_id], dtype=np.int32))[0]
+        mask = np.zeros(scores.size, dtype=bool)
+        if candidates is not None:
+            cand = np.asarray(list(candidates), dtype=np.int64)
+            cand = cand[(cand >= 0) & (cand < scores.size)]
+            mask[:] = True
+            mask[cand] = False
+        if ignore_items is not None:
+            ign = np.asarray(list(ignore_items), dtype=np.int64)
+            ign = ign[(ign >= 0) & (ign < scores.size)]
+            mask[ign] = True
+        scores = np.where(mask, -np.inf, scores)
+        if n < 0:
+            order = np.argsort(-scores, kind="stable")
+        else:
+            n = min(n, scores.size)
+            top = np.argpartition(-scores, n - 1)[:n] if n < scores.size \
+                else np.arange(scores.size)
+            order = top[np.argsort(-scores[top], kind="stable")]
+        return [(int(i), float(scores[i])) for i in order
+                if np.isfinite(scores[i])]
 
     def can_predict(self, user_id: int, item_id: int) -> bool:
         return (0 <= user_id < self.num_users_trained

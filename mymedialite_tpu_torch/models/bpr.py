@@ -73,6 +73,7 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
         self.device = "cuda"
         self._params = None
         self._mxu_tables = None     # resident kernel-layout (W, H)
+        self._fused = None          # (tables, users, items) of fused_rows
         self._gen = None
 
     # --- params with lazy write-back of the kernel-layout tables ---
@@ -136,6 +137,13 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
             score = torch.where(ok, score, torch.full_like(score, _UNKNOWN))
         return score.cpu().numpy()
 
+    def tables_device(self):
+        if self._mxu_tables is not None:
+            return self._mxu_tables[0].device
+        if self._params is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        return self._params["user_factors"].device
+
     def catalog_scorer(self):
         if self.params is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
@@ -146,6 +154,37 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
             s = W[users.clamp(0, W.shape[0] - 1)] @ H.T
             return s if bias is None else s + bias[None, :]
         return score
+
+    def score_catalog(self, users):
+        return self._scores_from_scorer(users)
+
+    def fused_rows(self):
+        """(users [U, f+1], items [I, f+1]) float32 on the tables' device,
+        such that ``users[u] @ items.T`` is the catalog score of u: the
+        user factors with a column of 1s against the item factors with
+        the item bias (the plain factors for a model without one). This
+        is what ``ops/topk.py recommend_batch`` hands the fused top-k
+        kernel (``ops/catalog_topk.py``); the score equals
+        ``catalog_scorer``'s up to the order of summation. Built once per
+        trained state.
+
+        The rating models have no such rows: their catalog score bounds
+        ``gb + dot`` by a clip or a sigmoid, which sends distinct dots to
+        equal float32 scores (every item past the scale's top clips to
+        its maximum; the sigmoid saturates). The JAX package breaks those
+        ties by the smaller id; a top-k over the raw dot would break them
+        by the dot and give other ids."""
+        p = self.params
+        key = tuple(p.get(k) for k in ("user_factors", "item_factors",
+                                       "item_bias"))
+        if self._fused is None or any(
+                a is not b for a, b in zip(self._fused[0], key)):
+            W, H, bias = key
+            if bias is not None:
+                W = torch.cat([W, torch.ones_like(W[:, :1])], 1)
+                H = torch.cat([H, bias[:, None]], 1)
+            self._fused = (key, W.contiguous(), H.contiguous())
+        return self._fused[1], self._fused[2]
 
     def save_model(self, path):
         p = self.params

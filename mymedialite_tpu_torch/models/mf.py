@@ -343,6 +343,39 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         W, H = self.W_ext, self.H_ext
         return lambda users, items: self._predict_pairs(W, H, users, items)
 
+    def tables_device(self):
+        if self._mxu_tables is not None:
+            return self._mxu_tables[0].device
+        if self._W_ext is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        return self._W_ext.device
+
+    def catalog_scorer(self):
+        """``fn(users) -> [len(users), num_items]`` on the tables' device
+        (JAX: ``_mf_catalog_clip`` / ``_mf_catalog_sigmoid``): the fused
+        ``W_ext @ H_ext.T`` over all columns (both biases inside) for the
+        biased model, the factor columns alone for the plain one, plus the
+        global bias, then the model's clip or sigmoid."""
+        if self._W_ext is None and self._mxu_tables is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        W, H = self.W_ext, self.H_ext
+        if not self.BIASED:
+            f = self.num_factors
+            W, H = W[:, :f], H[:, :f]
+        gb, lo, hi = self.global_bias, self.min_rating, self.max_rating
+        rng = max(hi - lo, 1e-9)
+        sigmoid = self.BOUND == "sigmoid"
+
+        def score(users):
+            raw = gb + W[users.clamp(0, W.shape[0] - 1)] @ H.T
+            if sigmoid:
+                return lo + torch.sigmoid(raw) * rng
+            return raw.clamp(lo, hi)
+        return score
+
+    def score_catalog(self, users):
+        return self._scores_from_scorer(users)
+
     def predict_batch(self, users, items):
         W = self.W_ext
         dev = W.device

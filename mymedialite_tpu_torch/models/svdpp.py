@@ -21,8 +21,7 @@ Not ported yet, each raising "not yet ported": what the JAX package runs
 on its XLA grouped epoch (frequency regularization, ``group_users``,
 which sizes that epoch's user groups, catalogs whose Q and Y pass
 ``svdpp_plan.SVDPP_TABLE_BYTES``, a user block past the pass length, and
-GSVDPlusPlus, which the registry refuses), ``catalog_scorer`` and the
-incremental API.
+GSVDPlusPlus, which the registry refuses) and the incremental API.
 """
 
 from __future__ import annotations
@@ -52,6 +51,28 @@ def _rows(a: np.ndarray, n: int) -> np.ndarray:
         return a[:n]
     return np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:],
                                        a.dtype)])
+
+
+def _catalog_scorer(uf, q, user_bias, item_bias, global_bias, min_rating,
+                    max_rating, sigmoid):
+    """``fn(users) -> [len(users), len(q)]``: global bias + user bias +
+    item bias + ``uf[u] @ q.T``, then the clip or the sigmoid (JAX:
+    ``_svdpp_catalog_raw`` with ``_svdpp_catalog_clip`` /
+    ``_svdpp_catalog_sigmoid``). Users outside uf's rows score with zero
+    factors and bias, as the JAX package's padded user rows do."""
+    U = uf.shape[0]
+    rng = max(max_rating - min_rating, 1e-9)
+
+    def score(users):
+        ok = ((users >= 0) & (users < U))[:, None]
+        u = users.clamp(0, U - 1)
+        zero = torch.zeros((), dtype=torch.float32, device=uf.device)
+        raw = global_bias + torch.where(ok, user_bias[u][:, None], zero) \
+            + item_bias[None, :] + torch.where(ok, uf[u] @ q.T, zero)
+        if sigmoid:
+            return min_rating + torch.sigmoid(raw) * rng
+        return raw.clamp(min_rating, max_rating)
+    return score
 
 
 class SVDPlusPlus(RatingPredictor, IterativeModel):
@@ -329,11 +350,23 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
             out = self._predict_pairs(uf, self.params, u, i)
         return out.cpu().numpy()
 
+    def tables_device(self):
+        if self._mxu_tables is not None:
+            return self._mxu_tables[0].device
+        if self._params is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        return self._params["item_factors"].device
+
     def catalog_scorer(self):
-        raise NotImplementedError(f"catalog_scorer is {_NOT_PORTED}")
+        if self._params is None and self._mxu_tables is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        uf, p = self._user_factors(), self.params
+        return _catalog_scorer(uf, p["item_factors"], p["user_bias"],
+                               p["item_bias"], self.global_bias,
+                               self.min_rating, self.max_rating, self.SIGMOID)
 
     def score_catalog(self, users):
-        raise NotImplementedError(f"score_catalog is {_NOT_PORTED}")
+        return self._scores_from_scorer(users)
 
     # --- persistence (reference SVDPlusPlus.cs:272-311) ---
 
@@ -450,6 +483,26 @@ class SigmoidUserAsymmetricFactorModel(SigmoidSVDPlusPlus):
         score = inner.pair_scorer()
         return lambda users, items: score(items, users)
 
+    def _trained_inner(self):
+        inner = getattr(self, "_inner", None)
+        if inner is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        return inner
+
+    def tables_device(self):
+        return self._trained_inner().tables_device()
+
+    def catalog_scorer(self):
+        """The role swap (JAX: ``catalog_scorer`` of this model): the
+        inner model's item factors and biases are this model's user side,
+        its user factors and biases, cut to its real users, the catalog."""
+        inner = self._trained_inner()
+        ip, nI = inner.params, inner.num_users_trained
+        return _catalog_scorer(ip["item_factors"], inner._user_factors()[:nI],
+                               ip["item_bias"], ip["user_bias"][:nI],
+                               inner.global_bias, self.min_rating,
+                               self.max_rating, True)
+
     def save_model(self, path, model_name=None):
         self._inner.save_model(path, model_name or type(self).__name__)
 
@@ -493,6 +546,19 @@ class SigmoidCombinedAsymmetricFactorModel(SigmoidSVDPlusPlus):
         a = self._item_afm.pair_scorer()
         b = self._user_afm.pair_scorer()
         return lambda users, items: 0.5 * (a(users, items) + b(users, items))
+
+    def tables_device(self):
+        if getattr(self, "_item_afm", None) is None:
+            raise RuntimeError(f"{type(self).__name__}: model not trained")
+        return self._item_afm.tables_device()
+
+    def catalog_scorer(self):
+        """The mean of the two models' catalog scores (JAX:
+        ``_svdpp_catalog_combined``)."""
+        self.tables_device()
+        a = self._item_afm.catalog_scorer()
+        b = self._user_afm.catalog_scorer()
+        return lambda users: 0.5 * (a(users) + b(users))
 
     def save_model(self, path):
         self._item_afm.save_model(path + "-item")

@@ -1,7 +1,8 @@
 """``chip_smoke.py`` on a machine without a CUDA card: it imports nothing
 of jax or of the JAX package, it names every kernel source of the port
-in its kernels line, and without a card (or alone, outside the
-repository) it exits non-zero and prints no result line."""
+in its kernels line, its bounds count what the work needs, and without a
+card (or alone, outside the repository) it exits non-zero and prints no
+result line."""
 
 import ast
 import os
@@ -39,14 +40,16 @@ def test_smoke_reports_every_kernel():
     text = open(SMOKE).read()
     csrc = os.path.join(REPO, "mymedialite_tpu_torch", "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert sources == ["bpr_epoch.cu", "sgd_epoch.cu", "svdpp_epoch.cu"]
+    assert sources == ["bpr_epoch.cu", "catalog_topk.cu", "sgd_epoch.cu",
+                       "svdpp_epoch.cu"]
     for src in sources:
         assert f'"mymedialite_tpu_torch/csrc/{src}"' in text, src
     for replaced in ("mymedialite_tpu/ops/pallas_sgd.py:324",
                      "mymedialite_tpu/ops/pallas_sgd.py:745",
                      "mymedialite_tpu/ops/pallas_bpr.py:451",
                      "mymedialite_tpu/ops/pallas_bpr.py:979",
-                     "mymedialite_tpu/ops/pallas_svdpp.py:308"):
+                     "mymedialite_tpu/ops/pallas_svdpp.py:308",
+                     "mymedialite_tpu/ops/pallas_topk.py:55"):
         assert f'"{replaced}"' in text
         path, line = replaced.split(":")
         with open(os.path.join(REPO, path)) as f:
@@ -98,6 +101,52 @@ def test_svdpp_bound_counts_live_data(monkeypatch):
     monkeypatch.setattr(smoke, "PEAK_FP32_PER_S", 1e3)
     ms, by = smoke.svdpp_bound(plan, *plan.schedule, f)
     assert (ms, by) == (pytest.approx(want_ops, rel=1e-12), "operations")
+
+
+def _smoke_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_topk_bound_counts_the_calls(monkeypatch):
+    """``topk_bound`` over blocks of 3 and 2 users against a 10-item
+    catalog, width 5, k 4: per call the user rows, the whole item table
+    and the mask read once, the (id, value) pairs written once; 2 B N f
+    operations."""
+    smoke = _smoke_module()
+    want_bytes = sum(B * 5 * 4 + 10 * 5 * 4 + B * 10 + B * 4 * 8
+                     for B in (3, 2))
+    want_ops = sum(2.0 * B * 10 * 5 for B in (3, 2))
+    monkeypatch.setattr(smoke, "PEAK_BYTES_PER_S", 1e3)
+    monkeypatch.setattr(smoke, "PEAK_FP32_PER_S", 1e30)
+    assert smoke.topk_bound([3, 2], 10, 5, 4) == (
+        pytest.approx(want_bytes, rel=1e-12), "bytes")
+    monkeypatch.setattr(smoke, "PEAK_BYTES_PER_S", 1e30)
+    monkeypatch.setattr(smoke, "PEAK_FP32_PER_S", 1e3)
+    assert smoke.topk_bound([3, 2], 10, 5, 4) == (
+        pytest.approx(want_ops, rel=1e-12), "operations")
+
+
+def test_topk_agreement_rule():
+    """Ids are compared where the reference's neighbouring values differ
+    by more than 1e-5, the last position judged by the reference's extra
+    column; the tie case compares every id."""
+    import numpy as np
+    smoke = _smoke_module()
+    ref_vals = np.array([[5.0, 4.0, 3.0, 3.0 + 5e-6, 1.0],
+                         [9.0, 8.0, 7.0, 6.0, 6.0]])
+    ref_ids = np.array([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]])
+    ids = np.array([[1, 2, 4, 3], [6, 7, 8, 10]])
+    vals = ref_vals[:, :4] + 1e-6
+    err, bad = smoke.topk_agreement(ids, vals, ref_ids, ref_vals)
+    assert err == pytest.approx(1e-6) and bad == 0
+    ids[0, 0] = 9
+    assert smoke.topk_agreement(ids, vals, ref_ids, ref_vals)[1] == 1
+    assert smoke.topk_agreement(ids, vals, ref_ids, ref_vals,
+                                exact=True)[1] == 4
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,5 +1,6 @@
 """GPU tier of the port: the CUDA kernels (SGD epoch and BPR epoch, each
-on the resident and on the slab-tiled schedule; the SVD++ epoch) against
+on the resident and on the slab-tiled schedule; the SVD++ epoch; the
+fused catalog top-k) against
 their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
@@ -30,6 +31,9 @@ from mymedialite_tpu_torch.ops.bpr_epoch import (
 )
 from mymedialite_tpu_torch.eval.rating import evaluate_ratings
 from mymedialite_tpu_torch.ops import svdpp_plan as SVP
+from mymedialite_tpu_torch.ops.catalog_topk import (
+    NEG_INF, catalog_topk, topk_reference,
+)
 from mymedialite_tpu_torch.ops.sgd_epoch import (
     sgd_epoch, sgd_epoch_reference, sgd_epoch_tiled, sgd_epoch_tiled_reference,
 )
@@ -818,3 +822,176 @@ def test_svdpp_trains_on_the_card(cuda):
     res = evaluate_ratings(m, test, train)
     base = float(np.sqrt(np.mean((test.values - train.values.mean()) ** 2)))
     assert math.isfinite(res["RMSE"]) and res["RMSE"] < base
+
+
+# --- kernel 6: fused catalog scoring + top-k ---------------------------
+
+def _topk_inputs(B, N, f, mask_frac=None, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy(rng.normal(size=(B, f)).astype(np.float32))
+    H = torch.from_numpy(rng.normal(size=(N, f)).astype(np.float32))
+    mask = None
+    if mask_frac is not None:
+        mask = torch.from_numpy((rng.random((B, N)) > mask_frac)
+                                .astype(np.int8))
+    return tuple(None if t is None else t.to(device) for t in (W, H, mask))
+
+
+def _tie_free(vals, gap=1e-5):
+    """Positions whose value differs from both neighbours by more than
+    ``gap``; ``vals`` may carry one column past the compared ones."""
+    v = vals.double()
+    d = (v[:, 1:] - v[:, :-1]).abs() > gap
+    ok = torch.ones_like(v, dtype=torch.bool)
+    ok[:, 1:] &= d
+    ok[:, :-1] &= d
+    return ok
+
+
+def assert_topk_agrees(W, H, mask, k):
+    """Kernel 6 against topk_reference: values to 1e-4, ids equal where
+    the reference's neighbouring values differ by more than 1e-5 (the
+    reference's (k+1)-th value decides the last position)."""
+    before = catalog_topk.launches
+    ids, vals = catalog_topk(W, H, mask, k=k)
+    torch.cuda.synchronize()
+    assert catalog_topk.launches == before + 1
+    ref_ids, ref_vals = topk_reference(W, H, mask, k=k)
+    assert ids.shape == ref_ids.shape == (W.shape[0], k)
+    assert ids.dtype == torch.int32 and vals.dtype == torch.float32
+    assert (vals - ref_vals).abs().max().item() <= 1e-4
+    _, ext_vals = topk_reference(W, H, mask, k=min(k + 1, H.shape[0]))
+    sure = _tie_free(ext_vals)[:, :min(k, H.shape[0])]
+    n = sure.shape[1]
+    assert torch.equal(ids[:, :n][sure], ref_ids[:, :n][sure])
+    return ids, vals, ref_ids, ref_vals
+
+
+@pytest.mark.parametrize("B,N,f,k,mask_frac", [
+    (16, 1000, 24, 10, None), (300, 1537, 17, 7, None),
+    (32, 700, 8, 5, 0.5), (1024, 62_423, 41, 64, None),
+    (1024, 17_770, 41, 10, 0.01), (37, 129, 96, 64, 0.3),
+    (9, 300, 384, 33, None)],
+    ids=["basic", "users-and-tiles", "half-mask", "ml25m-serving",
+         "netflix-serving-masked", "ragged-k64", "widest"])
+def test_catalog_topk_matches_reference(cuda, B, N, f, k, mask_frac):
+    W, H, mask = _topk_inputs(B, N, f, mask_frac, seed=B + N)
+    assert_topk_agrees(W, H, mask, k)
+
+
+def test_catalog_topk_nearly_all_masked(cuda):
+    """Fewer candidates than k: the tail holds -3e38, and the kernel's
+    ids there are the reference's (the smallest masked ids)."""
+    W, H, _ = _topk_inputs(4, 50, 6, seed=3)
+    mask = torch.zeros((4, 50), dtype=torch.int8)
+    mask[0, [3, 10]] = 1
+    mask[1, :] = 1
+    ids, vals, ref_ids, _ = assert_topk_agrees(W, H, mask.to(cuda), 4)
+    assert (vals[0, 2:] <= NEG_INF / 2).all() and (vals[2:] <= NEG_INF / 2).all()
+    assert torch.equal(ids, ref_ids)
+
+
+def test_catalog_topk_k_larger_than_catalog(cuda):
+    W, H, _ = _topk_inputs(8, 6, 4, seed=4)
+    ids, vals, ref_ids, ref_vals = assert_topk_agrees(W, H, None, 10)
+    assert (ids[:, 6:] == 0).all() and (vals[:, 6:] == NEG_INF).all()
+    assert torch.equal(ids[:, :6], ref_ids[:, :6])
+
+
+@pytest.mark.parametrize("N", [600, 257])
+def test_catalog_topk_ties_go_to_the_smaller_id(cuda, N):
+    """Identical item rows: every score ties, across tile edges; the k
+    smallest ids win, in order, exactly as in the reference."""
+    W = torch.ones((3, 4), device=cuda)
+    H = torch.ones((N, 4), device=cuda)
+    for k in (5, 64):
+        ids, _ = catalog_topk(W, H, k=k)
+        ref_ids, _ = topk_reference(W, H, k=k)
+        assert torch.equal(ids, ref_ids)
+        assert torch.equal(ids[0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+def test_catalog_topk_refuses_bad_input(cuda):
+    W, H, mask = _topk_inputs(4, 100, 4, 0.5)
+    before = catalog_topk.launches
+    for bad in (lambda: catalog_topk(W, H, k=65),
+                lambda: catalog_topk(W.double(), H, k=5),
+                lambda: catalog_topk(W, H[:, :3].contiguous(), k=5),
+                lambda: catalog_topk(W, H, mask[:, :50].contiguous(), k=5),
+                lambda: catalog_topk(W, H, mask.float(), k=5),
+                lambda: catalog_topk(W, H.cpu(), k=5),
+                lambda: catalog_topk(torch.ones((2, 385), device=cuda),
+                                     torch.ones((3, 385), device=cuda), k=1)):
+        with pytest.raises((ValueError, TypeError)):
+            bad()
+    assert catalog_topk.launches == before
+
+
+def test_serving_takes_the_kernel_on_the_card(cuda, monkeypatch):
+    """recommend_batch serves a BPRMF on the card through kernel 6, once
+    per block, with the lists of the sort route on the same model; the
+    full list (n = -1) keeps the sort."""
+    from mymedialite_tpu_torch.ops import topk as T
+    feedback = posonly_from_ratings(synthetic_ratings(
+        num_users=3000, num_items=2000, num_ratings=60_000, seed=7))
+    m = create_item_recommender("BPRMF", "num_factors=16 num_iter=2 "
+                                "device=cuda")
+    m.feedback = feedback
+    m.train()
+    users = np.arange(0, 3000, dtype=np.int32)
+    cand = range(0, 2000, 2)
+    before = catalog_topk.launches
+    ids, scores = T.recommend_batch(m, users, 10, training=feedback,
+                                    candidates=cand, block=512)
+    torch.cuda.synchronize()
+    assert catalog_topk.launches == before + 6
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "takes_topk_kernel", lambda rec, k: False)
+        ref_ids, ref_s = T.recommend_batch(m, users, 11, training=feedback,
+                                           candidates=cand, block=512)
+    assert catalog_topk.launches == before + 6
+    np.testing.assert_allclose(scores, ref_s[:, :10], rtol=0, atol=1e-5)
+    gap = np.abs(np.diff(ref_s.astype(np.float64), axis=1)) > 1e-5
+    sure = np.ones(ref_s.shape, bool)
+    sure[:, 1:] &= gap
+    sure[:, :-1] &= gap
+    sure = sure[:, :10]
+    assert (ids[sure] == ref_ids[:, :10][sure]).all()
+    assert (ids % 2 == 0).all()
+    for r in (0, 999, 2999):
+        assert not set(ids[r]) & set(feedback.items_by_user(r).tolist())
+    T.recommend_batch(m, users[:100], 2000, training=feedback)   # the full list
+    assert catalog_topk.launches == before + 6
+
+
+def test_rating_models_rank_and_serve_on_the_card(cuda):
+    """The MF and SVD++ catalog scorers run on the card: the ranking
+    evaluator and recommend_batch take the tables' device, and the
+    scores equal the host predictions."""
+    data = synthetic_ratings(num_users=800, num_items=600,
+                             num_ratings=20_000, seed=8)
+    perm = np.random.default_rng(1).permutation(len(data))
+    cut = len(data) // 5
+    train = data.select(np.sort(perm[cut:]))
+    test = data.select(np.sort(perm[:cut]))
+    pos = lambda d: PosOnlyData(d.users, d.items, num_users=d.num_users,  # noqa: E731
+                                num_items=d.num_items)
+    from mymedialite_tpu_torch.ops.topk import recommend_batch
+    for name in ("BiasedMatrixFactorization", "SVDPlusPlus"):
+        m = create_rating_predictor(name, "num_factors=8 num_iter=2 "
+                                    "device=cuda")
+        m.ratings = train
+        m.train()
+        assert m.tables_device().type == "cuda"
+        users = np.arange(0, 800, 7, dtype=np.int32)
+        scores = m.score_catalog(users)
+        want = np.stack([m.predict_batch(np.full(600, u, np.int32),
+                                         np.arange(600, dtype=np.int32))
+                         for u in users])
+        np.testing.assert_allclose(scores, want, rtol=0, atol=1e-5)
+        res = evaluate_items(m, pos(test), pos(train),
+                             candidate_item_mode="UNION")
+        assert math.isfinite(res["AUC"]) and res["num_users"] > 0
+        before = catalog_topk.launches
+        ids, _ = recommend_batch(m, users, 10, training=pos(train))
+        assert catalog_topk.launches == before and (ids >= 0).all()

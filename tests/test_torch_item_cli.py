@@ -176,12 +176,44 @@ def test_bprmf_save_load(files, capsys):
     assert_same_output(loaded, jax_loaded, atol=1e-6)
 
 
+@pytest.mark.parametrize("flags", [
+    [], ["--test-users", "CAND", "--candidate-items", "USERS"],
+    ["--predict-items-number", "5", "--prediction-file", "PRED"]],
+    ids=["all", "explicit", "prediction-file"])
+def test_user_prediction_most_popular_identical(files, capsys, flags):
+    """--user-prediction recommends users for items: the files and the
+    mappings swap and the feedback is transposed, as in the JAX CLI."""
+    d = files["dir"]
+    out = {}
+    for name, cli in (("jax", jax_cli), ("port", port_cli)):
+        argv = ["--training-file", files["train"], "--test-file",
+                files["test"], "--user-prediction"] + [
+            files["cand"] if f == "CAND" else files["users"] if f == "USERS"
+            else str(d / f"{name}-users.txt") if f == "PRED" else f
+            for f in flags]
+        out[name] = _run(cli, argv, capsys)
+    assert "AUC" in out["port"]
+    assert _TIMES.sub("", out["port"]) == _TIMES.sub("", out["jax"])
+    if "PRED" in flags:
+        got = open(d / "port-users.txt").read()
+        assert got.count("\n") > 500          # one line per item
+        assert got == open(d / "jax-users.txt").read()
+
+
+def test_user_prediction_bprmf_same_fields(files, aligned, capsys):
+    jax_out, port_out = run_both(
+        ["--training-file", files["train"], "--test-file", files["test"],
+         "--recommender", "BPRMF", "--user-prediction"], capsys,
+        "num_factors=8 num_iter=2")
+    assert "AUC" in port_out.splitlines()[-1]
+    assert_same_output(port_out, jax_out, atol=1e-3)
+
+
 @pytest.mark.parametrize("argv", [
     ["--cross-validation", "3"], ["--online-evaluation"],
-    ["--user-prediction"], ["--profile", "trace"],
-    ["--recommender", "WRMF"]],
-    ids=["cross-validation", "online-evaluation", "user-prediction",
-         "profile", "unported-model"])
+    ["--profile", "trace"], ["--recommender", "WRMF"]],
+    ids=["cross-validation", "online-evaluation", "profile",
+         "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

@@ -1,11 +1,12 @@
 """The port never imports jax or the JAX package: a fresh interpreter in
 which any import of jax or of ``mymedialite_tpu`` (the name itself or a
 submodule; ``mymedialite_tpu_torch`` shares the prefix and stays
-allowed) raises runs the port's two CLIs end to end on the CPU (train,
-evaluate, save, load; rating prediction with BiasedMatrixFactorization,
-item recommendation with BPRMF, WeightedBPRMF and MostPopular) from the
-port's own synthetic data, and must exit 0. The rating CLI runs
-BiasedMatrixFactorization and SVDPlusPlus."""
+allowed) raises runs the port's three CLIs end to end on the CPU (train,
+evaluate, save, load; rating prediction with BiasedMatrixFactorization
+and SVDPlusPlus, item recommendation with BPRMF, WeightedBPRMF and
+MostPopular, also with ``--user-prediction``, rating-based ranking with
+BiasedMatrixFactorization and SigmoidSVDPlusPlus) from the port's own
+synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -34,7 +35,8 @@ SCRIPT = textwrap.dedent("""
     import os
     from mymedialite_tpu_torch.data.synthetic import (
         split_ratings, synthetic_ratings)
-    from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
+    from mymedialite_tpu_torch.cli import (
+        item_recommendation, rating_based_ranking, rating_prediction)
 
     d = os.getcwd()
     train, test = split_ratings(synthetic_ratings(
@@ -63,6 +65,11 @@ SCRIPT = textwrap.dedent("""
         assert item_recommendation.main(
             items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
     assert item_recommendation.main(items) == 0
+    assert item_recommendation.main(items + ["--user-prediction"]) == 0
+    assert rating_based_ranking.main(base + ["--save-model", f"{d}/r.model"]) == 0
+    assert rating_based_ranking.main(base + ["--load-model", f"{d}/r.model"]) == 0
+    assert rating_based_ranking.main(
+        base + ["--recommender", "SigmoidSVDPlusPlus"]) == 0
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -75,5 +82,6 @@ def test_port_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RMSE" in proc.stdout
-    assert proc.stdout.count("SVDPlusPlus num_factors=6") == 2
-    assert proc.stdout.count("AUC") == 5
+    assert proc.stdout.count("SVDPlusPlus num_factors=6") == 3
+    assert proc.stdout.count("SigmoidSVDPlusPlus num_factors=6") == 1
+    assert proc.stdout.count("AUC") == 9

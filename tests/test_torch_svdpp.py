@@ -288,8 +288,7 @@ def test_unported_paths_raise(data, monkeypatch, tmp_path):
                 model(opts).train()
     m = model()
     m.train()
-    for call in (m.catalog_scorer, lambda: m.score_catalog([0]),
-                 lambda: m.add_ratings([0], [0], [3.0]),
+    for call in (lambda: m.add_ratings([0], [0], [3.0]),
                  lambda: m._retrain([0], [0])):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
