@@ -29,14 +29,17 @@ Phases (any failure raises and the script exits non-zero):
    kernel against the plain version at this shape, both timed;
 8. the item-recommendation main path on the resident schedule: BPRMF (k=40,
    3 epochs) on the same pairs as positive-only feedback; the BPR kernel
-   against the plain version at this shape, both timed; ranking
+   against the plain version at this shape, both timed, and its call
+   split into the sampling kernel and the walk (torch.profiler); ranking
    evaluation of 4,096 seeded test users against MostPopular;
 9. serving phase 8's BPRMF: the top-10 of all 480,000 users, training
    items excluded, through ``recommend_batch`` (the top-k kernel once per
-   block of 1,024 users, 469 launches, no other kernel); each block's
+   block of 1,024 users, 469 calls, no other kernel); each block's
    inputs are kept, and the kernel, the plain version and torch.matmul +
    torch.topk are timed over them back to back; the lists against the
-   plain version's;
+   plain version's; the pass split into the host's ignore rows, the mask
+   on the card, the kernel (itself split into its split and merge
+   kernels) and the copies back;
 10. the SVD++-epoch kernel against its plain PyTorch version on the card
     at phase 3's shape, k=20, one epoch from the same tables: plain,
     sigmoid RMSE, sigmoid MAE and without p (the asymmetric factor models);
@@ -52,11 +55,13 @@ Phases (any failure raises and the script exits non-zero):
 13. the rating main path on the tiled schedule: BiasedMatrixFactorization
     as in phase 7, through the tiled SGD kernel, compared with its plain
     version at this shape on the shortest prefix of an epoch's order that
-    crosses three slab boundaries (plus 256 chunks);
+    crosses three slab boundaries (plus 256 chunks), and the bound of a
+    whole epoch;
 14. the item main path on the tiled schedule: BPRMF as in phase 8, through
     the tiled BPR kernel with sub-bucketed keys, compared with its plain
-    version at this shape on such a prefix (identical negatives), ranked
-    against MostPopular;
+    version at this shape on such a prefix (identical negatives), the
+    bound of a whole epoch (from one more kernel epoch's negatives),
+    ranked against MostPopular;
 15. serving phase 14's BPRMF as in phase 9: 162,541 users, 159 launches;
 16. the rating_prediction CLI in process at 6,040 x 3,706 x 1M ratings,
     with BiasedMatrixFactorization and with SVDPlusPlus (``--test-file``,
@@ -70,7 +75,9 @@ Phases (any failure raises and the script exits non-zero):
 
 Before each main path every kernel's launch count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
-kernel once per epoch, the top-k kernel once per block of users) and
+kernel once per epoch, the top-k kernel once per block of users; a
+count is one wrapper call, which may launch more than one CUDA kernel:
+the BPR epoch's sampler and walk, kernel 6's split and merge) and
 every other kernel never. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of jax and nothing of the JAX package: only the
@@ -302,6 +309,29 @@ def time_kernel_and_plain(kernel, plain):
     torch.cuda.synchronize()
     return (k_out, p_out, start.elapsed_time(end),
             (time.perf_counter() - t0) * 1e3)
+
+
+def device_ms(fn, parts):
+    """Run ``fn()`` once under torch.profiler and return, for each name
+    in ``parts``, the device ms of the CUDA kernels whose names hold it
+    (None where the profiler saw no device time for it). Splits one
+    wrapper call into the kernels it launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for part in parts:
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if part in ev.key)
+        out[part] = us / 1e3 if us else None
+    return out
+
+
+def split_line(split):
+    return ", ".join(f"{k} {'not seen' if v is None else f'{v:.1f} ms'}"
+                     for k, v in split.items())
 
 
 def table_error(kernel_tables, plain_tables) -> float:
@@ -627,6 +657,9 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     hp = (model.global_bias, model.min_rating, model._rating_range())
     order = plan.epoch_order(12345)
     if tiled:
+        ub, ibr, sl, row = order
+        epoch_bound = sgd_bound(plan, ub, sl * plan.slab_blocks + ibr, row,
+                                model.num_factors)
         n = slab_prefix(order[2])
         order = tuple(t[:n].contiguous() for t in order)
         ub, ibr, sl, row = order
@@ -638,9 +671,12 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     err, kernel_ms, plain_ms = kernel_vs_plain(
         plan, We, He, order, hp, rates, loss=model.loss_id, biased=True)
     b_ms, b_by = sgd_bound(plan, ub, ib, row, model.num_factors)
+    if not tiled:
+        epoch_bound = b_ms, b_by
     log(f"full-shape {name} ({span}): kernel {kernel_ms:.1f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
-        f"{err:.3e} (tol {KERNEL_TOL})")
+        f"{err:.3e} (tol {KERNEL_TOL}); a whole epoch's bound "
+        f"{epoch_bound[0]:.4f} ms ({epoch_bound[1]})")
     check(err, f"{name} at full shape")
 
     t0 = time.perf_counter()
@@ -653,6 +689,44 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
         raise AssertionError("RMSE does not beat the global average")
     return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def bpr_tiled_epoch_bound(plan, state, tl, W, H, order, bits, rates,
+                          num_factors: int):
+    """``bpr_bound`` over a whole tiled epoch: the kernel runs the epoch
+    once more on copies of the tables for its negatives (the plain
+    version is held to the kernel on a prefix only)."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch_tiled
+    _, _, neg = bpr_epoch_tiled(
+        W.clone(), H.clone(), plan.packed, state["subkeys_tbl"],
+        state["cdf_tbl"], bits, order, rates, slab_blocks=tl["slab_blocks"],
+        user_block=plan.user_block, item_block=plan.item_block, subkeys=True,
+        return_negatives=True)
+    ub, ibr, isl, jb, _, _, _, _, row = order
+    table = state["subkeys_tbl"]
+    return bpr_bound(plan, ub, isl * tl["slab_blocks"] + ibr, row, jb, neg,
+                     num_factors, probe_bytes=table.element_size(),
+                     table_bytes=table.numel() * table.element_size())
+
+
+def bpr_call_split(plan, state, tl, W, H, order, bits, neg_plan, rates):
+    """Device ms of the sampling kernel and of the walk in one BPR call
+    over ``order`` (resident when ``neg_plan`` is given, else tiled), on
+    copies of the tables."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block)
+    Wc, Hc = W.clone(), H.clone()
+    if neg_plan is not None:
+        bitmask = state.get("bitmask_tbl")
+        run = lambda: bpr_epoch(  # noqa: E731
+            Wc, Hc, plan.packed, state["keys_tbl"], state["cdf_tbl"], bits,
+            order, *neg_plan, rates, bitmask_tbl=bitmask, **kw)
+    else:
+        run = lambda: bpr_epoch_tiled(  # noqa: E731
+            Wc, Hc, plan.packed, state["subkeys_tbl"], state["cdf_tbl"],
+            bits, order, rates, slab_blocks=tl["slab_blocks"], subkeys=True,
+            **kw)
+    return device_ms(run, ("bpr_sample_kernel", "bpr_walk_kernel"))
 
 
 def phase_bpr_path(dev, train, test, *, tiled: bool):
@@ -712,12 +786,16 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     if tiled:
         order, bits = bpr_tiled_epoch_inputs(plan, state, model._neg_meta,
                                              tl, 12345)
+        epoch_bound = bpr_tiled_epoch_bound(plan, state, tl, We, He, order,
+                                            bits, rates, model.num_factors)
         n = slab_prefix(order[2])
         order = tuple(t[:n].contiguous() for t in order)
         bits = bits[:n].contiguous()
         err, kernel_ms, plain_ms, neg = bpr_tiled_kernel_vs_plain(
             plan, state, tl, We, He, order, bits, rates, soft_margin=False,
             wbpr=False)
+        call_split = bpr_call_split(plan, state, tl, We, He, order, bits,
+                                    None, rates)
         ub, ibr, isl, jb, _, _, _, _, row = order
         ib = isl * tl["slab_blocks"] + ibr
         table = state["subkeys_tbl"]
@@ -729,6 +807,8 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         err, kernel_ms, plain_ms, neg = bpr_kernel_vs_plain(
             plan, state, We, He, order, neg_plan, bits, rates,
             soft_margin=False, wbpr=False, bitmask=bitmask)
+        call_split = bpr_call_split(plan, state, None, We, He, order, bits,
+                                    neg_plan, rates)
         (ub, ib, row), jb = order, neg_plan[0]
         table = state["bitmask_tbl" if bitmask else "keys_tbl"]
         span = f"all {plan.num_chunks} chunks"
@@ -736,9 +816,14 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         plan, ub, ib, row, jb, neg, model.num_factors,
         probe_bytes=table.element_size(),
         table_bytes=table.numel() * table.element_size())
+    if not tiled:
+        epoch_bound = b_ms, b_by
     log(f"full-shape {name} ({span}): kernel {kernel_ms:.1f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), negatives "
-        f"identical, max_abs_err {err:.3e} (tol {KERNEL_TOL})")
+        f"identical, max_abs_err {err:.3e} (tol {KERNEL_TOL}); a whole "
+        f"epoch's bound {epoch_bound[0]:.4f} ms ({epoch_bound[1]})")
+    log(f"{name} call split on the same work (torch.profiler, one more "
+        f"run on copies): {split_line(call_split)}")
     check(err, f"{name} at full shape")
 
     rng = np.random.default_rng(9)
@@ -1020,6 +1105,63 @@ def library_topk(user_rows, item_table, mask8=None, *, k):
     return ids.to(torch.int32), vals
 
 
+@contextlib.contextmanager
+def timed_ignore_rows():
+    """Inside the block ``recommend_batch``'s host ignore rows
+    (``row_counts`` and ``ragged_rows``) are timed on the host clock and
+    each block's rows kept. Yields {"s": seconds, "rows": [...]}."""
+    from mymedialite_tpu_torch.ops import topk as topk_module
+    real = topk_module.row_counts, topk_module.ragged_rows
+    out = {"s": 0.0, "rows": []}
+
+    def timed(fn, keep):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            out["s"] += time.perf_counter() - t0
+            if keep:
+                out["rows"].append(r)
+            return r
+        return call
+    topk_module.row_counts = timed(real[0], False)
+    topk_module.ragged_rows = timed(real[1], True)
+    try:
+        yield out
+    finally:
+        topk_module.row_counts, topk_module.ragged_rows = real
+
+
+def replay_masks(rows, num_items, dev):
+    """``recommend_batch``'s mask step over the kept ignore rows, as the
+    pass runs it (all items candidates): the rows copied to the card, the
+    [B, N] byte mask made and the ignored items set to 0. Returns (host
+    seconds up to a synchronise, the masks)."""
+    cand = torch.ones(num_items, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = []
+    for r in rows:
+        ignore = torch.from_numpy(r).to(dev)
+        B = ignore.shape[0]
+        mask = cand.to(torch.int8).expand(B, -1).contiguous()
+        at = torch.arange(B, device=dev)[:, None].expand_as(ignore)
+        keep = ignore < num_items
+        mask[at[keep], ignore[keep]] = 0
+        masks.append(mask)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, masks
+
+
+def replay_copies(outs):
+    """The copies of each block's (ids, scores) back to the host, as the
+    pass makes them: host seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, vals in outs:
+        vals.cpu().numpy(), ids.cpu().numpy()
+    return time.perf_counter() - t0
+
+
 def phase_serving(dev, model, train, label, n=10):
     """Top-n for every user of ``model`` with the training items
     excluded, through ``recommend_batch``: on the kernel route, kernel 6
@@ -1040,7 +1182,7 @@ def phase_serving(dev, model, train, label, n=10):
     train.by_user                                  # the host CSR, once
     blocks = -(-users.size // 1024)
     torch.cuda.synchronize()
-    with recorded_topk() as calls, \
+    with recorded_topk() as calls, timed_ignore_rows() as ignore, \
             counted_path({"catalog_topk": blocks}) as counted:
         t0 = time.perf_counter()
         ids, scores = recommend_batch(model, users, n, training=train)
@@ -1050,6 +1192,22 @@ def phase_serving(dev, model, train, label, n=10):
         raise AssertionError(f"{label} serving: a list is short or not "
                              "finite")
     kernel_ms, k_out = replay_ms(catalog_topk, calls)
+    # how the pass splits: the host's ignore rows (timed in the pass), the
+    # mask on the card and the copies back (replayed), the kernel
+    mask_s, masks = replay_masks(ignore["rows"], model.num_items_trained, dev)
+    if not all(torch.equal(m, a[2]) for m, (a, _) in zip(masks, calls)):
+        raise AssertionError(f"{label} serving: the replayed masks differ")
+    del masks
+    copy_s = replay_copies(k_out)
+    rest_s = wall_s - ignore["s"] - mask_s - kernel_ms / 1e3 - copy_s
+    parts = device_ms(lambda: [catalog_topk(*a, **kw) for a, kw in calls],
+                      ("topk_split_kernel", "topk_merge_kernel"))
+    log(f"{label} kernel 6 over the same blocks (torch.profiler): "
+        f"{split_line(parts)}")
+    log(f"{label} serving pass {wall_s:.3f} s: host ignore rows "
+        f"{ignore['s']:.3f} s, mask on the card {mask_s:.3f} s, kernel "
+        f"{kernel_ms / 1e3:.3f} s, copies back {copy_s:.3f} s, the rest "
+        f"{rest_s:.3f} s")
     plain_ms, p_out = replay_ms(
         lambda *a, k: topk_reference(*a, k=k + 1), calls)
     lib_ms, l_out = replay_ms(library_topk, calls)

@@ -36,7 +36,7 @@ from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    create_item_recommender, list_item_recommenders,
+    ITEM_RECOMMENDERS, create_item_recommender, list_item_recommenders,
 )
 from mymedialite_tpu_torch.ops.topk import recommend_batch
 
@@ -128,7 +128,10 @@ def main(argv=None):
     try:
         recommender = create_item_recommender(name)
     except KeyError as e:
-        common.abort(f"{e.args[0]}. Choose from:\n  " +
+        # the JAX CLI's line; a known name keeps "not yet ported"
+        reason = e.args[0] if name in ITEM_RECOMMENDERS else \
+            f"Unknown recommender {name!r}"
+        common.abort(f"{reason}. Choose from:\n  " +
                      "\n  ".join(list_item_recommenders()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):

@@ -32,7 +32,7 @@ from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    create_rating_predictor, list_rating_predictors,
+    RATING_PREDICTORS, create_rating_predictor, list_rating_predictors,
 )
 from mymedialite_tpu_torch.utils.params import configure
 
@@ -95,7 +95,10 @@ def main(argv=None):
     try:
         recommender = create_rating_predictor(name)
     except KeyError as e:
-        common.abort(f"{e.args[0]}. Choose from:\n  " +
+        # the JAX CLI's line; a known name keeps "not yet ported"
+        reason = e.args[0] if name in RATING_PREDICTORS else \
+            f"Unknown recommender {name!r}"
+        common.abort(f"{reason}. Choose from:\n  " +
                      "\n  ".join(list_rating_predictors()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):

@@ -36,7 +36,7 @@ from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.rating import compute_fit, evaluate_ratings
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    create_rating_predictor, list_rating_predictors,
+    RATING_PREDICTORS, create_rating_predictor, list_rating_predictors,
 )
 
 _NOT_PORTED = "is not yet ported to mymedialite_tpu_torch"
@@ -109,7 +109,10 @@ def main(argv=None):
     try:
         recommender = create_rating_predictor(name)
     except KeyError as e:
-        common.abort(f"{e.args[0]}. Choose from:\n  " +
+        # the JAX CLI's line; a known name keeps "not yet ported"
+        reason = e.args[0] if name in RATING_PREDICTORS else \
+            f"Unknown recommender {name!r}"
+        common.abort(f"{reason}. Choose from:\n  " +
                      "\n  ".join(list_rating_predictors()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):

@@ -62,9 +62,12 @@ class KernelLibrary:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
+        fn = self.lib.mml_catalog_topk_ctas_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
         fn = self.lib.mml_catalog_topk
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
 
 

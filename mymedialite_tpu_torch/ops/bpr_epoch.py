@@ -7,12 +7,13 @@ schedule; ``bpr_epoch_tiled`` replaces ``bpr_epoch_mxu_tiled`` :1220
 (kernel body ``_mxu_bpr_tiled_kernel`` :979), the slab-tiled schedule of
 big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
 and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
-outputs to their inputs. On CUDA tensors they launch
-``csrc/bpr_epoch.cu`` (one launch per epoch; the tiled wrapper passes the
-absolute positive blocks isl * slab_blocks + ibr and the order's absolute
-negative blocks jb) or raise; on CPU tensors they run
+outputs to their inputs. On CUDA tensors they call ``csrc/bpr_epoch.cu``
+(one call per epoch: a kernel that samples every slot's negative over
+the whole card, then the walk of the chunks; the tiled wrapper passes
+the absolute positive blocks isl * slab_blocks + ibr and the order's
+absolute negative blocks jb) or raise; on CPU tensors they run
 ``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
-own launches.
+own calls.
 
 Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
@@ -35,7 +36,9 @@ Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
 With ``return_negatives`` the epoch also returns ``neg`` [nc, 2, C]
 int32 in visit order: the sampled local negative of every slot and the
-bits of its 0/1 success weight, as the JAX kernels' ``neg_dbg``.
+bits of its 0/1 success weight, as the JAX kernels' ``neg_dbg``. On the
+card this is the buffer that the sampling kernel fills and the walk
+reads (about 173 MB at the Netflix and ML-25M shapes), made every epoch.
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ import torch
 
 from mymedialite_tpu_torch.ops.bpr_plan import SUBKEY_BUCKETS
 
-# the kernel keeps up to 8 columns per lane in registers
+# the walk keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the kernel stages rates, the chunk and the CDF row in the default 48 KB
-# of shared memory
-MAX_SHARED_BYTES = 48 * 1024
+# the walk stages the rates and two chunks' rows in shared memory, at
+# most what a block can have on an H100
+MAX_SHARED_BYTES = 227 * 1024
 # membership forms of the kernel (csrc/bpr_epoch.cu)
 _KEYS, _BITMASK, _SUBKEYS = 0, 1, 2
 
@@ -217,16 +220,16 @@ def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
         raise ValueError(f"bpr_epoch: no kernel for device {W.device}")
     nc, C = cols[0].numel(), packed.shape[2]
     fe, trials = W.shape[1], bits.shape[1]
-    smem = 4 * (6 * fe + 6 * C + (item_block if wbpr else 0))
-    if fe > MAX_FE or smem > MAX_SHARED_BYTES:
-        raise ValueError(f"bpr_epoch: kernel takes fe <= {MAX_FE} and "
-                         f"{MAX_SHARED_BYTES} B of shared memory, got fe={fe} "
-                         f"chunk={C} item_block={item_block}")
+    smem = 4 * (6 * fe + 12 * C)
+    if fe > MAX_FE or fe % 4 or C % 4 or smem > MAX_SHARED_BYTES:
+        raise ValueError(f"bpr_epoch: kernel takes fe <= {MAX_FE}, fe and "
+                         f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
+                         f"of shared memory, got fe={fe} chunk={C}")
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_bpr_epoch
     scratch = torch.empty(3 * C * fe, dtype=torch.float32, device=W.device)
-    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device) \
-        if return_negatives else None
+    # every slot's sampled negative: the walk reads it
+    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device)
     if bitmask_tbl is not None:
         membership, keys = _BITMASK, bits       # keys unread
     else:
@@ -237,14 +240,12 @@ def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
         *(t.data_ptr() for t in cols), keys.data_ptr(),
         bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
         cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
-        rates.data_ptr(), scratch.data_ptr(),
-        neg.data_ptr() if neg is not None else None,
-        nc, C, user_block, item_block, fe, trials,
+        rates.data_ptr(), scratch.data_ptr(), neg.data_ptr(), nc, C, user_block, item_block, fe, trials,
         keys.shape[1] if membership != _BITMASK else 0,
         int(bool(soft_margin)), int(bool(wbpr)), membership, stream)
     if err != 0:
         raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
-    return neg
+    return neg if return_negatives else None
 
 
 def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,

@@ -9,9 +9,10 @@ k best are taken, ties going to the smaller item id as in
 
 - the fused top-k kernel (``ops/catalog_topk.py``, kernel 6) for models
   with ``fused_rows`` (the BPR family) whose tables are on a CUDA device,
-  when k = min(n, num_items) <= ``MAX_K``: per block a [B, N] byte mask
-  made on the card (0 for the non-candidates and the user's training
-  items) and one launch on the block's fused rows;
+  when k = min(n, num_items) <= ``MAX_K``: the fused rows padded once
+  to 16-byte rows, then per block a [B, N] byte mask made on the card (0
+  for the non-candidates and the user's training items) and one call on
+  the block's rows;
 - the model's catalog scores with those items set to -3e38 and a stable
   descending sort (``torch.topk`` leaves the order of ties open)
   otherwise: the full list (k past 64, where the JAX package also leaves
@@ -25,7 +26,9 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.eval.ranking import ragged_rows, row_counts
-from mymedialite_tpu_torch.ops.catalog_topk import MAX_K, catalog_topk
+from mymedialite_tpu_torch.ops.catalog_topk import (
+    MAX_K, catalog_topk, pad_columns,
+)
 
 NEG_INF = -3.0e38
 
@@ -67,7 +70,9 @@ def recommend_batch(recommender, users, n: int, training=None,
     dev = recommender.tables_device()
     fused = takes_topk_kernel(recommender, k)
     if fused:
-        user_rows, item_rows = recommender.fused_rows()
+        # 16-byte rows for the kernel, padded once per pass
+        user_rows, item_rows = (pad_columns(t)
+                                for t in recommender.fused_rows())
     else:
         scorer = recommender.catalog_scorer()
     cand_mask = torch.ones(num_items, dtype=torch.bool)

@@ -168,3 +168,124 @@ def test_topk_from_factors_matches_jax(with_ignore, with_cand):
     for r in range(B):
         assert not set(gi[r].tolist()) & set(ignore[r].tolist())
         assert cand[gi[r].numpy()].all()
+
+
+# --- kernel 6's split and merge, modelled in plain torch ------------------
+
+NO_ID = 2 ** 31 - 1
+
+
+def split_merge_topk(W, H, mask, k, split):
+    """Plain model of the CUDA kernel's design (used only here): the
+    catalog cut into splits of ``split`` items, the top-min(k, N) of each
+    split under (value desc, id asc) with a short split padded by
+    (-inf, INT_MAX), then the top of the union of the partial lists, padded
+    to k as ``catalog_topk`` pads. Returns numpy (ids, vals)."""
+    W, H = torch.from_numpy(W), torch.from_numpy(H)
+    N, k_run = H.shape[0], min(k, H.shape[0])
+    part_v, part_i = [], []
+    for lo in range(0, N, split):
+        hi = min(N, lo + split)
+        s = W @ H[lo:hi].T
+        if mask is not None:
+            s = s.masked_fill(torch.from_numpy(mask[:, lo:hi]) == 0,
+                              ct.NEG_INF)
+        v, i = torch.sort(s, dim=1, descending=True, stable=True)
+        v, i = v[:, :k_run], i[:, :k_run] + lo
+        short = k_run - v.shape[1]
+        part_v.append(torch.cat([v, v.new_full((v.shape[0], short),
+                                               -float("inf"))], 1))
+        part_i.append(torch.cat([i, i.new_full((i.shape[0], short), NO_ID)],
+                                1))
+    v, i = torch.cat(part_v, 1), torch.cat(part_i, 1)
+    by_id = torch.argsort(i, dim=1, stable=True)
+    v, i = v.gather(1, by_id), i.gather(1, by_id)
+    by_v = torch.argsort(v, dim=1, descending=True, stable=True)
+    v, i = v.gather(1, by_v)[:, :k_run], i.gather(1, by_v)[:, :k_run]
+    assert (i < N).all()                     # no padding entry survives
+    ids, vals = ct._pad(i.to(torch.int32), v, k)
+    return ids.numpy(), vals.numpy()
+
+
+def _jax_topk(W, H, mask, k):
+    wi, wv = pt.catalog_topk(jnp.asarray(W), jnp.asarray(H),
+                             None if mask is None else jnp.asarray(mask),
+                             k=k, interpret=True)
+    return np.asarray(wi), np.asarray(wv)
+
+
+@pytest.mark.parametrize("case", [
+    "ties-across-split-edges", "short-split", "k-past-split-size",
+    "ragged-tile", "fully-masked-split", "the-split-rule"])
+def test_split_and_merge_matches_pallas_kernel(case):
+    """The split-and-merge design gives the JAX kernel's lists: ties
+    across split edges exactly by id, a last split shorter than k, k
+    larger than N / splits, N not a multiple of the 128-item tile, and a
+    split whose items are all masked."""
+    mask = None
+    if case == "ties-across-split-edges":
+        W, H, k, split = (np.ones((3, 4), np.float32),
+                          np.ones((600, 4), np.float32), 64, 128)
+    elif case == "short-split":
+        (W, H, _), k, split = _inputs(8, 300, 6, seed=1), 64, 128
+    elif case == "k-past-split-size":
+        (W, H, _), k, split = _inputs(8, 100, 5, seed=2), 20, 16
+    elif case == "ragged-tile":
+        (W, H, mask), k, split = _inputs(16, 1537, 17, 0.3, seed=3), 10, 256
+    elif case == "fully-masked-split":
+        (W, H, _), k, split = _inputs(6, 700, 8, seed=4), 10, 128
+        mask = np.ones((6, 700), np.int8)
+        mask[:, 128:256] = 0
+        W[:, :] = np.abs(W)
+        H[128:256] = np.abs(H[128:256]) + 10   # the best scores, all masked
+    else:
+        (W, H, _), k = _inputs(32, 1537, 12, seed=5), 33
+        split = ct.split_items(32, 1537, 132, 3)
+        assert split % ct.TILE_ITEMS == 0 and -(-1537 // split) == 13
+    gi, gv = split_merge_topk(W, H, mask, k, split)
+    wi, wv = _jax_topk(W, H, mask, k)
+    ri, rv = (t.numpy() for t in ct.topk_reference(
+        torch.from_numpy(W), torch.from_numpy(H),
+        None if mask is None else torch.from_numpy(mask), k=k))
+    _assert_agree(gi, gv, wi, wv)
+    _assert_agree(gi, gv, ri, rv)
+    if case == "ties-across-split-edges":
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gi[0], np.arange(64))
+    if case == "fully-masked-split":
+        assert not ((gi >= 128) & (gi < 256)).any()
+
+
+@pytest.mark.parametrize("per_sm", [2, 3])
+@pytest.mark.parametrize("B,N", [(1024, 17_770), (1024, 62_423), (300, 1537),
+                                 (16, 1000), (8, 6), (2000, 50),
+                                 (20_000, 5000)])
+def test_split_rule(B, N, per_sm):
+    """Whole tiles per split, never more splits than tiles, a grid that
+    one round of resident CTAs holds whenever it can, and at the serving
+    shapes (1,024 users, the Netflix and ML-25M catalogs) with three CTAs
+    per SM, a grid of at least two waves of 132 SMs."""
+    per = ct.split_items(B, N, 132, per_sm)
+    splits = -(-N // per)
+    tiles = -(-N // ct.TILE_ITEMS)
+    assert per % ct.TILE_ITEMS == 0 and 1 <= splits <= tiles
+    assert (splits - 1) * per < N
+    user_tiles = -(-B // ct.USERS_PER_CTA)
+    grid = user_tiles * splits
+    assert grid <= max(per_sm * 132, user_tiles)
+    if B == 1024 and per_sm == 3:
+        assert grid >= 2 * 132
+
+
+def test_padded_columns_leave_scores_alone():
+    """pad_columns appends zero columns up to a multiple of 4; the padded
+    rows give the plain version's lists bit for bit."""
+    W, H, mask = (torch.from_numpy(a) for a in _inputs(20, 300, 41, 0.2))
+    Wp, Hp = ct.pad_columns(W), ct.pad_columns(H)
+    assert Wp.shape == (20, 44) and Hp.shape == (300, 44)
+    assert (Wp[:, 41:] == 0).all() and torch.equal(Wp[:, :41], W)
+    assert ct.pad_columns(Wp) is Wp
+    got, want = ct.topk_reference(Wp, Hp, mask, k=12), \
+        ct.topk_reference(W, H, mask, k=12)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)

@@ -360,6 +360,56 @@ def test_bpr_duplicate_heavy_one_chunk_at_a_time(cuda, bitmask):
     assert gap <= max(1e-4, 4 * spread)
 
 
+@pytest.mark.parametrize("membership", ["keys", "bitmask", "subkeys"])
+@pytest.mark.parametrize("soft_margin,wbpr", [
+    (False, False), (True, False), (False, True)],
+    ids=["bpr", "hinge", "wbpr"])
+def test_bpr_sampler_prepass_matches_reference(cuda, membership, soft_margin,
+                                               wbpr):
+    """The epoch's negatives, sampled for every slot before the walk,
+    equal sample_negatives_reference over all chunks at once, bit for bit,
+    on the three membership forms (keys and the bitmask on the resident
+    schedule, the sub-bucketed keys on the tiled one)."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import sample_negatives_reference
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    tiled = membership == "subkeys"
+    if tiled:
+        plan, state, meta, tl = _bpr_tiled_state(cuda, fb, wbpr)
+    else:
+        plan, state, meta = BP.prepare_bpr_mxu(
+            fb, uniform_user=not wbpr, shuffle_seed=1, bitmask=True,
+            device=cuda)
+    W, H = _bpr_tables(cuda, plan, fb.num_users, fb.num_items, 40, 0)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.01, True, device=cuda)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              soft_margin=soft_margin, wbpr=wbpr, return_negatives=True)
+    if tiled:
+        args = _bpr_tiled_args(plan, state, meta, tl, rates, 21, wbpr)
+        _, _, neg = bpr_epoch_tiled(W, H, *args, slab_blocks=tl[0],
+                                    subkeys=True, **kw)
+        packed, table, cdf, bits, order, _ = args
+        _, _, _, jb, _, _, nval, bkt, row = order
+    else:
+        args = _bpr_epoch_args(plan, state, meta, rates, 21, wbpr)
+        bitmask = state["bitmask_tbl"] if membership == "bitmask" else None
+        _, _, neg = bpr_epoch(W, H, *args, bitmask_tbl=bitmask, **kw)
+        packed, table, cdf, bits, (_, _, row), jb, nval, bkt, _ = args
+    torch.cuda.synchronize()
+    u_loc = packed[row.long(), 0]
+    for lo in range(0, row.numel(), 16):
+        sl = slice(lo, lo + 16)
+        j, ok = sample_negatives_reference(
+            bits[sl], jb[sl], nval[sl], bkt[sl], u_loc[sl],
+            item_block=plan.item_block, keys_tbl=table,
+            bitmask_tbl=state["bitmask_tbl"] if membership == "bitmask"
+            else None, cdf_tbl=cdf, wbpr=wbpr, subkeys=tiled)
+        assert torch.equal(neg[sl, 0], j)
+        assert torch.equal(neg[sl, 1], ok.to(torch.float32).view(torch.int32))
+    assert (neg[:, 1] == ONE_BITS).float().mean().item() > 0.99
+
+
 def test_bprmf_trains_on_the_card(cuda):
     """BPRMF through the registry launches the kernel once per epoch and
     keeps its kernel-layout tables on the card; it ranks held-out pairs
@@ -909,6 +959,66 @@ def test_catalog_topk_ties_go_to_the_smaller_id(cuda, N):
         ref_ids, _ = topk_reference(W, H, k=k)
         assert torch.equal(ids, ref_ids)
         assert torch.equal(ids[0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+def _split_case(case, device):
+    """The split-and-merge cases of tests/test_torch_catalog_topk.py at a
+    few users, where the split rule gives every 128-item tile its own
+    split: (W, H, mask, k)."""
+    rng = np.random.default_rng(7)
+    mask = None
+    if case == "ties-across-split-edges":
+        W, H, k = np.ones((3, 4), np.float32), np.ones((600, 4), np.float32), 64
+    elif case == "short-split":          # the last split holds 44 < k items
+        W, H = (rng.normal(size=s).astype(np.float32)
+                for s in ((8, 6), (300, 6)))
+        k = 64
+    elif case == "k-past-split-size":    # 129 items: splits of 128 and 1
+        W, H = (rng.normal(size=s).astype(np.float32)
+                for s in ((8, 5), (129, 5)))
+        k = 64
+    elif case == "ragged-tile":
+        W, H = (rng.normal(size=s).astype(np.float32)
+                for s in ((16, 17), (1537, 17)))
+        mask, k = (rng.random((16, 1537)) > 0.3).astype(np.int8), 10
+    else:                                # fully-masked-split
+        W, H = (np.abs(rng.normal(size=s)).astype(np.float32)
+                for s in ((6, 8), (700, 8)))
+        H[128:256] += 10                 # the best scores, all masked
+        mask, k = np.ones((6, 700), np.int8), 10
+        mask[:, 128:256] = 0
+    to = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa: E731
+    return to(W), to(H), to(mask), k
+
+
+@pytest.mark.parametrize("case", [
+    "ties-across-split-edges", "short-split", "k-past-split-size",
+    "ragged-tile", "fully-masked-split"])
+def test_catalog_topk_split_cases(cuda, case):
+    """Kernel 6's split and merge on the card: the catalog is cut into
+    several splits, and the lists equal the plain version's (ties across
+    split edges exactly by id, masked splits never ahead of real items)."""
+    from mymedialite_tpu_torch.ops import catalog_topk as ct
+    W, H, mask, k = _split_case(case, cuda)
+    room = ct._grid_room(torch.cuda.current_device(), 4 * -(-W.shape[1] // 4))
+    assert -(-H.shape[0] // ct.split_items(W.shape[0], H.shape[0], *room)) > 1
+    ids, vals, ref_ids, _ = assert_topk_agrees(W, H, mask, k)
+    if case == "ties-across-split-edges":
+        assert torch.equal(ids, ref_ids)
+        assert torch.equal(ids[0].cpu(), torch.arange(64, dtype=torch.int32))
+    if case == "fully-masked-split":
+        assert not ((ids >= 128) & (ids < 256)).any()
+
+
+def test_catalog_topk_fills_the_card(cuda):
+    """At the serving width the split kernel fits three CTAs on an SM, so
+    a block of 1,024 users runs at least two waves of CTAs, in one round."""
+    from mymedialite_tpu_torch.ops import catalog_topk as ct
+    sms, per_sm = ct._grid_room(torch.cuda.current_device(), 44)
+    assert per_sm >= 3
+    for N in (17_770, 62_423):
+        grid = 32 * -(-N // ct.split_items(1024, N, sms, per_sm))
+        assert 2 * sms <= grid <= per_sm * sms
 
 
 def test_catalog_topk_refuses_bad_input(cuda):
