@@ -12,6 +12,10 @@ Phases (any failure raises and the script exits non-zero):
    2,000 users x 3,000 items x 100k ratings, k=40, one epoch from the same
    tables and order, for every loss x biased combination, on the resident
    schedule and on the slab-tiled one (one-block slabs, so three slabs);
+   the MAE rows under two witnesses instead (the MAE gradient is a sign,
+   which the atomics' order can flip): every chunk stepped alone from the
+   float64 plain trajectory's state, and the whole epoch no farther from
+   float64 than 4x the farthest plain run;
 4. the BPR-epoch kernel against its plain PyTorch version on the card
    at the same shape (the rated pairs as positive-only feedback), one
    epoch from the same tables, order, negative plan and bits: on the
@@ -43,11 +47,15 @@ Phases (any failure raises and the script exits non-zero):
 10. the SVD++-epoch kernel against its plain PyTorch version on the card
     at phase 3's shape, k=20, one epoch from the same tables: plain,
     sigmoid RMSE, sigmoid MAE and without p (the asymmetric factor models);
+    the MAE row under phase 3's two witnesses, its R steps run one at a
+    time after their block's S steps; where R and Y read s and c (a
+    copy in shared memory or the global scratch) is logged;
 11. the SVD++ rating main path on phase 6's data: SVDPlusPlus (k=20, learn
     rate 0.003, 3 epochs) trained through the registry with the test pairs
     as additional feedback (as the CLI sets them), evaluated against the
-    global average; the SVD++ kernel against the plain version on the
-    schedule's first 64 user blocks, both timed;
+    global average; the epoch split into the kernel's time over the
+    schedule's S, R and Y steps alone; the SVD++ kernel against the plain
+    version on the schedule's first 64 user blocks, both timed;
 12. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
     25,000,095 draws, the published ml-25m catalog), split 80/20: 61 item
     blocks at k=40, past the resident bound of 40, so both model families
@@ -101,6 +109,9 @@ import numpy as np
 import torch
 
 KERNEL_TOL = 1e-4   # atomics add in a run-dependent order
+# the whole-epoch witness of the MAE checks: the kernel lies no farther
+# from float64 than this many times the farthest plain run
+WITNESS_FACTOR = 4.0
 _TIMES = re.compile(r"(training_time|testing_time|loading_time) [0-9.]+ ?")
 # published peaks of one H100 SXM (data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores; every kernel here computes in float32
@@ -404,6 +415,100 @@ def kernel_vs_plain(plan, W, H, order, hp, rates, *, loss, biased):
     return table_error((Wk, Hk), (Wr, Hr)), kernel_ms, plain_ms
 
 
+def table_distance(a, b) -> float:
+    """Max |a - b| over two tuples of tables, in float64 on the host."""
+    return max((x.double().cpu() - y.double().cpu()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def nudged(tables, seed: int = 1):
+    """float64 copies of ``tables`` on the host with every nonzero entry
+    moved by 1e-7 N(0, 1): a float64 run from them is one more plain
+    witness of how far rounding alone carries a trajectory."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(t.double().cpu() + 1e-7 * torch.randn(
+        t.shape, generator=g, dtype=torch.float64) * (t.cpu() != 0)
+        for t in tables)
+
+
+def whole_epoch_witness(tables, kernel_run, plain_run, plain_runs: int = 2):
+    """(kernel's distance from the float64 plain run, the farthest plain
+    witness's): ``kernel_run(tables)`` and ``plain_run(tables)`` return
+    the tables after the epoch from copies of ``tables`` (plain_run on
+    their device and dtype). The witnesses: the plain version on the
+    tables' device ``plain_runs`` times, on the CPU, and in float64 from
+    tables moved by 1e-7."""
+    truth = plain_run(tuple(t.double().cpu() for t in tables))
+    plains = [plain_run(tables) for _ in range(plain_runs)]
+    plains.append(plain_run(tuple(t.cpu() for t in tables)))
+    plains.append(plain_run(nudged(tables)))
+    kernel = kernel_run(tables)
+    return (table_distance(kernel, truth),
+            max(table_distance(p, truth) for p in plains))
+
+
+def witness_check(step_err, kernel_dist, plain_dist, what):
+    """The MAE rows' two witnesses: one step within KERNEL_TOL, the whole
+    epoch within WITNESS_FACTOR times the farthest plain run."""
+    check(step_err, f"{what}, one step at a time")
+    if not (math.isfinite(kernel_dist)
+            and kernel_dist <= WITNESS_FACTOR * plain_dist):
+        raise AssertionError(
+            f"{what}: after the whole epoch the kernel lies {kernel_dist} "
+            f"from float64, past {WITNESS_FACTOR} x the farthest plain run "
+            f"({plain_dist})")
+
+
+def sgd_one_step_witness(plan, W, H, order, hp, rates, *, loss, biased):
+    """The MAE check of the SGD kernel on the plan's schedule. The MAE
+    gradient is the sign of the error, so where a rating lies within
+    rounding of its prediction the atomics' run-dependent order can flip
+    it, and whole trajectories then part by a learning rate's step. So:
+    (1) every chunk stepped alone by the kernel from the float64 plain
+    trajectory's state before it, against the float64 step (the largest
+    difference); (2) the whole epoch, the kernel's distance from float64
+    against the farthest plain witness's (``whole_epoch_witness``).
+    Returns (one-step error, kernel distance, plain distance)."""
+    from mymedialite_tpu_torch.ops import plan as mxu
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=loss, biased=biased)
+    if isinstance(plan, mxu.MxuTiledPlan):
+        kernel, plain = se.sgd_epoch_tiled, se.sgd_epoch_tiled_reference
+        kw["slab_blocks"] = plan.slab_blocks
+    else:
+        kernel, plain = se.sgd_epoch, se.sgd_epoch_reference
+    dev = W.device
+    packed_c, rates_c = plan.packed.cpu(), rates.cpu()
+
+    def plain_on(tabs, sched):
+        d = tabs[0].device
+        out = tuple(t.clone() for t in tabs)
+        plain(*out, plan.packed.to(d), tuple(t.to(d) for t in sched), hp,
+              rates.to(d, tabs[0].dtype), **kw)
+        return out
+
+    state = (W.double().cpu(), H.double().cpu())
+    step_err = 0.0
+    for k in range(order[0].numel()):
+        one = tuple(t[k:k + 1].contiguous() for t in order)
+        nxt = tuple(t.clone() for t in state)
+        plain(*nxt, packed_c, tuple(t.cpu() for t in one), hp,
+              rates_c.double(), **kw)
+        got = tuple(t.float().to(dev) for t in state)
+        kernel(*got, plan.packed, one, hp, rates, **kw)
+        step_err = max(step_err, table_distance(got, nxt))
+        state = nxt
+
+    def kernel_run(tabs):
+        out = tuple(t.clone() for t in tabs)
+        kernel(*out, plan.packed, order, hp, rates, **kw)
+        return out
+
+    return (step_err, *whole_epoch_witness(
+        (W, H), kernel_run, lambda tabs: plain_on(tabs, order)))
+
+
 def phase_kernel_check(dev):
     from mymedialite_tpu_torch.data.synthetic import synthetic_ratings
     from mymedialite_tpu_torch.ops import plan as mxu
@@ -435,13 +540,26 @@ def phase_kernel_check(dev):
                                              0.015, 1.0, 0.01, biased, True,
                                              True, device=dev)
                 hp = (0.6, 1.0, 4.0) if biased else (3.6, 1.0, 4.0)
-                err, k_ms, p_ms = kernel_vs_plain(
-                    plan, W, H, order, hp, rates, loss=loss, biased=biased)
-                log(f"sgd {schedule} kernel check loss={loss} "
-                    f"biased={biased}: max_abs_err {err:.3e} (tol "
-                    f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain {p_ms:.1f} ms "
-                    f"({plan.num_chunks} chunks of {plan.chunk})")
-                check(err, f"sgd {schedule} loss={loss} biased={biased}")
+                what = f"sgd {schedule} loss={loss} biased={biased}"
+                if loss == sgd.LOSS_MAE:
+                    err, k_dist, p_dist = sgd_one_step_witness(
+                        plan, W, H, order, hp, rates, loss=loss,
+                        biased=biased)
+                    log(f"{what} kernel check: one step at a time "
+                        f"max_abs_err {err:.3e} (tol {KERNEL_TOL}); whole "
+                        f"epoch vs float64: kernel {k_dist:.3e}, farthest "
+                        f"plain {p_dist:.3e} (bound {WITNESS_FACTOR} x) "
+                        f"({plan.num_chunks} chunks of {plan.chunk})")
+                    witness_check(err, k_dist, p_dist, what)
+                else:
+                    err, k_ms, p_ms = kernel_vs_plain(
+                        plan, W, H, order, hp, rates, loss=loss,
+                        biased=biased)
+                    log(f"{what} kernel check: max_abs_err {err:.3e} (tol "
+                        f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain "
+                        f"{p_ms:.1f} ms ({plan.num_chunks} chunks of "
+                        f"{plan.chunk})")
+                    check(err, what)
                 worst[schedule] = max(worst.get(schedule, 0.0), err)
     return worst
 
@@ -870,6 +988,109 @@ def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
     return table_error(k_tabs, r_tabs), kernel_ms, plain_ms
 
 
+def phase_schedules(schedule):
+    """The S, R and Y steps of an S/R/Y ``schedule`` (ph, ub, ib, row),
+    each as a schedule of its own, in order."""
+    ph = schedule[0]
+    return {name: tuple(t[ph == code].contiguous() for t in schedule)
+            for name, code in (("S", 0), ("R", 1), ("Y", 2))}
+
+
+def svdpp_phase_split(plan, tables, schedule, hp, rates, **kw):
+    """ms of the SVD++ kernel (CUDA events) over the whole ``schedule`` and
+    over its S, its R and its Y steps alone, each from copies of
+    ``tables``. A restricted launch zeroes s and c at each user block as
+    the whole one does, so its steps do the same work; only their
+    inputs (s and c) differ."""
+    from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
+    out = {}
+    parts = {"epoch": schedule, **phase_schedules(schedule)}
+    for name, sched in parts.items():
+        tabs = tuple(t.clone() for t in tables)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        svdpp_epoch(*tabs, plan.packed, sched, hp, rates, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = (start.elapsed_time(end), sched[0].numel())
+    return out
+
+
+def svdpp_variant_line(plan, num_factors: int, fe: int) -> str:
+    """What the SVD++ kernel keeps in shared memory at this plan's shape
+    (``accumulator_variant``), with the shared memory it asks for."""
+    from mymedialite_tpu_torch.ops import svdpp_epoch as se
+    variant = se.accumulator_variant(plan.user_block, num_factors,
+                                     plan.chunk, fe)
+    where = {"shared": "R and Y read s, c and n from a copy in shared "
+                       "memory",
+             "global": "R and Y read s, c and n through L2"}[variant]
+    nbytes = se.shared_bytes(fe, plan.chunk, plan.user_block, num_factors,
+                             variant)
+    return (f"svdpp_epoch variant {variant}: {where} (UB {plan.user_block}, "
+            f"k={num_factors}, fe {fe}, C {plan.chunk}; {nbytes} B of shared "
+            f"memory)")
+
+
+def user_block_bounds(ub):
+    """[(start, end)) of each user block's steps in a schedule whose
+    user blocks ``ub`` come in contiguous runs."""
+    cut = (torch.nonzero(ub[1:] != ub[:-1]).flatten() + 1).tolist()
+    bounds = [0, *cut, ub.numel()]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def svdpp_one_step_witness(plan, tables, hp, rates, **kw):
+    """The MAE check of the SVD++ kernel (see ``sgd_one_step_witness``).
+    A launch zeroes s and c, so a step cannot run alone; but an S step
+    writes only s, and an R step reads s and writes W, Q and c, which
+    only the block's Y steps read. So (1) each R step, where the MAE sign
+    lives, runs after its block's S steps: the kernel over [the block's S
+    steps, the R step] from the float64 trajectory's state before the R
+    step, against float64 over the same steps (the float64 trajectory
+    then takes each block whole); (2) the whole-epoch witness. Returns
+    (one-step error, kernel distance, plain distance)."""
+    from mymedialite_tpu_torch.ops.svdpp_epoch import (
+        svdpp_epoch, svdpp_epoch_reference,
+    )
+    dev = tables[0].device
+    packed_c, rates_c = plan.packed.cpu(), rates.cpu().double()
+    sched = tuple(t.cpu() for t in plan.schedule)
+    ph = sched[0]
+    state = tuple(t.double().cpu() for t in tables)
+    step_err = 0.0
+    for a, b in user_block_bounds(sched[1]):
+        steps = torch.arange(a, b)
+        s_steps = steps[ph[a:b] == 0]
+        cur = state
+        for r in steps[ph[a:b] == 1].tolist():
+            one = torch.cat([s_steps, torch.tensor([r])])
+            one_c = tuple(t[one].contiguous() for t in sched)
+            nxt = tuple(t.clone() for t in cur)
+            svdpp_epoch_reference(*nxt, packed_c, one_c, hp, rates_c, **kw)
+            got = tuple(t.float().to(dev) for t in cur)
+            svdpp_epoch(*got, plan.packed, tuple(t.to(dev) for t in one_c),
+                        hp, rates, **kw)
+            step_err = max(step_err, table_distance(got, nxt))
+            cur = nxt
+        svdpp_epoch_reference(*state, packed_c,
+                              tuple(t[a:b].contiguous() for t in sched), hp,
+                              rates_c, **kw)
+
+    def run(fn, tabs):
+        d = tabs[0].device
+        out = tuple(t.clone() for t in tabs)
+        fn(*out, plan.packed.to(d), tuple(t.to(d) for t in plan.schedule),
+           hp, rates.to(d, tabs[0].dtype), **kw)
+        return out
+
+    return (step_err, *whole_epoch_witness(
+        tables, lambda tabs: run(svdpp_epoch, tabs),
+        lambda tabs: run(svdpp_epoch_reference, tabs)))
+
+
 # (label, sigmoid, loss, use_p): SVDPlusPlus, SigmoidSVDPlusPlus with the
 # RMSE and the MAE loss, and the asymmetric factor models (no p)
 SVDPP_VARIANTS = (("plain", False, 0, True), ("sigmoid rmse", True, 0, True),
@@ -893,6 +1114,7 @@ def phase_svdpp_kernel_check(dev):
         (0.1 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
         for shape in ((U, f), (U,), (I, f), (I,), (I, f)))
     noo = torch.from_numpy(plan.new_of_old.astype(np.int64)).to(dev)
+    log(svdpp_variant_line(plan, f, fe))
     worst = 0.0
     for label, sigmoid, loss, use_p in SVDPP_VARIANTS:
         tables = sp.svdpp_tables_to_mxu(
@@ -903,14 +1125,26 @@ def phase_svdpp_kernel_check(dev):
                                    use_p=use_p, update_user=True,
                                    update_item=True, device=dev)
         hp = (0.6, 1.0, 4.0) if sigmoid else (3.6, 1.0, 4.0)
-        err, k_ms, p_ms = svdpp_kernel_vs_plain(
-            plan, tables, plan.schedule, hp, rates, num_factors=f, loss=loss,
-            sigmoid=sigmoid)
-        log(f"svdpp kernel check {label}: max_abs_err {err:.3e} (tol "
-            f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain {p_ms:.1f} ms "
-            f"({plan.num_steps} steps over {plan.packed.shape[0]} chunks of "
-            f"{plan.chunk})")
-        check(err, f"svdpp {label}")
+        shape = (f"{plan.num_steps} steps over {plan.packed.shape[0]} chunks "
+                 f"of {plan.chunk}")
+        if loss == 1:                                # MAE
+            err, k_dist, p_dist = svdpp_one_step_witness(
+                plan, tables, hp, rates, user_block=plan.user_block,
+                item_block=plan.item_block, num_factors=f, loss=loss,
+                sigmoid=sigmoid)
+            log(f"svdpp kernel check {label}: R steps one at a time "
+                f"max_abs_err {err:.3e} (tol {KERNEL_TOL}); whole epoch vs "
+                f"float64: kernel {k_dist:.3e}, farthest plain {p_dist:.3e} "
+                f"(bound {WITNESS_FACTOR} x) ({shape})")
+            witness_check(err, k_dist, p_dist, f"svdpp {label}")
+        else:
+            err, k_ms, p_ms = svdpp_kernel_vs_plain(
+                plan, tables, plan.schedule, hp, rates, num_factors=f,
+                loss=loss, sigmoid=sigmoid)
+            log(f"svdpp kernel check {label}: max_abs_err {err:.3e} (tol "
+                f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain {p_ms:.1f} ms "
+                f"({shape})")
+            check(err, f"svdpp {label}")
         worst = max(worst, err)
     return worst
 
@@ -966,6 +1200,17 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
     n = int((ub < prefix_blocks).sum())
     prefix = tuple(t[:n].contiguous() for t in plan.schedule)
     hp, rates = model._epoch_args()
+    log(svdpp_variant_line(plan, model.num_factors, tables[0].shape[1]))
+    split = svdpp_phase_split(plan, tables, plan.schedule, hp, rates,
+                              user_block=plan.user_block,
+                              item_block=plan.item_block,
+                              num_factors=model.num_factors, loss=0,
+                              sigmoid=False)
+    log("svdpp epoch split, the kernel over one phase's steps from the "
+        "trained tables: " + ", ".join(
+            f"{name} {ms:.1f} ms over {steps} steps "
+            f"({ms * 1e3 / max(steps, 1):.2f} us a step)"
+            for name, (ms, steps) in split.items()))
     err, kernel_ms, plain_ms = svdpp_kernel_vs_plain(
         plan, tables, prefix, hp, rates, num_factors=model.num_factors,
         loss=0, sigmoid=False)

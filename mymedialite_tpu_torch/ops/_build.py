@@ -60,7 +60,7 @@ class KernelLibrary:
         fn = self.lib.mml_svdpp_epoch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn = self.lib.mml_catalog_topk_ctas_per_sm
         fn.restype = ctypes.c_int

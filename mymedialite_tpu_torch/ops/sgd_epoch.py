@@ -9,9 +9,11 @@ big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
 and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
 outputs to their inputs. On CUDA tensors they launch
 ``csrc/sgd_epoch.cu`` (one launch per epoch; the tiled wrapper first
-forms the absolute item blocks) or raise; on CPU tensors they run
-``sgd_epoch_reference`` / ``sgd_epoch_tiled_reference``. Each counts its
-own launches.
+forms the absolute item blocks) or raise, also where the kernel does not
+take the shape (``check_kernel_shape``: fe and the chunk multiples of 4,
+fe <= 256, two chunks and the rates within 227 KB of shared memory); on
+CPU tensors they run ``sgd_epoch_reference`` /
+``sgd_epoch_tiled_reference``. Each counts its own launches.
 
 Arguments shared by both:
 
@@ -33,10 +35,29 @@ import torch
 
 from mymedialite_tpu_torch.ops.sgd import gradient_common
 
-# the kernel keeps up to 8 columns per lane in registers
+# the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the chunk and the rates are staged in the default 48 KB of shared memory
-MAX_CHUNK = 2048
+# the kernel stages the rates and two chunks' rows in shared memory, at
+# most what a block can have on an H100
+MAX_SHARED_BYTES = 227 * 1024
+
+
+def shared_bytes(fe: int, chunk: int) -> int:
+    """Shared memory of the kernel: the rates [4, fe] and two chunks'
+    packed rows [2, 4, C]."""
+    return 4 * (4 * fe + 8 * chunk)
+
+
+def check_kernel_shape(fe: int, chunk: int):
+    """Raise ValueError unless the kernel takes the width ``fe`` and the
+    chunk: both multiples of 4 (float4 rows, 16-byte pieces of each
+    chunk), fe <= MAX_FE, and the shared memory within
+    MAX_SHARED_BYTES."""
+    if fe > MAX_FE or fe % 4 or chunk % 4 \
+            or shared_bytes(fe, chunk) > MAX_SHARED_BYTES:
+        raise ValueError(f"sgd_epoch: kernel takes fe <= {MAX_FE}, fe and "
+                         f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
+                         f"of shared memory, got fe={fe} chunk={chunk}")
 
 
 def sgd_epoch_reference(W, H, packed, order, hp, rates, *, user_block: int,
@@ -107,13 +128,10 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
             item_block: int, loss: int, biased: bool):
     """Launch mml_sgd_epoch over the order (ub, ib, row), ib absolute, on
     W's stream."""
+    C, fe = packed.shape[2], W.shape[1]
+    check_kernel_shape(fe, C)
     if W.device.type != "cuda":
         raise ValueError(f"sgd_epoch: no kernel for device {W.device}")
-    C = packed.shape[2]
-    fe = W.shape[1]
-    if fe > MAX_FE or C > MAX_CHUNK:
-        raise ValueError(f"sgd_epoch: kernel takes fe <= {MAX_FE} and "
-                         f"chunk <= {MAX_CHUNK}, got fe={fe} chunk={C}")
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_sgd_epoch
     scratch = torch.empty(2 * C * fe, dtype=torch.float32, device=W.device)

@@ -6,8 +6,13 @@ svdpp_epoch_mxu`` (kernel body ``_svdpp_kernel`` :308). It updates the
 kernel-layout tables ``W`` [u_pad, fe], ``Q`` and ``Y`` [i_pad, fe]
 (``ops/svdpp_plan.py``) in place, where the JAX version aliases its
 outputs to its inputs. On CUDA tensors it launches
-``csrc/svdpp_epoch.cu`` (one launch per epoch) or raises; on CPU tensors
-it runs ``svdpp_epoch_reference``. It counts its own launches.
+``csrc/svdpp_epoch.cu`` (one launch per epoch) or raises, also where the
+kernel does not take the shape (``check_kernel_shape``: fe and the chunk
+multiples of 4, fe <= 256, two chunks and the rates within 227 KB of
+shared memory); the kernel sums s, c and n in a global scratch and, where
+a copy fits in shared memory, reads them from there
+(``accumulator_variant``, from the shape). On CPU tensors it runs
+``svdpp_epoch_reference``. It counts its own launches.
 
 Per user block (the schedule visits each once, its chunks contiguous),
 with s and c [UB, fe] set to zero when the block starts:
@@ -36,10 +41,52 @@ import torch
 
 from mymedialite_tpu_torch.ops.sgd import gradient_common
 
-# the kernel keeps up to 8 columns per lane in registers
+# the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the chunk and the rates are staged in the default 48 KB of shared memory
-MAX_CHUNK = 2048
+# the kernel stages the rates and two chunks' rows in shared memory, and
+# a copy of the sums R and Y read where it fits, at most what a block can
+# have on an H100
+MAX_SHARED_BYTES = 227 * 1024
+
+
+def _row(num_factors: int) -> int:
+    """An s or c row of the kernel: the factor columns, rounded up to 4."""
+    return (num_factors + 3) // 4 * 4
+
+
+def shared_bytes(fe: int, chunk: int, user_block: int, num_factors: int,
+                 variant: str) -> int:
+    """Shared memory of the kernel: the rates [8, fe], two chunks' packed
+    rows [2, 4, C], and in the "shared" variant the on-chip copy of the
+    sums, one [UB, Fp] (s in R, c in Y) and n [UB] (Fp = num_factors
+    rounded up to 4)."""
+    acc = user_block * (_row(num_factors) + 1) if variant == "shared" else 0
+    return 4 * (8 * fe + 8 * chunk + acc)
+
+
+def accumulator_variant(user_block: int, num_factors: int, chunk: int,
+                        fe: int) -> str:
+    """Where the kernel's R and Y steps read the per-user-block sums s, c
+    and n, which it sums in a global scratch: "shared" (a copy in shared
+    memory, made once when the phase starts) where it fits beside the
+    rates and the chunk buffers in MAX_SHARED_BYTES, else "global"
+    (through L2). At UB = 512 and C = 512 that is "shared" up to 100
+    factors, quality.py's k=20 among them."""
+    fits = shared_bytes(fe, chunk, user_block, num_factors, "shared") \
+        <= MAX_SHARED_BYTES
+    return "shared" if fits else "global"
+
+
+def check_kernel_shape(fe: int, chunk: int):
+    """Raise ValueError unless the kernel takes the width ``fe`` and the
+    chunk: both multiples of 4 (float4 rows, 16-byte pieces of each
+    chunk), fe <= MAX_FE, and the global variant's shared memory within
+    MAX_SHARED_BYTES."""
+    if fe > MAX_FE or fe % 4 or chunk % 4 \
+            or shared_bytes(fe, chunk, 0, 0, "global") > MAX_SHARED_BYTES:
+        raise ValueError(f"svdpp_epoch: kernel takes fe <= {MAX_FE}, fe and "
+                         f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
+                         f"of shared memory, got fe={fe} chunk={chunk}")
 
 
 def svdpp_epoch_reference(W, Q, Y, packed, schedule, hp, rates, *,
@@ -130,17 +177,16 @@ def _check(W, Q, Y, packed, schedule, rates, num_factors):
 def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
             item_block: int, num_factors: int, loss: int, sigmoid: bool):
     """Launch mml_svdpp_epoch over the schedule on W's stream."""
+    C, fe = packed.shape[2], W.shape[1]
+    check_kernel_shape(fe, C)
     if W.device.type != "cuda":
         raise ValueError(f"svdpp_epoch: no kernel for device {W.device}")
-    C = packed.shape[2]
-    fe = W.shape[1]
-    if fe > MAX_FE or C > MAX_CHUNK:
-        raise ValueError(f"svdpp_epoch: kernel takes fe <= {MAX_FE} and "
-                         f"chunk <= {MAX_CHUNK}, got fe={fe} chunk={C}")
+    variant = accumulator_variant(user_block, num_factors, C, fe)
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_svdpp_epoch
-    # s and c [UB, fe], then two [C, fe] delta stages
-    scratch = torch.empty(2 * (user_block + C) * fe, dtype=torch.float32,
+    # two [C, fe] delta stages, then s and c [UB, Fp] and n [UB]
+    sums = user_block * (2 * _row(num_factors) + 1)
+    scratch = torch.empty(2 * C * fe + sums, dtype=torch.float32,
                           device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
     stream = torch.cuda.current_stream(W.device).cuda_stream
@@ -148,7 +194,8 @@ def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
              *(t.data_ptr() for t in schedule), rates.data_ptr(),
              scratch.data_ptr(), schedule[0].numel(), C, user_block,
              item_block, fe, num_factors, gb, min_rating, rating_range,
-             int(loss), int(bool(sigmoid)), stream)
+             int(loss), int(bool(sigmoid)), int(variant == "shared"),
+             stream)
     if err != 0:
         raise RuntimeError(f"svdpp_epoch: kernel launch failed, CUDA error "
                            f"{err}")

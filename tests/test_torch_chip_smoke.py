@@ -149,6 +149,113 @@ def test_topk_agreement_rule():
                                 exact=True)[1] == 4
 
 
+def _small_svdpp_plan(f=6):
+    import numpy as np
+    import torch
+
+    from mymedialite_tpu_torch.ops import svdpp_plan as SP
+    from mymedialite_tpu_torch.ops.svdpp import history_edges
+    rng = np.random.default_rng(0)
+    U, I, n = 60, 50, 800
+    users = rng.integers(0, U, n).astype(np.int32)
+    items = rng.integers(0, I, n).astype(np.int32)
+    values = (rng.integers(2, 11, n) / 2).astype(np.float32)
+    hu, hi = history_edges(users, items, I)
+    plan = SP.prepare_svdpp_mxu(users, items, values, hu, hi, U, I,
+                                user_block=8, item_block=8, chunk=8)
+    p, bu, q, bi, y = (torch.from_numpy(
+        (0.1 * rng.standard_normal(shape)).astype(np.float32))
+        for shape in ((U, f), (U,), (I, f), (I,), (I, f)))
+    tables = SP.svdpp_tables_to_mxu(
+        p, bu, plan.inv_sqrt, q, bi, y,
+        torch.from_numpy(plan.new_of_old.astype(np.int64)), u_pad=plan.u_pad,
+        i_pad=plan.i_pad, fe=SP.svdpp_fe(f))
+    rates = SP.svdpp_mxu_rates(f, SP.svdpp_fe(f), 0.01, 0.7, 0.015, 0.33,
+                               0.015, use_p=True, update_user=True,
+                               update_item=True)
+    return plan, tables, rates
+
+
+def test_phase_schedules_and_user_block_bounds():
+    """The S/R/Y split's schedules hold each phase's steps in the
+    schedule's order and nothing else; the user-block bounds cut the
+    schedule into its user blocks' runs."""
+    import torch
+    smoke = _smoke_module()
+    plan, _, _ = _small_svdpp_plan()
+    ph, ub, ib, row = plan.schedule
+    parts = smoke.phase_schedules(plan.schedule)
+    assert list(parts) == ["S", "R", "Y"]
+    for code, (name, sched) in enumerate(parts.items()):
+        sel = ph == code
+        assert bool(sel.any())
+        for got, full in zip(sched, plan.schedule):
+            assert torch.equal(got, full[sel])
+    assert sum(p[0].numel() for p in parts.values()) == plan.num_steps
+    bounds = smoke.user_block_bounds(ub)
+    assert len(bounds) == plan.n_ublocks
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan.num_steps
+    for (a, b), (c, _) in zip(bounds, bounds[1:] + [(plan.num_steps, 0)]):
+        assert b == c and bool((ub[a:b] == ub[a]).all())
+
+
+def test_svdpp_variant_line():
+    """The log line names the variant ``accumulator_variant`` picks and
+    the shared memory of that variant."""
+    from mymedialite_tpu_torch.ops import svdpp_epoch as se
+    from mymedialite_tpu_torch.ops import svdpp_plan as SP
+    smoke = _smoke_module()
+    plan, _, _ = _small_svdpp_plan()
+    plan.user_block, plan.chunk = 512, 512
+    for f, variant in ((20, "shared"), (100, "shared"), (200, "global")):
+        line = smoke.svdpp_variant_line(plan, f, SP.svdpp_fe(f))
+        want = se.shared_bytes(SP.svdpp_fe(f), 512, 512, f, variant)
+        assert f"variant {variant}:" in line and f"{want} B" in line
+
+
+def test_mae_witnesses_on_the_cpu():
+    """The MAE rows' witnesses run end to end on CPU tensors, where the
+    wrappers run their plain versions: one step at a time both stay
+    within rounding of float64, and the whole-epoch distances are those
+    of float32 rounding; ``witness_check`` takes them and refuses a
+    kernel past the factor."""
+    import numpy as np
+
+    from mymedialite_tpu_torch.ops import plan as P
+    smoke = _smoke_module()
+    rng = np.random.default_rng(2)
+    U, I, n = 90, 70, 1500
+    users = rng.integers(0, U, n).astype(np.int32)
+    items = (rng.zipf(1.5, n) % I).astype(np.int32)
+    values = (rng.integers(2, 11, n) / 2).astype(np.float32)
+    tabs = (0.1 * rng.standard_normal((U, 6)),
+            0.1 * rng.standard_normal((I, 6)),
+            0.1 * rng.standard_normal(U), 0.1 * rng.standard_normal(I))
+    for tiled in (False, True):
+        kw = dict(user_block=32, item_block=32, chunk=64, shuffle_seed=4)
+        plan = P.prepare_mxu_tiled(users, items, values, U, I,
+                                   slab_blocks=1, **kw) if tiled else \
+            P.prepare_mxu_data(users, items, values, U, I, **kw)
+        W, H = P.extend_tables_mxu(plan, *tabs)
+        rates = P.mxu_column_rates(6, W.shape[1], 0.05, 0.03, 0.02, 0.8, 0.4,
+                                   True, True, True)
+        step, k_dist, p_dist = smoke.sgd_one_step_witness(
+            plan, W, H, plan.epoch_order(3), (0.2, 1.0, 4.0), rates, loss=1,
+            biased=True)
+        assert step <= 1e-6 and 0 < k_dist <= 1e-5 and 0 < p_dist <= 1e-5
+        smoke.witness_check(step, k_dist, p_dist, "sgd")
+    plan, tables, rates = _small_svdpp_plan()
+    step, k_dist, p_dist = smoke.svdpp_one_step_witness(
+        plan, tables, (0.6, 1.0, 4.0), rates, user_block=8, item_block=8,
+        num_factors=6, loss=1, sigmoid=True)
+    assert step <= 1e-6 and 0 < k_dist <= 1e-5 and 0 < p_dist <= 1e-5
+    smoke.witness_check(step, k_dist, p_dist, "svdpp")
+    with pytest.raises(AssertionError, match="farthest plain run"):
+        smoke.witness_check(step, 5 * p_dist, p_dist, "svdpp")
+    with pytest.raises(AssertionError, match="one step at a time"):
+        smoke.witness_check(2e-4, k_dist, p_dist, "svdpp")
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_smoke_fails_without_card_or_repo(where, tmp_path):
     cwd = REPO

@@ -38,6 +38,7 @@ from mymedialite_tpu_torch.ops.sgd_epoch import (
     sgd_epoch, sgd_epoch_reference, sgd_epoch_tiled, sgd_epoch_tiled_reference,
 )
 from mymedialite_tpu_torch.ops.svdpp import history_edges
+from mymedialite_tpu_torch.ops import svdpp_epoch as SE
 from mymedialite_tpu_torch.ops.svdpp_epoch import (
     svdpp_epoch, svdpp_epoch_reference,
 )
@@ -86,7 +87,13 @@ COMBOS += [(S.LOSS_RMSE, True, (True, True), 100),
 def test_kernel_matches_reference(cuda, loss, biased, sides, num_factors):
     """Two epochs from the same tables and orders. The atomics add in an
     order that varies from run to run, so the sums differ in the last
-    bits: atol 1e-4."""
+    bits: atol 1e-4. The MAE gradient is the sign of the error, which
+    that order can flip for a rating within rounding of its prediction,
+    and two trajectories then part by a step; so the MAE cases are held
+    to the witnesses of ``test_duplicate_heavy_spread``: every chunk
+    stepped alone from the float64 trajectory's state within 1e-4 of the
+    float64 step, and after both epochs no farther from float64 than 4x
+    the farthest plain run."""
     plan, W, H = _setup(cuda, biased, num_factors=num_factors)
     W0, H0 = W.clone(), H.clone()
     fe = W.shape[1]
@@ -97,17 +104,27 @@ def test_kernel_matches_reference(cuda, loss, biased, sides, num_factors):
     hp = (0.5, 1.0, 4.0) if biased else (3.5, 1.0, 4.0)
     kw = dict(user_block=plan.user_block, item_block=plan.item_block,
               loss=loss, biased=biased)
+    orders = [plan.epoch_order(11 + epoch) for epoch in range(2)]
+    order = tuple(torch.cat(ts) for ts in zip(*orders))
     Wk, Hk = W.clone(), H.clone()
     before = sgd_epoch.launches
-    for epoch in range(2):
-        order = plan.epoch_order(11 + epoch)
-        sgd_epoch_reference(W, H, plan.packed, order, hp, rates, **kw)
-        sgd_epoch(Wk, Hk, plan.packed, order, hp, rates, **kw)
+    for o in orders:
+        sgd_epoch_reference(W, H, plan.packed, o, hp, rates, **kw)
+        sgd_epoch(Wk, Hk, plan.packed, o, hp, rates, **kw)
     torch.cuda.synchronize()
     assert sgd_epoch.launches == before + 2
     assert torch.isfinite(Wk).all() and torch.isfinite(Hk).all()
-    assert (Wk - W).abs().max().item() <= 1e-4
-    assert (Hk - H).abs().max().item() <= 1e-4
+    if loss == S.LOSS_MAE:
+        step_k, step_p = _sgd_one_step(plan, (W0, H0), order, hp, rates, kw)
+        k_dist, p_dist = _sgd_witness(plan, (W0, H0), order, hp, rates, kw)
+        print(f"\nsgd mae: one step vs float64, kernel {step_k:.3e}, plain "
+              f"{step_p:.3e}; after both epochs vs float64, kernel "
+              f"{k_dist:.3e}, farthest plain {p_dist:.3e}")
+        assert step_k <= 1e-4 and step_p <= 1e-4
+        assert k_dist <= 4 * p_dist
+    else:
+        assert (Wk - W).abs().max().item() <= 1e-4
+        assert (Hk - H).abs().max().item() <= 1e-4
     assert torch.equal(Wk, W0) != sides[0]
     assert torch.equal(Hk, H0) != sides[1]
 
@@ -118,6 +135,62 @@ RUNS = 8
 def _dist(a, b):
     return max((x.double().cpu() - y.double().cpu()).abs().max().item()
                for x, y in zip(a, b))
+
+
+def _sgd_one_step(plan, tables, order, hp, rates, kw):
+    """Every chunk of ``order`` stepped alone, by the kernel and by the
+    plain float32 version on the CPU, from the float64 plain trajectory's
+    state before it; the largest distance of each from the float64 step."""
+    cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
+    packed_c, rates_c = plan.packed.cpu(), rates.cpu()
+    state = tuple(t.double().cpu() for t in tables)
+    worst_k = worst_p = 0.0
+    for k in range(order[0].numel()):
+        one = tuple(t[k:k + 1].contiguous() for t in order)
+        nxt = tuple(t.clone() for t in state)
+        sgd_epoch_reference(*nxt, packed_c, cpu(one), hp, rates_c.double(),
+                            **kw)
+        got = tuple(t.float().to(rates.device) for t in state)
+        sgd_epoch(*got, plan.packed, one, hp, rates, **kw)
+        plain = tuple(t.float() for t in state)
+        sgd_epoch_reference(*plain, packed_c, cpu(one), hp, rates_c, **kw)
+        worst_k = max(worst_k, _dist(got, nxt))
+        worst_p = max(worst_p, _dist(plain, nxt))
+        state = nxt
+    return worst_k, worst_p
+
+
+def _nudged(tables, seed=1):
+    """float64 host copies with every nonzero entry moved by 1e-7 N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(t.double().cpu() + 1e-7 * torch.randn(
+        t.shape, generator=g, dtype=torch.float64) * (t.cpu() != 0)
+        for t in tables)
+
+
+def _witness(tables, kernel_run, plain_run, runs=2):
+    """(the kernel's distance from the float64 plain run after the whole
+    order, the farthest plain witness's): the plain version on the card
+    ``runs`` times, on the CPU, and in float64 from tables moved by 1e-7.
+    ``plain_run`` runs on its tables' device and dtype."""
+    truth = plain_run(tuple(t.double().cpu() for t in tables))
+    plains = [plain_run(tables) for _ in range(runs)]
+    plains += [plain_run(tuple(t.cpu() for t in tables)),
+               plain_run(_nudged(tables))]
+    return (_dist(kernel_run(tables), truth),
+            max(_dist(p, truth) for p in plains))
+
+
+def _sgd_witness(plan, tables, order, hp, rates, kw):
+    def run(fn, tabs):
+        d = tabs[0].device
+        out = tuple(t.clone() for t in tabs)
+        fn(*out, plan.packed.to(d), tuple(t.to(d) for t in order), hp,
+           rates.to(d, tabs[0].dtype), **kw)
+        return out
+
+    return _witness(tables, lambda t: run(sgd_epoch, t),
+                    lambda t: run(sgd_epoch_reference, t))
 
 
 def test_duplicate_heavy_spread(cuda):
@@ -224,6 +297,18 @@ def test_kernel_rejects_bad_input(cuda):
         sgd_epoch(W.double(), H, plan.packed, order, (0., 1., 4.), rates, **kw)
     with pytest.raises(ValueError):
         sgd_epoch(W, H.cpu(), plan.packed, order, (0., 1., 4.), rates, **kw)
+    # the shape contract: fe and the chunk multiples of 4, shared memory
+    odd = torch.zeros((2, 4, 642), dtype=torch.int32, device=cuda)
+    huge = torch.zeros((2, 4, 8192), dtype=torch.int32, device=cuda)
+    before = sgd_epoch.launches
+    for packed in (odd, huge):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            sgd_epoch(W, H, packed, order, (0., 1., 4.), rates, **kw)
+    wide = (W[:, :62].contiguous(), H[:, :62].contiguous())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        sgd_epoch(*wide, plan.packed, order, (0., 1., 4.),
+                  rates[:62].contiguous(), **kw)
+    assert sgd_epoch.launches == before
 
 
 # --- the BPR epoch kernel -------------------------------------------------
@@ -657,9 +742,18 @@ def test_models_take_the_tiled_kernels_on_the_card(cuda, monkeypatch):
 
 # --- the SVD++ epoch kernel -----------------------------------------------
 
-SVDPP_VARIANTS = [(False, S.LOSS_RMSE, True), (True, S.LOSS_RMSE, True),
-                  (True, S.LOSS_MAE, True), (True, S.LOSS_RMSE, False)]
+SVDPP_VARIANTS = [(False, S.LOSS_RMSE, True, 20),
+                  (True, S.LOSS_RMSE, True, 20),
+                  (True, S.LOSS_MAE, True, 20), (True, S.LOSS_RMSE, False, 20)]
 SVDPP_IDS = ["plain", "sigmoid-rmse", "sigmoid-mae", "no-p"]
+# where R and Y read s, c and n (UB = C = 512): from a copy in shared
+# memory at k=20 and at k=100 (fe 104, one float4 per lane, the last lanes
+# masked, the widest copy that fits), through L2 at k=200 (fe 208, two
+# float4s per lane)
+SVDPP_ON_CHIP = {20: "shared", 100: "shared", 200: "global"}
+SVDPP_VARIANTS += [(False, S.LOSS_RMSE, True, 100),
+                   (True, S.LOSS_MAE, True, 200)]
+SVDPP_IDS += ["plain-f100", "sigmoid-mae-f200"]
 
 
 def _svdpp_setup(device, users, items, values, U, I, f=20, seed=0, **kw):
@@ -721,28 +815,96 @@ def _svdpp_blockwise(plan, tables, hp, rates, kw, steps, reference):
     return worst
 
 
-@pytest.mark.parametrize("sigmoid,loss,use_p", SVDPP_VARIANTS, ids=SVDPP_IDS)
+def _svdpp_r_steps(plan, tables, hp, rates, kw, reference):
+    """Every R step run alone after its user block's S steps (a launch
+    zeroes s and c, and only the block's Y steps read what an R step adds
+    to c): the kernel, or the plain float32 version on the card, over
+    [the block's S steps, the R step] from the float64 trajectory's state
+    before the R step, against float64 over the same steps; the float64
+    trajectory then takes each block whole. Returns the largest
+    distance."""
+    cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
+    packed_c, rates_c = plan.packed.cpu(), rates.cpu().double()
+    sched = cpu(plan.schedule)
+    state = tuple(t.double().cpu() for t in tables)
+    worst = 0.0
+    for a, b in _block_slices(plan):
+        steps = torch.arange(a, b)
+        s_steps = steps[sched[0][a:b] == 0]
+        cur = state
+        for r in steps[sched[0][a:b] == 1].tolist():
+            idx = torch.cat([s_steps, torch.tensor([r])])
+            one = tuple(t[idx].contiguous() for t in sched)
+            nxt = tuple(t.clone() for t in cur)
+            svdpp_epoch_reference(*nxt, packed_c, one, hp, rates_c, **kw)
+            got = tuple(t.float().to(rates.device) for t in cur)
+            fn = svdpp_epoch_reference if reference else svdpp_epoch
+            fn(*got, plan.packed, tuple(t.to(rates.device) for t in one), hp,
+               rates, **kw)
+            worst = max(worst, _dist(got, nxt))
+            cur = nxt
+        svdpp_epoch_reference(*state, packed_c,
+                              tuple(t[a:b].contiguous() for t in sched), hp,
+                              rates_c, **kw)
+    return worst
+
+
+def _svdpp_witness(plan, tables, hp, rates, kw):
+    def run(fn, tabs):
+        d = tabs[0].device
+        out = tuple(t.clone() for t in tabs)
+        fn(*out, plan.packed.to(d), tuple(t.to(d) for t in plan.schedule),
+           hp, rates.to(d, tabs[0].dtype), **kw)
+        return out
+
+    return _witness(tables, lambda t: run(svdpp_epoch, t),
+                    lambda t: run(svdpp_epoch_reference, t))
+
+
+@pytest.mark.parametrize("sigmoid,loss,use_p,f", SVDPP_VARIANTS,
+                         ids=SVDPP_IDS)
 def test_svdpp_kernel_matches_reference_by_user_block(cuda, sigmoid, loss,
-                                                      use_p):
-    """At 2,000 x 3,000 x 100k (k=20, fe=32, four user blocks): one launch
+                                                      use_p, f):
+    """At 2,000 x 3,000 x 100k (k=20, fe=32, four user blocks; at k=100
+    and 200 both variants, ``SVDPP_ON_CHIP``): one launch
     per user block from the float64 plain trajectory's state before it,
     the kernel and the plain float32 version on the card both within 1e-5
     of float64 (whole epochs measured 1.2e-7 to 1.9e-7 apart); then one
-    whole epoch, kernel against plain, within 1e-4."""
+    whole epoch, kernel against plain, within 1e-4. The MAE gradient is
+    the sign of the error, which the atomics' order can flip, so the MAE
+    variants are held instead to the witnesses of the SGD kernel's MAE
+    cases: every R step run alone from the float64 state within 1e-4 of
+    float64 (``_svdpp_r_steps``), and the whole epoch no farther from
+    float64 than 4x the farthest plain run."""
     data = synthetic_ratings(num_users=2000, num_items=3000,
                              num_ratings=100_000, seed=3)
     plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
-                                2000, 3000)
-    hp, rates, kw = _svdpp_args(plan, cuda, sigmoid, loss, use_p)
+                                2000, 3000, f=f)
+    hp, rates, kw = _svdpp_args(plan, cuda, sigmoid, loss, use_p, f=f)
+    assert SE.accumulator_variant(plan.user_block, f, plan.chunk,
+                                  SVP.svdpp_fe(f)) == SVDPP_ON_CHIP[f]
     blocks = _block_slices(plan)
     assert len(blocks) == plan.n_ublocks == 4
     before = svdpp_epoch.launches
+    if loss == S.LOSS_MAE:
+        k_err = _svdpp_r_steps(plan, tables(use_p), hp, rates, kw,
+                               reference=False)
+        p_err = _svdpp_r_steps(plan, tables(use_p), hp, rates, kw,
+                               reference=True)
+        k_dist, p_dist = _svdpp_witness(plan, tables(use_p), hp, rates, kw)
+        print(f"\nsvdpp mae (f={f}): R steps one at a time vs float64, "
+              f"kernel {k_err:.3e}, plain {p_err:.3e}; whole epoch vs "
+              f"float64, kernel {k_dist:.3e}, farthest plain {p_dist:.3e}")
+        assert k_err <= 1e-4 and p_err <= 1e-4
+        assert k_dist <= 4 * p_dist
+        return
     k_err = _svdpp_blockwise(plan, tables(use_p), hp, rates, kw, blocks,
                              reference=False)
     p_err = _svdpp_blockwise(plan, tables(use_p), hp, rates, kw, blocks,
                              reference=True)
     assert svdpp_epoch.launches == before + len(blocks)
-    print(f"\nsvdpp by user block: kernel {k_err:.3e}, plain {p_err:.3e}")
+    print(f"\nsvdpp by user block (f={f}): kernel {k_err:.3e}, plain "
+          f"{p_err:.3e}")
     assert k_err <= 1e-5 and p_err <= 1e-5
     Wk, Qk, Yk = tables(use_p)
     Wr, Qr, Yr = tables(use_p)
@@ -753,7 +915,7 @@ def test_svdpp_kernel_matches_reference_by_user_block(cuda, sigmoid, loss,
     assert all(torch.isfinite(t).all() for t in (Wk, Qk, Yk))
     assert _dist((Wk, Qk, Yk), (Wr, Qr, Yr)) <= 1e-4
     if not use_p:
-        assert not Wk[:, :20].any()
+        assert not Wk[:, :f].any()
 
 
 def test_svdpp_duplicate_items_within_a_chunk(cuda):
@@ -787,17 +949,65 @@ def test_svdpp_duplicate_items_within_a_chunk(cuda):
     assert err <= max(1e-4, 4 * plain)
 
 
-def test_svdpp_scratch_resets_at_each_user_block(cuda):
+def test_svdpp_duplicate_users_and_items_one_step(cuda):
+    """Duplicates of users and of items within every chunk, in S (s rows
+    and Y rows), R (W, Q and c rows) and Y (Y rows, c rows read): Zipf(1.2)
+    users over 1,100 (three user blocks, the top users in hundreds of a
+    block's slots) and an 8-item catalog, learn rate 0.05, at the widths
+    of ``SVDPP_ON_CHIP``. From the
+    float64 trajectory's state, every R step run alone after its block's
+    S steps (``_svdpp_r_steps``) and every user block in one launch are
+    held within 1e-4 of float64 or 4x the plain float32 version's
+    distance, whichever is larger, as in
+    ``test_svdpp_duplicate_items_within_a_chunk``: a non-atomic sum into
+    s, c or a table row loses most of a chunk's updates."""
+    rng = np.random.default_rng(8)
+    U, I, n = 1100, 8, 12000
+    users = (rng.zipf(1.2, n) % U).astype(np.int32)
+    items = rng.integers(0, I, n).astype(np.int32)
+    values = rng.integers(1, 11, n).astype(np.float32) / 2
+    out = []
+    for f in SVDPP_ON_CHIP:
+        plan, tables = _svdpp_setup(cuda, users, items, values, U, I, f=f)
+        assert plan.n_ublocks == 3
+        d = plan.packed.cpu().numpy()
+        real = d[:, 3] != 0
+        top_u = max(np.bincount(d[k, 0][real[k]]).max() for k in range(len(d)))
+        top_i = max(np.bincount(d[k, 1][real[k]]).max() for k in range(len(d)))
+        assert top_u >= 32 and top_i >= 64
+        hp, rates, kw = _svdpp_args(plan, cuda, True, S.LOSS_RMSE, True, f=f,
+                                    lr=0.05)
+        blocks = _block_slices(plan)
+        got = {}
+        for reference in (False, True):
+            got[reference] = (
+                _svdpp_r_steps(plan, tables(True), hp, rates, kw, reference),
+                _svdpp_blockwise(plan, tables(True), hp, rates, kw, blocks,
+                                 reference))
+        out.append(f"f={f} (users up to {top_u}, items up to {top_i} slots "
+                   f"of a chunk): R steps kernel {got[False][0]:.3e} plain "
+                   f"{got[True][0]:.3e}, user blocks kernel "
+                   f"{got[False][1]:.3e} plain {got[True][1]:.3e}")
+        for k in range(2):
+            assert got[False][k] <= max(1e-4, 4 * got[True][k])
+    print("\nsvdpp duplicate users and items, vs float64: " + "; ".join(out))
+
+
+@pytest.mark.parametrize("f", list(SVDPP_ON_CHIP))
+def test_svdpp_scratch_resets_at_each_user_block(cuda, f):
     """s and c start from zero at each user block inside one launch: the
     whole schedule in one launch equals one launch per user block (each
-    launch starts from a fresh scratch) and the plain version. The blocks
-    use the same local user rows, so sums carried over from the block
-    before would land on them."""
+    launch starts from a fresh scratch) and the plain version, at the
+    widths of ``SVDPP_ON_CHIP``. The
+    blocks use the same local user rows, so sums carried over from the
+    block before would land on them."""
     data = synthetic_ratings(num_users=2000, num_items=3000,
                              num_ratings=100_000, seed=6)
     plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
-                                2000, 3000)
-    hp, rates, kw = _svdpp_args(plan, cuda, False, S.LOSS_RMSE, True)
+                                2000, 3000, f=f)
+    assert SE.accumulator_variant(plan.user_block, f, plan.chunk,
+                                  SVP.svdpp_fe(f)) == SVDPP_ON_CHIP[f]
+    hp, rates, kw = _svdpp_args(plan, cuda, False, S.LOSS_RMSE, True, f=f)
     blocks = _block_slices(plan)
     d = plan.packed
     local = []
@@ -819,7 +1029,8 @@ def test_svdpp_scratch_resets_at_each_user_block(cuda):
 def test_svdpp_kernel_refuses_bad_shapes(cuda):
     """The wrapper refuses, before any launch, what the kernel does not
     take: mismatched widths, rates of the wrong shape, a width past
-    MAX_FE, a chunk past MAX_CHUNK, tensors on two devices."""
+    MAX_FE or not a multiple of 4, a chunk past the shared memory or not
+    a multiple of 4, tensors on two devices."""
     data = synthetic_ratings(num_users=300, num_items=200,
                              num_ratings=5000, seed=1)
     plan, tables = _svdpp_setup(cuda, data.users, data.items, data.values,
@@ -829,7 +1040,10 @@ def test_svdpp_kernel_refuses_bad_shapes(cuda):
     args = (plan.packed, plan.schedule, hp)
     wide = torch.zeros((W.shape[0], 264), device=cuda)
     wide_qy = torch.zeros((Q.shape[0], 264), device=cuda)
-    long_chunks = torch.zeros((2, 4, 4096), dtype=torch.int32, device=cuda)
+    long_chunks = torch.zeros((2, 4, 8192), dtype=torch.int32, device=cuda)
+    odd_chunks = torch.zeros((2, 4, 510), dtype=torch.int32, device=cuda)
+    odd = torch.zeros((W.shape[0], 34), device=cuda)
+    odd_qy = torch.zeros((Q.shape[0], 34), device=cuda)
     before = svdpp_epoch.launches
     for bad, err in (
             (lambda: svdpp_epoch(W, Q, Y[:, :24].contiguous(), *args, rates,
@@ -841,6 +1055,11 @@ def test_svdpp_kernel_refuses_bad_shapes(cuda):
              ValueError),
             (lambda: svdpp_epoch(W, Q, Y, long_chunks, plan.schedule, hp,
                                  rates, **kw), ValueError),
+            (lambda: svdpp_epoch(W, Q, Y, odd_chunks, plan.schedule, hp,
+                                 rates, **kw), ValueError),
+            (lambda: svdpp_epoch(odd, odd_qy, odd_qy.clone(), *args,
+                                 torch.zeros((34, 8), device=cuda), **kw),
+             ValueError),
             (lambda: svdpp_epoch(W, Q.cpu(), Y, *args, rates, **kw),
              ValueError),
             (lambda: svdpp_epoch(W, Q, Y.double(), *args, rates, **kw),

@@ -110,3 +110,41 @@ def test_wrapper_rejects_bad_input(setup):
         sgd_epoch(W, H[:, :32], plan.packed, order, (0., 1., 4.), rates, **kw)
     with pytest.raises(ValueError):
         sgd_epoch(W.t(), H, plan.packed, order, (0., 1., 4.), rates, **kw)
+
+
+def test_kernel_shape_contract():
+    """The kernel takes fe and the chunk in multiples of 4 (float4 rows,
+    16-byte pieces of a chunk), fe <= 256, and two chunks plus the rates
+    within 227 KB of shared memory: every width ``fused_width`` gives up
+    to 254 factors at every chunk the plans pick (128-640, the CPU tests'
+    64) passes, and the rest raise before any launch."""
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    for f in range(1, 255):
+        for chunk in (64, 128, 256, 384, 512, 640):
+            se.check_kernel_shape(P.fused_width(f), chunk)
+    assert se.shared_bytes(64, 640) == 4 * (4 * 64 + 8 * 640)
+    for fe, chunk in ((62, 640), (64, 642), (264, 640), (64, 8192)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            se.check_kernel_shape(fe, chunk)
+
+
+def test_wrapper_checks_the_shape_before_the_device(setup):
+    """Off the CPU the wrapper refuses a shape the kernel does not take
+    before it asks for the kernel, and a device without one after."""
+    _, plan, tabs = setup
+    W, H = P.extend_tables_mxu(plan, *tabs)
+    rates = P.mxu_column_rates(F, 64, 0.05, 0.03, 0.02, 0.8, 0.4, True,
+                               True, True)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=S.LOSS_RMSE, biased=True)
+    meta = lambda ts: tuple(t.to("meta") for t in ts)  # noqa: E731
+    order = meta(plan.epoch_order(1))
+    odd = torch.zeros((2, 4, 66), dtype=torch.int32, device="meta")
+    before = sgd_epoch.launches
+    with pytest.raises(ValueError, match="multiples of 4"):
+        sgd_epoch(*meta((W, H)), odd, order, (0., 1., 4.), rates.to("meta"),
+                  **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        sgd_epoch(*meta((W, H)), plan.packed.to("meta"), order, (0., 1., 4.),
+                  rates.to("meta"), **kw)
+    assert sgd_epoch.launches == before

@@ -137,3 +137,50 @@ def test_wrapper_rejects_bad_input(setup):
         svdpp_epoch(*(t.to("meta") for t in (W, Q, Y)), pt.packed.to("meta"),
                     tuple(t.to("meta") for t in pt.schedule), HP,
                     rates.to("meta"), **kw)
+
+
+def test_accumulator_variant_at_model_shapes():
+    """R and Y read s, c and n from a copy in shared memory where UB (Fp
+    + 1) floats fit beside the rates and two chunks in 227 KB: at the
+    models' plan (UB 512, C 512) up to 100 factors, quality.py's k=20
+    among them, and through L2 past that; a smaller block keeps the copy
+    on chip longer."""
+    from mymedialite_tpu_torch.ops import svdpp_epoch as se
+    for f in range(1, 254):
+        want = "shared" if f <= 100 else "global"
+        assert se.accumulator_variant(512, f, 512, SP.svdpp_fe(f)) == want
+    base = 4 * (8 * 32 + 8 * 512)
+    assert se.shared_bytes(32, 512, 512, 20, "global") == base
+    assert se.shared_bytes(32, 512, 512, 20, "shared") == base + 4 * 512 * 21
+    assert se.accumulator_variant(256, 200, 512, SP.svdpp_fe(200)) == \
+        "shared"
+    assert se.accumulator_variant(512, 20, 2048, SP.svdpp_fe(20)) == "shared"
+
+
+def test_kernel_shape_contract():
+    """fe and the chunk multiples of 4, fe <= 256 (every ``svdpp_fe`` up to
+    253 factors), the global variant's shared memory within 227 KB;
+    the rest raise, with the contract in the message."""
+    from mymedialite_tpu_torch.ops import svdpp_epoch as se
+    for f in range(1, 254):
+        for chunk in (8, 512):
+            se.check_kernel_shape(SP.svdpp_fe(f), chunk)
+    for fe, chunk in ((34, 512), (32, 510), (264, 512), (32, 8192)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            se.check_kernel_shape(fe, chunk)
+
+
+def test_wrapper_checks_the_shape_before_the_device(setup):
+    _, pt, tabs = setup
+    meta = lambda ts: tuple(t.to("meta") for t in ts)  # noqa: E731
+    tables = meta(_tables(pt, tabs, True))
+    kw = _kw(pt, LOSS_RMSE, False)
+    odd = torch.zeros((2, 4, 10), dtype=torch.int32, device="meta")
+    before = svdpp_epoch.launches
+    with pytest.raises(ValueError, match="multiples of 4"):
+        svdpp_epoch(*tables, odd, meta(pt.schedule), HP,
+                    _rates(True).to("meta"), **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        svdpp_epoch(*tables, pt.packed.to("meta"), meta(pt.schedule), HP,
+                    _rates(True).to("meta"), **kw)
+    assert svdpp_epoch.launches == before
