@@ -56,6 +56,27 @@ Phases (any failure raises and the script exits non-zero):
     global average; the epoch split into the kernel's time over the
     schedule's S, R and Y steps alone; the SVD++ kernel against the plain
     version on the schedule's first 64 user blocks, both timed;
+11a. WRMF (k=40, regularization 100, 3 alternations) on phase 6's pairs as
+    positive-only feedback: ms per user side and per item side, assembly
+    against solve (``cholesky_ex``), events/s; one user side (480,000
+    systems of 40 x 40) from the trained item factors held to the same
+    side assembled and solved in float64 apart from ``ops/als.py``, with
+    a TF32 control that the check must catch; ranking evaluation (AUC >
+    0.6); then its top-10 for every user served as in phase 9 (469 more
+    calls of kernel 6);
+11b. ItemKNN (17,770 items over 480,000 users) and UserKNN (480,000 users
+    over 17,770 items), cosine, k=80, both on the streaming top-k: build
+    seconds, the share inside the ``torch._int_mm`` Gram products, peak
+    memory; 256 sampled rows against a float64 recomputation on the card
+    (values within 1e-6, ids equal outside near-ties of 1e-6); ranking
+    evaluation of 4,096 seeded test users;
+11c. rating prediction on phase 6's data: UserItemBaseline, then ItemKNN
+    (Pearson, k=40, the streaming rating top-k on int8 levels) with
+    shrinkage 0 (the default) and 100: build, the 3.74M test pairs
+    predicted on the card; 256 sampled rows of the stored neighbours held
+    to Pearson recomputed in float64 on the card, 256 test pairs to the
+    JAX package's per-pair loop recomputed in float64 on the host; the
+    RMSEs reported beside the baseline's;
 12. MovieLens-25M-shaped synthetic ratings (162,541 users x 62,423 items x
     25,000,095 draws, the published ml-25m catalog), split 80/20: 61 item
     blocks at k=40, past the resident bound of 40, so both model families
@@ -79,15 +100,22 @@ Phases (any failure raises and the script exits non-zero):
     CLI, then ``--user-prediction``; every prediction file is read back
     and held against the plain version's lists;
 18. the rating_based_ranking CLI on phase 16's files with
-    BiasedMatrixFactorization, save -> load.
+    BiasedMatrixFactorization, save -> load;
+19. the rating CLI on phase 16's files with UserItemBaseline and UserKNN
+    (Pearson, dense at 6,040 users; its RMSE must beat the baseline's),
+    the item CLI with ItemAttributeKNN and a synthetic genre file, each
+    with save -> load.
 
 Before each main path every kernel's launch count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
-kernel once per epoch, the top-k kernel once per block of users; a
+kernel once per epoch, the top-k kernel once per block of users, and no
+kernel in WRMF's training or the KNN builds, which are library products
+and solves; a
 count is one wrapper call, which may launch more than one CUDA kernel:
 the BPR epoch's sampler and walk, kernel 6's split and merge) and
 every other kernel never. The line before the last is one JSON object
-describing the kernels; the last line is ``{"ok": true, "device":
+describing the kernels (kernel 6's numbers sum the Netflix-shaped BPRMF
+and WRMF serving passes); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of jax and nothing of the JAX package: only the
 port, numpy and torch.
 """
@@ -278,16 +306,17 @@ def tie_free(vals, gap: float = 1e-5):
     return ok
 
 
-def topk_agreement(ids, vals, ref_ids, ref_vals, *, exact=False):
+def topk_agreement(ids, vals, ref_ids, ref_vals, *, exact=False,
+                   gap: float = 1e-5):
     """(max |value error|, ids that differ where the reference has no
-    near-tie) of a top-k result [U, k] against a reference of k + 1
-    columns (k when the catalog has no more); ``exact`` compares every
-    id."""
+    near-tie within ``gap``) of a top-k result [U, k] against a reference
+    of k + 1 columns (k when the catalog has no more); ``exact`` compares
+    every id."""
     ids, vals, ref_ids, ref_vals = (np.asarray(a) for a in (
         ids, vals, ref_ids, ref_vals))
     k = min(ids.shape[1], ref_ids.shape[1])
     sure = np.ones((ids.shape[0], k), bool) if exact else \
-        tie_free(ref_vals)[:, :k]
+        tie_free(ref_vals, gap)[:, :k]
     err = float(np.abs(vals[:, :k].astype(np.float64)
                        - ref_vals[:, :k]).max()) if ids.size else 0.0
     return err, int(((ids[:, :k] != ref_ids[:, :k]) & sure).sum())
@@ -854,7 +883,6 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     kernel's numbers for the kernels line, the trained model and its
     feedback."""
     from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
-    from mymedialite_tpu_torch.eval.ranking import evaluate_items
     from mymedialite_tpu_torch.models import bpr as bpr_module
     from mymedialite_tpu_torch.models.registry import create_item_recommender
     from mymedialite_tpu_torch.ops import bpr_plan
@@ -944,27 +972,17 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         f"run on copies): {split_line(call_split)}")
     check(err, f"{name} at full shape")
 
-    rng = np.random.default_rng(9)
-    users = np.sort(rng.choice(test.all_users, 4096, replace=False))
     t0 = time.perf_counter()
     train.by_user, test.by_user   # the host CSR indexes both evaluations read
     log(f"ranking eval set-up (host CSR of train and test): "
         f"{time.perf_counter() - t0:.2f} s")
-    results = {}
     popular = create_item_recommender("MostPopular")
     popular.feedback = train
     popular.train()
-    for label, m in (("BPRMF", model), ("MostPopular", popular)):
-        t0 = time.perf_counter()
-        res = evaluate_items(m, test, train, test_users=users)
-        log(f"ranking eval {label}, {res['num_users']} users: {res} "
-            f"({time.perf_counter() - t0:.2f} s)")
-        for k in ("AUC", "prec@5", "NDCG"):
-            if not math.isfinite(res[k]):
-                raise AssertionError(f"{label} {k} is not finite")
-        results[label] = res
-    if not results["BPRMF"]["AUC"] > 0.6:
-        raise AssertionError(f"BPRMF AUC {results['BPRMF']['AUC']} <= 0.6")
+    sampled_ranking_eval(popular, train, test, "MostPopular")
+    auc = sampled_ranking_eval(model, train, test, "BPRMF")["AUC"]
+    if not auc > 0.6:
+        raise AssertionError(f"BPRMF AUC {auc} <= 0.6")
     return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), model, train
 
@@ -1638,7 +1656,8 @@ def phase_item_cli(dev, tmp):
         np.savetxt(path, np.column_stack([part.users, part.items]),
                    fmt="%d", delimiter="\t")
         paths.append(path)
-    argv = ["--training-file", paths[0], "--test-file", paths[1],
+    files = ["--training-file", paths[0], "--test-file", paths[1]]
+    argv = files + [
             "--recommender", "BPRMF", "--recommender-options",
             f"num_factors=40 num_iter=3 device={dev.type}",
             "--predict-items-number", "10", "--prediction-file",
@@ -1664,6 +1683,522 @@ def phase_item_cli(dev, tmp):
     auc = result_value(text, "AUC")
     if not (math.isfinite(auc) and 0.5 < auc <= 1) or len(checked) != 1:
         raise AssertionError(f"bad --user-prediction result: AUC {auc}")
+    return files
+
+
+def events_ms(pairs) -> float:
+    """Sum of the elapsed ms of recorded (start, end) CUDA event pairs."""
+    torch.cuda.synchronize()
+    return float(sum(s.elapsed_time(e) for s, e in pairs))
+
+
+@contextlib.contextmanager
+def recorded_events(*targets):
+    """Inside the block every call of each (owner, name, key) target
+    records a pair of CUDA events under ``key``; yields {key: [pairs]}.
+    An owner is a module or an object (its attribute)."""
+    events = {key: [] for _, _, key in targets}
+    saved = []
+    for owner, name, key in targets:
+        real = getattr(owner, name)
+
+        def timed(*a, _real=real, _key=key, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = _real(*a, **kw)
+            e.record()
+            events[_key].append((s, e))
+            return out
+        saved.append((owner, name, real))
+        setattr(owner, name, timed)
+    try:
+        yield events
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+# seeded test users of the ranking evaluations, and sampled rows of the
+# KNN float64 check
+EVAL_USERS = 4096
+KNN_ROWS = 256
+
+
+def sampled_ranking_eval(model, train, test, label, seed=9):
+    """Ranking evaluation of ``EVAL_USERS`` seeded test users."""
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    rng = np.random.default_rng(seed)
+    sample = np.sort(rng.choice(test.all_users, EVAL_USERS, replace=False))
+    t0 = time.perf_counter()
+    res = evaluate_items(model, test, train, test_users=sample)
+    log(f"ranking eval {label}, {res['num_users']} users: {res} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    for k in ("AUC", "prec@5", "NDCG"):
+        if not math.isfinite(res[k]):
+            raise AssertionError(f"{label} {k} is not finite")
+    return res
+
+
+def wrmf_user_side_f64(feedback, H, alpha: float, reg: float):
+    """Every user's row of W solved in float64 from the feedback's
+    distinct (user, item) pairs and the float64 item factors, apart from
+    ``ops/als.py``: M_u = H^T H + alpha sum_{i in S_u} h_i h_i^T + reg I
+    and b_u = (1 + alpha) sum_{i in S_u} h_i, the sums as one sparse
+    [U, I] product with H and with the rows' outer products."""
+    dev = H.device
+    n_items, f = H.shape
+    U = feedback.num_users
+    key = torch.unique(
+        torch.from_numpy(feedback.users.astype(np.int64)).to(dev) * n_items
+        + torch.from_numpy(feedback.items.astype(np.int64)).to(dev))
+    users, items = key // n_items, key % n_items
+    crow = torch.zeros(U + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(users, minlength=U), 0)
+    A = torch.sparse_csr_tensor(
+        crow, items, torch.ones(key.numel(), dtype=torch.float64,
+                                device=dev), size=(U, n_items))
+    del key, users, items
+    H64 = H.double()
+    b = (1.0 + alpha) * (A @ H64)
+    M = (A @ (H64[:, :, None] * H64[:, None, :]).reshape(n_items, f * f)
+         ).reshape(U, f, f)
+    M.mul_(alpha).add_(H64.T @ H64 + reg * torch.eye(
+        f, dtype=torch.float64, device=dev))
+    L, info = torch.linalg.cholesky_ex(M)
+    del M
+    if bool((info != 0).any()):
+        raise AssertionError("float64: a system is not positive definite")
+    return torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """A stand-in for ``device.exact_float32`` that lets the products use
+    TF32: the control that the float64 check must catch."""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_tf32
+    m.allow_tf32 = True
+    try:
+        yield
+    finally:
+        m.allow_tf32 = saved
+
+
+def wrmf_user_side_errors(model, feedback):
+    """(sound, control): the largest |W32 - W64| over the largest |W64|
+    of one user side from the model's item factors, solved through the
+    model's own side (length buckets, ``ops/als.py``) with float32
+    products, and again with TF32 products, against
+    ``wrmf_user_side_f64``."""
+    from mymedialite_tpu_torch.ops import als
+    H = model.params["item_factors"]
+    x64 = wrmf_user_side_f64(feedback, H, model.alpha, model.regularization)
+    scale = float(x64.abs().max())
+    errs = []
+    for products in (als.exact_float32, tf32_products):
+        real, als.exact_float32 = als.exact_float32, products
+        try:
+            x = model._optimize(H, model._user_hist, x64.shape[0])
+        finally:
+            als.exact_float32 = real
+        errs.append(float((x.double() - x64).abs().max()) / scale)
+        del x
+    return tuple(errs)
+
+
+# between the float32 reading and the TF32 control's (PERF.md §6):
+# largest |W32 - W64| over the largest |W64|
+WRMF_F64_TOL = 1e-5
+
+
+def phase_wrmf_path(dev, train, test):
+    """WRMF at k=40 (regularization 100) for 3 alternations through the
+    registry on the pairs as positive-only feedback: ms per user side and
+    item side (CUDA events), assembly against solve, events/s; one user
+    side (480,000 systems of 40 x 40) from the trained item factors held
+    to the same side assembled and solved in float64 apart from
+    ``ops/als.py``, and a TF32 control that the check must catch; ranking
+    evaluation (AUC > 0.6). Returns the trained model and its
+    feedback."""
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import als
+
+    train, test = posonly_from_ratings(train), posonly_from_ratings(test)
+    # regularization 100: the synthetic pairs carry popularity and no
+    # personal signal, and at the default 0.015 both packages overfit it
+    # (AUC 0.57 after 3 alternations at 30,000 x 2,000 x 1M)
+    model = create_item_recommender(
+        "WRMF", f"num_factors=40 num_iter=3 regularization=100 "
+        f"device={dev.type}")
+    model.feedback = train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_events((model, "_optimize", "side"),
+                         (als, "row_systems", "assembly"),
+                         (als, "solve_cholesky", "solve")) as ev, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    del model._optimize
+    sides = [s.elapsed_time(e) for s, e in ev["side"]]
+    user_ms, item_ms = sides[0::2], sides[1::2]
+    assembly_ms, solve_ms = events_ms(ev["assembly"]), events_ms(ev["solve"])
+    alternation_s = (sum(sides) / 1e3) / model.num_iter
+    log(f"wrmf train: {train_s:.2f} s for {model.num_iter} alternations "
+        f"(histories built in the first); user side "
+        f"{', '.join(f'{t:.1f}' for t in user_ms)} ms, item side "
+        f"{', '.join(f'{t:.1f}' for t in item_ms)} ms; of all sides "
+        f"{sum(sides):.1f} ms: assembly {assembly_ms:.1f} ms, solve "
+        f"(cholesky_ex) {solve_ms:.1f} ms, the rest "
+        f"{sum(sides) - assembly_ms - solve_ms:.1f} ms; "
+        f"{len(train) / alternation_s:.4g} events/s per alternation; "
+        f"{len(model._user_hist)} user and {len(model._item_hist)} item "
+        f"length buckets; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    t0 = time.perf_counter()
+    err, control = wrmf_user_side_errors(model, train)
+    log(f"wrmf user side ({train.num_users} systems of 40 x 40) against "
+        f"float64 assembled and solved apart from ops/als.py: max error "
+        f"{err:.3e} of the largest |x| (tol {WRMF_F64_TOL}); with TF32 "
+        f"products (the control) {control:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if err > WRMF_F64_TOL:
+        raise AssertionError(f"wrmf user side off float64 by {err:.3e} > "
+                             f"{WRMF_F64_TOL}")
+    # TF32 exists only on the card
+    if dev.type == "cuda" and control <= WRMF_F64_TOL:
+        raise AssertionError(f"the float64 check misses TF32 products "
+                             f"({control:.3e} <= {WRMF_F64_TOL})")
+    torch.cuda.empty_cache()
+    train.by_user, test.by_user
+    res = sampled_ranking_eval(model, train, test, "WRMF")
+    if not res["AUC"] > 0.6:
+        raise AssertionError(f"WRMF AUC {res['AUC']} <= 0.6")
+    return model, train, test
+
+
+KNN_TOL = 1e-6
+
+
+def correlation_rows_f64(A, rows, counts, k: int):
+    """The reference top-k (k + 1 columns) of the binary cosine of
+    ``rows`` against every row of the int8 incidence ``A`` [n, m],
+    recomputed in float64 on the card: value desc, id asc."""
+    Ar = A[rows].double()
+    n = A.shape[0]
+    out = torch.empty((rows.numel(), n), dtype=torch.float64,
+                      device=A.device)
+    step = max(1, (1 << 30) // (8 * A.shape[1]))
+    for c0 in range(0, n, step):
+        out[:, c0:c0 + step] = Ar @ A[c0:c0 + step].double().T
+    cx = counts[rows].double()[:, None]
+    cy = counts.double()[None, :]
+    den = torch.sqrt(cx * cy)
+    corr = torch.where(den > 0, out / den.clamp(min=1e-12), 0.0)
+    corr[torch.arange(rows.numel(), device=A.device), rows] = -math.inf
+    vals, ids = torch.sort(corr, dim=1, descending=True, stable=True)
+    return ids[:, :k + 1].cpu().numpy(), vals[:, :k + 1].cpu().numpy()
+
+
+def phase_knn_path(dev, train, test):
+    """ItemKNN and UserKNN (cosine, k=80) through the registry at this
+    shape, both past DENSE_NMAX, so both take the streaming top-k: build
+    seconds, the share of the build inside the Gram products (CUDA
+    events around each product), peak memory; 256 sampled rows held to a
+    float64 recomputation on the card (ids equal outside near-ties of
+    1e-6, values within 1e-6); ranking evaluation of 4,096 seeded test
+    users."""
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import correlation as corr_ops
+
+    rng = np.random.default_rng(17)
+    results = {}
+    for name, n, m, eids, fids in (
+            ("ItemKNN", train.num_items, train.num_users, train.items,
+             train.users),
+            ("UserKNN", train.num_users, train.num_items, train.users,
+             train.items)):
+        if n <= corr_ops.DENSE_NMAX:
+            raise AssertionError(f"{name}: {n} entities take the dense path")
+        model = create_item_recommender(name, f"k=80 device={dev.type}")
+        model.feedback = train
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_events((corr_ops, "_overlap_int8", "gram")) as ev, \
+                counted_path({}):
+            t0 = time.perf_counter()
+            model.train()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        gram_ms = events_ms(ev["gram"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not model.is_topk:
+            raise AssertionError(f"{name} did not take the top-k path")
+        e = torch.from_numpy(eids.astype(np.int64)).to(dev)
+        f = torch.from_numpy(fids.astype(np.int64)).to(dev)
+        A = torch.zeros((n, m), dtype=torch.int8, device=dev)
+        A[e, f] = 1
+        counts = torch.bincount(torch.unique(e * m + f) // m, minlength=n)
+        del e, f
+        rows = torch.from_numpy(np.sort(rng.choice(n, KNN_ROWS,
+                                                   replace=False))).to(dev)
+        ref_ids, ref_vals = correlation_rows_f64(A, rows, counts, 80)
+        del A
+        ids = model.nbr_ids[rows].cpu().numpy()
+        vals = model.nbr_vals[rows].cpu().numpy()
+        err, bad = topk_agreement(ids, vals, ref_ids, ref_vals, gap=KNN_TOL)
+        log(f"{name} build ({n} x {m}, {len(train)} events, k=80 cosine, "
+            f"streaming top-k): {build_s:.2f} s, Gram products "
+            f"{gram_ms / 1e3:.2f} s ({100 * gram_ms / 1e3 / build_s:.1f}% "
+            f"of the build, {len(ev['gram'])} products), peak device memory "
+            f"{peak:.2f} GiB; {KNN_ROWS} sampled rows against float64 on "
+            f"the card: "
+            f"max value error {err:.3e} (tol {KNN_TOL}), ids differing "
+            f"outside near-ties {bad}")
+        if err > KNN_TOL or bad:
+            raise AssertionError(f"{name}: the top-k disagrees with float64")
+        res = sampled_ranking_eval(model, train, test, name)
+        results[name] = dict(build_s=build_s, auc=res["AUC"])
+        del model
+        torch.cuda.empty_cache()
+    return results
+
+
+KNN_PAIRS = 256
+
+
+def rating_knn_reference(model, users, items):
+    """The JAX package's per-pair loop (``knn.py predict_batch``) on the
+    host in float64, from the model's stored correlations and baseline:
+    baseline + sum w (r - b) / sum w over the first K positive weights in
+    (weight desc, id asc, event) order, clipped to the scale."""
+    data, bl = model.ratings, model.baseline
+    bu, bi = bl.user_biases.cpu().numpy(), bl.item_biases.cpu().numpy()
+    gavg = np.float32(bl.global_average)
+
+    def base(u, i):
+        b = gavg + (bu[u] if 0 <= u < bu.size else np.float32(0)) \
+            + (bi[i] if 0 <= i < bi.size else np.float32(0))
+        return float(np.clip(b, bl.min_rating, bl.max_rating))
+
+    if model.is_topk:
+        ids = model._sorted_ids.cpu().numpy()
+        vals = model._sorted_vals.cpu().numpy()
+
+        def weights(row, cols):
+            pos = np.clip(np.searchsorted(ids[row], cols), 0,
+                          ids.shape[1] - 1)
+            return np.where(ids[row][pos] == cols, vals[row][pos], 0.0)
+    else:
+        corr = model.corr.cpu().numpy()
+
+        def weights(row, cols):
+            return corr[row, cols]
+    user = model.ENTITY == "user"
+    csr = data.by_item if user else data.by_user
+    out = np.empty(len(users))
+    for p, (u, i) in enumerate(zip(users, items)):
+        row, fixed = (u, i) if user else (i, u)
+        seg = csr.segment(fixed)
+        others = (data.users if user else data.items)[seg].astype(np.int64)
+        w = weights(row, others).astype(np.float64)
+        keep = np.nonzero((w > 0) & (others != row))[0]
+        keep = keep[np.argsort(-w[keep], kind="stable")][:model.k]
+        pred = base(u, i)
+        if keep.size:
+            b = np.array([base(o, i) if user else base(u, o)
+                          for o in others[keep]])
+            r = data.values[seg][keep].astype(np.float64)
+            pred += float(np.sum(w[keep] * (r - b)) / np.sum(w[keep]))
+        out[p] = np.clip(pred, model.min_rating, model.max_rating)
+    return out
+
+
+def pearson_rows_f64(ratings, rows, k: int, shrinkage: float):
+    """The reference top-k (k + 1 columns) of item-item Pearson with
+    shrinkage between the items ``rows`` and every item, over their
+    co-rating users, from the raw ratings in float64 on the card:
+    (n Sxy - Sx Sy) / sqrt((n Sxx - Sx^2)(n Syy - Sy^2)) times
+    (n - 1) / (n - 1 + shrinkage), 0 below two co-ratings or where the
+    root is 0 (Pearson.cs:224-242); the item itself last; value desc, id
+    asc. The generator's (user, item) pairs are distinct."""
+    dev = rows.device
+    n, m = ratings.num_items, ratings.num_users
+    e = torch.from_numpy(ratings.items.astype(np.int64)).to(dev)
+    order = torch.argsort(e, stable=True)
+    e = e[order]
+    f = torch.from_numpy(ratings.users.astype(np.int64)).to(dev)[order]
+    v = torch.from_numpy(ratings.values.astype(np.float64)).to(dev)[order]
+    del order
+    ptr = [0] + torch.cumsum(torch.bincount(e, minlength=n), 0).tolist()
+    pos = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    pos[rows] = torch.arange(rows.numel(), device=dev)
+    sel = pos[e] >= 0
+    Lr = torch.zeros((rows.numel(), m), dtype=torch.float64, device=dev)
+    Lr[pos[e[sel]], f[sel]] = v[sel]
+    Br = (Lr != 0).double()
+    out = torch.empty((rows.numel(), n), dtype=torch.float64, device=dev)
+    step = 512
+    for c0 in range(0, n, step):
+        c1 = min(n, c0 + step)
+        Lc = torch.zeros((c1 - c0, m), dtype=torch.float64, device=dev)
+        Lc[e[ptr[c0]:ptr[c1]] - c0, f[ptr[c0]:ptr[c1]]] = v[ptr[c0]:ptr[c1]]
+        Bc = (Lc != 0).double()
+        nn, Sxy = Br @ Bc.T, Lr @ Lc.T
+        Sx, Sy = Lr @ Bc.T, Br @ Lc.T
+        Sxx, Syy = (Lr * Lr) @ Bc.T, Br @ (Lc * Lc).T
+        del Lc, Bc
+        num = nn * Sxy - Sx * Sy
+        den = torch.sqrt(((nn * Sxx - Sx * Sx) * (nn * Syy - Sy * Sy))
+                         .clamp(min=0.0))
+        c = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+        c = c * (nn - 1.0) / (nn - 1.0 + shrinkage)
+        out[:, c0:c1] = torch.where(nn < 2, 0.0, c)
+    out[torch.arange(rows.numel(), device=dev), rows] = -math.inf
+    vals, ids = torch.sort(out, dim=1, descending=True, stable=True)
+    return ids[:, :k + 1].cpu().numpy(), vals[:, :k + 1].cpu().numpy()
+
+
+def check_rating_knn(model, train, test, label):
+    """256 sampled rows of the rating ItemKNN's stored neighbours held to
+    ``pearson_rows_f64`` (values within 1e-6, ids equal outside near-ties
+    of 1e-6), and ``KNN_PAIRS`` sampled test pairs to the JAX package's
+    per-pair loop recomputed in float64 on the host from the stored
+    neighbours (1e-5)."""
+    dev = model.tables_device()
+    rows = torch.from_numpy(np.sort(np.random.default_rng(20).choice(
+        train.num_items, KNN_ROWS, replace=False))).to(dev)
+    t0 = time.perf_counter()
+    if model.is_topk:
+        ids, vals = model.nbr_ids[rows], model.nbr_vals[rows]
+    else:                                 # dense storage: the rows' top-k
+        c = model.corr[rows].clone()
+        c[torch.arange(rows.numel(), device=dev), rows] = -math.inf
+        vals, ids = torch.sort(c, dim=1, descending=True, stable=True)
+        k = model._k_store(train.num_items)
+        ids, vals = ids[:, :k], vals[:, :k]
+    ref_ids, ref_vals = pearson_rows_f64(train, rows, ids.shape[1],
+                                         float(model.alpha))
+    err, bad = topk_agreement(ids.cpu().numpy(), vals.cpu().numpy(),
+                              ref_ids, ref_vals, gap=KNN_TOL)
+    log(f"rating {label}: {KNN_ROWS} sampled rows of the {ids.shape[1]} "
+        f"stored neighbours against Pearson recomputed in float64 on the "
+        f"card: max value error {err:.3e} (tol {KNN_TOL}), ids differing "
+        f"outside near-ties {bad}; {time.perf_counter() - t0:.1f} s")
+    if err > KNN_TOL or bad:
+        raise AssertionError(f"rating {label}: the Pearson top-k disagrees "
+                             "with float64")
+    pick = np.random.default_rng(19).choice(len(test), KNN_PAIRS,
+                                            replace=False)
+    got = model.predict_batch(test.users[pick], test.items[pick])
+    want = rating_knn_reference(model, test.users[pick], test.items[pick])
+    err = float(np.abs(got - want).max())
+    log(f"rating {label}: {KNN_PAIRS} sampled test pairs against the "
+        f"per-pair loop in float64 on the host: max error {err:.3e} "
+        f"(tol 1e-5)")
+    if err > 1e-5:
+        raise AssertionError(f"rating {label} disagrees with the per-pair "
+                             "loop")
+
+
+def phase_rating_knn_path(dev, train, test):
+    """UserItemBaseline, then ItemKNN (Pearson, k=40) with the default
+    shrinkage 0 and with shrinkage 100, for rating prediction through the
+    registry at this shape (17,770 items, past DENSE_NMAX: the streaming
+    rating top-k on int8 levels, 128 neighbours stored a row): build,
+    then predict every test pair on the card through the rating
+    evaluation, and ``check_rating_knn``: at shrinkage 0 an item's 128
+    stored neighbours are mostly items that 2 or 3 users rated in
+    perfect agreement (Pearson 1), at 100 mostly popular items, whose
+    sums cancel in float32. The RMSEs are reported, not held to the
+    baseline's: on these synthetic ratings neither ItemKNN beats
+    UserItemBaseline, in the JAX package as in the port
+    (``exp_torch_knn_rmse.py``, PERF.md §6). Returns the RMSEs by
+    label."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+
+    out = {}
+    for label, name, opts in (
+            ("UserItemBaseline", "UserItemBaseline", ""),
+            ("ItemKNN", "ItemKNN", "k=40 correlation=Pearson"),
+            ("ItemKNN shrinkage 100", "ItemKNN",
+             "k=40 correlation=Pearson alpha=100")):
+        model = create_rating_predictor(name, f"{opts} device={dev.type}")
+        model.ratings = train
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_path({}):
+            t0 = time.perf_counter()
+            model.train()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = evaluate_ratings(model, test, train)
+            eval_s = time.perf_counter() - t0
+        log(f"rating {label}: train {build_s:.2f} s, {len(test)} test pairs "
+            f"predicted and evaluated on the card in {eval_s:.2f} s "
+            f"({len(test) / eval_s:.4g} pairs/s): {res}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not math.isfinite(res["RMSE"]):
+            raise AssertionError(f"rating {label}: RMSE not finite")
+        out[label] = res["RMSE"]
+        if name == "ItemKNN":
+            check_rating_knn(model, train, test, label)
+        del model
+    log("rating RMSE: " + ", ".join(f"{k} {v:.5f}" for k, v in out.items()))
+    return out
+
+
+def phase_knn_cli(dev, tmp, rating_files, item_files, num_items=3706):
+    """The rating CLI with UserItemBaseline and UserKNN (Pearson, dense:
+    6,040 users), whose RMSE must beat the baseline's, and the item CLI
+    with ItemAttributeKNN on a synthetic genre file (1-3 of 18 genres per
+    item), each with save -> load, at phase 16's size; no kernel runs."""
+    from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
+
+    rng = np.random.default_rng(18)
+    attr_path = os.path.join(tmp, "item_genres.tsv")
+    with open(attr_path, "w") as f:
+        for item in range(num_items):
+            for g in rng.choice(18, rng.integers(1, 4), replace=False):
+                f.write(f"{item}\t{g}\n")
+    rmse = {}
+    for name in ("UserItemBaseline", "UserKNN"):
+        argv = rating_files + ["--recommender", name,
+                               "--recommender-options", f"device={dev.type}"]
+        with counted_path({}):
+            t0 = time.perf_counter()
+            text = save_load_same(rating_prediction.main, argv,
+                                  os.path.join(tmp, f"{name}.model"))
+        rmse[name] = result_value(text, "RMSE")
+        log(f"rating CLI {name}: train, save, load "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (math.isfinite(rmse[name]) and 0 < rmse[name] < 2):
+            raise AssertionError(f"bad CLI result ({name}): RMSE "
+                                 f"{rmse[name]}")
+    if not rmse["UserKNN"] < rmse["UserItemBaseline"]:
+        raise AssertionError(f"UserKNN RMSE {rmse['UserKNN']} does not beat "
+                             f"UserItemBaseline's {rmse['UserItemBaseline']}")
+    argv = item_files + ["--recommender", "ItemAttributeKNN",
+                         "--item-attributes", attr_path,
+                         "--recommender-options", f"device={dev.type}"]
+    with counted_path({}):
+        t0 = time.perf_counter()
+        text = save_load_same(item_recommendation.main, argv,
+                              os.path.join(tmp, "itemattrknn.model"))
+    log(f"item CLI ItemAttributeKNN: train, save, load "
+        f"{time.perf_counter() - t0:.1f} s")
+    if "item attributes" not in text:
+        raise AssertionError("the statistics block lacks the attributes")
+    auc = result_value(text, "AUC")
+    if not (math.isfinite(auc) and 0 <= auc <= 1):
+        raise AssertionError(f"bad item CLI result: AUC {auc}")
 
 
 KERNELS = {
@@ -1723,9 +2258,28 @@ def main() -> int:
     del model, feedback
     worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
     runs["svdpp_epoch"] = phase_svdpp_path(dev, train, test)
-    del train, test
     torch.cuda.empty_cache()
     log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
+    model, feedback, test_items = phase_wrmf_path(dev, train, test)
+    wrmf_serving = phase_serving(dev, model, feedback, "WRMF Netflix-shaped")
+    worst["catalog_topk"] = max(worst["catalog_topk"],
+                                wrmf_serving["max_abs_err"])
+    # kernel 6 on the Netflix main path: the BPRMF pass and the WRMF pass
+    bpr_serving = runs["catalog_topk"]
+    runs["catalog_topk"] = dict(
+        {key: bpr_serving[key] + wrmf_serving[key] for key in
+         ("launches", "ms", "plain_ms", "bound_ms", "library_ms")},
+        max_abs_err=max(bpr_serving["max_abs_err"],
+                        wrmf_serving["max_abs_err"]),
+        bound_by=bpr_serving["bound_by"])
+    del model
+    torch.cuda.empty_cache()
+    phase_knn_path(dev, feedback, test_items)
+    del feedback, test_items
+    phase_rating_knn_path(dev, train, test)
+    del train, test
+    torch.cuda.empty_cache()
+    log(f"WRMF and KNN paths: {time.perf_counter() - t_start:.1f} s")
     # the published ml-25m catalog (GroupLens' README): 162,541 users,
     # 62,423 movies, 25,000,095 ratings
     train, test = shaped_ratings("MovieLens-25M-shaped", num_users=162_541,
@@ -1741,8 +2295,9 @@ def main() -> int:
     log(f"tiled paths: {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         files = phase_cli(dev, tmp)
-        phase_item_cli(dev, tmp)
+        item_files = phase_item_cli(dev, tmp)
         phase_ranking_cli(dev, tmp, files)
+        phase_knn_cli(dev, tmp, files, item_files)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
 
     kernels = []

@@ -7,11 +7,11 @@ Plain tensor code is PyTorch; every TPU kernel on a ported path is a
 CUDA kernel written for Hopper (``csrc/``), built with nvcc at first
 use.
 
-Ported so far: rating prediction with ``MatrixFactorization`` and
-``BiasedMatrixFactorization``, and item recommendation with ``BPRMF``,
-``WeightedBPRMF``, ``SoftMarginRankingMF`` and ``MostPopular`` (train,
-evaluate, save/load, CLIs), on the resident and on the slab-tiled
-(big-catalog) schedule.
+Ported so far (train, evaluate, save/load, CLIs): rating prediction
+with the MF and SVD++ families, the rating baselines and the KNNs; item
+recommendation with the BPR family (resident and slab-tiled schedules),
+``MostPopular``, ``WRMF`` and the KNNs; serving through the fused top-k
+kernel. ``models/registry.py`` lists the names.
 """
 
 __version__ = "0.1.0"

@@ -211,8 +211,10 @@ def main(argv=None):
     if training_data is not None:
         # dataset statistics go to stdout after splitting, before any
         # training output (reference ItemRecommendation.cs:193)
-        print(posonly_statistics(training_data, test_data, None, None),
-              end="")
+        print(posonly_statistics(
+            training_data, test_data,
+            getattr(recommender, "user_attributes", None),
+            getattr(recommender, "item_attributes", None)), end="")
         recommender.feedback = training_data
     if args.load_model:
         recommender.load_model(args.load_model)

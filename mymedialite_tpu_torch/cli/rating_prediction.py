@@ -193,7 +193,10 @@ def main(argv=None):
     if training_data is not None:
         # dataset statistics go to stdout after splitting, before any
         # training output (reference RatingPrediction.cs:200)
-        print(ratings_statistics(training_data, test_data, None, None), end="")
+        print(ratings_statistics(
+            training_data, test_data,
+            getattr(recommender, "user_attributes", None),
+            getattr(recommender, "item_attributes", None)), end="")
         recommender.ratings = training_data
         print("ratings range: "
               f"[{recommender.min_rating}, {recommender.max_rating}]",

@@ -4,11 +4,14 @@ The JAX package draws its initial factors from threefry
 (``mymedialite_tpu/utils/rand.py``) and the port from a
 ``torch.Generator``, so the two cannot re-derive each other's tables.
 ``tables_from_jax`` (rating MF), ``svdpp_tables_from_jax`` (SVD++
-family) and ``bpr_tables_from_jax`` (BPR family) take a JAX model's
-parameters as numpy arrays; the port's
-``init_model(tables=...)`` starts from them, so that both packages train
-from the same tables. Work from a model object or a dict, and import no
-jax.
+family), ``bpr_tables_from_jax`` (BPR family) and
+``wrmf_tables_from_jax`` (WRMF) take a JAX model's parameters as numpy
+arrays; the port's ``init_model(tables=...)`` starts from them, so that
+both packages train from the same tables. ``baseline_state_from_jax``
+(UserItemBaseline's biases) and ``knn_state_from_jax`` (a KNN model's
+dense correlation, or its neighbour ids and values) carry trained state
+the same way, into the port's ``load_state``. Work from a model object
+or a dict, and import no jax.
 """
 
 from __future__ import annotations
@@ -65,3 +68,34 @@ def bpr_tables_from_jax(model_or_params) -> dict:
         else model_or_params.params
     return {k: np.array(params[k], dtype=np.float32)
             for k in ("user_factors", "item_factors", "item_bias")}
+
+
+def wrmf_tables_from_jax(model_or_params) -> dict:
+    """{user_factors, item_factors} (float32 numpy) of a JAX WRMF model,
+    or of its ``params`` dict."""
+    params = model_or_params if isinstance(model_or_params, dict) \
+        else model_or_params.params
+    return {k: np.array(params[k], dtype=np.float32)
+            for k in ("user_factors", "item_factors")}
+
+
+def baseline_state_from_jax(model_or_state) -> dict:
+    """{global_average, user_biases, item_biases} of a JAX
+    UserItemBaseline (or of a rating KNN's ``baseline``), or of a dict."""
+    if isinstance(model_or_state, dict):
+        get = model_or_state.__getitem__
+    else:
+        def get(name):
+            return getattr(model_or_state, name)
+    return {"global_average": float(get("global_average")),
+            "user_biases": np.array(get("user_biases"), dtype=np.float32),
+            "item_biases": np.array(get("item_biases"), dtype=np.float32)}
+
+
+def knn_state_from_jax(model) -> dict:
+    """The correlation state of a JAX KNN model: {corr} (dense [N, N]) or
+    {nbr_ids, nbr_vals} (top-k [N, k]), numpy."""
+    if getattr(model, "corr", None) is not None:
+        return {"corr": np.array(model.corr, dtype=np.float32)}
+    return {"nbr_ids": np.array(model.nbr_ids, dtype=np.int32),
+            "nbr_vals": np.array(model.nbr_vals, dtype=np.float32)}

@@ -7,6 +7,8 @@ so a run never lands on the CPU by accident.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -17,3 +19,22 @@ def resolve_device(name: str = "cuda") -> torch.device:
             f"device {name!r} requested but torch.cuda.is_available() is "
             "False; pass device=cpu to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Products inside the block keep float32 on CUDA: no TF32 and no
+    reduced-precision reductions of half types (bf16 {0,1} products stay
+    exact below 2**24 only without them). The previous settings come
+    back when the block ends."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+             m.allow_fp16_reduced_precision_reduction)
+    m.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = saved

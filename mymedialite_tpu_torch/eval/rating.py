@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from mymedialite_tpu_torch.eval.measures import compute_cbd
 from mymedialite_tpu_torch.eval.results import RatingPredictionResults
 from mymedialite_tpu_torch.device import resolve_device
 
@@ -66,18 +67,57 @@ def _metric_sums(scorer, u, i, v, w, lo, hi, breakdown):
     return sums, masks.sum(dim=-1)
 
 
+def _evaluate_indices(recommender, test, idx):
+    """The host protocol over the test pairs ``idx`` from
+    ``predict_batch`` in float64, for models without a pair scorer (JAX:
+    ``_evaluate_indices``)."""
+    if idx.size == 0:
+        return None
+    actual = test.values[idx]
+    pred = np.asarray(recommender.predict_batch(test.users[idx],
+                                                test.items[idx]),
+                      dtype=np.float64)
+    err = pred - actual
+    lo, hi = recommender.min_rating, recommender.max_rating
+    return {
+        "RMSE": float(np.sqrt(np.mean(err ** 2))),
+        "MAE": float(np.mean(np.abs(err))),
+        "NMAE": float(np.mean(np.abs(err)) / (hi - lo)),
+        "CBD": float(np.mean(compute_cbd(actual, pred, lo, hi))),
+    }
+
+
+def _evaluate_host(recommender, test, training) -> RatingPredictionResults:
+    all_idx = np.arange(len(test))
+    results = RatingPredictionResults(
+        _evaluate_indices(recommender, test, all_idx) or {})
+    if training is not None:
+        tu, ti = test.users, test.items
+        cu, ci = training.count_by_user, training.count_by_item
+        new_user = (tu >= training.num_users) | (np.where(
+            tu < training.num_users,
+            cu[np.minimum(tu, training.num_users - 1)], 0) == 0)
+        new_item = (ti >= training.num_items) | (np.where(
+            ti < training.num_items,
+            ci[np.minimum(ti, training.num_items - 1)], 0) == 0)
+        results.new_user_results = _evaluate_indices(
+            recommender, test, all_idx[new_user])
+        results.new_item_results = _evaluate_indices(
+            recommender, test, all_idx[new_item])
+        results.new_user_new_item_results = _evaluate_indices(
+            recommender, test, all_idx[new_user & new_item])
+    return results
+
+
 def evaluate_ratings(recommender, test, training=None) -> RatingPredictionResults:
     """Full protocol, with the cold-start breakdown when ``training`` is
     given (reference Eval/Ratings.cs:82-92: new-user / new-item /
-    new-user-new-item subsets by zero training count or unseen id)."""
+    new-user-new-item subsets by zero training count or unseen id).
+    Models without a pair scorer (``RandomRating``) take the host path
+    through ``predict_batch``, as in the JAX package."""
     scorer = recommender.pair_scorer() if len(test) else None
     if scorer is None:
-        results = RatingPredictionResults({})
-        if training is not None:
-            results.new_user_results = None
-            results.new_item_results = None
-            results.new_user_new_item_results = None
-        return results
+        return _evaluate_host(recommender, test, training)
     device = resolve_device(recommender.device)
     u, i, v, w = _device_eval_arrays(test, device)
     lo = float(recommender.min_rating)

@@ -16,14 +16,26 @@ The save -> load -> identical-predictions invariant (reference
 with repr-exact precision.
 
 The port's own copy of ``mymedialite_tpu/io/model_io.py``:
-the same behaviour, and no import of the JAX package.
+the same text and the same values, and no import of the JAX package.
+Vectors and matrices are formatted and parsed a section at a time
+rather than a line at a time (a dense KNN correlation at 6,040 users is
+36M lines).
 """
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 
 FORMAT_VERSION = "3.0"
+
+
+def _float32_values(a) -> list:
+    """The values of ``a`` rounded to float32, as Python floats (whose
+    repr is ``_fmt``'s), in row-major order."""
+    return np.asarray(a).astype(np.float32).astype(np.float64).ravel() \
+        .tolist()
 
 
 def _fmt(x: float) -> str:
@@ -45,23 +57,23 @@ class ModelWriter:
     def vector(self, v):
         v = np.asarray(v)
         self._f.write(f"{v.shape[0]}\n")
-        for x in v:
-            self._f.write(f"{_fmt(x)}\n")
+        self._f.write("".join(f"{x!r}\n" for x in _float32_values(v)))
 
     def int_vector(self, v):
         v = np.asarray(v)
         self._f.write(f"{v.shape[0]}\n")
-        for x in v:
-            self._f.write(f"{int(x)}\n")
+        self._f.write("".join(f"{x}\n" for x in
+                              v.astype(np.int64).ravel().tolist()))
 
     def matrix(self, m):
         m = np.asarray(m)
         rows, cols = m.shape
         self._f.write(f"{rows} {cols}\n")
+        values = _float32_values(m)
         for i in range(rows):
-            row = m[i]
-            for j in range(cols):
-                self._f.write(f"{i} {j} {_fmt(row[j])}\n")
+            row = values[i * cols:(i + 1) * cols]
+            self._f.write("".join(f"{i} {j} {x!r}\n"
+                                  for j, x in enumerate(row)))
 
     def sparse(self, rows: int, cols: int, ii, jj, vv):
         self._f.write(f"{rows} {cols} {len(ii)}\n")
@@ -99,20 +111,27 @@ class ModelReader:
     def int_scalar(self) -> int:
         return int(self._line())
 
+    def _lines(self, n: int):
+        lines = list(itertools.islice(self._f, n))
+        if len(lines) < n:
+            raise EOFError("unexpected end of model file")
+        return lines
+
     def vector(self) -> np.ndarray:
         n = int(self._line())
-        return np.array([float(self._line()) for _ in range(n)], dtype=np.float32)
+        return np.array(self._lines(n), dtype=np.float64).astype(np.float32)
 
     def int_vector(self) -> np.ndarray:
         n = int(self._line())
-        return np.array([int(self._line()) for _ in range(n)], dtype=np.int32)
+        return np.array([int(x) for x in self._lines(n)], dtype=np.int32)
 
     def matrix(self) -> np.ndarray:
         rows, cols = map(int, self._line().split())
         m = np.zeros((rows, cols), dtype=np.float32)
-        for _ in range(rows * cols):
-            i, j, v = self._line().split()
-            m[int(i), int(j)] = float(v)
+        fields = np.array("".join(self._lines(rows * cols)).split(),
+                          dtype=np.float64).reshape(-1, 3)
+        m[fields[:, 0].astype(np.int64), fields[:, 1].astype(np.int64)] = \
+            fields[:, 2]
         return m
 
     def sparse(self):

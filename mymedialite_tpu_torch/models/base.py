@@ -134,6 +134,17 @@ class Recommender(nn.Module):
     __repr__ = __str__
 
 
+def pairs_catalog_scorer(pair_fn, num_items: int):
+    """A ``catalog_scorer`` from a pair scorer: every (user, item) of the
+    batch against the whole catalog, in one call of ``pair_fn``."""
+    def score(users):
+        items = torch.arange(num_items, device=users.device)
+        u = users[:, None].expand(-1, num_items).reshape(-1)
+        return pair_fn(u, items.repeat(users.shape[0])).reshape(
+            users.shape[0], num_items)
+    return score
+
+
 class RatingPredictor(Recommender):
     """Explicit-feedback recommender (reference RatingPredictor.cs:26-52)."""
 

@@ -32,6 +32,10 @@ ITEM_RECOMMENDERS = frozenset((
 
 # name -> "module:Class" of the models ported so far
 PORTED_RATING_PREDICTORS = {
+    **{name: f"mymedialite_tpu_torch.models.baselines:{name}" for name in (
+        "GlobalAverage", "UserAverage", "ItemAverage", "Constant",
+        "UserItemBaseline")},
+    "Random": "mymedialite_tpu_torch.models.baselines:RandomRating",
     "MatrixFactorization":
         "mymedialite_tpu_torch.models.mf:MatrixFactorization",
     "BiasedMatrixFactorization":
@@ -41,6 +45,8 @@ PORTED_RATING_PREDICTORS = {
         "SigmoidItemAsymmetricFactorModel",
         "SigmoidUserAsymmetricFactorModel",
         "SigmoidCombinedAsymmetricFactorModel")},
+    **{name: f"mymedialite_tpu_torch.models.knn:{name}Rating" for name in (
+        "UserKNN", "ItemKNN", "UserAttributeKNN", "ItemAttributeKNN")},
 }
 PORTED_ITEM_RECOMMENDERS = {
     "MostPopular": "mymedialite_tpu_torch.models.item_baselines:MostPopular",
@@ -48,6 +54,9 @@ PORTED_ITEM_RECOMMENDERS = {
     "WeightedBPRMF": "mymedialite_tpu_torch.models.bpr:WeightedBPRMF",
     "SoftMarginRankingMF":
         "mymedialite_tpu_torch.models.bpr:SoftMarginRankingMF",
+    "WRMF": "mymedialite_tpu_torch.models.wrmf:WRMF",
+    **{name: f"mymedialite_tpu_torch.models.knn:{name}" for name in (
+        "UserKNN", "ItemKNN", "UserAttributeKNN", "ItemAttributeKNN")},
 }
 
 

@@ -1,0 +1,158 @@
+"""WRMF — weighted regularized matrix factorization (implicit ALS), on
+the port.
+
+Counterpart of ``mymedialite_tpu/models/wrmf.py`` (reference
+``ItemRecommendation/WRMF.cs:53-180``, Hu/Koren/Volinsky 2008). One
+alternation solves every user row, then every item row, in closed form:
+each side is a few batched solves (``ops/als.py``) on the model's device
+instead of a Parallel.For over per-row matrix inverses.
+
+Rows are grouped into power-of-two history-length buckets, and a
+bucket's rows are solved ``chunk`` at a time with chunk x L <= 2M
+gathered history slots, which bounds the [chunk, L, f] temporary (about
+320 MB at f=40) whatever the longest history. Storage, prediction,
+serving (kernel 6 through ``ItemMF.fused_rows``) and the model file are
+``ItemMF``'s, the same text as the JAX package's.
+
+``solve_chunk`` caps the rows of one batched solve; it changes no
+result, only the number of launches (the port's default is larger than
+the JAX package's 256). The mesh form (ROADMAP A9) and the incremental
+``retrain_user``/``retrain_item``/``_retrain`` (ROADMAP A5) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mymedialite_tpu_torch.models.bpr import ItemMF
+from mymedialite_tpu_torch.ops.als import gram, wrmf_optimize
+
+_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
+
+
+class WRMF(ItemMF):
+    HYPERPARAMS = {
+        "num_factors": int,
+        "regularization": float,
+        "alpha": float,
+        "num_iter": int,
+    }
+    EXTRA_PARAMS = dict(ItemMF.EXTRA_PARAMS, solve_chunk=int)
+
+    # gathered-history memory budget per solve step: chunk * L <= 2M
+    # slots (f=40 -> ~320 MB)
+    _GATHER_BUDGET = 2_097_152
+
+    def __init__(self):
+        super().__init__()
+        # defaults per reference WRMF.cs:56-65
+        self.alpha = 1.0
+        self.regularization = 0.015
+        self.num_iter = 15
+        self.solve_chunk = 1 << 16
+        self._user_hist = None
+        self._item_hist = None
+
+    def init_model(self, tables=None):
+        super().init_model(tables)
+        self._build_histories()
+
+    def _build_histories(self):
+        f = self.feedback
+        self._user_hist = self._bucketize(f.by_user, f.num_users)
+        self._item_hist = self._bucketize(f.by_item, f.num_items)
+
+    def _bucketize(self, csr, num_rows: int):
+        """Length-bucketed padded histories: rows grouped by history
+        length into power-of-two buckets (memory O(2 nnz), not rows x
+        Lmax). Returns a list of (row_ids, hist [n, L], lens [n], chunk),
+        tensors on the model's device."""
+        dev = self.params["user_factors"].device
+        counts = csr.counts()[:num_rows]
+        bounds = [16]
+        while bounds[-1] < max(int(counts.max()) if counts.size else 1, 1):
+            bounds.append(bounds[-1] * 2)
+        bidx = np.searchsorted(bounds, counts)
+        buckets = []
+        for b_i, L in enumerate(bounds):
+            rows = np.nonzero(bidx == b_i)[0]
+            if rows.size == 0:
+                continue
+            cap = max(self._GATHER_BUDGET // L, 8)
+            chunk = min(self.solve_chunk, 1 << (cap.bit_length() - 1))
+            cnt_r = counts[rows].astype(np.int64)
+            hist = np.zeros((rows.size, L), np.int64)
+            # vectorized ragged fill: flat positions within each row
+            total = int(cnt_r.sum())
+            row_rep = np.repeat(np.arange(rows.size, dtype=np.int64), cnt_r)
+            within = np.arange(total, dtype=np.int64) - np.repeat(
+                np.cumsum(cnt_r) - cnt_r, cnt_r)
+            starts = np.repeat(csr.indptr[rows].astype(np.int64), cnt_r)
+            hist[row_rep, within] = csr.keys[starts + within]
+            buckets.append(tuple(torch.from_numpy(a).to(dev) for a in (
+                rows.astype(np.int64), hist, cnt_r)) + (chunk,))
+        return buckets
+
+    def _optimize(self, H, buckets, num_rows: int):
+        """Solve all rows bucket by bucket (each row's system involves
+        only its own history, so the buckets are independent)."""
+        W = torch.zeros((num_rows, H.shape[1]), dtype=H.dtype,
+                        device=H.device)
+        HH = gram(H)
+        for rows, hist, lens, chunk in buckets:
+            W[rows] = wrmf_optimize(H, hist, lens, self.alpha,
+                                    self.regularization, chunk=chunk, HH=HH)
+        return W
+
+    def _loaded(self):
+        self._user_hist = self._item_hist = None
+
+    def _ensure_epoch_ready(self):
+        """Rebuild the histories when missing, e.g. after ``load_model``,
+        so that ``iterate()`` keeps training (reference Model.Load +
+        --find-iter contract, IO/Model.cs:67-83)."""
+        if self._user_hist is not None:
+            return
+        if self.feedback is None:
+            raise RuntimeError(
+                "WRMF: no feedback set; assign .feedback before "
+                "iterating a loaded model")
+        self._grow_tables()
+        self._build_histories()
+
+    def iterate(self):
+        """One alternation (reference WRMF.Iterate :68-73): the user side,
+        then the item side."""
+        self._ensure_epoch_ready()
+        p = self.params
+        with torch.no_grad():
+            user_factors = self._optimize(
+                p["item_factors"], self._user_hist,
+                p["user_factors"].shape[0])
+            item_factors = self._optimize(
+                user_factors, self._item_hist, p["item_factors"].shape[0])
+        self.params = dict(p, user_factors=user_factors,
+                           item_factors=item_factors)
+
+    def _grow_tables(self):
+        """Zero rows for users and items the feedback has and the tables
+        lack (JAX ``_grow_tables``)."""
+        f = self.feedback
+        p = dict(self.params)
+        for side, n in (("user_factors", f.num_users),
+                        ("item_factors", f.num_items)):
+            grow = n - p[side].shape[0]
+            if grow > 0:
+                p[side] = torch.cat([p[side], p[side].new_zeros(
+                    (grow, self.num_factors))])
+        self.params = p
+        self.num_users_trained = max(self.num_users_trained, f.num_users)
+        self.num_items_trained = max(self.num_items_trained, f.num_items)
+
+    def retrain_user(self, user_id):
+        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
+
+    def retrain_item(self, item_id):
+        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")

@@ -283,7 +283,7 @@ def test_unported_paths_raise(data):
                  lambda: m.score_items_foldin([1, 2], [3, 4])):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
-    for name in ("MultiCoreBPRMF", "WRMF", "Random", "Zero"):
+    for name in ("MultiCoreBPRMF", "BPRSLIM", "Random", "Zero"):
         with pytest.raises(KeyError, match="not yet ported"):
             create_item_recommender(name)
     with pytest.raises(KeyError, match="Unknown recommender"):

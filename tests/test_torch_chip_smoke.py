@@ -269,3 +269,153 @@ def test_smoke_fails_without_card_or_repo(where, tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+class _HostEvent:
+    """A stand-in for ``torch.cuda.Event`` on the host clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        import time
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_wrmf_and_knn_phases_rehearse_on_the_cpu(monkeypatch, tmp_path,
+                                                   capsys):
+    """The new phases (WRMF, implicit KNN, rating KNN, the KNN CLIs) run
+    end to end on CPU tensors at 6,000 x 300 x 150k (the CLIs at 600 x
+    300 x 60k, about ML-1M's ratings per user), with the card's
+    clock, synchronisation and memory counters stood in for: a WRMF user
+    side agrees with the same side assembled and solved in float64, both
+    KNN builds take the streaming top-k (``DENSE_NMAX`` shrunk) and match
+    float64 on sampled rows, rating ItemKNN's neighbours match Pearson in
+    float64 on sampled rows and its batched predictions the per-pair loop,
+    in both storage modes, and the CLIs save and load, UserKNN beating
+    UserItemBaseline; no kernel is launched."""
+    import numpy as np
+    import torch
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.ops import correlation as corr_ops
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(smoke, "EVAL_USERS", 200)
+    monkeypatch.setattr(smoke, "KNN_ROWS", 32)
+    dev = torch.device("cpu")
+    train, test = split_ratings(synthetic_ratings(6000, 300, 150_000, seed=1),
+                                0.2, seed=2)
+    smoke.phase_wrmf_path(dev, train, test)
+    monkeypatch.setattr(corr_ops, "DENSE_NMAX", 256)
+    results = smoke.phase_knn_path(dev, posonly_from_ratings(train),
+                                   posonly_from_ratings(test))
+    assert set(results) == {"ItemKNN", "UserKNN"}
+    for limit in (16_384, 256):           # dense, then the top-k store
+        monkeypatch.setattr(corr_ops, "DENSE_NMAX", limit)
+        rmse = smoke.phase_rating_knn_path(dev, train, test)
+        assert set(rmse) == {"ItemKNN", "ItemKNN shrinkage 100",
+                             "UserItemBaseline"}
+    # the CLIs on fewer users at about ML-1M's density: UserKNN's dense
+    # correlation file holds one line per pair of users
+    train, test = split_ratings(synthetic_ratings(600, 300, 60_000, seed=3),
+                                0.2, seed=2)
+    files = []
+    for name, part in (("training", train), ("test", test)):
+        path = str(tmp_path / f"{name}.tsv")
+        np.savetxt(path, np.column_stack([part.users, part.items,
+                                          part.values]),
+                   fmt=("%d", "%d", "%g"), delimiter="\t")
+        files += [f"--{name}-file", path]
+    smoke.phase_knn_cli(dev, str(tmp_path), files, files, num_items=300)
+    out = capsys.readouterr().out
+    assert "assembled and solved apart from ops/als.py" in out
+    assert "against Pearson recomputed in float64" in out
+    assert "item attributes for" in out
+
+
+def test_topk_agreement_gap():
+    """``gap`` sets the near-tie rule: at 1e-6 a pair 5e-6 apart is
+    judged, at the default 1e-5 it is not."""
+    import numpy as np
+    smoke = _smoke_module()
+    ref_vals = np.array([[5.0, 3.0 + 5e-6, 3.0, 1.0]])
+    ref_ids = np.array([[1, 2, 3, 4]])
+    ids, vals = np.array([[1, 3, 2]]), ref_vals[:, :3]
+    assert smoke.topk_agreement(ids, vals, ref_ids, ref_vals)[1] == 0
+    assert smoke.topk_agreement(ids, vals, ref_ids, ref_vals,
+                                gap=1e-6)[1] == 2
+
+
+def test_wrmf_float64_side_matches_a_per_row_solve():
+    """``wrmf_user_side_f64`` (one sparse product for the sums) against a
+    numpy float64 assembly and solve, row by row, on feedback with
+    repeated pairs (each counted once) and users without history."""
+    import numpy as np
+    import torch
+
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData
+    smoke = _smoke_module()
+    rng = np.random.default_rng(5)
+    U, I, f, alpha, reg = 30, 25, 6, 2.0, 0.5
+    users = rng.integers(0, U - 3, 200)
+    items = rng.integers(0, I, 200)
+    fb = PosOnlyData(np.concatenate([users, users[:20]]),
+                     np.concatenate([items, items[:20]]),
+                     num_users=U, num_items=I)
+    H = rng.normal(0, 0.5, (I, f))
+    got = smoke.wrmf_user_side_f64(fb, torch.from_numpy(H), alpha, reg)
+    HH = H.T @ H
+    for u in range(U):
+        S = H[np.unique(items[users == u])]
+        M = HH + alpha * S.T @ S + reg * np.eye(f)
+        want = np.linalg.solve(M, (1 + alpha) * S.sum(axis=0))
+        np.testing.assert_allclose(got[u].numpy(), want, rtol=1e-10,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("shrinkage", [0.0, 10.0])
+def test_pearson_float64_rows_match_the_jax_package(shrinkage):
+    """``pearson_rows_f64`` against the JAX package's dense item-item
+    Pearson with the same shrinkage on half-star ratings: values within
+    1e-6, ids equal outside near-ties of 1e-6, the item itself last."""
+    import numpy as np
+    import torch
+
+    from mymedialite_tpu.data.arrays import RatingData as JaxRatingData
+    from mymedialite_tpu.ops.correlation import rating_correlation
+    from mymedialite_tpu_torch.data.arrays import RatingData
+    smoke = _smoke_module()
+    rng = np.random.default_rng(7)
+    U, I, n = 80, 40, 900
+    key = np.unique(rng.integers(0, U * I, n))
+    users, items = key // I, key % I
+    values = rng.integers(2, 11, key.size) / 2.0
+    data = RatingData(users, items, values, num_users=U, num_items=I)
+    dense = np.asarray(rating_correlation(
+        JaxRatingData(users, items, values, num_users=U, num_items=I),
+        entity="item", kind="pearson", shrinkage=shrinkage), np.float64)
+    rows = np.array([0, 3, 17, 39])
+    np.fill_diagonal(dense, -np.inf)
+    order = np.argsort(-dense[rows], axis=1, kind="stable")[:, :11]
+    want_vals = np.take_along_axis(dense[rows], order, axis=1)
+    ids, vals = smoke.pearson_rows_f64(data, torch.from_numpy(rows), 10,
+                                       shrinkage)
+    err, bad = smoke.topk_agreement(ids[:, :10], vals[:, :10], order,
+                                    want_vals, gap=1e-6)
+    assert err <= 1e-6 and bad == 0
+    full = smoke.pearson_rows_f64(data, torch.from_numpy(rows), I - 1,
+                                  shrinkage)[0]
+    assert (full[:, -1] == rows).all()

@@ -1324,3 +1324,69 @@ def test_rating_models_rank_and_serve_on_the_card(cuda):
         before = catalog_topk.launches
         ids, _ = recommend_batch(m, users, 10, training=pos(train))
         assert catalog_topk.launches == before and (ids >= 0).all()
+
+
+# --- the WRMF / KNN slice: the library products it trusts on the card ---
+
+@pytest.mark.parametrize("R,C,m", [(64, 48, 40), (4096, 16384, 17776),
+                                   (512, 1024, 480_000)])
+def test_int_mm_overlaps_are_exact(cuda, R, C, m):
+    """``torch._int_mm`` on 0/1 int8 rows, the second operand a
+    transposed view as ``ops/correlation.py`` passes it, against float64:
+    equal (exact int32 sums). Levels up to 11 squared too."""
+    from mymedialite_tpu_torch.ops.correlation import _overlap_int8
+    gen = torch.Generator(device=cuda).manual_seed(R + C)
+    X = (torch.rand((R, m), generator=gen, device=cuda) < 0.05).to(torch.int8)
+    Y = (torch.rand((C, m), generator=gen, device=cuda) < 0.05).to(torch.int8)
+    got = _overlap_int8(X, Y)
+    want = X.double() @ Y.double().T
+    assert got.dtype == torch.int32
+    assert torch.equal(got.double(), want)
+    L = (X * torch.randint(1, 12, X.shape, generator=gen, device=cuda,
+                           dtype=torch.int8))
+    assert torch.equal(_overlap_int8(L * L, Y).double(),
+                       (L.double() ** 2) @ Y.double().T)
+
+
+def test_streaming_merge_keeps_the_tie_order(cuda):
+    """A tie-heavy incidence (3,000 entities over 6 features, so cosine
+    takes few distinct values) on the card: the streaming top-k equals
+    the stable sort of the dense matrix (value desc, id asc) id for id,
+    and the same call on the CPU."""
+    from mymedialite_tpu_torch.ops import correlation as T
+    rng = np.random.default_rng(5)
+    n, m = 3000, 6
+    data = PosOnlyData(rng.integers(0, n, 9000), rng.integers(0, m, 9000),
+                       n, m)
+    ids, vals = T.binary_correlation_topk(data, n, m, 50, device=cuda)
+    dense = T.binary_correlation(data, n, m, device=cuda)
+    want = T.nearest_neighbors(dense, 50)
+    assert torch.equal(ids, want)
+    assert torch.equal(vals, dense.gather(1, want.long()))
+    cpu_ids, cpu_vals = T.binary_correlation_topk(data, n, m, 50,
+                                                  device="cpu")
+    assert torch.equal(ids.cpu(), cpu_ids)
+    assert torch.equal(vals.cpu(), cpu_vals)
+
+
+def test_cholesky_routes_against_float64(cuda):
+    """480 WRMF rows of 40 factors from random factors: ``wrmf_optimize``
+    (float32 assembly, ``cholesky_ex``) within 1e-5 of the systems
+    assembled and solved in float64 from the same histories (relative to
+    the largest entry), and ``cholesky_ex`` reports no failure."""
+    from mymedialite_tpu_torch.ops import als
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    H = 0.1 * torch.randn((3000, 40), generator=gen, device=cuda)
+    hist = torch.randint(0, 3000, (480, 64), generator=gen, device=cuda)
+    lens = torch.randint(0, 65, (480,), generator=gen, device=cuda)
+    x = als.wrmf_optimize(H, hist, lens, 1.0, 0.015, chunk=128)
+    H64 = H.double()
+    mask = (torch.arange(64, device=cuda)[None, :] < lens[:, None]).double()
+    Hs = H64[hist] * mask[:, :, None]
+    M = H64.T @ H64 + Hs.transpose(1, 2) @ Hs \
+        + 0.015 * torch.eye(40, dtype=torch.float64, device=cuda)
+    L, info = torch.linalg.cholesky_ex(M)
+    assert not bool((info != 0).any())
+    x64 = torch.cholesky_solve(2.0 * Hs.sum(dim=1)[:, :, None], L)[:, :, 0]
+    err = float((x.double() - x64).abs().max() / x64.abs().max())
+    assert err <= 1e-5, err

@@ -2,11 +2,12 @@
 which any import of jax or of ``mymedialite_tpu`` (the name itself or a
 submodule; ``mymedialite_tpu_torch`` shares the prefix and stays
 allowed) raises runs the port's three CLIs end to end on the CPU (train,
-evaluate, save, load; rating prediction with BiasedMatrixFactorization
-and SVDPlusPlus, item recommendation with BPRMF, WeightedBPRMF and
-MostPopular, also with ``--user-prediction``, rating-based ranking with
-BiasedMatrixFactorization and SigmoidSVDPlusPlus) from the port's own
-synthetic data, and must exit 0."""
+evaluate, save, load; rating prediction with BiasedMatrixFactorization,
+SVDPlusPlus, UserItemBaseline, ItemKNN and UserAttributeKNN, item
+recommendation with BPRMF, WeightedBPRMF, MostPopular, WRMF, UserKNN and
+ItemAttributeKNN, also with ``--user-prediction``, rating-based ranking
+with BiasedMatrixFactorization and SigmoidSVDPlusPlus) from the port's
+own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -70,6 +71,29 @@ SCRIPT = textwrap.dedent("""
     assert rating_based_ranking.main(base + ["--load-model", f"{d}/r.model"]) == 0
     assert rating_based_ranking.main(
         base + ["--recommender", "SigmoidSVDPlusPlus"]) == 0
+    with open(f"{d}/genres.tsv", "w") as f:
+        for i in range(150):
+            f.write(f"{i}\\t{i % 7}\\n")
+    for name in ("UserItemBaseline", "ItemKNN", "UserAttributeKNN"):
+        opts = base[:-2] + ["--recommender", name, "--recommender-options",
+                            "k=20 device=cpu" if "KNN" in name
+                            else "device=cpu"]
+        if name == "UserAttributeKNN":
+            opts += ["--user-attributes", f"{d}/genres.tsv"]
+        assert rating_prediction.main(
+            opts + ["--save-model", f"{d}/{name}.rating"]) == 0
+        assert rating_prediction.main(
+            opts + ["--load-model", f"{d}/{name}.rating"]) == 0
+    for name, extra in (("WRMF", "num_factors=6 num_iter=2 "), ("UserKNN", ""),
+                        ("ItemAttributeKNN", "")):
+        opts = ["--recommender", name, "--recommender-options",
+                extra + "device=cpu"]
+        if name == "ItemAttributeKNN":
+            opts += ["--item-attributes", f"{d}/genres.tsv"]
+        assert item_recommendation.main(
+            items + opts + ["--save-model", f"{d}/{name}.model"]) == 0
+        assert item_recommendation.main(
+            items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -84,4 +108,7 @@ def test_port_runs_without_jax(tmp_path):
     assert "RMSE" in proc.stdout
     assert proc.stdout.count("SVDPlusPlus num_factors=6") == 3
     assert proc.stdout.count("SigmoidSVDPlusPlus num_factors=6") == 1
-    assert proc.stdout.count("AUC") == 9
+    assert proc.stdout.count("AUC") == 15
+    for name in ("UserItemBaseline", "ItemKNNRating", "UserAttributeKNNRating",
+                 "WRMF", "UserKNN", "ItemAttributeKNN"):
+        assert proc.stdout.count(f"\n{name} ") == 2, name
