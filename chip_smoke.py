@@ -104,13 +104,38 @@ Phases (any failure raises and the script exits non-zero):
 19. the rating CLI on phase 16's files with UserItemBaseline and UserKNN
     (Pearson, dense at 6,040 users; its RMSE must beat the baseline's),
     the item CLI with ItemAttributeKNN and a synthetic genre file, each
-    with save -> load.
+    with save -> load;
+20. the XLA routes, plain PyTorch epochs on which no kernel may launch:
+    BiasedMatrixFactorization with frequency regularization on phase 6's
+    data (the blocked epoch, after phase 11); SVDPlusPlus (k=20, learn
+    rate 0.003, transductive) on phase 12's data, whose Q and Y pass the
+    kernel's 8 MiB (the grouped epoch, 1,270 groups of 128 users), one
+    epoch also under torch.profiler for the device's busy share; then a
+    retail-sized catalog, ``synthetic_ratings(500_000, 2_200_000,
+    10_000_000, seed=7)`` (2,149 item blocks in 135 slabs at k=40, past
+    the tiled schedule's 128): BiasedMatrixFactorization (blocked) and
+    BPRMF (the minibatch epoch; AUC of 1,024 seeded test users, scored in
+    blocks of 128). Each trains 3 epochs and is held over a prefix of an
+    epoch (8 groups, or 8 batches of sampled triples) to the same
+    function on the CPU in float64 within 1e-4 (``prefix_check``): the
+    SVD++ and BPR prefixes from the trained tables, the MF prefixes the
+    first groups of epoch 1 from the init tables at a batch of 16,384 (at
+    the default 131,072 float32 rounding alone parts from float64:
+    ``exp_torch_blocked_prefix.py``); RMSE under the global average, AUC
+    above 0.5;
+21. the protocols through the CLIs at phase 16's size: the rating CLI with
+    --cross-validation=5 (BiasedMatrixFactorization: kernel 1 once per
+    epoch per fold), --cross-validation=3 --find-iter=1 --max-iter=3,
+    --search-hp (UserItemBaseline) and GSVDPlusPlus on a synthetic genre
+    file (save -> load); the item CLI with --cross-validation=5 (BPRMF:
+    kernel 3 once per epoch per fold); rating_based_ranking with
+    --cross-validation=5.
 
 Before each main path every kernel's launch count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
 kernel once per epoch, the top-k kernel once per block of users, and no
-kernel in WRMF's training or the KNN builds, which are library products
-and solves; a
+kernel in WRMF's training, the KNN builds or the XLA routes, which are
+library products, solves and plain PyTorch epochs; a
 count is one wrapper call, which may launch more than one CUDA kernel:
 the BPR epoch's sampler and walk, kernel 6's split and merge) and
 every other kernel never. The line before the last is one JSON object
@@ -387,6 +412,11 @@ def check(err, what):
     if not err <= KERNEL_TOL:
         raise AssertionError(f"{what}: kernel disagrees with the plain "
                              f"version, {err} > {KERNEL_TOL}")
+
+
+def global_average_rmse(train, test) -> float:
+    return float(np.sqrt(np.mean(
+        (test.values.astype(np.float64) - train.values.mean()) ** 2)))
 
 
 @contextlib.contextmanager
@@ -829,8 +859,7 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     t0 = time.perf_counter()
     res = evaluate_ratings(model, test, train)
     eval_s = time.perf_counter() - t0
-    baseline = float(np.sqrt(np.mean(
-        (test.values.astype(np.float64) - train.values.mean()) ** 2)))
+    baseline = global_average_rmse(train, test)
     log(f"eval: {res} ({eval_s:.2f} s); global-average RMSE {baseline:.5f}")
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("RMSE does not beat the global average")
@@ -1242,8 +1271,7 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
     t0 = time.perf_counter()
     res = evaluate_ratings(model, test, train)
     eval_s = time.perf_counter() - t0
-    baseline = float(np.sqrt(np.mean(
-        (test.values.astype(np.float64) - train.values.mean()) ** 2)))
+    baseline = global_average_rmse(train, test)
     log(f"svdpp eval: {res} ({eval_s:.2f} s); global-average RMSE "
         f"{baseline:.5f}")
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
@@ -2155,6 +2183,15 @@ def phase_rating_knn_path(dev, train, test):
     return out
 
 
+def write_genres(path, num_items: int, seed: int = 18):
+    """1-3 of 18 genres per item, one ``item<TAB>genre`` line each."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for item in range(num_items):
+            for g in rng.choice(18, rng.integers(1, 4), replace=False):
+                f.write(f"{item}\t{g}\n")
+
+
 def phase_knn_cli(dev, tmp, rating_files, item_files, num_items=3706):
     """The rating CLI with UserItemBaseline and UserKNN (Pearson, dense:
     6,040 users), whose RMSE must beat the baseline's, and the item CLI
@@ -2162,12 +2199,8 @@ def phase_knn_cli(dev, tmp, rating_files, item_files, num_items=3706):
     item), each with save -> load, at phase 16's size; no kernel runs."""
     from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
 
-    rng = np.random.default_rng(18)
     attr_path = os.path.join(tmp, "item_genres.tsv")
-    with open(attr_path, "w") as f:
-        for item in range(num_items):
-            for g in rng.choice(18, rng.integers(1, 4), replace=False):
-                f.write(f"{item}\t{g}\n")
+    write_genres(attr_path, num_items)
     rmse = {}
     for name in ("UserItemBaseline", "UserKNN"):
         argv = rating_files + ["--recommender", name,
@@ -2199,6 +2232,364 @@ def phase_knn_cli(dev, tmp, rating_files, item_files, num_items=3706):
     auc = result_value(text, "AUC")
     if not (math.isfinite(auc) and 0 <= auc <= 1):
         raise AssertionError(f"bad item CLI result: AUC {auc}")
+
+
+# ---------------------------------------------------------------------------
+# the XLA routes: epochs of plain PyTorch, no kernel of csrc/ on them
+# ---------------------------------------------------------------------------
+
+# the prefix of groups or batches held to the CPU's float64 run
+GROUP_PREFIX = 8
+BATCH_PREFIX = 8
+AUC_USERS = 1024
+# the blocked MF prefix's batch: at the default 131,072 the trajectory
+# parts from float64 at float32's rounding alone (popular items' biases
+# overshoot); at 16,384 float32 keeps within 2.1e-6 of float64 over a
+# whole epoch (exp_torch_blocked_prefix.py)
+PREFIX_BATCH = 16_384
+
+
+def host_copy(tables: dict, dtype=torch.float64) -> dict:
+    """Copies of a dict of tensors on the CPU, in ``dtype``."""
+    return {k: v.detach().to("cpu", dtype).clone() for k, v in tables.items()}
+
+
+def prefix_check(card: dict, host32: dict, host64: dict, what: str):
+    """The card's tables after a prefix of an epoch against the same
+    function on the CPU in float64, within ``KERNEL_TOL``. Returns (the
+    card's distance, the CPU float32 run's: float32 rounding's own share,
+    for the log); raises on non-finite tables or a distance past the
+    tolerance."""
+    for k, t in card.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: non-finite {k}")
+
+    def dist(tables):
+        return max((tables[k].double().cpu() - host64[k]).abs().max().item()
+                   for k in host64)
+    err, f32 = dist(card), dist(host32)
+    if not err <= KERNEL_TOL:
+        raise AssertionError(
+            f"{what}: the card is {err} from the CPU's float64 run, past "
+            f"{KERNEL_TOL} (the CPU float32 run: {f32})")
+    return err, f32
+
+
+def prefix_line(label, err, f32):
+    return (f"{label} on the card vs the CPU in float64: max_abs_err "
+            f"{err:.3e} (tol {KERNEL_TOL}; the CPU float32 run {f32:.3e})")
+
+
+def profiled_busy(fn):
+    """Run ``fn()`` once under torch.profiler: (device ms, wall ms, device
+    operations), the device ms summed over the kernels, copies and sets
+    the profiler saw (one stream, so they do not overlap), the operations
+    counted one per launch; the wall clock includes the profiler's own
+    cost."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = [ev for ev in prof.key_averages() if ev.self_device_time_total]
+    busy = sum(ev.self_device_time_total for ev in events)
+    return busy / 1e3, wall, sum(ev.count for ev in events)
+
+
+def phase_svdpp_grouped(dev, train, test):
+    """SVDPlusPlus at k=20 (learn rate 0.003) for 3 epochs through the
+    registry on data whose Q and Y pass the kernel's table budget, so the
+    grouped epoch (ops/svdpp.py) trains it; transductive on the test
+    pairs. No kernel may launch. The first ``GROUP_PREFIX`` groups of one
+    more epoch on the card are held to the same function on the CPU in
+    float64 from the same tables (``prefix_check``); RMSE against the
+    global average; one epoch under the profiler for the device's busy
+    share."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import svdpp as svdpp_module
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    from mymedialite_tpu_torch.ops.svdpp import svdpp_epoch_grouped
+
+    model = create_rating_predictor(
+        "SVDPlusPlus",
+        f"num_factors=20 num_iter=3 learn_rate=0.003 device={dev.type}")
+    model.ratings = train
+    model.additional_feedback = (test.users, test.items)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_training((svdpp_module, "prepare_groups"),
+                        (svdpp_module, "svdpp_epoch_grouped")) as timings, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    if model.route() != "grouped":
+        raise AssertionError("SVD++ did not take the grouped epoch")
+    groups = model._groups
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    log(f"svdpp grouped train: {train_s:.2f} s; layout "
+        f"{timings['plan_s'][0]:.2f} s ({groups.ngroups} groups of "
+        f"{groups.group_users} users, {groups.num_chunks} chunks of up to "
+        f"{groups.chunk} ratings, largest group {groups.length}); no kernel "
+        f"launched; epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
+        f"{len(train) / (epoch_ms / 1e3):.4g} rating updates/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    res = evaluate_ratings(model, test, train)
+    baseline = global_average_rmse(train, test)
+    log(f"svdpp grouped eval: {res}; global-average RMSE {baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError("grouped SVD++ RMSE does not beat the global "
+                             "average")
+
+    # the first groups of one more epoch: the card against the CPU in
+    # float64, from the same tables
+    card = {k: v.clone() for k, v in model.params.items()}
+    hosts = (host_copy(card, torch.float32), host_copy(card))
+    kw = dict(loss=0, sigmoid=False, use_p=True,
+              group_ids=range(min(GROUP_PREFIX, groups.ngroups)))
+    hp = model._grouped_hp()
+    svdpp_epoch_grouped(card, groups, model._edges[2], hp, model._regs, **kw)
+    host_groups = groups.to("cpu")
+    for host in hosts:
+        dtype = host["y"].dtype
+        svdpp_epoch_grouped(host, host_groups,
+                            model._edges[2].to("cpu", dtype), hp,
+                            host_copy(model._regs, dtype), **kw)
+    err, f32 = prefix_check(card, *hosts, "grouped SVD++ prefix")
+    busy, wall, ops = profiled_busy(model.iterate)
+    log(prefix_line(f"svdpp grouped: first {GROUP_PREFIX} groups", err, f32)
+        + f"; one epoch under torch.profiler: {ops} device operations "
+        f"({ops / groups.num_chunks:.1f} a chunk), device busy {busy:.1f} ms "
+        f"of {wall:.1f} ms wall under the profiler ({100 * busy / wall:.1f}%),"
+        f" {100 * busy / epoch_ms:.1f}% of the unprofiled epoch's "
+        f"{epoch_ms:.1f} ms")
+    return dict(epoch_ms=epoch_ms, busy_share=busy / epoch_ms)
+
+
+def phase_mf_blocked(dev, train, test, label, opts=""):
+    """BiasedMatrixFactorization at k=40 for 3 epochs (``opts`` added)
+    through the registry where it takes the blocked epoch (ops/sgd.py):
+    frequency regularization, or a catalog past the tiled schedule's
+    slabs. No kernel may launch. RMSE against the global average. The
+    same cell at a batch of ``PREFIX_BATCH`` (see there): the first
+    ``GROUP_PREFIX`` user groups of its epoch 1 from its init tables on
+    the card, held to the CPU's float64 run from the same tables and
+    batch orders (``prefix_check``)."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    from mymedialite_tpu_torch.ops import sgd
+
+    model = create_rating_predictor(
+        "BiasedMatrixFactorization",
+        f"num_factors=40 num_iter=3 {opts} device={dev.type}")
+    model.ratings = train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_training((sgd, "prepare_blocked_data"),
+                        (sgd, "sgd_epoch_blocked")) as timings, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    if model._route() != "minibatch" or model._blocked is None:
+        raise AssertionError(f"{label}: MF did not take the blocked epoch")
+    data, meta, freq = model._blocked
+    batches = sum(sgd.real_batches(c, meta["batch"]) for c in data["count"])
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    log(f"mf blocked {label} train: {train_s:.2f} s; layout "
+        f"{timings['plan_s'][0]:.2f} s ({meta['ngroups']} groups of "
+        f"{meta['group_users']} users, {batches} batches of up to "
+        f"{meta['batch']}); no kernel launched; epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
+        f"{len(train) / (epoch_ms / 1e3):.4g} rating updates/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    res = evaluate_ratings(model, test, train)
+    baseline = global_average_rmse(train, test)
+    log(f"mf blocked {label} eval: {res}; global-average RMSE "
+        f"{baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError(f"{label}: blocked MF RMSE does not beat the "
+                             "global average")
+
+    del model
+    model = create_rating_predictor(
+        "BiasedMatrixFactorization",
+        f"num_factors=40 {opts} batch_size={PREFIX_BATCH} device={dev.type}")
+    model.ratings = train
+    model.init_model()
+    data, meta, freq = model._blocked
+    card = dict(W=model._W_ext.clone(), H=model._H_ext.clone())
+    hosts = (host_copy(card, torch.float32), host_copy(card))
+    orders = model._batch_orders(meta["ngroups"],
+                                 meta["l_pad"] // meta["batch"])
+    args = (model.num_factors, model.current_learnrate, model.reg_u,
+            model.reg_i, model.bias_learn_rate, model.bias_reg, True, True,
+            True)
+    hp = (model.global_bias, model.min_rating, model._rating_range())
+    kw = dict(meta=meta, loss=model.loss_id, biased=True,
+              groups=range(min(GROUP_PREFIX, meta["ngroups"])))
+    sgd.sgd_epoch_blocked(card["W"], card["H"], data, orders, hp,
+                          sgd.column_rates(*args, device=dev), freq, **kw)
+    host_data = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in data.items()}
+    for host in hosts:
+        dtype = host["W"].dtype
+        host_freq = None if freq is None else tuple(
+            f.to("cpu", dtype) for f in freq)
+        sgd.sgd_epoch_blocked(host["W"], host["H"], host_data, orders, hp,
+                              sgd.column_rates(*args), host_freq, **kw)
+    err, f32 = prefix_check(card, *hosts, f"{label} blocked MF prefix")
+    log(prefix_line(f"mf blocked {label}: first {GROUP_PREFIX} groups of "
+                    f"epoch 1 at a batch of {meta['batch']}", err, f32)
+        + f"; largest entries |W| "
+        f"{card['W'].abs().max().item():.4g}, |H| "
+        f"{card['H'].abs().max().item():.4g}")
+    return dict(epoch_ms=epoch_ms)
+
+
+def phase_bpr_minibatch(dev, train, test, label):
+    """BPRMF at k=40 for 3 epochs through the registry on a catalog past
+    the tiled schedule's slabs, so the minibatch epoch (ops/bpr.py) trains
+    it. No kernel may launch. ``BATCH_PREFIX`` batches of sampled triples
+    applied on the card and on the CPU in float64 from the same tables
+    and triples (``prefix_check``); AUC of ``AUC_USERS`` seeded test users, scored in the
+    ranking evaluation's blocks of 128 users, above 0.5."""
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import bpr as bpr_ops
+
+    train, test = posonly_from_ratings(train), posonly_from_ratings(test)
+    model = create_item_recommender(
+        "BPRMF", f"num_factors=40 num_iter=3 device={dev.type}")
+    model.feedback = train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_training((bpr_ops, "make_sampler_data"),
+                        (bpr_ops, "bpr_epoch")) as timings, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    if model._sampler is None:
+        raise AssertionError(f"{label}: BPRMF did not take the minibatch "
+                             "epoch")
+    sampler, meta, pop = model._sampler
+    batch, nb = bpr_ops.epoch_batches(meta["num_events"], model.batch_size)
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    log(f"bpr minibatch {label} train: {train_s:.2f} s; sampler "
+        f"{timings['plan_s'][0]:.2f} s ({nb} batches of {batch} triples); "
+        f"no kernel launched; epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
+        f"{meta['num_events'] / (epoch_ms / 1e3):.4g} triples/s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    card = {k: v.clone() for k, v in model.params.items()}
+    hosts = (host_copy(card, torch.float32), host_copy(card))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    hp = model._hp()
+    for _ in range(BATCH_PREFIX):
+        u, i, j, w = bpr_ops.sample_triples(gen, sampler, meta, batch,
+                                            model._regime())
+        bpr_ops.bpr_step(card, u, i, j, w, hp, update_j=True)
+        for host in hosts:
+            bpr_ops.bpr_step(host, u.cpu(), i.cpu(), j.cpu(), w.cpu(), hp,
+                             update_j=True)
+    err, f32 = prefix_check(card, *hosts, f"{label} BPR minibatch prefix")
+    rng = np.random.default_rng(9)
+    users = np.sort(rng.choice(test.all_users, AUC_USERS, replace=False))
+    t0 = time.perf_counter()
+    res = evaluate_items(model, test, train, test_users=users,
+                         batch_size=128)
+    log(prefix_line(f"bpr minibatch {label}: first {BATCH_PREFIX} batches",
+                    err, f32) + f"; ranking eval of {res['num_users']} users: {res} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
+        raise AssertionError(f"{label}: BPRMF AUC {res['AUC']} <= 0.5")
+    return dict(epoch_ms=epoch_ms)
+
+
+def finite_lines(text, key, count):
+    """The last ``count`` lines of ``text`` that hold ``key``, each value
+    finite."""
+    lines = [ln for ln in text.strip().splitlines() if f"{key} " in ln]
+    if len(lines) < count:
+        raise AssertionError(f"expected {count} lines with {key}:\n{text}")
+    for ln in lines[-count:]:
+        tokens = ln.split()
+        value = float(tokens[tokens.index(key) + 1])
+        if not math.isfinite(value):
+            raise AssertionError(f"non-finite {key}: {ln}")
+    return lines[-count:]
+
+
+def phase_cv_cli(dev, tmp, files, item_files, num_items=3706):
+    """The protocols of this slice through the CLIs at phase 16's size:
+    the rating CLI with --cross-validation=5 (BiasedMatrixFactorization:
+    the SGD kernel once per epoch per fold), --cross-validation=3
+    --find-iter=1 --max-iter=3 (three lines), --search-hp with
+    UserItemBaseline, and GSVDPlusPlus on a synthetic genre file (save ->
+    load, the same line); the item CLI with --cross-validation=5 (BPRMF:
+    the BPR kernel once per epoch per fold); rating_based_ranking with
+    --cross-validation=5. Each result line parsed and finite."""
+    from mymedialite_tpu_torch.cli import (
+        item_recommendation, rating_based_ranking, rating_prediction,
+    )
+    opts = ["--recommender-options",
+            f"num_factors=40 num_iter=3 device={dev.type}"]
+    t0 = time.perf_counter()
+    with counted_path({"sgd_epoch": 15}):
+        text = run_cli(rating_prediction.main,
+                       files[:2] + ["--cross-validation", "5"] + opts)
+    finite_lines(text, "RMSE", 1)
+    with counted_path({"sgd_epoch": 9}):
+        text = run_cli(rating_prediction.main, files[:2] + [
+            "--cross-validation", "3", "--find-iter", "1", "--max-iter", "3",
+            "--recommender-options",
+            f"num_factors=40 num_iter=1 device={dev.type}"])
+    finite_lines(text, "RMSE", 3)
+    log(f"rating CLI cross-validation: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with counted_path({}):
+        text = run_cli(rating_prediction.main, files + [
+            "--recommender", "UserItemBaseline", "--search-hp",
+            "--recommender-options", f"device={dev.type}"])
+    finite_lines(text, "RMSE", 1)
+    log(f"rating CLI --search-hp: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    genres = os.path.join(tmp, "gsvd_genres.tsv")
+    write_genres(genres, num_items)
+    with counted_path({}):
+        text = save_load_same(rating_prediction.main, files + [
+            "--recommender", "GSVDPlusPlus", "--item-attributes", genres,
+            "--recommender-options",
+            f"num_factors=20 num_iter=3 learn_rate=0.003 device={dev.type}"],
+            os.path.join(tmp, "gsvd.model"))
+    rmse = result_value(text, "RMSE")
+    if not (math.isfinite(rmse) and 0 < rmse < 2):
+        raise AssertionError(f"bad GSVDPlusPlus result: RMSE {rmse}")
+    log(f"rating CLI GSVDPlusPlus: train, save, load "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with counted_path({"bpr_epoch": 15}):
+        text = run_cli(item_recommendation.main, item_files[:2] + [
+            "--recommender", "BPRMF", "--cross-validation", "5"] + opts)
+    finite_lines(text, "AUC", 1)
+    with counted_path({"sgd_epoch": 15}):
+        text = run_cli(rating_based_ranking.main,
+                       files[:2] + ["--cross-validation", "5"] + opts)
+    finite_lines(text, "AUC", 1)
+    log(f"item and ranking CLI cross-validation: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 KERNELS = {
@@ -2259,6 +2650,9 @@ def main() -> int:
     worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
     runs["svdpp_epoch"] = phase_svdpp_path(dev, train, test)
     torch.cuda.empty_cache()
+    phase_mf_blocked(dev, train, test, "Netflix-shaped, frequency "
+                     "regularization", "frequency_regularization=true")
+    torch.cuda.empty_cache()
     log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
     model, feedback, test_items = phase_wrmf_path(dev, train, test)
     wrmf_serving = phase_serving(dev, model, feedback, "WRMF Netflix-shaped")
@@ -2290,14 +2684,28 @@ def main() -> int:
         dev, train, test, tiled=True)
     ml25m = phase_serving(dev, model, feedback, "MovieLens-25M-shaped")
     worst["catalog_topk"] = max(worst["catalog_topk"], ml25m["max_abs_err"])
-    del train, test, model, feedback
+    del model, feedback
     torch.cuda.empty_cache()
     log(f"tiled paths: {time.perf_counter() - t_start:.1f} s")
+    phase_svdpp_grouped(dev, train, test)
+    del train, test
+    torch.cuda.empty_cache()
+    # a retail-sized catalog past the tiled schedule's 128 slabs at k=40:
+    # 2,149 item blocks in 135 slabs
+    train, test = shaped_ratings("big-catalog", num_users=500_000,
+                                 num_items=2_200_000, num_ratings=10_000_000,
+                                 seed=7)
+    phase_mf_blocked(dev, train, test, "big-catalog")
+    phase_bpr_minibatch(dev, train, test, "big-catalog")
+    del train, test
+    torch.cuda.empty_cache()
+    log(f"XLA-route paths: {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         files = phase_cli(dev, tmp)
         item_files = phase_item_cli(dev, tmp)
         phase_ranking_cli(dev, tmp, files)
         phase_knn_cli(dev, tmp, files, item_files)
+        phase_cv_cli(dev, tmp, files, item_files)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
 
     kernels = []

@@ -8,10 +8,13 @@ CUDA kernel written for Hopper (``csrc/``), built with nvcc at first
 use.
 
 Ported so far (train, evaluate, save/load, CLIs): rating prediction
-with the MF and SVD++ families, the rating baselines and the KNNs; item
-recommendation with the BPR family (resident and slab-tiled schedules),
+with the MF and SVD++ families (GSVDPlusPlus included), the rating
+baselines and the KNNs; item recommendation with the BPR family
+(resident and slab-tiled schedules, the minibatch epoch past them),
 ``MostPopular``, ``WRMF`` and the KNNs; serving through the fused top-k
-kernel. ``models/registry.py`` lists the names.
+kernel; cross-validation and the Nelder-Mead search. Where the JAX
+package runs an XLA epoch instead of a Pallas kernel, the port runs the
+same epoch in plain PyTorch. ``models/registry.py`` lists the names.
 """
 
 __version__ = "0.1.0"

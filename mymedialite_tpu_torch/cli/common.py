@@ -165,7 +165,9 @@ class PhaseTimer:
         self.stats.setdefault(phase, []).append(time.time() - t0)
         return result, self.stats[phase][-1]
 
-    def report(self, out=sys.stderr):
+    def report(self, out=None):
+        # the stream of the call, not the one current at import
+        out = sys.stderr if out is None else out
         for phase, times in self.stats.items():
             if len(times) > 1:
                 print(f"{phase}_time: min={min(times):.3f} max={max(times):.3f} "

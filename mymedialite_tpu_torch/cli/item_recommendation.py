@@ -7,10 +7,11 @@ built on the port's CLI and data helpers. Covered: the
 standard train/evaluate path, ``--test-ratio``, ``--test-users``,
 ``--num-test-users``, the candidate-item flags, ``--predict-items-number``,
 ``--repeated-items``, ``--prediction-file``, ``--user-prediction``
-(users recommended for items), ``--save-model`` / ``--load-model`` and
-``--find-iter``. The flags whose protocols are not ported yet
-(``--cross-validation``, ``--online-evaluation``, ``--profile``) abort
-with "not yet ported".
+(users recommended for items), ``--save-model`` / ``--load-model``,
+``--find-iter`` and ``--cross-validation=K`` (with ``--find-iter``: the
+folds iterated in lockstep). The flags whose protocols are not ported
+yet (``--online-evaluation``, ``--profile``) abort with "not yet
+ported".
 
     python -m mymedialite_tpu_torch.cli.item_recommendation \\
         --training-file train.tsv --test-file test.tsv \\
@@ -31,6 +32,9 @@ from mymedialite_tpu_torch.data.io import (
 )
 from mymedialite_tpu_torch.data.splits import posonly_simple_split
 from mymedialite_tpu_torch.data.statistics import posonly_statistics
+from mymedialite_tpu_torch.eval.crossval import (
+    crossvalidate_items, iterative_crossvalidate_items,
+)
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
 from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
@@ -110,8 +114,7 @@ def write_predictions(recommender, training, path, user_mapping, item_mapping,
 
 
 def _reject_unported(args):
-    for flag, on in (("--cross-validation", args.cross_validation > 1),
-                     ("--online-evaluation", args.online_evaluation),
+    for flag, on in (("--online-evaluation", args.online_evaluation),
                      ("--profile", args.profile is not None)):
         if on:
             common.abort(f"{flag} {_NOT_PORTED}.")
@@ -215,6 +218,29 @@ def main(argv=None):
             training_data, test_data,
             getattr(recommender, "user_attributes", None),
             getattr(recommender, "item_attributes", None)), end="")
+
+    if args.cross_validation > 1:
+        # reference ItemRecommendation.cs:214, ItemsCrossValidation.cs
+        print(str(recommender))
+        kw = dict(test_users=test_users, candidate_items=explicit_candidates,
+                  candidate_item_mode=candidate_mode(args),
+                  rng=np.random.default_rng(args.random_seed or 0))
+        if args.find_iter > 0:
+            if not isinstance(recommender, IterativeModel):
+                common.abort("Only iterative recommenders support "
+                             "--find-iter=N.")
+            iterative_crossvalidate_items(
+                recommender, training_data, args.cross_validation,
+                args.max_iter, args.find_iter,
+                show_fold_results=args.show_fold_results, **kw)
+        else:
+            print(str(crossvalidate_items(
+                recommender, training_data, args.cross_validation,
+                show_results=args.show_fold_results, **kw)))
+        timer.report()
+        return 0
+
+    if training_data is not None:
         recommender.feedback = training_data
     if args.load_model:
         recommender.load_model(args.load_model)

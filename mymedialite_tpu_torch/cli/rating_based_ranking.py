@@ -6,8 +6,9 @@ rating_based_ranking.py`` (reference ``src/Programs/RatingBasedRanking/
 RatingBasedRanking.cs:27-117``): rating data in, ranking measures
 (AUC, prec@5, ...) out, candidate mode UNION unless a flag picks
 another. Covered: train and evaluate, the candidate-item flags,
-``--test-users``, ``--find-iter``, ``--save-model`` / ``--load-model``.
-``--cross-validation`` and ``--profile`` abort with "not yet ported". As
+``--test-users``, ``--find-iter``, ``--save-model`` / ``--load-model``
+and ``--cross-validation=K`` (without ``--find-iter``, which the JAX
+program refuses too). ``--profile`` aborts with "not yet ported". As
 in the JAX program, only ``ratings`` is set: the test pairs are not the
 SVD++ models' additional feedback here (the rating_prediction CLI does
 that).
@@ -28,6 +29,9 @@ from mymedialite_tpu_torch.cli import common
 from mymedialite_tpu_torch.cli.rating_prediction import load_ratings
 from mymedialite_tpu_torch.data.arrays import PosOnlyData
 from mymedialite_tpu_torch.data.statistics import ratings_statistics
+from mymedialite_tpu_torch.eval.crossval import (
+    crossvalidate_rating_based_ranking,
+)
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
 from mymedialite_tpu_torch.models.base import IterativeModel
@@ -78,8 +82,7 @@ def to_posonly(data):
 
 
 def _reject_unported(args):
-    for flag, on in (("--cross-validation", args.cross_validation > 1),
-                     ("--profile", args.profile is not None)):
+    for flag, on in (("--profile", args.profile is not None),):
         if on:
             common.abort(f"{flag} {_NOT_PORTED}.")
 
@@ -109,7 +112,7 @@ def main(argv=None):
     if not args.training_file and not args.load_model:
         common.abort("Please provide either --training-file=FILE or "
                      "--load-model=FILE.")
-    if args.test_file is None:
+    if args.test_file is None and args.cross_validation <= 1:
         common.abort("Please provide either --test-file=FILE or "
                      "--cross-validation=K.")
 
@@ -118,13 +121,16 @@ def main(argv=None):
     training_data = load_ratings(args, common.data_path(args,
                                                         args.training_file),
                                  user_mapping, item_mapping)
-    test_data = load_ratings(args, common.data_path(args, args.test_file),
-                             user_mapping, item_mapping)
-    n_users = max(training_data.num_users, test_data.num_users)
-    n_items = max(training_data.num_items, test_data.num_items)
-    training_data = training_data.select(np.arange(len(training_data)),
-                                         n_users, n_items)
-    test_data = test_data.select(np.arange(len(test_data)), n_users, n_items)
+    test_data = None
+    if args.test_file is not None:
+        test_data = load_ratings(args, common.data_path(args, args.test_file),
+                                 user_mapping, item_mapping)
+        n_users = max(training_data.num_users, test_data.num_users)
+        n_items = max(training_data.num_items, test_data.num_items)
+        training_data = training_data.select(np.arange(len(training_data)),
+                                             n_users, n_items)
+        test_data = test_data.select(np.arange(len(test_data)), n_users,
+                                     n_items)
 
     explicit = None
     if args.candidate_items:
@@ -141,6 +147,21 @@ def main(argv=None):
 
     # dataset statistics block (format: Data/Extensions.cs:34-81)
     print(ratings_statistics(training_data, test_data), end="")
+
+    if args.cross_validation > 1:
+        if args.find_iter > 0:
+            # reference RatingBasedRanking.CheckParameters :64-65
+            common.abort("The combination of --cross-validation=K and "
+                         "--find-iter is not supported for rating-based "
+                         "ranking.")
+        print(str(recommender))
+        print(str(crossvalidate_rating_based_ranking(
+            recommender, training_data, args.cross_validation,
+            candidate_items=explicit, candidate_item_mode="UNION",
+            rng=np.random.default_rng(args.random_seed or 0),
+            show_results=args.show_fold_results)))
+        timer.report()
+        return 0
 
     def evaluate():
         return evaluate_items(

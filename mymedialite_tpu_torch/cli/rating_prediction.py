@@ -6,10 +6,11 @@ rating_prediction.py`` (reference ``RatingPrediction.cs:34-442``), built
 on the port's CLI helpers (``cli/common.py``). Covered:
 the standard train/evaluate path, ``--test-ratio``,
 ``--chronological-split``, ``--save-model`` / ``--load-model``,
-``--prediction-file``, ``--compute-fit`` and ``--find-iter``. The flags
-whose protocols are not ported yet (``--cross-validation``,
-``--online-evaluation``, ``--search-hp``, ``--profile``) abort with
-"not yet ported".
+``--prediction-file``, ``--compute-fit``, ``--find-iter``,
+``--cross-validation=K`` (with ``--find-iter``: the folds iterated in
+lockstep) and ``--search-hp`` (the Nelder-Mead search of
+``hyperopt.py``). The flags whose protocols are not ported yet
+(``--online-evaluation``, ``--profile``) abort with "not yet ported".
 
     python -m mymedialite_tpu_torch.cli.rating_prediction \\
         --training-file train.tsv --test-file test.tsv \\
@@ -33,6 +34,9 @@ from mymedialite_tpu_torch.data.splits import (
 )
 from mymedialite_tpu_torch.data.statistics import ratings_statistics
 from mymedialite_tpu_torch.utils.params import configure
+from mymedialite_tpu_torch.eval.crossval import (
+    crossvalidate_ratings, iterative_crossvalidate_ratings,
+)
 from mymedialite_tpu_torch.eval.rating import compute_fit, evaluate_ratings
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
@@ -90,9 +94,7 @@ def write_predictions(recommender, test, path, user_mapping, item_mapping,
 
 
 def _reject_unported(args):
-    for flag, on in (("--cross-validation", args.cross_validation > 1),
-                     ("--online-evaluation", args.online_evaluation),
-                     ("--search-hp", args.search_hp),
+    for flag, on in (("--online-evaluation", args.online_evaluation),
                      ("--profile", args.profile is not None)):
         if on:
             common.abort(f"{flag} {_NOT_PORTED}.")
@@ -130,6 +132,7 @@ def main(argv=None):
         common.abort("Please provide either --training-file=FILE or "
                      "--load-model=FILE.")
     if (args.test_file is None and args.test_ratio == 0
+            and args.cross_validation == 0
             and args.chronological_split is None
             and args.save_model is None and not args.compute_fit):
         common.abort("Please provide either --test-file=FILE, "
@@ -197,6 +200,13 @@ def main(argv=None):
             training_data, test_data,
             getattr(recommender, "user_attributes", None),
             getattr(recommender, "item_attributes", None)), end="")
+
+    if args.cross_validation > 1:
+        _cross_validation(args, recommender, training_data)
+        timer.report()
+        return 0
+
+    if training_data is not None:
         recommender.ratings = training_data
         print("ratings range: "
               f"[{recommender.min_rating}, {recommender.max_rating}]",
@@ -211,6 +221,14 @@ def main(argv=None):
         _find_iter(args, recommender, test_data, timer, show,
                    user_mapping, item_mapping)
         return 0
+
+    # hyperparameter search (reference RatingPrediction.cs:288-292)
+    if args.search_hp:
+        from mymedialite_tpu_torch.hyperopt import NelderMead
+        result = NelderMead("RMSE", recommender,
+                            rng=np.random.default_rng(
+                                args.random_seed or 42)).find_minimum()
+        print(f"estimated quality (on split) {result}", file=sys.stderr)
 
     # standard single train/eval path (reference RatingPrediction.cs:272-330)
     print(str(recommender), end=" ")
@@ -235,6 +253,27 @@ def main(argv=None):
     common.save_mappings(args, user_mapping, item_mapping)
     timer.report()
     return 0
+
+
+def _cross_validation(args, recommender, training_data):
+    """k-fold cross-validation of the training data (reference
+    RatingPrediction.cs:211-214); with --find-iter the folds iterate in
+    lockstep (RatingsCrossValidation.cs:92-171)."""
+    print(str(recommender))
+    rng = np.random.default_rng(args.random_seed or 0)
+    if args.find_iter > 0:
+        if not isinstance(recommender, IterativeModel):
+            common.abort("Only iterative recommenders support "
+                         "--find-iter=N.")
+        iterative_crossvalidate_ratings(
+            recommender, training_data, args.cross_validation,
+            args.max_iter, args.find_iter, rng=rng,
+            show_fold_results=args.show_fold_results)
+    else:
+        print(str(crossvalidate_ratings(
+            recommender, training_data, args.cross_validation,
+            compute_fit=args.compute_fit, rng=rng,
+            show_results=args.show_fold_results)))
 
 
 def _find_iter(args, recommender, test_data, timer, show, user_mapping,

@@ -41,7 +41,8 @@ def tables_from_jax(model_or_arrays) -> dict:
 
 def svdpp_tables_from_jax(model_or_params) -> dict:
     """{p, user_bias, item_bias, item_factors, y (float32 numpy),
-    global_bias} of a JAX SVD++-family model, or of its ``params`` dict.
+    global_bias, and x for GSVDPlusPlus} of a JAX SVD++-family model, or
+    of its ``params`` dict.
     The JAX package pads the user rows to its group grid: a model's are
     cut to its ``num_users_trained``, a dict's kept. A model without p
     (the AFMs) gives zeros."""
@@ -58,6 +59,8 @@ def svdpp_tables_from_jax(model_or_params) -> dict:
     out["p"] = (np.array(params["p"], dtype=np.float32)[:U] if "p" in params
                 else np.zeros((U, f), np.float32))
     out["global_bias"] = float(params["global_bias"])
+    if "x" in params:       # GSVDPlusPlus's attribute factors
+        out["x"] = np.array(params["x"], dtype=np.float32)
     return out
 
 

@@ -9,17 +9,21 @@ sampling state of ``ops/bpr_plan.py``, in the same order, with the same
 negative-block draws and the same update semantics as the JAX package's
 Pallas epoch: the resident schedule while the item table fits
 ``plan.RESIDENT_ITEM_TABLE_BYTES``, the slab-tiled one (sub-bucketed
-membership keys, negative slabs drawn per group) past it.
+membership keys, negative slabs drawn per group) past it. Past the tiled
+schedule's ``MAX_SLABS`` slabs the models train on the minibatch epoch
+of ``ops/bpr.py`` (plain PyTorch, the JAX package's XLA epoch): batches
+of ``batch_size`` sampled triples, |feedback| triples per epoch, in the
+regime the sampling switches select.
 
 Tables: ``params`` (user_factors [U, f], item_factors [I, f], item_bias
 [I]) is what predict, the objective and save/load read; the epoch runs
 on kernel-layout copies that stay resident across ``iterate()`` calls
 and fold back into ``params`` when it is read.
 
-Everything computes in float32; ``mxu_dtype`` and ``batch_size`` are
-accepted so that the JAX package's option strings configure the port,
-and have no effect. ``MultiCoreBPRMF``, the incremental API and fold-in
-are not ported yet.
+Everything computes in float32; ``mxu_dtype`` is accepted so that the
+JAX package's option strings configure the port, and has no effect;
+``batch_size`` sizes the minibatch epoch's batches. ``MultiCoreBPRMF``,
+the incremental API and fold-in are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,10 +38,9 @@ from mymedialite_tpu_torch.device import resolve_device
 from mymedialite_tpu_torch.models.base import (
     FoldInItemRecommender, IncrementalItemRecommender, IterativeModel,
 )
+from mymedialite_tpu_torch.ops import bpr as bpr_ops
 from mymedialite_tpu_torch.ops import bpr_plan
-from mymedialite_tpu_torch.ops.bpr import (
-    bpr_objective, sample_uniform_user_triples,
-)
+from mymedialite_tpu_torch.ops.bpr import bpr_objective
 from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
 from mymedialite_tpu_torch.ops.plan import (
     default_slab_blocks, fused_width, select_schedule,
@@ -260,7 +263,19 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._loss_sample = None
         self._plan = None
         self._tiled = None
+        self._sampler = None        # the minibatch route's sampling state
         self._epoch_counter = 0
+
+    def _regime(self) -> int:
+        """The minibatch epoch's sampling regime (JAX: ``_regime``, WBPR
+        for the popularity model): uniform-user sampling with or without
+        replacement is the same iid draw."""
+        if self.MXU_POPULARITY:
+            return bpr_ops.WBPR
+        if self.uniform_user_sampling:
+            return bpr_ops.UNIFORM_USER
+        return (bpr_ops.UNIFORM_PAIR if self.with_replacement
+                else bpr_ops.UNIFORM_PAIR_WOR)
 
     def _hp(self):
         return dict(learn_rate=self.learn_rate, reg_u=self.reg_u,
@@ -276,22 +291,32 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._build_epoch_state()
 
     def _build_epoch_state(self):
-        """The feedback-derived training state: the fixed loss sample of
-        sqrt(|U|) * 100 uniform-user triples (reference BPRMF.cs:135-150);
-        the chunk plan is built at the next iterate()."""
+        """The feedback-derived training state: the sampling state and
+        the fixed loss sample of sqrt(|U|) * 100 uniform-user triples
+        drawn from it (reference BPRMF.cs:135-150); past the tiled bound
+        the sampling state stays for the minibatch epoch, else the chunk
+        plan is built at the next iterate()."""
         f = self.feedback
         dev = resolve_device(self.device)
         if self._gen is None:
             self._gen = torch.Generator(device=dev)
             self._gen.manual_seed(self.random_seed)
         n = int(math.isqrt(max(f.num_users - 1, 1))) * 100
-        self._loss_sample = sample_uniform_user_triples(
-            f, max(n, 1), self.num_neg_trials, self._gen, dev)
+        sampler, meta = bpr_ops.make_sampler_data(f, self.num_neg_trials,
+                                                  device=dev)
+        self._loss_sample = bpr_ops.sample_triples(
+            self._gen, sampler, meta, max(n, 1), bpr_ops.UNIFORM_USER)[:3]
         self._plan = None
+        self._sampler = None
+        if select_schedule(f.num_items, self.num_factors) == "minibatch":
+            pop = (bpr_ops.popularity_cdf(f.count_by_item, dev)
+                   if self.MXU_POPULARITY else None)
+            self._sampler = (sampler, meta, pop)
 
     def _loaded(self):
         self._loss_sample = None
         self._plan = None
+        self._sampler = None
         self._epoch_counter = 0
 
     def _ensure_epoch_ready(self):
@@ -313,10 +338,11 @@ class BPRMF(ItemMF, FoldInItemRecommender):
 
     def _prepare_plan(self):
         f = self.feedback
-        tiled = select_schedule(f.num_items, self.num_factors) == "tiled"
+        schedule = select_schedule(f.num_items, self.num_factors)
         # a new plan means a new item permutation: fold resident tables
         # back into params first
         params = self.params
+        tiled = schedule == "tiled"
         self._plan, self._neg_state, self._neg_meta = bpr_plan.prepare_bpr_mxu(
             f, uniform_user=self.uniform_user_sampling
             and not self.MXU_POPULARITY,
@@ -357,12 +383,29 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         return torch.randint(0, 2 ** 31, (nc, trials, C), dtype=torch.int32,
                              generator=gen, device=dev)
 
+    def _iterate_minibatch(self):
+        """One minibatch epoch on ``params`` (JAX: ``iterate`` with
+        ``bpr_ops.bpr_epoch``), triples drawn from the model's
+        generator."""
+        sampler, meta, pop = self._sampler
+        batch, num_batches = bpr_ops.epoch_batches(meta["num_events"],
+                                                   self.batch_size)
+        with torch.no_grad():
+            bpr_ops.bpr_epoch(
+                self.params, sampler, meta, self._gen, self._hp(), pop,
+                batch_size=batch, num_batches=num_batches,
+                regime=self._regime(), update_j=self.update_j,
+                soft_margin=self.SOFT_MARGIN)
+
     def iterate(self):
         """One epoch through ``bpr_epoch`` (or ``bpr_epoch_tiled``) on the
-        resident kernel-layout tables (JAX: ``_iterate_mxu``)."""
+        resident kernel-layout tables (JAX: ``_iterate_mxu``), or the
+        minibatch epoch past the tiled bound."""
         self._ensure_epoch_ready()
-        if self._plan is None:
+        if self._plan is None and self._sampler is None:
             self._prepare_plan()
+        if self._sampler is not None:
+            return self._iterate_minibatch()
         plan = self._plan
         f = self.num_factors
         fe = fused_width(f)

@@ -2,11 +2,17 @@
 
 Counterparts of ``mymedialite_tpu/models/mf.py`` (reference
 ``RatingPrediction/MatrixFactorization.cs:50`` and
-``RatingPrediction/BiasedMatrixFactorization.cs:77``). Training runs the
-chunked minibatch SGD epoch of ``ops/sgd_epoch.py`` — on a CUDA device
-the hand-written kernel ``csrc/sgd_epoch.cu``, one launch per epoch —
-over the chunk plan of ``ops/plan.py``, in the same order and with the
-same update semantics as the JAX package's resident Pallas epoch.
+``RatingPrediction/BiasedMatrixFactorization.cs:77``). Training takes
+one of three routes, as the JAX package on one TPU chip picks its epoch
+(``_mxu_mode``): the chunked minibatch SGD epoch of
+``ops/sgd_epoch.py`` — on a CUDA device the hand-written kernel
+``csrc/sgd_epoch.cu``, one launch per epoch — over the chunk plan of
+``ops/plan.py`` (resident, or slab-tiled for big catalogs), in the same
+order and with the same update semantics as the JAX package's Pallas
+epochs; or, with frequency regularization and past the tiled
+schedule's ``MAX_SLABS``, the blocked minibatch epoch of ``ops/sgd.py``
+(plain PyTorch, as the JAX package's XLA epoch), whose minibatches are
+``batch_size`` ratings of one group of ``group_users`` users.
 
 Tables: the fused std layout ([factors | b_u | 1] x [factors | 1 | b_i],
 ``ops/sgd.py extend_tables``) is what predict, the objective and
@@ -18,9 +24,10 @@ fold back into the std layout when the std tables are read.
 Everything computes in float32. ``mxu_dtype`` is accepted so that the
 JAX package's option strings configure the port too; the bf16 operand
 rounding it selects there is a TPU idiom and has no effect here. The
-``max_threads`` / ``naive_parallelization`` / ``batch_size`` knobs are
-likewise accepted and unused; ``group_users`` sets the std layout's user
-padding, as in the JAX package.
+``max_threads`` / ``naive_parallelization`` knobs are likewise accepted
+and unused; ``group_users`` sets the std layout's user padding, as in
+the JAX package, and with ``batch_size`` the blocked epoch's groups and
+minibatches.
 """
 
 from __future__ import annotations
@@ -101,6 +108,8 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         self.current_learnrate = None
         self._plan = None
         self._new_of_old = None
+        self._blocked = None        # (data, meta, freq) of the blocked route
+        self._order_gen = None      # draws the blocked epoch's batch orders
         self._flat_cache = None
         self._epoch_counter = 0
 
@@ -200,18 +209,44 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             self.max_rating = tables["max_rating"]
             self.num_users_trained = tables["num_users_trained"]
         self.current_learnrate = self.learn_rate
+        self._order_gen = None
         self._prepare_epoch_data()
 
-    def _prepare_epoch_data(self):
+    def _route(self) -> str:
+        """"resident", "tiled" or "minibatch" (the blocked epoch): the
+        JAX package's choice on one TPU chip (``_mxu_mode``), from the data
+        and the hyperparameters alone. The kernels take per-column rates,
+        so frequency regularization takes the blocked epoch."""
         if self.frequency_regularization:
-            raise NotImplementedError(
-                f"frequency_regularization=True is {_NOT_PORTED}")
+            return "minibatch"
+        return mxu.select_schedule(self.ratings.num_items, self.num_factors)
+
+    def _prepare_epoch_data(self):
         # a new plan means a new item permutation: fold resident
         # kernel-layout tables back into the std layout first
         self._sync_std_tables()
         data = self.ratings
         dev = resolve_device(self.device)
-        if mxu.select_schedule(data.num_items, self.num_factors) == "tiled":
+        self._plan = None
+        self._blocked = None
+        self._flat_cache = None
+        route = self._route()
+        if route == "minibatch":
+            bdata, meta = sgd.prepare_blocked_data(
+                data.users, data.items, data.values, data.num_users,
+                self.batch_size, self.group_users,
+                shuffle_seed=self.random_seed, device=dev)
+            freq = None
+            if self.frequency_regularization:
+                freq = sgd.blocked_freq(
+                    data.count_by_user, data.count_by_item,
+                    meta["ngroups"] * meta["group_users"], dev)
+            self._blocked = (bdata, meta, freq)
+            if self._order_gen is None:
+                self._order_gen = torch.Generator()
+                self._order_gen.manual_seed(self.random_seed)
+            return
+        if route == "tiled":
             # big catalogs: the histogram-optimal chunk keeps padding
             # bounded in their sparse (512 x 1024) cells
             self._plan = mxu.prepare_mxu_tiled(
@@ -226,7 +261,6 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
                 shuffle_seed=self.random_seed, device=dev)
         self._new_of_old = torch.from_numpy(
             self._plan.new_of_old.astype(np.int64)).to(dev)
-        self._flat_cache = None
 
     def _flat_data(self):
         """Every training rating once, on device, for the objective."""
@@ -250,14 +284,32 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             self.iterate()
 
     def _ensure_epoch_ready(self):
-        """Build the chunk plan when missing, e.g. after ``load_model``,
-        so that iterate() continues training a loaded model."""
-        if self._plan is None:
+        """Build the chunk plan or the blocked layout when missing, e.g.
+        after ``load_model``, so that iterate() continues training a
+        loaded model; on the blocked route grow loaded tables to the
+        epoch's padded user grid and to the catalog (JAX:
+        ``_ensure_epoch_ready``)."""
+        if self._plan is None and self._blocked is None:
             if self.ratings is None:
                 raise RuntimeError(
                     f"{type(self).__name__}: no ratings set; assign "
                     ".ratings before iterating a loaded model")
             self._prepare_epoch_data()
+        if self._blocked is None:
+            return
+        meta = self._blocked[1]
+        need_u = meta["ngroups"] * meta["group_users"]
+        W, H = self._W_ext, self._H_ext
+        if W.shape[0] < need_u:
+            pad = torch.zeros((need_u - W.shape[0], W.shape[1]),
+                              dtype=W.dtype, device=W.device)
+            pad[:, -1] = 1.0
+            self.W_ext = torch.cat([W, pad])
+        if H.shape[0] < self.ratings.num_items:
+            pad = torch.zeros((self.ratings.num_items - H.shape[0],
+                               H.shape[1]), dtype=H.dtype, device=H.device)
+            pad[:, -2] = 1.0
+            self.H_ext = torch.cat([H, pad])
 
     def _epoch_rates(self, update_user: bool, update_item: bool):
         """[fe, 4] per-column rates at the current learn rate."""
@@ -268,10 +320,39 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             getattr(self, "bias_reg", 0.0), self.BIASED, update_user,
             update_item, device=self._plan.packed.device)
 
+    def _batch_orders(self, ngroups: int, nb: int) -> torch.Tensor:
+        """[ngroups, nb] int64 (host): each group's batch permutation for
+        the next blocked epoch, from the model's own generator (the JAX
+        package draws ``jax.random.permutation(fold_in(key, g), nb)``)."""
+        return torch.stack([torch.randperm(nb, generator=self._order_gen)
+                            for _ in range(ngroups)])
+
+    def _iterate_blocked(self, update_user: bool, update_item: bool):
+        """One blocked epoch on the std tables (JAX: ``iterate`` with
+        ``sgd.sgd_epoch_blocked``)."""
+        data, meta, freq = self._blocked
+        W, H = self._W_ext, self._H_ext
+        rates = sgd.column_rates(
+            self.num_factors, self.current_learnrate, self.reg_u, self.reg_i,
+            getattr(self, "bias_learn_rate", 1.0),
+            getattr(self, "bias_reg", 0.0), self.BIASED, update_user,
+            update_item, device=W.device)
+        orders = self._batch_orders(meta["ngroups"],
+                                    meta["l_pad"] // meta["batch"])
+        hp = (self.global_bias, self.min_rating, self._rating_range())
+        with torch.no_grad():
+            sgd.sgd_epoch_blocked(W, H, data, orders, hp, rates, freq,
+                                  meta=meta, loss=self.loss_id,
+                                  biased=self.BIASED)
+        self.update_learn_rate()
+
     def iterate(self, update_user: bool = True, update_item: bool = True):
-        """One epoch through ``sgd_epoch`` on the resident kernel-layout
-        tables (JAX: ``_iterate_mxu``)."""
+        """One epoch: through ``sgd_epoch`` / ``sgd_epoch_tiled`` on the
+        resident kernel-layout tables (JAX: ``_iterate_mxu``), or the
+        blocked epoch on the std tables."""
         self._ensure_epoch_ready()
+        if self._blocked is not None:
+            return self._iterate_blocked(update_user, update_item)
         plan = self._plan
         if self._mxu_tables is not None:
             We, He = self._mxu_tables
@@ -313,8 +394,10 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
                   rating_range=self._rating_range(),
                   reg_u=self.reg_u, reg_i=self.reg_i,
                   bias_reg=getattr(self, "bias_reg", 0.0))
-        return float(sgd.mf_objective(self._params_dict(), data, hp, counts,
-                                      loss=self.loss_id, biased=self.BIASED))
+        return float(sgd.mf_objective(
+            self._params_dict(), data, hp, counts, loss=self.loss_id,
+            biased=self.BIASED,
+            frequency_regularization=self.frequency_regularization))
 
     # --- prediction ---
 
@@ -422,6 +505,7 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             device=resolve_device(self.device))
         self.current_learnrate = self.learn_rate
         self._plan = None
+        self._blocked = None
 
 
 class BiasedMatrixFactorization(MatrixFactorization):

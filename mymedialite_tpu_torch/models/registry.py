@@ -41,7 +41,7 @@ PORTED_RATING_PREDICTORS = {
     "BiasedMatrixFactorization":
         "mymedialite_tpu_torch.models.mf:BiasedMatrixFactorization",
     **{name: f"mymedialite_tpu_torch.models.svdpp:{name}" for name in (
-        "SVDPlusPlus", "SigmoidSVDPlusPlus",
+        "SVDPlusPlus", "GSVDPlusPlus", "SigmoidSVDPlusPlus",
         "SigmoidItemAsymmetricFactorModel",
         "SigmoidUserAsymmetricFactorModel",
         "SigmoidCombinedAsymmetricFactorModel")},

@@ -3,13 +3,21 @@
 Counterparts of ``mymedialite_tpu/models/svdpp.py`` (reference
 ``RatingPrediction/SVDPlusPlus.cs:43``, ``SigmoidSVDPlusPlus.cs:42``,
 ``SigmoidItemAsymmetricFactorModel.cs:29``,
-``SigmoidUserAsymmetricFactorModel.cs:43`` and the combined model).
-Training runs the three-phase SVD++ epoch of ``ops/svdpp_epoch.py`` —
+``SigmoidUserAsymmetricFactorModel.cs:43``, the combined model and
+``GSVDPlusPlus.cs:29``). Training takes one of two routes, as the JAX
+package on one TPU chip picks them (``_svdpp_mxu_mode`` and
+``_prepare``): the three-phase SVD++ epoch of ``ops/svdpp_epoch.py`` —
 on a CUDA device the hand-written kernel ``csrc/svdpp_epoch.cu``, one
-launch per epoch — over the static schedule of ``ops/svdpp_plan.py``:
-the schedule and update semantics of the JAX package's Pallas epoch.
-The models are transductive: the pairs in ``additional_feedback`` (the
-CLI passes the test pairs) join the users' histories I_u.
+launch per epoch — over the static schedule of ``ops/svdpp_plan.py``
+(the schedule and update semantics of the JAX package's Pallas epoch)
+while Q and Y fit ``svdpp_plan.SVDPP_TABLE_BYTES``, the regularization
+is uniform and every user block fits a pass; else the grouped epoch of
+``ops/svdpp.py`` (plain PyTorch, the JAX package's XLA epoch), whose
+user groups ``group_users`` sizes (0: sized from the data and the learn
+rate). Frequency regularization and GSVDPlusPlus always take the
+grouped epoch. The models are transductive: the pairs in
+``additional_feedback`` (the CLI passes the test pairs) join the users'
+histories I_u.
 
 Tables: ``params`` holds float32 tensors p [U, f] (models with p),
 user_bias [U], item_bias [I], item_factors [I, f] and y [I, f], U the
@@ -17,11 +25,7 @@ users with ratings or feedback; ``global_bias`` is a float. The epoch
 runs on kernel-layout copies that stay resident across ``iterate()``
 calls and fold back when ``params`` is read.
 
-Not ported yet, each raising "not yet ported": what the JAX package runs
-on its XLA grouped epoch (frequency regularization, ``group_users``,
-which sizes that epoch's user groups, catalogs whose Q and Y pass
-``svdpp_plan.SVDPP_TABLE_BYTES``, a user block past the pass length, and
-GSVDPlusPlus, which the registry refuses) and the incremental API.
+The incremental API is not ported yet and raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -32,17 +36,16 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.data.arrays import RatingData
-from mymedialite_tpu_torch.device import resolve_device
+from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.models.base import IterativeModel, RatingPredictor
 from mymedialite_tpu_torch.models.mf import _LOSS_ID, OptimizationTarget
 from mymedialite_tpu_torch.ops import svdpp_plan as sp
 from mymedialite_tpu_torch.ops.svdpp import (
-    history_edges, inv_sqrt_counts, precompute_user_factors,
+    history_edges, inv_sqrt_counts, precompute_user_factors, prepare_groups,
+    svdpp_epoch_grouped,
 )
 from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
-
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 
 
 def _rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -98,6 +101,9 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
 
     SIGMOID = False
     USE_P = True
+    # the kernel route is open to the model (GSVD++'s x updates keep the
+    # grouped epoch)
+    KERNEL_ELIGIBLE = True
 
     def __init__(self):
         super().__init__()
@@ -112,7 +118,7 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
         self.frequency_regularization = False
         self.init_mean = 0.0
         self.init_stdev = 0.1
-        self.group_users = 0  # 0 = auto; any other value is not ported
+        self.group_users = 0  # 0 = auto-size (see _auto_group_users)
         self.random_seed = 42
         self.loss = OptimizationTarget.RMSE
         self.device = "cuda"
@@ -126,6 +132,7 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
         self._params = None
         self._mxu_tables = None     # resident kernel-layout (W, Q, Y)
         self._plan = None
+        self._groups = None         # the grouped route's layout
         self._new_of_old = None
         self._edges = None          # (users, items, inv_sqrt) on device
         self._user_factors_cache = None
@@ -187,27 +194,86 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
                        torch.from_numpy(hi.astype(np.int64)).to(dev),
                        torch.from_numpy(inv_sqrt_counts(hu, U)).to(dev))
         self._plan = None
+        self._groups = None
         self._user_factors_cache = None
+        self._prepare_side()
+
+    def _prepare_side(self):
+        """Hook: side information sized by the catalog (GSVD++)."""
+
+    def _auto_group_users(self, num_users: int) -> int:
+        """The grouped epoch's group size (JAX: ``_auto_group_users``):
+        ``group_users`` when set, else a power of two that bounds the
+        ratings aggregated into one y update (about 65,536, fewer at
+        learn rates above 0.001), at least 64 users, at most 16,384."""
+        if self.group_users > 0:
+            return min(self.group_users, max(num_users, 1))
+        avg = max(1.0, len(self.ratings) / max(num_users, 1))
+        budget = 65_536.0 * min(1.0, 0.001 / max(self.learn_rate, 1e-9))
+        g = int(2 ** np.floor(np.log2(max(budget / avg, 64.0))))
+        return min(g, 16_384, max(num_users, 1))
+
+    def route(self) -> str:
+        """"kernel" (``csrc/svdpp_epoch.cu``) or "grouped" (the grouped
+        epoch), from the data and the hyperparameters alone, as the JAX
+        package decides on one TPU chip."""
+        if self._plan is None and self._groups is None:
+            if self._edges is None:
+                self._prepare_edges()
+            self._prepare_epoch()
+        return "kernel" if self._plan is not None else "grouped"
 
     def _prepare_epoch(self):
-        """The chunk plan of the kernel path; raises "not yet ported"
-        where the JAX package takes its XLA grouped epoch."""
-        if self.frequency_regularization:
-            raise NotImplementedError("frequency_regularization=True runs "
-                                      f"on {sp.XLA_EPOCH_NOT_PORTED}")
-        if self.group_users:
-            raise NotImplementedError("group_users sizes the user groups "
-                                      f"of {sp.XLA_EPOCH_NOT_PORTED}")
-        sp.require_kernel_path(self._num_items(), self.num_factors)
+        """The kernel route's chunk plan where Q and Y fit, the
+        regularization is uniform and every user block fits a pass; else
+        the grouped epoch's layout (JAX: ``_prepare``)."""
         data = self.ratings
         hu, hi = self._hist
         dev = resolve_device(self.device)
-        self._plan = sp.prepare_svdpp_mxu(
-            data.users, data.items, data.values, hu, hi,
-            self.num_users_trained, self.num_items_trained,
-            pass_len=sp.PASS_LEN, shuffle_seed=self.random_seed, device=dev)
-        self._new_of_old = torch.from_numpy(
-            self._plan.new_of_old.astype(np.int64)).to(dev)
+        self._plan = self._groups = None
+        if (self.KERNEL_ELIGIBLE and not self.frequency_regularization
+                and sp.svdpp_mxu_supported(self._num_items(),
+                                           self.num_factors)):
+            try:
+                self._plan = sp.prepare_svdpp_mxu(
+                    data.users, data.items, data.values, hu, hi,
+                    self.num_users_trained, self.num_items_trained,
+                    pass_len=sp.PASS_LEN, shuffle_seed=self.random_seed,
+                    device=dev)
+            except ValueError:
+                # a user block too heavy for one pass: the grouped epoch
+                self._plan = None
+        if self._plan is not None:
+            self._new_of_old = torch.from_numpy(
+                self._plan.new_of_old.astype(np.int64)).to(dev)
+            return
+        U = self.num_users_trained
+        self._groups = prepare_groups(
+            data.users, data.items, data.values, hu, hi, U,
+            self._auto_group_users(U), device=dev)
+        self._regs = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                      for k, v in self._entity_regs().items()}
+
+    def _entity_regs(self) -> dict:
+        """Per-entity regularization of the grouped epoch (JAX:
+        ``_prepare``): user_reg and item_reg are reg / sqrt(ratings) with
+        frequency regularization (reg without ratings), else reg; y_reg
+        is reg / sqrt(feedback count), or reg, and 0 for items without
+        feedback (SVDPlusPlus.cs:95-100)."""
+        U, I = self.num_users_trained, self.num_items_trained
+        reg = self.regularization
+        cu = np.bincount(self.ratings.users, minlength=U)[:U]
+        ci = np.bincount(self.ratings.items, minlength=I)[:I]
+        fc = np.bincount(self._hist[1], minlength=I)[:I]
+        if self.frequency_regularization:
+            user_reg = np.where(cu > 0, reg / np.sqrt(np.maximum(cu, 1)), reg)
+            item_reg = np.where(ci > 0, reg / np.sqrt(np.maximum(ci, 1)), reg)
+            y_reg = np.where(fc > 0, reg / np.sqrt(np.maximum(fc, 1)), 0.0)
+        else:
+            user_reg = np.full(U, reg)
+            item_reg = np.full(I, reg)
+            y_reg = np.where(fc > 0, reg, 0.0)
+        return dict(user_reg=user_reg, item_reg=item_reg, y_reg=y_reg)
 
     def _rating_range(self) -> float:
         return max(self.max_rating - self.min_rating, 1e-9)
@@ -245,12 +311,14 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
                           item_bias=torch.zeros(I, device=dev))
             if self.USE_P:
                 params["p"] = draw(U, self.ratings.users)
+            params.update(self._init_side(gen, dev))
             self.global_bias = self._init_global_bias()
         else:
             params = {k: torch.as_tensor(np.asarray(tables[k], np.float32),
                                          device=dev).clone()
                       for k in ("user_bias", "item_bias", "item_factors",
-                                "y") + (("p",) if self.USE_P else ())}
+                                "y") + (("p",) if self.USE_P else ())
+                      + self.SIDE_TABLES}
             if params["user_bias"].shape[0] != U:
                 raise ValueError(f"tables hold {params['user_bias'].shape[0]}"
                                  f" users, the data {U}")
@@ -258,21 +326,53 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
         self.params = params
         self.current_learnrate = self.learn_rate
 
+    # tables of the side information, drawn after the others (GSVD++: x)
+    SIDE_TABLES = ()
+
+    def _init_side(self, gen, dev) -> dict:
+        return {}
+
     def train(self):
         self.init_model()
         for _ in range(self.num_iter):
             self.iterate()
 
     def _ensure_epoch_ready(self):
-        """Build the plan when missing, e.g. after ``load_model``."""
-        if self._plan is None:
+        """Build the plan or the groups when missing, e.g. after
+        ``load_model``."""
+        if self._plan is None and self._groups is None:
             self._prepare_epoch()
 
+    def _grouped_hp(self) -> dict:
+        return dict(global_bias=self.global_bias,
+                    learn_rate=self.current_learnrate,
+                    bias_learn_rate=self.bias_learn_rate,
+                    bias_reg=self.bias_reg, min_rating=self.min_rating,
+                    rating_range=self._rating_range())
+
+    def _iterate_grouped(self):
+        """One grouped epoch on ``params`` (JAX: ``svdpp_epoch``)."""
+        with torch.no_grad():
+            svdpp_epoch_grouped(
+                self.params, self._groups, self._edges[2],
+                self._grouped_hp(), self._regs, loss=_LOSS_ID[self.loss],
+                sigmoid=self.SIGMOID, use_p=self.USE_P,
+                update_user=self.update_users, update_item=self.update_items,
+                attr_norm=self._attr_norm())
+        self._user_factors_cache = None
+        self.current_learnrate *= self.learn_rate_decay
+
+    def _attr_norm(self):
+        """GSVD++'s [I, A] attribute rows; None for the other models."""
+        return None
+
     def iterate(self):
-        """One epoch through ``svdpp_epoch`` on the resident kernel-layout
-        tables (JAX: ``_iterate_mxu``)."""
+        """One epoch: through ``svdpp_epoch`` on the resident kernel-layout
+        tables (JAX: ``_iterate_mxu``), or the grouped epoch."""
         self._ensure_epoch_ready()
         self._user_factors_cache = None
+        if self._groups is not None:
+            return self._iterate_grouped()
         plan = self._plan
         f = self.num_factors
         fe = sp.svdpp_fe(f)
@@ -322,18 +422,24 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
     def _predict_pairs(self, uf, p, users, items):
         """Out-of-range ids contribute only the global bias (reference
         Predict bounds checks); JAX: ``predict_batch``."""
-        U, I = self.num_users_trained, p["item_factors"].shape[0]
+        q = self._item_factors(p)
+        U, I = self.num_users_trained, q.shape[0]
         u_ok = (users >= 0) & (users < U)
         i_ok = (items >= 0) & (items < I)
         uc = users.clamp(0, uf.shape[0] - 1)
         ic = items.clamp(0, I - 1)
         zero = torch.zeros((), dtype=torch.float32, device=uf.device)
-        dot = (uf[uc] * p["item_factors"][ic]).sum(dim=-1)
+        dot = (uf[uc] * q[ic]).sum(dim=-1)
         score = self.global_bias \
             + torch.where(u_ok, p["user_bias"][uc], zero) \
             + torch.where(i_ok, p["item_bias"][ic], zero) \
             + torch.where(u_ok & i_ok, dot, zero)
         return self._bound(score)
+
+    def _item_factors(self, p):
+        """The item factors that prediction reads (GSVD++ adds its
+        attribute factors)."""
+        return p["item_factors"]
 
     def pair_scorer(self):
         if self._params is None and self._mxu_tables is None:
@@ -361,7 +467,7 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
         if self._params is None and self._mxu_tables is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         uf, p = self._user_factors(), self.params
-        return _catalog_scorer(uf, p["item_factors"], p["user_bias"],
+        return _catalog_scorer(uf, self._item_factors(p), p["user_bias"],
                                p["item_bias"], self.global_bias,
                                self.min_rating, self.max_rating, self.SIGMOID)
 
@@ -383,6 +489,8 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
                      else np.zeros((U, self.num_factors), np.float32))
             w.matrix(host(p["y"]))
             w.matrix(host(p["item_factors"]))
+            for name in self.SIDE_TABLES:
+                w.matrix(host(p[name]))
 
     def load_model(self, path, model_name=None):
         """Load a model file; the histories come from ``.ratings`` (and
@@ -396,13 +504,14 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
             p = r.matrix()
             y = r.matrix()
             q = r.matrix()
+            side = {name: r.matrix() for name in self.SIDE_TABLES}
         self.num_factors = q.shape[1]
         self._mxu_tables = None
         self._prepare_edges()
         U = self.num_users_trained
         dev = resolve_device(self.device)
         tables = dict(user_bias=_rows(bu, U), item_bias=bi, item_factors=q,
-                      y=y)
+                      y=y, **side)
         if self.USE_P:
             tables["p"] = _rows(p, U)
         self.params = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -572,3 +681,61 @@ class SigmoidCombinedAsymmetricFactorModel(SigmoidSVDPlusPlus):
         self._item_afm, self._user_afm = self._inner_models()
         self._item_afm.load_model(path + "-item")
         self._user_afm.load_model(path + "-user")
+
+
+class GSVDPlusPlus(SVDPlusPlus):
+    """gSVD++ (reference GSVDPlusPlus.cs:29-243, Manzato SAC 2013): SVD++
+    whose effective item factor is q_i plus the mean of the item's
+    attribute factors x_a (``attr_norm @ x``). Needs ``item_attributes``
+    (lines item<TAB>attribute); always trains on the grouped epoch (JAX:
+    ``GSVDPlusPlus``). Its model file adds x after q."""
+
+    REQUIRED_SIDE_INFO = ("item_attributes",)
+    KERNEL_ELIGIBLE = False
+    SIDE_TABLES = ("x",)
+
+    def __init__(self):
+        super().__init__()
+        self.item_attributes = None  # InteractionData: item -> attribute
+        self._attr = None            # (attr_norm [I, A], x_reg [A])
+
+    def _prepare_side(self):
+        """The items' attribute rows, each summing to 1 (zero for items
+        without attributes), and x_reg: reg / the attribute's item count
+        with frequency regularization (GSVDPlusPlus.cs:90-94: the count,
+        not its square root), else reg."""
+        if self.item_attributes is None:
+            raise ValueError("GSVDPlusPlus needs item attributes")
+        I = self.num_items_trained
+        n_attr = self.item_attributes.num_items
+        A = np.zeros((I, n_attr), dtype=np.float32)
+        au = np.asarray(self.item_attributes.users)
+        aa = np.asarray(self.item_attributes.items)
+        keep = au < I
+        A[au[keep], aa[keep]] = 1.0
+        counts = A.sum(axis=1, keepdims=True)
+        A_norm = np.divide(A, counts, out=np.zeros_like(A), where=counts > 0)
+        col = np.maximum(A.sum(axis=0), 1.0)
+        reg = self.regularization
+        x_reg = (reg / col if self.frequency_regularization
+                 else np.full(n_attr, reg)).astype(np.float32)
+        dev = resolve_device(self.device)
+        self._attr = (torch.from_numpy(A_norm).to(dev),
+                      torch.from_numpy(x_reg).to(dev))
+
+    def _prepare_epoch(self):
+        super()._prepare_epoch()
+        self._regs["x_reg"] = self._attr[1]
+
+    def _init_side(self, gen, dev) -> dict:
+        n_attr = self._attr[0].shape[1]
+        return dict(x=self.init_mean + self.init_stdev * torch.randn(
+            (n_attr, self.num_factors), generator=gen, device=dev))
+
+    def _attr_norm(self):
+        return self._attr[0]
+
+    def _item_factors(self, p):
+        """q + attr_norm @ x, in float32 (no TF32)."""
+        with exact_float32():
+            return p["item_factors"] + self._attr[0] @ p["x"]

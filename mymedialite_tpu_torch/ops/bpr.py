@@ -1,17 +1,30 @@
-"""BPR objective and the uniform-user triple sampler of the port.
+"""BPR objective, samplers and the minibatch BPR epoch of the port.
 
-Counterparts of ``mymedialite_tpu/ops/bpr.py`` ``bpr_objective`` and
-the uniform-user branch of ``_sample_triples`` (with
-``_sample_negatives``), which the models use for the fixed
-convergence-loss sample (reference ``BPRMF.cs:135-150``). Training runs
-the fused epoch of ``ops/bpr_epoch.py``; the JAX package's XLA
-minibatch epoch has no counterpart here.
+Counterparts of ``mymedialite_tpu/ops/bpr.py``: ``bpr_objective`` and
+the minibatch epoch (``make_sampler_data``, ``segment_contains``,
+``first_negatives``, ``sample_triples``, ``bpr_step``, ``bpr_epoch``)
+that the BPR family trains on past the tiled schedule's catalog bound,
+where the JAX package runs the same epoch as an XLA scan. On every route
+the models draw their fixed convergence-loss sample (reference
+``BPRMF.cs:135-150``) with ``sample_triples`` in the uniform-user
+regime. The four sampling regimes (reference BPRMF.cs:183-321,
+WeightedBPRMF.cs:55-66):
 
-The sampler draws from a ``torch.Generator``, so it gives other triples
-than the JAX package's threefry draws from the same seed; the regime is
-the same: user ~ Uniform(users with 0 < |I_u| < num_items), positive ~
-Uniform(I_u), negative = the first of ``trials`` uniform draws outside
-I_u (the first draw when all hit positives).
+- uniform user: user ~ Uniform(users with 0 < |I_u| < I), positive ~
+  Uniform(I_u);
+- uniform pair, with replacement: (u, i) ~ Uniform(events);
+- uniform pair, without replacement: a per-epoch permutation of the
+  events, padded to whole batches (the pad slots weigh 0);
+- WBPR: (u, i) ~ Uniform(events), negatives by item popularity.
+
+Negatives: ``trials`` candidates per triple, the first one outside I_u
+(one ``torch.searchsorted`` in the sorted user * num_items + item
+keys); a triple whose candidates all hit positives weighs 0. Sampling is split from the
+update step, so a test can feed the JAX package's triples to
+``bpr_step``. Draws come from a ``torch.Generator``, so the port samples
+other triples than the JAX package's threefry draws from the same seed;
+the regimes are the same. Plain PyTorch: gathers and ``index_add_``
+(duplicate ids within a batch sum).
 """
 
 from __future__ import annotations
@@ -37,36 +50,176 @@ def bpr_objective(params, hp, loss_u, loss_i, loss_j) -> torch.Tensor:
     return ranking_loss + complexity
 
 
-def sample_uniform_user_triples(feedback, n: int, trials: int,
-                                generator: torch.Generator, device):
-    """``n`` (u, i, j) int64 tensors on ``device`` from the uniform-user
-    regime, drawn with ``generator`` (a generator of ``device``)."""
-    U, I = feedback.num_users, feedback.num_items
-    users = torch.from_numpy(np.asarray(feedback.users, np.int64)).to(device)
-    items = torch.from_numpy(np.asarray(feedback.items, np.int64)).to(device)
-    counts = torch.bincount(users, minlength=U)
-    valid = torch.nonzero((counts > 0) & (counts < I)).flatten()
+UNIFORM_USER = 0
+UNIFORM_PAIR = 1
+UNIFORM_PAIR_WOR = 2   # without replacement: a permutation of the events
+WBPR = 3
+
+
+def make_sampler_data(feedback, num_neg_trials: int = 8, device="cpu"):
+    """The sampling state of a PosOnlyData (JAX: ``make_sampler_data``),
+    built on ``device`` by one sort of the user * num_items + item keys:
+    (tensors, meta). tensors: hist_items [nnz] (each user's items,
+    sorted), indptr [U+1], counts [U], valid_users (0 < |I_u| < I; user
+    0 when there is none), users / items [events] (the COO pairs) and
+    pos_keys [nnz] (the sorted keys), int64. meta: num_items, num_users,
+    num_events and num_neg_trials."""
+    num_items, num_users = feedback.num_items, feedback.num_users
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+    users, items = dev(feedback.users), dev(feedback.items)
+    pos_keys = torch.sort(users * num_items + items).values
+    counts = torch.bincount(users, minlength=num_users)
+    indptr = torch.zeros(num_users + 1, dtype=torch.int64, device=device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    valid = torch.nonzero((counts > 0) & (counts < num_items)).flatten()
     if valid.numel() == 0:
         valid = torch.zeros(1, dtype=torch.int64, device=device)
-    # events grouped by user: user u's items are hist[indptr[u]:indptr[u+1]]
-    by_user = torch.sort(users, stable=True).indices
-    hist = items[by_user]
-    indptr = torch.zeros(U + 1, dtype=torch.int64, device=device)
-    indptr[1:] = torch.cumsum(counts, 0)
-    pos_keys = torch.sort(users * I + items).values
+    return dict(hist_items=pos_keys % num_items, indptr=indptr,
+                counts=counts, valid_users=valid, users=users, items=items,
+                pos_keys=pos_keys), \
+        dict(num_items=num_items, num_users=num_users,
+             num_events=len(feedback), num_neg_trials=num_neg_trials)
 
-    def randint(high, shape):
-        return torch.randint(0, high, shape, generator=generator,
+
+def segment_contains(sampler, users, keys, num_items: int):
+    """Is keys[k] among the items of users[k]? One ``torch.searchsorted``
+    in the sorted ``pos_keys`` (JAX: ``_segment_contains``, a binary
+    search of fixed depth in the user's history); users and keys
+    broadcast."""
+    pos = sampler["pos_keys"]
+    key = users * num_items + keys
+    if pos.numel() == 0:
+        return torch.zeros_like(key, dtype=torch.bool)
+    at = torch.searchsorted(pos, key).clamp(max=pos.numel() - 1)
+    return pos[at] == key
+
+
+def first_negatives(sampler, users, cand, num_items: int):
+    """The first of the candidates ``cand`` [T, B] outside each user's
+    history, and whether there was one (JAX: ``_sample_negatives`` after
+    its draws); with none the first candidate, weight 0."""
+    good = ~segment_contains(sampler, users[None, :], cand, num_items)
+    first = good.to(torch.uint8).argmax(0, keepdim=True)
+    return cand.gather(0, first).squeeze(0), good.any(0)
+
+
+def negative_candidates(generator, num_items: int, trials: int, n: int,
+                        device, pop_cdf=None):
+    """[trials, n] candidate negatives: uniform ids, or by popularity
+    (the inverse ``pop_cdf`` of uniform draws, clipped to the catalog)."""
+    if pop_cdf is None:
+        return torch.randint(0, num_items, (trials, n), generator=generator,
                              device=device)
+    u01 = torch.rand((trials, n), generator=generator, device=device,
+                     dtype=pop_cdf.dtype)
+    cand = torch.searchsorted(pop_cdf, u01)
+    return cand.clamp(max=num_items - 1)
 
-    u = valid[randint(valid.numel(), (n,))]
-    off = randint(2 ** 31 - 1, (n,)) % counts[u].clamp(min=1)
-    i = hist[(indptr[u] + off).clamp(max=max(hist.numel() - 1, 0))]
-    cand = randint(max(I, 1), (trials, n))
-    key = u[None, :] * I + cand
-    at = torch.searchsorted(pos_keys, key).clamp(max=max(pos_keys.numel() - 1,
-                                                          0))
-    is_pos = pos_keys[at] == key
-    first = (~is_pos).to(torch.uint8).argmax(0, keepdim=True)
-    j = cand.gather(0, first).squeeze(0)
-    return u, i, j
+
+def sample_triples(generator, sampler, meta, batch_size: int, regime: int,
+                   perm=None, batch_index: int = 0, pop_cdf=None):
+    """One batch of (u, i, j, w) BPR triples drawn with ``generator`` (a
+    generator of the sampler's device); JAX: ``_sample_triples``. The
+    without-replacement regime reads its slice of ``perm`` (a permutation
+    of the padded event slots) and weighs the pad slots 0."""
+    device = sampler["users"].device
+    num_items = meta["num_items"]
+
+    def randint(high, n):
+        return torch.randint(0, max(int(high), 1), (n,), generator=generator,
+                             device=device)
+    if regime == UNIFORM_USER:
+        valid = sampler["valid_users"]
+        u = valid[randint(valid.numel(), batch_size)]
+        r = randint(2 ** 31 - 1, batch_size)
+        pos_off = r % sampler["counts"][u].clamp(min=1)
+        i = sampler["hist_items"][(sampler["indptr"][u] + pos_off).clamp(
+            max=max(sampler["hist_items"].numel() - 1, 0))]
+        w_base = None
+    elif regime in (UNIFORM_PAIR, WBPR):
+        eidx = randint(meta["num_events"], batch_size)
+        u, i = sampler["users"][eidx], sampler["items"][eidx]
+        w_base = None
+    else:
+        eidx = perm[batch_index * batch_size:(batch_index + 1) * batch_size]
+        real = eidx < meta["num_events"]
+        eidx = eidx.clamp(max=max(meta["num_events"] - 1, 0))
+        u, i = sampler["users"][eidx], sampler["items"][eidx]
+        w_base = real
+    cand = negative_candidates(
+        generator, num_items, meta["num_neg_trials"], batch_size, device,
+        pop_cdf if regime == WBPR else None)
+    j, ok = first_negatives(sampler, u, cand, num_items)
+    w = ok if w_base is None else ok & w_base
+    return u, i, j, w.to(torch.float32)
+
+
+def bpr_step(params, u, i, j, w, hp, *, update_j: bool,
+             soft_margin: bool = False):
+    """One minibatch update of the triples (u, i, j) with weights w, in
+    place on params (user_factors [U, f], item_factors [I, f], item_bias
+    [I]); JAX: the body of ``bpr_epoch``. The sigmoid gradient of BPR,
+    or the hinge's (SoftMarginRankingMF.cs:52-110). As in the JAX
+    package the j bias's regularization reads the bias after the i
+    update."""
+    W, H, bias = params["user_factors"], params["item_factors"], \
+        params["item_bias"]
+    dtype = W.dtype
+    w = w.to(dtype)
+    lr = hp["learn_rate"]
+    wu, hi, hj = W[u], H[i], H[j]
+    bi = bias[i]
+    x_uij = bi - bias[j] + (wu * (hi - hj)).sum(dim=-1)
+    if soft_margin:
+        g = (x_uij < 1.0).to(dtype) * w
+    else:
+        g = torch.sigmoid(-x_uij) * w
+    W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
+                             - (w * hp["reg_u"])[:, None] * wu))
+    H.index_add_(0, i, lr * (g[:, None] * wu
+                             - (w * hp["reg_i"])[:, None] * hi))
+    bias.index_add_(0, i, lr * (g - hp["bias_reg"] * w * bi))
+    if update_j:
+        H.index_add_(0, j, lr * (-g[:, None] * wu
+                                 - (w * hp["reg_j"])[:, None] * hj))
+        bias.index_add_(0, j, lr * (-g - hp["bias_reg"] * w * bias[j]))
+
+
+def epoch_batches(num_events: int, batch_size: int):
+    """(batch, num_batches) of one epoch: |events| triples in batches of
+    at most ``batch_size`` (JAX: ``BPRMF.iterate``)."""
+    batch = min(batch_size, max(num_events, 1))
+    return batch, max((num_events + batch - 1) // batch, 1)
+
+
+def bpr_epoch(params, sampler, meta, generator, hp, pop_cdf=None, *,
+              batch_size: int, num_batches: int, regime: int,
+              update_j: bool, soft_margin: bool = False):
+    """One epoch of ``num_batches`` minibatches of sampled triples, in
+    place on params (JAX: ``bpr_epoch``). hp: learn_rate, reg_u, reg_i,
+    reg_j, bias_reg. The without-replacement regime draws one
+    permutation of the padded event slots per epoch."""
+    perm = None
+    if regime == UNIFORM_PAIR_WOR:
+        perm = torch.randperm(num_batches * batch_size, generator=generator,
+                              device=sampler["users"].device)
+    for b in range(num_batches):
+        u, i, j, w = sample_triples(generator, sampler, meta, batch_size,
+                                    regime, perm=perm, batch_index=b,
+                                    pop_cdf=pop_cdf)
+        bpr_step(params, u, i, j, w, hp, update_j=update_j,
+                 soft_margin=soft_margin)
+
+
+def popularity_cdf(count_by_item, device="cpu") -> torch.Tensor:
+    """Cumulative item-popularity distribution (float32) for WBPR
+    negatives (JAX: ``popularity_cdf``)."""
+    counts = np.asarray(count_by_item, dtype=np.float64)
+    total = counts.sum()
+    if total == 0:
+        counts = np.ones_like(counts)
+        total = counts.sum()
+    return torch.from_numpy(np.cumsum(counts / total).astype(
+        np.float32)).to(device)

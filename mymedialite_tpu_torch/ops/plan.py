@@ -244,16 +244,15 @@ def mxu_tiled_supported(num_items: int, num_factors: int,
 def select_schedule(num_items: int, num_factors: int) -> str:
     """The epoch schedule of the MF and BPR families for one device:
     "resident" while the item table fits the resident bound, "tiled"
-    past it (``ops/kernel_select.py:53-96``). Past the tiled bound the
-    JAX package runs its XLA epoch, which the port does not have yet."""
+    past it, "minibatch" past the tiled schedule's ``MAX_SLABS`` slabs
+    (``ops/kernel_select.py:53-96``): there the JAX package runs its XLA
+    epochs, which the port runs as plain PyTorch minibatch epochs
+    (``ops/sgd.py sgd_epoch_blocked``, ``ops/bpr.py bpr_epoch``)."""
     if mxu_supported(num_items, num_factors):
         return "resident"
     if mxu_tiled_supported(num_items, num_factors):
         return "tiled"
-    raise NotImplementedError(
-        f"{num_items} items x {num_factors} factors passes the tiled "
-        f"schedule's {MAX_SLABS} slabs: the XLA epoch the JAX package runs "
-        "there is not yet ported to mymedialite_tpu_torch")
+    return "minibatch"
 
 
 @dataclass

@@ -1,11 +1,16 @@
 """Loss ids, the fused-table layout and the training objective of the
 matrix-factorization family.
 
-Port of the jax-free-able parts of ``mymedialite_tpu/ops/sgd.py``:
-``_gradient_common`` (reference SetupLoss,
-BiasedMatrixFactorization.cs:246-261), ``extend_tables`` /
-``split_tables`` and ``mf_objective`` (reference ComputeObjective,
-BiasedMatrixFactorization.cs:515-552), which the bold driver reads.
+Port of ``mymedialite_tpu/ops/sgd.py``: ``_gradient_common``
+(reference SetupLoss, BiasedMatrixFactorization.cs:246-261),
+``extend_tables`` / ``split_tables``, ``mf_objective`` (reference
+ComputeObjective, BiasedMatrixFactorization.cs:515-552), which the bold
+driver reads, and the blocked minibatch epoch (``prepare_blocked_data``,
+``column_rates``, ``sgd_epoch_blocked``) that the MF family runs with
+frequency regularization and past the tiled schedule's catalog bound.
+The blocked epoch is plain PyTorch (gathers and ``index_add_``): the JAX
+package runs it as an XLA scan, with no Pallas kernel. The flat
+``sgd_epoch`` and the sharded forms are not ported.
 """
 
 from __future__ import annotations
@@ -71,8 +76,11 @@ def split_tables(W_ext, H_ext, num_users: int):
 
 
 def mf_objective(params: dict, data: dict, hp: dict, counts: dict, *,
-                 loss: int, biased: bool) -> torch.Tensor:
-    """Training objective = loss sum + count-weighted L2 complexity.
+                 loss: int, biased: bool,
+                 frequency_regularization: bool = False) -> torch.Tensor:
+    """Training objective = loss sum + count-weighted L2 complexity
+    (reg / sqrt(count) per entity with frequency regularization, 0 for
+    entities without ratings).
 
     params: user_factors [U, f], item_factors [I, f], global_bias, and
     if biased user_bias [U], item_bias [I]. data: users, items, values
@@ -99,8 +107,17 @@ def mf_objective(params: dict, data: dict, hp: dict, counts: dict, *,
             1e-15, 1 - 1e-15)
         loss_sum = -(a * torch.log(p01) + (1 - a) * torch.log1p(-p01)).sum()
 
-    wu_reg = counts["count_user"].to(torch.float32) * hp["reg_u"]
-    wi_reg = counts["count_item"].to(torch.float32) * hp["reg_i"]
+    cu = counts["count_user"].to(torch.float32)
+    ci = counts["count_item"].to(torch.float32)
+    if frequency_regularization:
+        zero = torch.zeros((), dtype=torch.float32, device=cu.device)
+        wu_reg = torch.where(cu > 0, hp["reg_u"] / cu.clamp(min=1.0).sqrt(),
+                             zero)
+        wi_reg = torch.where(ci > 0, hp["reg_i"] / ci.clamp(min=1.0).sqrt(),
+                             zero)
+    else:
+        wu_reg = cu * hp["reg_u"]
+        wi_reg = ci * hp["reg_i"]
     complexity = (wu_reg * (params["user_factors"] ** 2).sum(-1)).sum()
     complexity = complexity + \
         (wi_reg * (params["item_factors"] ** 2).sum(-1)).sum()
@@ -110,3 +127,160 @@ def mf_objective(params: dict, data: dict, hp: dict, counts: dict, *,
         complexity = complexity + \
             (wi_reg * hp["bias_reg"] * params["item_bias"] ** 2).sum()
     return loss_sum + complexity
+
+
+# ---------------------------------------------------------------------------
+# the blocked epoch (JAX: ``sgd_epoch_blocked``)
+# ---------------------------------------------------------------------------
+#
+# The route of the MF family where the chunk kernels do not go: frequency
+# regularization (per-entity rates, which the kernels' per-column rates
+# cannot express) and catalogs past the tiled schedule's MAX_SLABS. Ratings
+# are grouped by contiguous user-id ranges of ``group_users`` rows, shuffled
+# once within the groups; an epoch walks the groups in order and each
+# group's minibatches in a per-epoch permuted order. A minibatch gathers
+# its user and item rows, computes the loss gradient and scatter-adds into
+# both tables (index_add_: duplicate ids within a batch sum).
+
+
+def pad_to_batches(n: int, batch_size: int) -> int:
+    return ((max(n, 1) + batch_size - 1) // batch_size) * batch_size
+
+
+def prepare_blocked_data(users, items, values, num_users: int,
+                         batch_size: int, group_users: int = 16_384,
+                         shuffle_seed=0, device="cpu"):
+    """The JAX package's grouped layout (``prepare_blocked_data``): the
+    ratings shuffled once with ``numpy.random.default_rng(shuffle_seed)``,
+    stably sorted by user group, each group's row padded to ``l_pad``
+    slots (a multiple of the batch). Returns (data, meta): data holds gu
+    (group-local user ids), gi, gv, gw [ngroups, l_pad] tensors on
+    ``device`` and ``count`` [ngroups] (numpy) the real slots of each
+    group; meta holds ngroups, group_users, batch and l_pad."""
+    n = len(users)
+    users = np.asarray(users, dtype=np.int32)
+    items = np.asarray(items, dtype=np.int32)
+    values = np.asarray(values, dtype=np.float32)
+    if shuffle_seed is not None and n > 1:
+        perm = np.random.default_rng(shuffle_seed).permutation(n)
+        users, items, values = users[perm], items[perm], values[perm]
+    G = min(group_users, max(num_users, 1))
+    ngroups = max((num_users + G - 1) // G, 1)
+    group_of = users // G
+    order = np.argsort(group_of, kind="stable")
+    users, items, values = users[order], items[order], values[order]
+    counts = np.bincount(group_of, minlength=ngroups)
+    B = min(batch_size, pad_to_batches(int(counts.max()), 1))
+    Lpad = pad_to_batches(int(counts.max()), B)
+    slot = np.arange(n) - np.repeat(np.concatenate(
+        [[0], np.cumsum(counts)[:-1]]), counts)
+    g = np.repeat(np.arange(ngroups), counts)
+    gu = np.zeros((ngroups, Lpad), np.int32)
+    gi = np.zeros((ngroups, Lpad), np.int32)
+    gv = np.zeros((ngroups, Lpad), np.float32)
+    gw = np.zeros((ngroups, Lpad), np.float32)
+    gu[g, slot] = users - g * G
+    gi[g, slot] = items
+    gv[g, slot] = values
+    gw[g, slot] = 1.0
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    data = dict(gu=dev(gu), gi=dev(gi), gv=dev(gv), gw=dev(gw),
+                count=counts.astype(np.int64))
+    return data, dict(ngroups=ngroups, group_users=G, batch=B, l_pad=Lpad)
+
+
+def column_rates(num_factors: int, learn_rate, reg_u, reg_i, bias_learn_rate,
+                 bias_reg, biased: bool, update_user: bool, update_item: bool,
+                 device="cpu"):
+    """(w_lr, w_reg, h_lr, h_reg): per-column learn-rate and
+    regularization vectors [f+2] of the fused std tables; the constant
+    columns (and a frozen side) get rate 0 (JAX: ``column_rates``)."""
+    f = num_factors
+    lr, blr = float(learn_rate), float(bias_learn_rate)
+    w_lr = np.array([lr] * f + [blr * lr if biased else 0.0, 0.0], np.float32)
+    h_lr = np.array([lr] * f + [0.0, blr * lr if biased else 0.0], np.float32)
+    w_reg = np.array([float(reg_u)] * f +
+                     [float(bias_reg) * float(reg_u) if biased else 0.0, 0.0],
+                     np.float32)
+    h_reg = np.array([float(reg_i)] * f +
+                     [0.0, float(bias_reg) * float(reg_i) if biased else 0.0],
+                     np.float32)
+    if not update_user:
+        w_lr[:] = 0.0
+    if not update_item:
+        h_lr[:] = 0.0
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (w_lr, w_reg, h_lr, h_reg))
+
+
+def blocked_freq(count_by_user, count_by_item, rows: int, device="cpu"):
+    """(1/sqrt(count per user) on ``rows`` rows, 1/sqrt(count per item)),
+    counts below 1 taken as 1: the per-entity rate factors of frequency
+    regularization (JAX: ``MatrixFactorization._prepare_epoch_data``)."""
+    cu = np.zeros(rows, np.float32)
+    cu[:len(count_by_user)] = count_by_user
+    ci = np.maximum(np.asarray(count_by_item), 1).astype(np.float32)
+    return (torch.from_numpy(1.0 / np.sqrt(np.maximum(cu, 1.0))).to(device),
+            torch.from_numpy(1.0 / np.sqrt(ci)).to(device))
+
+
+def real_batches(count: int, batch: int) -> int:
+    """How many batches of a group hold at least one real rating; the
+    rest are all padding."""
+    return (int(count) + batch - 1) // batch
+
+
+def sgd_epoch_blocked(W_ext, H_ext, data, batch_orders, hp, rates,
+                      freq=None, *, meta, loss: int, biased: bool,
+                      groups=None):
+    """One blocked pass, in place on the fused std tables ``W_ext``
+    [ngroups * group_users, f+2] and ``H_ext`` [I, f+2] (JAX:
+    ``sgd_epoch_blocked``). ``batch_orders`` [ngroups, nb] holds each
+    group's batch permutation (the model draws it; the JAX package's is
+    ``jax.random.permutation(fold_in(key, g), nb)``); the batches past a
+    group's ratings are all padding and skipped, which changes no number.
+    hp: (global_bias, min_rating, rating_range). rates: ``column_rates``
+    at the current learn rate. freq: ``blocked_freq`` with frequency
+    regularization, else None. ``groups`` (default all) runs a subset of
+    the groups, in the order given. Computes in the tables' dtype."""
+    G, B = meta["group_users"], meta["batch"]
+    dtype = W_ext.dtype
+    w_lr, w_reg, h_lr, h_reg = (r.to(dtype) for r in rates)
+    global_bias, min_rating, rating_range = hp
+    orders = batch_orders.tolist() if isinstance(batch_orders, torch.Tensor) \
+        else [list(o) for o in batch_orders]
+    if groups is None:
+        groups = range(meta["ngroups"])
+    for g in groups:
+        slab = W_ext[g * G:(g + 1) * G]
+        nreal = real_batches(data["count"][g], B)
+        for b in orders[g]:
+            if b >= nreal:
+                continue
+            sl = slice(b * B, (b + 1) * B)
+            u = data["gu"][g, sl]
+            i = data["gi"][g, sl]
+            v = data["gv"][g, sl].to(dtype)
+            w = data["gw"][g, sl].to(dtype)
+            wu = slab.index_select(0, u)
+            hi = H_ext.index_select(0, i)
+            score = (wu * hi).sum(dim=-1)   # includes b_u + b_i
+            if biased:
+                sig = torch.sigmoid(score + global_bias)
+                pred = min_rating + sig * rating_range
+                g_com = gradient_common(loss, v - pred, sig,
+                                        rating_range) * w
+            else:
+                g_com = (v - (score + global_bias)) * w
+            if freq is not None:
+                ru = freq[0].to(dtype)[u.long() + g * G] * w
+                ri = freq[1].to(dtype)[i] * w
+            else:
+                ru = ri = w
+            slab.index_add_(0, u, w_lr * (
+                g_com[:, None] * hi - (w * ru)[:, None] * w_reg * wu))
+            H_ext.index_add_(0, i, h_lr * (
+                g_com[:, None] * wu - (w * ri)[:, None] * h_reg * hi))
+    return W_ext, H_ext

@@ -14,9 +14,9 @@ The schedule's entries are the JAX plan's real entries in the same
 order. The TPU-only parts stay behind: the split into passes (a bound of
 the TPU's scalar memory), the all-zero pad chunk and the refetch flags.
 The JAX package's pass length survives as a selection rule: a user block
-that needs more than ``PASS_LEN`` chunks sends the JAX package to its XLA
-grouped epoch (``ops/svdpp.py``), which the port does not have yet, so
-the port raises there.
+that needs more than ``PASS_LEN`` chunks raises ValueError, and the
+model takes the grouped epoch (``ops/svdpp.py``) instead, as the JAX
+package does.
 
 Tables keep rows (the TPU kernel's are transposed, ``[fe, rows]``):
 W [u_pad, fe] = [p | b_u | 1 | inv_sqrt | 0...], Q [i_pad, fe] =
@@ -41,11 +41,6 @@ SVDPP_TABLE_BYTES = 8 * 1024 * 1024
 # user block may take on its kernel path
 PASS_LEN = 16384
 
-XLA_EPOCH_NOT_PORTED = (
-    "the XLA grouped SVD++ epoch (mymedialite_tpu/ops/svdpp.py) that the "
-    "JAX package runs there is not yet ported to mymedialite_tpu_torch")
-
-
 def svdpp_fe(num_factors: int) -> int:
     """Column count of the kernel-layout tables: the factors, three
     columns (b_u / 1 / inv_sqrt in W, 1 / b_i / 0 in Q), padded to 8 and
@@ -60,16 +55,6 @@ def svdpp_mxu_supported(num_items: int, num_factors: int,
     n_ib = max((num_items + item_block - 1) // item_block, 1)
     return 2 * n_ib * item_block * svdpp_fe(num_factors) * 4 \
         <= SVDPP_TABLE_BYTES
-
-
-def require_kernel_path(num_items: int, num_factors: int):
-    """Raise "not yet ported" where the JAX package leaves its kernel for
-    the XLA grouped epoch because Q and Y pass the budget."""
-    if not svdpp_mxu_supported(num_items, num_factors):
-        raise NotImplementedError(
-            f"{num_items} items x {num_factors} factors pass the SVD++ "
-            f"kernel's {SVDPP_TABLE_BYTES} table bytes: "
-            f"{XLA_EPOCH_NOT_PORTED}")
 
 
 @dataclass
@@ -115,9 +100,9 @@ def prepare_svdpp_mxu(r_users, r_items, r_values, h_users, h_items,
                       chunk: int = 512, pass_len: int = PASS_LEN,
                       shuffle_seed=0, device="cpu") -> SvdppPlan:
     """Bucket the edges and the ratings (one item permutation, from the
-    edges), then build the static S/R/Y schedule. Raises
-    NotImplementedError where one user block needs more than
-    ``pass_len`` chunks (the JAX package's XLA epoch)."""
+    edges), then build the static S/R/Y schedule. Raises ValueError
+    where one user block needs more than ``pass_len`` chunks (the
+    grouped epoch takes those data)."""
     h_users = np.asarray(h_users, dtype=np.int32)
     h_items = np.asarray(h_items, dtype=np.int32)
     kw = dict(user_block=user_block, item_block=item_block, chunk=chunk,
@@ -144,9 +129,9 @@ def prepare_svdpp_mxu(r_users, r_items, r_values, h_users, h_items,
         if n == 0:
             continue
         if n > pass_len:
-            raise NotImplementedError(
+            raise ValueError(
                 f"user block {u} needs {n} chunks > pass_len {pass_len}: "
-                f"{XLA_EPOCH_NOT_PORTED}")
+                "the grouped epoch takes these data")
         parts.append((np.repeat(np.arange(3), [e.size, r.size, e.size]),
                       np.full(n, u),
                       np.concatenate([plan_e.ib_c[e], plan_r.ib_c[r],

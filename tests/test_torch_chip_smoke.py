@@ -419,3 +419,95 @@ def test_pearson_float64_rows_match_the_jax_package(shrinkage):
     full = smoke.pearson_rows_f64(data, torch.from_numpy(rows), I - 1,
                                   shrinkage)[0]
     assert (full[:, -1] == rows).all()
+
+
+def test_xla_route_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The phases of the XLA routes run end to end on CPU tensors at
+    small sizes, the card's clock, synchronisation, memory counters and
+    profiler stood in for, the budgets shrunk so that the routes are
+    taken: grouped SVD++ (its first groups against float64), blocked MF
+    with frequency regularization and past the tiled schedule's slabs,
+    minibatch BPR (AUC above 0.5), and the CLI protocols (cross-validation
+    in all three CLIs, --find-iter, --search-hp, GSVDPlusPlus save ->
+    load); no kernel is launched (on the CPU the wrappers count none, so
+    the CLI phase's expected launches are not checked here)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from mymedialite_tpu_torch import hyperopt
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.ops import plan as tplan
+    from mymedialite_tpu_torch.ops import svdpp_plan
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(smoke, "profiled_busy",
+                        lambda fn: (fn(), 1.0, 2.0, 3)[1:])
+    monkeypatch.setattr(smoke, "AUC_USERS", 100)
+    monkeypatch.setattr(smoke, "GROUP_PREFIX", 2)
+    monkeypatch.setattr(smoke, "PREFIX_BATCH", 256)
+    monkeypatch.setattr(svdpp_plan, "SVDPP_TABLE_BYTES", 1024)
+    dev = torch.device("cpu")
+    train, test = split_ratings(synthetic_ratings(3000, 300, 60_000, seed=1),
+                                0.2, seed=2)
+    assert 0 < smoke.phase_svdpp_grouped(dev, train, test)["busy_share"]
+    # batches of 1,024 give the small data as many steps per epoch as the
+    # card's default batch gives its data
+    smoke.phase_mf_blocked(dev, train, test, "frequency regularization",
+                           "frequency_regularization=true batch_size=1024")
+    monkeypatch.setattr(tplan, "RESIDENT_ITEM_TABLE_BYTES", 64 * 1024)
+    assert tplan.select_schedule(300, 40) == "minibatch"
+    smoke.phase_mf_blocked(dev, train, test, "big catalog", "batch_size=1024")
+    smoke.phase_bpr_minibatch(dev, train, test, "big catalog")
+    monkeypatch.undo()
+    for name, fn in (("synchronize", lambda *a: None),):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(smoke, "counted_path",
+                        lambda expected: contextlib.nullcontext({}))
+    monkeypatch.setattr(hyperopt, "NUM_IT", 3)
+    train, test = split_ratings(synthetic_ratings(600, 300, 30_000, seed=3),
+                                0.2, seed=2)
+    files, item_files = [], []
+    for name, part in (("training", train), ("test", test)):
+        path = str(tmp_path / f"{name}.tsv")
+        np.savetxt(path, np.column_stack([part.users, part.items,
+                                          part.values]),
+                   fmt=("%d", "%d", "%g"), delimiter="\t")
+        files += [f"--{name}-file", path]
+        pos = posonly_from_ratings(part)
+        path = str(tmp_path / f"items_{name}.tsv")
+        np.savetxt(path, np.column_stack([pos.users, pos.items]), fmt="%d",
+                   delimiter="\t")
+        item_files += [f"--{name}-file", path]
+    smoke.phase_cv_cli(dev, str(tmp_path), files, item_files, num_items=300)
+    out = capsys.readouterr().out
+    assert "svdpp grouped: first 2 groups on the card vs the CPU" in out
+    assert out.count("on the card vs the CPU in float64") == 4
+    assert out.count("groups of epoch 1 at a batch of 256") == 2
+    assert "GSVDPlusPlus" in out and "iteration 3" in out
+
+
+def test_prefix_check_holds_the_card_to_the_tolerance():
+    """An XLA route's prefix passes only within KERNEL_TOL of the float64
+    run, however far the CPU float32 run lies from it."""
+    import torch
+
+    smoke = _smoke_module()
+    host64 = dict(W=torch.zeros(4, 3, dtype=torch.float64))
+    host32 = dict(W=torch.ones(4, 3))
+    near = dict(W=torch.full((4, 3), 0.5 * smoke.KERNEL_TOL))
+    assert smoke.prefix_check(near, host32, host64, "near") == (
+        pytest.approx(0.5 * smoke.KERNEL_TOL), 1.0)
+    with pytest.raises(AssertionError, match="past"):
+        smoke.prefix_check(dict(W=torch.full((4, 3), 2 * smoke.KERNEL_TOL)),
+                           host32, host64, "far")
+    with pytest.raises(AssertionError, match="non-finite"):
+        smoke.prefix_check(dict(W=torch.full((4, 3), float("nan"))), host32,
+                           host64, "nan")

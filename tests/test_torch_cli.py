@@ -151,10 +151,9 @@ def test_save_load_and_prediction_file(files, aligned, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--cross-validation", "3"], ["--online-evaluation"], ["--search-hp"],
-    ["--profile", "trace"], ["--recommender", "GSVDPlusPlus"]],
-    ids=["cross-validation", "online-evaluation", "search-hp", "profile",
-         "unported-model"])
+    ["--online-evaluation"], ["--profile", "trace"],
+    ["--recommender", "SocialMF"]],
+    ids=["online-evaluation", "profile", "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

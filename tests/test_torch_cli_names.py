@@ -19,7 +19,8 @@ from mymedialite_tpu_torch.cli import rating_prediction as port_rating
 # (port CLI, JAX CLI, a known name that the port has not ported)
 CLIS = {"rating_prediction": (port_rating, jax_rating, "SocialMF"),
         "item_recommendation": (port_item, jax_item, "BPRSLIM"),
-        "rating_based_ranking": (port_ranking, jax_ranking, "GSVDPlusPlus")}
+        "rating_based_ranking": (port_ranking, jax_ranking,
+                                 "TimeAwareBaseline")}
 
 
 def _run(main, argv, capsys):

@@ -1390,3 +1390,123 @@ def test_cholesky_routes_against_float64(cuda):
     x64 = torch.cholesky_solve(2.0 * Hs.sum(dim=1)[:, :, None], L)[:, :, 0]
     err = float((x.double() - x64).abs().max() / x64.abs().max())
     assert err <= 1e-5, err
+
+
+# --- the XLA routes: plain PyTorch epochs on the card against the CPU ---
+
+
+def _host(tables, dtype=torch.float64):
+    return {k: v.detach().to("cpu", dtype).clone() for k, v in tables.items()}
+
+
+def _far(card, host):
+    return max((card[k].double().cpu() - host[k]).abs().max().item()
+               for k in host)
+
+
+@pytest.mark.parametrize("freq", [False, True])
+def test_blocked_mf_epoch_card_vs_cpu(cuda, freq):
+    """One blocked epoch (4 groups of 512 users, batches of 4,096) on the
+    card and on the CPU in float64 from the same tables and orders."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=3)
+    bd, meta = S.prepare_blocked_data(data.users, data.items, data.values,
+                                      2000, 4096, 512, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    W = 0.1 * torch.randn((2000, 40), generator=gen)
+    H = 0.1 * torch.randn((3000, 40), generator=gen)
+    We, He = S.extend_tables(W, H, group_users=512)
+    card = dict(W=We.to(cuda), H=He.to(cuda))
+    host = _host(card)
+    nb = meta["l_pad"] // meta["batch"]
+    orders = torch.stack([torch.randperm(nb, generator=gen)
+                          for _ in range(meta["ngroups"])])
+    args = (40, 0.01, 0.015, 0.015, 1.0, 0.01, True, True, True)
+    freq_t = S.blocked_freq(data.count_by_user, data.count_by_item, 2048,
+                            cuda) if freq else None
+    hp = (0.2, 1.0, 4.0)
+    S.sgd_epoch_blocked(card["W"], card["H"], bd, orders, hp,
+                        S.column_rates(*args, device=cuda), freq_t,
+                        meta=meta, loss=0, biased=True)
+    host_bd = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in bd.items()}
+    S.sgd_epoch_blocked(host["W"], host["H"], host_bd, orders, hp,
+                        S.column_rates(*args), None if freq_t is None else
+                        tuple(f.double().cpu() for f in freq_t),
+                        meta=meta, loss=0, biased=True)
+    assert _far(card, host) <= 1e-4
+
+
+def test_minibatch_bpr_card_vs_cpu(cuda):
+    """Ten batches of triples drawn on the card, applied there and on the
+    CPU in float64; the card's sampler against the membership truth."""
+    from mymedialite_tpu_torch.ops import bpr as B
+    fb = posonly_from_ratings(synthetic_ratings(2000, 3000, 100_000, seed=4))
+    sampler, meta = B.make_sampler_data(fb, 8, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    card = dict(user_factors=0.1 * torch.randn((2000, 40), device=cuda),
+                item_factors=0.1 * torch.randn((3000, 40), device=cuda),
+                item_bias=torch.zeros(3000, device=cuda))
+    host = _host(card)
+    hp = dict(learn_rate=0.05, reg_u=0.0025, reg_i=0.0025, reg_j=0.00025,
+              bias_reg=0.0)
+    pos = set(zip(fb.users.tolist(), fb.items.tolist()))
+    pop = B.popularity_cdf(fb.count_by_item, cuda)
+    for b in range(10):
+        regime = b % 4
+        perm = torch.randperm(4096 * 10, generator=gen, device=cuda)
+        u, i, j, w = B.sample_triples(gen, sampler, meta, 4096, regime,
+                                      perm=perm % len(fb), batch_index=b,
+                                      pop_cdf=pop)
+        pairs = zip(u.tolist(), i.tolist(), j.tolist(), w.tolist())
+        assert all((a, p) in pos and ((a, n) not in pos or not o)
+                   for a, p, n, o in pairs)
+        B.bpr_step(card, u, i, j, w, hp, update_j=True)
+        B.bpr_step(host, u.cpu(), i.cpu(), j.cpu(), w.cpu(), hp,
+                   update_j=True)
+    assert _far(card, host) <= 1e-4
+
+
+@pytest.mark.parametrize("attrs", [False, True])
+def test_grouped_svdpp_epoch_card_vs_cpu(cuda, attrs):
+    """One grouped epoch (16 groups of 128 users, chunks of 4,096) on the
+    card and on the CPU in float64 from the same tables; gSVD++'s
+    matmuls stay float32 under TF32 flags."""
+    from mymedialite_tpu_torch.ops import svdpp as SV
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=5)
+    hu, hi = history_edges(data.users, data.items, 3000)
+    groups = SV.prepare_groups(data.users, data.items, data.values, hu, hi,
+                               2000, 128, device=cuda)
+    gen = torch.Generator().manual_seed(2)
+    tables = dict(user_bias=torch.zeros(2000), item_bias=torch.zeros(3000),
+                  item_factors=0.1 * torch.randn((3000, 20), generator=gen),
+                  y=0.1 * torch.randn((3000, 20), generator=gen),
+                  p=0.1 * torch.randn((2000, 20), generator=gen))
+    attr = None
+    if attrs:
+        tables["x"] = 0.1 * torch.randn((18, 20), generator=gen)
+        attr = torch.zeros((3000, 18))
+        attr[torch.arange(3000), torch.arange(3000) % 18] = 1.0
+    card = {k: v.to(cuda) for k, v in tables.items()}
+    host = _host(card)
+    regs = dict(user_reg=torch.full((2000,), 0.015),
+                item_reg=torch.full((3000,), 0.015),
+                y_reg=torch.full((3000,), 0.015), x_reg=torch.full((18,), 0.015))
+    inv = torch.from_numpy(SV.inv_sqrt_counts(hu, 2000))
+    hp = dict(global_bias=3.6, learn_rate=0.003, bias_learn_rate=0.7,
+              bias_reg=0.33, min_rating=1.0, rating_range=4.0)
+    kw = dict(loss=0, sigmoid=False, use_p=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        SV.svdpp_epoch_grouped(card, groups, inv.to(cuda), hp,
+                               {k: r.to(cuda) for k, r in regs.items()},
+                               attr_norm=None if attr is None
+                               else attr.to(cuda), **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    SV.svdpp_epoch_grouped(host, groups.to("cpu"), inv.double(), hp,
+                           _host(regs), attr_norm=None if attr is None
+                           else attr.double(), **kw)
+    assert _far(card, host) <= 1e-4

@@ -210,10 +210,9 @@ def test_user_prediction_bprmf_same_fields(files, aligned, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--cross-validation", "3"], ["--online-evaluation"],
-    ["--profile", "trace"], ["--recommender", "BPRSLIM"]],
-    ids=["cross-validation", "online-evaluation", "profile",
-         "unported-model"])
+    ["--online-evaluation"], ["--profile", "trace"],
+    ["--recommender", "BPRSLIM"]],
+    ids=["online-evaluation", "profile", "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

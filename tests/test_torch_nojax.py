@@ -6,8 +6,11 @@ evaluate, save, load; rating prediction with BiasedMatrixFactorization,
 SVDPlusPlus, UserItemBaseline, ItemKNN and UserAttributeKNN, item
 recommendation with BPRMF, WeightedBPRMF, MostPopular, WRMF, UserKNN and
 ItemAttributeKNN, also with ``--user-prediction``, rating-based ranking
-with BiasedMatrixFactorization and SigmoidSVDPlusPlus) from the port's
-own synthetic data, and must exit 0."""
+with BiasedMatrixFactorization and SigmoidSVDPlusPlus; then the XLA
+slice: cross-validation in all three CLIs, BiasedMatrixFactorization with
+frequency regularization, BPRMF on its minibatch epoch, ``--search-hp``
+and GSVDPlusPlus) from the port's own synthetic data, and must exit
+0."""
 
 import os
 import subprocess
@@ -94,6 +97,29 @@ SCRIPT = textwrap.dedent("""
             items + opts + ["--save-model", f"{d}/{name}.model"]) == 0
         assert item_recommendation.main(
             items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
+    # the XLA routes and the protocols of the port's XLA slice
+    from mymedialite_tpu_torch import hyperopt
+    from mymedialite_tpu_torch.ops import plan
+    hyperopt.NUM_IT = 3
+    train_only = base[:2] + base[4:]
+    assert rating_prediction.main(
+        train_only + ["--cross-validation", "2", "--recommender-options",
+                      "num_factors=6 num_iter=2 frequency_regularization=true"
+                      " device=cpu"]) == 0
+    assert rating_prediction.main(
+        base[:4] + ["--recommender", "UserItemBaseline", "--search-hp",
+                    "--recommender-options", "device=cpu"]) == 0
+    gsvd = base + ["--recommender", "GSVDPlusPlus", "--item-attributes",
+                   f"{d}/genres.tsv"]
+    assert rating_prediction.main(gsvd + ["--save-model", f"{d}/g.model"]) == 0
+    assert rating_prediction.main(gsvd + ["--load-model", f"{d}/g.model"]) == 0
+    assert rating_based_ranking.main(
+        train_only + ["--cross-validation", "2"]) == 0
+    plan.RESIDENT_ITEM_TABLE_BYTES = 1024
+    assert item_recommendation.main(
+        items[:2] + ["--cross-validation", "2", "--recommender", "BPRMF",
+                     "--recommender-options",
+                     "num_factors=6 num_iter=2 device=cpu"]) == 0
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -106,9 +132,13 @@ def test_port_runs_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RMSE" in proc.stdout
-    assert proc.stdout.count("SVDPlusPlus num_factors=6") == 3
+    assert proc.stdout.count("SVDPlusPlus num_factors=6") == 5
     assert proc.stdout.count("SigmoidSVDPlusPlus num_factors=6") == 1
-    assert proc.stdout.count("AUC") == 15
-    for name in ("UserItemBaseline", "ItemKNNRating", "UserAttributeKNNRating",
+    assert proc.stdout.count("GSVDPlusPlus num_factors=6") == 2
+    assert proc.stdout.count("AUC") == 17
+    assert "frequency_regularization=True" in proc.stdout
+    assert proc.stdout.count("\nUserItemBaseline reg_u=") == 3
+    # UserItemBaseline: trained, loaded, then its --search-hp line
+    for name in ("ItemKNNRating", "UserAttributeKNNRating",
                  "WRMF", "UserKNN", "ItemAttributeKNN"):
         assert proc.stdout.count(f"\n{name} ") == 2, name

@@ -141,9 +141,7 @@ def test_save_load(files, monkeypatch, capsys):
     assert_same_output(loaded, jax_loaded, atol=1e-6)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--cross-validation", "3"], ["--profile", "trace"]],
-    ids=["cross-validation", "profile"])
+@pytest.mark.parametrize("argv", [["--profile", "trace"]], ids=["profile"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

@@ -32,7 +32,6 @@ from mymedialite_tpu_torch.data.arrays import RatingData
 from mymedialite_tpu_torch.eval.rating import evaluate_ratings
 from mymedialite_tpu_torch.models import svdpp as tsv
 from mymedialite_tpu_torch.models.registry import create_rating_predictor
-from mymedialite_tpu_torch.ops import svdpp_plan as SP
 from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
 from mymedialite_tpu_torch.utils.params import configure
 from torch_threads import one_torch_thread  # noqa: F401
@@ -275,17 +274,6 @@ def test_unported_paths_raise(data, monkeypatch, tmp_path):
         m.ratings = train
         return m
 
-    for opts, patch in (("frequency_regularization=true", None),
-                        ("group_users=64", None),
-                        ("", ("SVDPP_TABLE_BYTES", 1024)),
-                        ("", ("PASS_LEN", 2))):
-        with monkeypatch.context() as mp:
-            if patch:
-                mp.setattr(SP, *patch)
-            with pytest.raises(NotImplementedError,
-                               match="XLA grouped SVD\\+\\+ epoch.*not yet "
-                                     "ported"):
-                model(opts).train()
     m = model()
     m.train()
     for call in (lambda: m.add_ratings([0], [0], [3.0]),
@@ -293,7 +281,7 @@ def test_unported_paths_raise(data, monkeypatch, tmp_path):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
     with pytest.raises(KeyError, match="not yet ported"):
-        create_rating_predictor("GSVDPlusPlus")
+        create_rating_predictor("SocialMF")
     path = str(tmp_path / "m.model")
     m.save_model(path)
     with pytest.raises(RuntimeError, match="ratings"):

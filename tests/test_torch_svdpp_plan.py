@@ -128,8 +128,8 @@ def test_item_perm_path_matches_jax(bucketizer, monkeypatch):
 
 
 def test_pass_len_selection_rule():
-    """One user block past the pass length: the JAX package raises and
-    falls back to its XLA epoch; the port raises "not yet ported"."""
+    """One user block past the pass length: both packages raise
+    ValueError, and their models fall back to the grouped epoch."""
     rng = np.random.default_rng(1)
     u = np.zeros(2000, np.int32)
     i = rng.integers(0, 50, 2000).astype(np.int32)
@@ -137,8 +137,7 @@ def test_pass_len_selection_rule():
     kw = dict(user_block=8, item_block=8, chunk=8, pass_len=64)
     with pytest.raises(ValueError):
         psv.prepare_svdpp_mxu(u, i, v, u, i, 8, 50, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="XLA grouped SVD\\+\\+ epoch.*not yet ported"):
+    with pytest.raises(ValueError, match="grouped epoch"):
         SP.prepare_svdpp_mxu(u, i, v, u, i, 8, 50, **kw)
     assert SP.prepare_svdpp_mxu(u, i, v, u, i, 8, 50,
                                 **dict(kw, pass_len=1024)).num_steps > 64
@@ -152,8 +151,7 @@ def test_width_and_budget_match_jax():
             assert SP.svdpp_mxu_supported(items, f) == \
                 psv.svdpp_mxu_supported(items, f), (items, f)
     assert SP.svdpp_mxu_supported(17_770, 20)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SP.require_kernel_path(200_000, 20)
+    assert not SP.svdpp_mxu_supported(62_423, 20)
 
 
 @pytest.mark.parametrize("use_p", [True, False])

@@ -180,12 +180,9 @@ def test_bounds_and_schedule_match_jax(items, f, monkeypatch):
         ps.mxu_tiled_supported(items, f)
     monkeypatch.setenv("MML_MXU", "interpret")
     mode = kernel_select.select_mxu_mode(items, f, allow_sharded=False)
-    if mode == "":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tplan.select_schedule(items, f)
-    else:
-        want = {"interpret": "resident", "tiled-interpret": "tiled"}[mode]
-        assert tplan.select_schedule(items, f) == want
+    want = {"interpret": "resident", "tiled-interpret": "tiled",
+            "": "minibatch"}[mode]
+    assert tplan.select_schedule(items, f) == want
 
 
 def test_one_bound_decides_both_families(monkeypatch):
