@@ -129,7 +129,27 @@ Phases (any failure raises and the script exits non-zero):
     --search-hp (UserItemBaseline) and GSVDPlusPlus on a synthetic genre
     file (save -> load); the item CLI with --cross-validation=5 (BPRMF:
     kernel 3 once per epoch per fold); rating_based_ranking with
-    --cross-validation=5.
+    --cross-validation=5;
+22. the incremental API, the online protocol and fold-in (run after
+    phase 11c, on phase 6's data): (a) BiasedMatrixFactorization (k=40,
+    3 epochs), then the prequential protocol over 4,096 seeded test
+    events, buffered with chunked predictions, each event refreshing its
+    user and item rows with 30 steps: RMSE/MAE, events/s, ms per refresh;
+    16 refreshes (the most-rated item's among them) held step by step to
+    float64 (1e-4); one iterate() on the grown ratings through kernel 1;
+    (b) true fold-in over 256 seeded test users (their test ratings split
+    50/50 into update and evaluation) and the incremental protocol over
+    32 of them, 16 fold-in rows held step by step to float64; (c) the
+    per-user online protocol with phase 8's BPRMF over 256 seeded test
+    users, ms a user split into evaluation, feedback.add, sampler rebuild
+    and refresh, one user's pairwise step held to float64 (1e-5), one
+    iterate() through kernel 3 on the grown feedback; (d) add_feedback on
+    phase 11a's WRMF for 64 seeded users: untouched rows bit-equal, the
+    re-solved rows within 1e-5 of float64; (e) three add_ratings of 64
+    test events on phase 11's SVDPlusPlus, kernel 5 once each; (f)
+    --online-evaluation at the ML-100K shape (943 x 1,682 x 100,000) in
+    the rating CLI (UserItemBaseline, BiasedMatrixFactorization) and the
+    item CLI (BPRMF).
 
 Before each main path every kernel's launch count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
@@ -1202,7 +1222,7 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
     against its plain version on the schedule's first ``prefix_blocks``
     user blocks (s and c start from zero at each block, so such a prefix
     is a whole piece of the epoch); RMSE against the global average.
-    Returns the kernel's numbers for the kernels line."""
+    Returns the kernel's numbers for the kernels line and the model."""
     from mymedialite_tpu_torch.eval.rating import evaluate_ratings
     from mymedialite_tpu_torch.models import svdpp as svdpp_module
     from mymedialite_tpu_torch.models.registry import create_rating_predictor
@@ -1277,7 +1297,8 @@ def phase_svdpp_path(dev, train, test, *, prefix_blocks: int = 64):
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("SVD++ RMSE does not beat the global average")
     return dict(launches=counted["svdpp_epoch"], max_abs_err=err,
-                ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by), model
 
 
 # the cases of tests/test_pallas_topk.py, then the serving shape:
@@ -2592,6 +2613,539 @@ def phase_cv_cli(dev, tmp, files, item_files, num_items=3706):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the incremental API, the online protocol and fold-in
+# ---------------------------------------------------------------------------
+
+ONLINE_EVENTS = 4096      # (a): test events of the prequential run
+ROW_CHECKS = 16           # (a), (b): rows held step by step to float64
+ROW_TOL = 1e-4
+FOLDIN_USERS = 256        # (b): users of the fold-in protocols
+# (b): users of the incremental protocol (add, evaluate, remove): each
+# add and remove rebuilds the COO arrays of 15M ratings and derives their
+# CSR views, about 1-2 s of host work a user on the card's host
+FOLDIN_INCREMENTAL_USERS = 32
+ONLINE_ITEM_USERS = 256   # (c)
+PAIRWISE_TOL = 1e-5       # (c): one user's pairwise step against float64
+WRMF_ONLINE_USERS = 64    # (d)
+SVDPP_CALLS, SVDPP_EVENTS = 3, 64   # (e)
+# (f): GroupLens' published ml-100k counts
+ML100K = dict(num_users=943, num_items=1682, num_ratings=100_000)
+
+
+def event_subset(test, n: int, seed: int):
+    """The first n events of a seeded permutation of ``test``, in index
+    order (the online evaluator permutes them again, from the model's
+    seed)."""
+    order = np.random.default_rng(seed).permutation(len(test))[:n]
+    return test.select(np.sort(order))
+
+
+def row_step_f64(row, other, values, lr_vec, reg_vec, hp, *, biased: bool,
+                 loss: int):
+    """One full-history gradient step of a fused row in float64 (numpy),
+    written apart from ``models/mf.py learn_row``: the per-example error
+    of the plain model (raw score) or the biased one (sigmoid; RMSE, MAE
+    or logistic gradient), summed over the history, minus L * reg * row,
+    times the per-column rates."""
+    gb, lo, rng = hp
+    score = other @ row
+    if biased:
+        sig = 1.0 / (1.0 + np.exp(-(score + gb)))
+        err = values - (lo + sig * rng)
+        g = (err if loss == 2 else
+             (np.sign(err) if loss == 1 else err) * sig * (1.0 - sig) * rng)
+    else:
+        g = values - (score + gb)
+    return row + lr_vec * (g @ other - values.size * reg_vec * row)
+
+
+def row_witness(model, start, other, ids, values, lr_vec, reg_vec, hp,
+                learner=None):
+    """The largest |card step - float64 step| over a row refresh's
+    ``num_iter`` steps, each card step (``learner``, default
+    ``mf.learn_row`` with one step) taken from the float64 trajectory's
+    state: the float32 rounding of one step, not its growth over the
+    trajectory (full-history sums of a popular item's 200k ratings part
+    float32 from float64 within a few steps)."""
+    from mymedialite_tpu_torch.models.mf import learn_row
+    learner = learner or learn_row
+    dev = other.device
+    idx = torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(dev)
+    rows = other[idx.clamp(0, other.shape[0] - 1)]
+    vals = torch.from_numpy(np.asarray(values, dtype=np.float32)).to(dev)
+    o64 = rows.double().cpu().numpy()
+    v64 = vals.double().cpu().numpy()
+    lr64, reg64 = lr_vec.double().cpu().numpy(), reg_vec.double().cpu().numpy()
+    x = start.double().cpu().numpy()
+    worst, scale = 0.0, 1.0
+    for _ in range(model.num_iter):
+        nxt = row_step_f64(x, o64, v64, scale * lr64, reg64, hp,
+                           biased=model.BIASED, loss=model.loss_id)
+        with torch.no_grad():
+            card = learner(torch.from_numpy(x).float().to(dev), rows, vals,
+                           (scale * lr_vec).float(), reg_vec, *hp,
+                           num_iter=1, decay=1.0, biased=model.BIASED,
+                           loss=model.loss_id)
+        worst = max(worst, float(np.abs(card.double().cpu().numpy()
+                                        - nxt).max()))
+        x, scale = nxt, scale * model.learn_rate_decay
+    return worst
+
+
+def model_row_witness(model, side: str, row_id: int, learner=None):
+    """``row_witness`` of one of the model's refreshes from a fresh start
+    row: the row's own history of n ratings against the other side's
+    table, at the model's rates, the learn rate lowered to 0.5 / n where
+    that is smaller (the rule by which (a) picks its protocol's rate), so
+    that each trajectory is stable and its steps still move the row by
+    far more than ROW_TOL."""
+    W, H = model.W_ext, model.H_ext
+    if side == "user":
+        other, (ids, vals), reg = H, model._rated_by_user(row_id), model.reg_u
+    else:
+        other, (ids, vals), reg = W, model._rated_by_item(row_id), model.reg_i
+    frozen, lr_vec, reg_vec, hp = model._row_args(side, reg)
+    lr_vec = lr_vec * min(1.0, 0.5 / max(len(ids), 1) / model.learn_rate)
+    start = model._fresh_row(frozen)
+    return row_witness(model, start, other, ids, vals, lr_vec, reg_vec, hp,
+                       learner), len(ids)
+
+
+def returns_input(row, *args, **kwargs):
+    """The witnesses' control: a learner that takes no step."""
+    return row
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str):
+    """Inside the block every call of ``owner.name`` is timed on the host
+    clock with the card synchronised on both sides; yields the list of
+    seconds. (The synchronisation costs the run the overlap of host and
+    device work between calls.)"""
+    own = name in vars(owner)      # else a method of the object's class
+    real = getattr(owner, name)
+    seconds = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+    setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def ms_line(seconds) -> str:
+    ms = np.asarray(seconds, dtype=np.float64) * 1e3
+    if ms.size == 0:
+        return "none"
+    return (f"{ms.size} calls, mean {ms.mean():.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms")
+
+
+def phase_online_mf(dev, train, test):
+    """(a) BiasedMatrixFactorization (k=40, 3 epochs) through the registry,
+    then the prequential protocol over ONLINE_EVENTS seeded test events in
+    buffered mode with chunked predictions, each event refreshing its
+    user and item rows with 30 steps (the default num_iter) at a learn
+    rate at which the longest history is stable (at the default rate the
+    most-rated item's refresh diverges, a pinned fault that must show):
+    RMSE/MAE, events/s, ms per refresh by side, chunks; ROW_CHECKS
+    refreshes, among them the most-rated item's, held step by step to
+    float64 at the model's rate (``model_row_witness``); then
+    one iterate() on the grown ratings through kernel 1. Returns the
+    model, at its default learn rate again, and the protocol's rate."""
+    from mymedialite_tpu_torch.eval.online import evaluate_ratings_online
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+
+    model = create_rating_predictor(
+        "BiasedMatrixFactorization",
+        f"num_factors=40 num_iter=3 device={dev.type}")
+    model.ratings = train
+    with counted_path({"sgd_epoch": 3}):
+        model.train()
+    model.num_iter = 30
+    # the pinned fault (ROADMAP §C): a refresh sums the gradient over the
+    # whole history before each step, so a row of n ratings diverges
+    # once n * learn_rate * reg passes 2; at the default rate the
+    # most-rated item's refresh does, as in the JAX package
+    counts = np.bincount(train.items, minlength=train.num_items)
+    top = int(counts.argmax())
+    frozen, lr_vec, reg_vec, hp = model._row_args("item", model.reg_i)
+    ids, vals = model._rated_by_item(top)
+    with torch.no_grad(), counted_path({}):
+        row = model._learn(model._fresh_row(frozen), model.W_ext, ids, vals,
+                           lr_vec, reg_vec, hp)
+    x = counts * model.learn_rate * model.reg_i
+    finite = bool(torch.isfinite(row).all())
+    log(f"refresh at the default learn rate {model.learn_rate}: the "
+        f"most-rated item ({counts.max()} ratings, n * learn_rate * reg "
+        f"{x.max():.3g}) gives a {'finite' if finite else 'non-finite'} "
+        f"row; {int((x > 2).sum())} items pass 2")
+    # past 25 the regularization alone grows the row by 24x a step: it
+    # overflows float32 within 30 steps
+    if x.max() > 25 and finite:
+        raise AssertionError("the pinned divergence of long histories "
+                             "did not show")
+    # the protocol at a rate at which every history of this data is
+    # stable: n * learn_rate <= 0.5 for the longest
+    longest = max(int(counts.max()),
+                  int(np.bincount(train.users).max()))
+    default_lr = model.learn_rate
+    online_lr = model.learn_rate = min(default_lr, 0.5 / longest)
+    log(f"online learn rate {online_lr:.4g} (0.5 / {longest}, the "
+        "longest history)")
+    events = event_subset(test, ONLINE_EVENTS, seed=22)
+    with timed_calls(model, "retrain_user") as user_s, \
+            timed_calls(model, "retrain_item") as item_s, \
+            timed_calls(model, "predict_batch") as predict_s, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        res = evaluate_ratings_online(model, events)
+        online_s = time.perf_counter() - t0
+    log(f"online BiasedMF, {len(events)} events (buffered, chunked): {res}; "
+        f"{online_s:.2f} s, {len(events) / online_s:.4g} events/s; "
+        f"{len(predict_s)} prediction chunks; user refresh "
+        f"{ms_line(user_s)}; item refresh {ms_line(item_s)} "
+        f"({model.num_iter} steps; each call timed with the card "
+        "synchronised around it)")
+    for k in ("RMSE", "MAE"):
+        if not (math.isfinite(res[k]) and 0 < res[k] < 2):
+            raise AssertionError(f"online BiasedMF {k} {res[k]}")
+    if len(model.ratings) != len(train) + len(events):
+        raise AssertionError("the online events did not fold into the data")
+    model.learn_rate = default_lr
+
+    rng = np.random.default_rng(23)
+    counts = np.bincount(model.ratings.items,
+                         minlength=model.ratings.num_items)
+    picks = [("item", int(counts.argmax()))]
+    for k in rng.choice(len(events), ROW_CHECKS - 1, replace=False):
+        picks.append(("user", int(events.users[k])) if k % 2 else
+                     ("item", int(events.items[k])))
+    t0 = time.perf_counter()
+    worst, control, lowered = 0.0, math.inf, 0
+    for side, row_id in picks:
+        err, n = model_row_witness(model, side, row_id)
+        still, _ = model_row_witness(model, side, row_id,
+                                     learner=returns_input)
+        worst, control = max(worst, err), min(control, still)
+        lowered += 0.5 / n < default_lr
+    log(f"online refresh rows, {len(picks)} (the most-rated item's "
+        f"{counts.max()} ratings among them), each step from the float64 "
+        f"trajectory: max_abs_err {worst:.3e} (tol {ROW_TOL}); "
+        f"{len(picks) - lowered} at the default learn rate {default_lr}, "
+        f"{lowered} at 0.5 / n; a learner that takes no step reads at "
+        f"least {control:.3e} on every row; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not worst <= ROW_TOL:
+        raise AssertionError(f"refresh rows off float64 by {worst:.3e}")
+    if not control > ROW_TOL:
+        raise AssertionError("the row witness passes a learner that takes "
+                             f"no step ({control:.3e})")
+
+    with counted_path({"sgd_epoch": 1}) as counted:
+        t0 = time.perf_counter()
+        model.iterate()
+        torch.cuda.synchronize()
+        iterate_s = time.perf_counter() - t0
+    if model._plan.n_ratings != len(train) + len(events):
+        raise AssertionError(f"the plan holds {model._plan.n_ratings} "
+                             "ratings, not the grown data")
+    log(f"iterate() after the online run: {iterate_s:.2f} s, sgd_epoch "
+        f"launches {counted['sgd_epoch']}, plan of "
+        f"{model._plan.n_ratings} ratings ({len(train)} + {len(events)})")
+    return model, online_lr
+
+
+def foldin_split(test, users, seed: int):
+    """The test ratings of ``users``, split 50/50 by a seeded draw into
+    the update and the evaluation part."""
+    idx = np.nonzero(np.isin(test.users, users))[0]
+    half = np.random.default_rng(seed).random(idx.size) < 0.5
+    return test.select(idx[half]), test.select(idx[~half])
+
+
+def phase_foldin(dev, model, online_lr, test):
+    """(b) the fold-in protocols on (a)'s model: true fold-in over
+    FOLDIN_USERS seeded test users at the model's learn rate, the
+    incremental protocol (add, evaluate, remove) over the first
+    FOLDIN_INCREMENTAL_USERS of them at (a)'s ``online_lr`` (it refreshes
+    the rows of the items they rated, popular ones among them); RMSEs and
+    seconds; ROW_CHECKS fold-in rows held step by step to float64."""
+    from mymedialite_tpu_torch.eval.foldin import (
+        evaluate_fold_in, evaluate_fold_in_incremental_training,
+    )
+    rng = np.random.default_rng(24)
+    users = np.sort(rng.choice(np.unique(test.users), FOLDIN_USERS,
+                               replace=False))
+    update, held = foldin_split(test, users, seed=25)
+    n_before = len(model.ratings)
+    default_lr = model.learn_rate
+    with counted_path({}):
+        t0 = time.perf_counter()
+        res = evaluate_fold_in(model, update, held)
+        foldin_s = time.perf_counter() - t0
+        few = users[:FOLDIN_INCREMENTAL_USERS]
+        upd_few, held_few = (d.select(np.nonzero(np.isin(d.users, few))[0])
+                             for d in (update, held))
+        model.learn_rate = online_lr
+        t0 = time.perf_counter()
+        inc = evaluate_fold_in_incremental_training(model, upd_few, held_few)
+        inc_s = time.perf_counter() - t0
+        model.learn_rate = default_lr
+    log(f"fold-in, {FOLDIN_USERS} users ({len(update)} update / "
+        f"{len(held)} evaluated ratings): {res}, {foldin_s:.2f} s; "
+        f"incremental protocol, {len(few)} users: {inc}, {inc_s:.2f} s "
+        f"({inc_s / len(few):.2f} s a user)")
+    for r in (res, inc):
+        if not (math.isfinite(r["RMSE"]) and 0 < r["RMSE"] < 2):
+            raise AssertionError(f"fold-in RMSE {r['RMSE']}")
+    # remove_ratings drops every rating of a removed (user, item) pair,
+    # earlier duplicates too
+    if len(model.ratings) > n_before:
+        raise AssertionError("the incremental protocol left ratings behind")
+    H = model.H_ext
+    frozen, lr_vec, reg_vec, hp = model._row_args(
+        "user", model.regularization)
+    worst, control = 0.0, math.inf
+    for u in np.unique(update.users)[:ROW_CHECKS]:   # a history each
+        seg = update.users == u
+        for learner in (None, returns_input):
+            err = row_witness(model, model._fresh_row(frozen), H,
+                              update.items[seg], update.values[seg], lr_vec,
+                              reg_vec, hp, learner)
+            if learner is None:
+                worst = max(worst, err)
+            else:
+                control = min(control, err)
+    log(f"fold-in rows, {ROW_CHECKS} users, each step from the float64 "
+        f"trajectory at the learn rate {default_lr}: max_abs_err "
+        f"{worst:.3e} (tol {ROW_TOL}); a learner that takes no step reads "
+        f"at least {control:.3e} on every row")
+    if not worst <= ROW_TOL:
+        raise AssertionError(f"fold-in rows off float64 by {worst:.3e}")
+    if not control > ROW_TOL:
+        raise AssertionError("the fold-in witness passes a learner that "
+                             f"takes no step ({control:.3e})")
+
+
+def phase_online_bpr(dev, model, feedback, test_items):
+    """(c) the per-user online protocol with phase 8's BPRMF over
+    ONLINE_ITEM_USERS seeded test users: AUC, prec@5, ms a user split
+    into the evaluation, ``feedback.add``, the sampler rebuild and the
+    refresh; one user's pairwise step held to float64 on the host; then
+    one iterate() on the grown feedback through kernel 3."""
+    from mymedialite_tpu_torch.data import arrays
+    from mymedialite_tpu_torch.eval import online
+    from mymedialite_tpu_torch.ops import bpr as bpr_ops
+
+    rng = np.random.default_rng(26)
+    users = rng.choice(test_items.all_users, ONLINE_ITEM_USERS,
+                       replace=False)
+    n_before = len(model.feedback)
+    with timed_calls(online, "evaluate_items") as eval_s, \
+            timed_calls(arrays.PosOnlyData, "add") as add_s, \
+            timed_calls(bpr_ops, "make_sampler_data") as sampler_s, \
+            timed_calls(model, "retrain_user") as retrain_s, \
+            counted_path({}):
+        t0 = time.perf_counter()
+        res = online.evaluate_items_online(model, test_items, feedback,
+                                           test_users=users)
+        total_s = time.perf_counter() - t0
+    n = max(res["num_users"], 1)
+    log(f"online BPRMF, {res['num_users']} users: {res}; {total_s:.2f} s, "
+        f"{total_s / n * 1e3:.1f} ms a user: evaluation "
+        f"{sum(eval_s) / n * 1e3:.1f}, feedback.add "
+        f"{sum(add_s) / n * 1e3:.1f}, sampler rebuild "
+        f"{sum(sampler_s) / n * 1e3:.1f}, refresh "
+        f"{sum(retrain_s) / n * 1e3:.1f} ms")
+    if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
+        raise AssertionError(f"online BPRMF AUC {res['AUC']}")
+    grown = len(model.feedback)
+    if grown <= n_before:
+        raise AssertionError("the online events did not join the feedback")
+
+    # one user's pairwise step: the card in float32, the host in float64
+    sampler, meta = model._sampling
+    u = int(users[0])
+    lo, hi = sampler["indptr"][u:u + 2].tolist()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    pos = sampler["hist_items"][lo:hi][torch.randint(
+        0, hi - lo, (hi - lo,), generator=gen, device=dev)]
+    us = torch.full_like(pos, u)
+    cand = bpr_ops.negative_candidates(gen, meta["num_items"],
+                                       meta["num_neg_trials"], hi - lo, dev)
+    neg, ok = bpr_ops.first_negatives(sampler, us, cand, meta["num_items"])
+    card = {k: v.clone() for k, v in model.params.items()}
+    host = {k: v.double().cpu() for k, v in model.params.items()}
+    with torch.no_grad():
+        bpr_ops.bpr_step(card, us, pos, neg, ok, model._hp(), update_j=True)
+        bpr_ops.bpr_step(host, us.cpu(), pos.cpu(), neg.cpu(), ok.cpu(),
+                         model._hp(), update_j=True)
+    err = max(float((card[k].double().cpu() - host[k]).abs().max())
+              for k in card)
+    log(f"pairwise step of user {u} ({hi - lo} triples, all three sides) "
+        f"against float64 on the host: max_abs_err {err:.3e} "
+        f"(tol {PAIRWISE_TOL})")
+    if not err <= PAIRWISE_TOL:
+        raise AssertionError(f"pairwise step off float64 by {err:.3e}")
+    del card, host
+
+    with counted_path({"bpr_epoch": 1}) as counted:
+        t0 = time.perf_counter()
+        model.iterate()
+        torch.cuda.synchronize()
+        iterate_s = time.perf_counter() - t0
+    if model._plan.n_ratings != grown:
+        raise AssertionError("the BPR plan does not hold the grown feedback")
+    log(f"iterate() after the online run: {iterate_s:.2f} s, bpr_epoch "
+        f"launches {counted['bpr_epoch']}, plan of {grown} events "
+        f"({n_before} + {grown - n_before})")
+
+
+def phase_online_wrmf(dev, model, feedback, test_items):
+    """(d) ``add_feedback`` on phase 11a's WRMF for WRMF_ONLINE_USERS
+    seeded test users (their test items), the user rows re-solved: every
+    other row bit-equal, the re-solved rows within WRMF_F64_TOL of the
+    same rows assembled and solved in float64 (``wrmf_user_side_f64``)."""
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData
+    rng = np.random.default_rng(28)
+    users = np.sort(rng.choice(test_items.all_users, WRMF_ONLINE_USERS,
+                               replace=False))
+    sel = np.isin(test_items.users, users)
+    ev_u, ev_i = test_items.users[sel], test_items.items[sel]
+    model.update_users, model.update_items = True, False
+    before = {k: v.clone() for k, v in model.params.items()}
+    with counted_path({}):
+        t0 = time.perf_counter()
+        model.add_feedback(ev_u, ev_i)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+    p = model.params
+    touched = torch.zeros(p["user_factors"].shape[0], dtype=torch.bool,
+                          device=dev)
+    touched[torch.from_numpy(users.astype(np.int64)).to(dev)] = True
+    W0 = before["user_factors"]
+    H0 = before["item_factors"]
+    same = (torch.equal(p["item_factors"][:H0.shape[0]], H0)
+            and torch.equal(p["user_factors"][:W0.shape[0]][~touched[
+                :W0.shape[0]]], W0[~touched[:W0.shape[0]]]))
+    if not same:
+        raise AssertionError("WRMF add_feedback moved an untouched row")
+    f = model.feedback
+    mine = np.isin(f.users, users)
+    rank = np.searchsorted(users, f.users[mine])
+    sub = PosOnlyData(rank, f.items[mine], num_users=users.size,
+                      num_items=f.num_items)
+    x64 = wrmf_user_side_f64(sub, p["item_factors"], model.alpha,
+                             model.regularization)
+    rows = p["user_factors"][torch.from_numpy(users.astype(np.int64)).to(dev)]
+    err = float((rows.double() - x64).abs().max()) / float(x64.abs().max())
+    log(f"online WRMF, {users.size} users ({ev_u.size} events): "
+        f"add_feedback {add_s:.2f} s; untouched rows bit-equal; re-solved "
+        f"rows against float64: max error {err:.3e} of the largest |x| "
+        f"(tol {WRMF_F64_TOL})")
+    if not err <= WRMF_F64_TOL:
+        raise AssertionError(f"WRMF re-solved rows off float64 by {err:.3e}")
+
+
+def phase_online_svdpp(dev, model, train, test):
+    """(e) SVD_CALLS ``add_ratings`` calls of SVDPP_EVENTS test events
+    each on phase 11's SVDPlusPlus: each re-plans and runs one epoch,
+    kernel 5 once a call and no other kernel; the plan and epoch time of
+    each, and the RMSE before and after."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import svdpp as svdpp_module
+    from mymedialite_tpu_torch.ops import svdpp_plan as sp
+
+    before = evaluate_ratings(model, test, train)["RMSE"]
+    events = event_subset(test, SVDPP_CALLS * SVDPP_EVENTS, seed=29)
+    calls = []
+    with timed_training((sp, "prepare_svdpp_mxu"),
+                        (svdpp_module, "svdpp_epoch")) as timings, \
+            counted_path({"svdpp_epoch": SVDPP_CALLS}):
+        for c in range(SVDPP_CALLS):
+            sl = slice(c * SVDPP_EVENTS, (c + 1) * SVDPP_EVENTS)
+            t0 = time.perf_counter()
+            model.add_ratings(events.users[sl], events.items[sl],
+                              events.values[sl])
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+    after = evaluate_ratings(model, test, model.ratings)["RMSE"]
+    log(f"online SVD++, {SVDPP_CALLS} add_ratings of {SVDPP_EVENTS} events: "
+        + "; ".join(f"{s:.2f} s (plan {p:.2f} s, epoch {e:.1f} ms)"
+                    for s, p, e in zip(calls, timings["plan_s"],
+                                       timings["epoch_ms"]))
+        + f"; route {model.route()}; RMSE before {before:.5f}, after "
+        f"{after:.5f}")
+    if not (math.isfinite(after) and after < 2):
+        raise AssertionError(f"SVD++ RMSE after the updates {after}")
+
+
+def phase_online_cli(dev, tmp):
+    """(f) ``--online-evaluation`` at the ML-100K shape (943 users x 1,682
+    items x 100,000 ratings, GroupLens' published ml-100k counts,
+    synthetic, split 80/20): the rating CLI with UserItemBaseline and
+    BiasedMatrixFactorization, the item CLI with BPRMF."""
+    from mymedialite_tpu_torch.cli import item_recommendation
+    from mymedialite_tpu_torch.cli import rating_prediction
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings,
+    )
+    train, test = split_ratings(synthetic_ratings(**ML100K, seed=30), 0.2,
+                                seed=31)
+    files = []
+    for name, part in (("training", train), ("test", test)):
+        path = os.path.join(tmp, f"ml100k-{name}.tsv")
+        np.savetxt(path, np.column_stack([part.users, part.items,
+                                          part.values]),
+                   fmt=("%d", "%d", "%g"), delimiter="\t")
+        files += [f"--{name}-file", path]
+    for main, name, opts, kernels in (
+            (rating_prediction.main, "UserItemBaseline", "", {}),
+            (rating_prediction.main, "BiasedMatrixFactorization",
+             "num_factors=40 num_iter=3 ", {"sgd_epoch": 3}),
+            (item_recommendation.main, "BPRMF", "num_factors=40 num_iter=3 ",
+             {"bpr_epoch": 3})):
+        argv = files + ["--recommender", name, "--online-evaluation",
+                        "--recommender-options", f"{opts}device={dev.type}"]
+        with counted_path(kernels):
+            t0 = time.perf_counter()
+            text = run_cli(main, argv)
+        key = "AUC" if main is item_recommendation.main else "RMSE"
+        value = result_value(text, key)
+        log(f"online CLI {name}: {key} {value:.5f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not math.isfinite(value):
+            raise AssertionError(f"online CLI {name}: {key} {value}")
+
+
+def phase_incremental(dev, train, test, bpr, wrmf, svdpp, tmp):
+    """Phase 22: (a)-(f) on phase 6's data and the models of phases 8,
+    11 and 11a; ``bpr`` and ``wrmf`` are (model, feedback, test pairs)."""
+    t0 = time.perf_counter()
+    model, online_lr = phase_online_mf(dev, train, test)
+    phase_foldin(dev, model, online_lr, test)
+    del model
+    phase_online_bpr(dev, *bpr)
+    phase_online_wrmf(dev, *wrmf)
+    phase_online_svdpp(dev, svdpp, train, test)
+    phase_online_cli(dev, tmp)
+    log(f"phase 22 (incremental and online): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = {
     "sgd_epoch": ("mymedialite_tpu_torch/csrc/sgd_epoch.cu",
                   "mymedialite_tpu/ops/pallas_sgd.py:324"),
@@ -2642,13 +3196,12 @@ def main() -> int:
                                  num_items=17_770,
                                  num_ratings=20_000_000, seed=1)
     runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
-    runs["bpr_epoch"], model, feedback = phase_bpr_path(dev, train, test,
-                                                        tiled=False)
-    runs["catalog_topk"] = phase_serving(dev, model, feedback,
+    runs["bpr_epoch"], bpr_model, bpr_feedback = phase_bpr_path(
+        dev, train, test, tiled=False)
+    runs["catalog_topk"] = phase_serving(dev, bpr_model, bpr_feedback,
                                          "Netflix-shaped")
-    del model, feedback
     worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
-    runs["svdpp_epoch"] = phase_svdpp_path(dev, train, test)
+    runs["svdpp_epoch"], svdpp_model = phase_svdpp_path(dev, train, test)
     torch.cuda.empty_cache()
     phase_mf_blocked(dev, train, test, "Netflix-shaped, frequency "
                      "regularization", "frequency_regularization=true")
@@ -2666,14 +3219,18 @@ def main() -> int:
         max_abs_err=max(bpr_serving["max_abs_err"],
                         wrmf_serving["max_abs_err"]),
         bound_by=bpr_serving["bound_by"])
-    del model
     torch.cuda.empty_cache()
     phase_knn_path(dev, feedback, test_items)
-    del feedback, test_items
     phase_rating_knn_path(dev, train, test)
-    del train, test
     torch.cuda.empty_cache()
     log(f"WRMF and KNN paths: {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_incremental(dev, train, test,
+                          (bpr_model, bpr_feedback, test_items),
+                          (model, feedback, test_items), svdpp_model, tmp)
+    del model, feedback, test_items, bpr_model, bpr_feedback, svdpp_model
+    del train, test
+    torch.cuda.empty_cache()
     # the published ml-25m catalog (GroupLens' README): 162,541 users,
     # 62,423 movies, 25,000,095 ratings
     train, test = shaped_ratings("MovieLens-25M-shaped", num_users=162_541,

@@ -8,10 +8,10 @@ standard train/evaluate path, ``--test-ratio``, ``--test-users``,
 ``--num-test-users``, the candidate-item flags, ``--predict-items-number``,
 ``--repeated-items``, ``--prediction-file``, ``--user-prediction``
 (users recommended for items), ``--save-model`` / ``--load-model``,
-``--find-iter`` and ``--cross-validation=K`` (with ``--find-iter``: the
-folds iterated in lockstep). The flags whose protocols are not ported
-yet (``--online-evaluation``, ``--profile``) abort with "not yet
-ported".
+``--find-iter``, ``--cross-validation=K`` (with ``--find-iter``: the
+folds iterated in lockstep) and ``--online-evaluation`` (the per-user
+prequential protocol of ``eval/online.py``, also under
+``--find-iter``). ``--profile`` aborts with "not yet ported".
 
     python -m mymedialite_tpu_torch.cli.item_recommendation \\
         --training-file train.tsv --test-file test.tsv \\
@@ -35,6 +35,7 @@ from mymedialite_tpu_torch.data.statistics import posonly_statistics
 from mymedialite_tpu_torch.eval.crossval import (
     crossvalidate_items, iterative_crossvalidate_items,
 )
+from mymedialite_tpu_torch.eval.online import evaluate_items_online
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
 from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
@@ -114,10 +115,8 @@ def write_predictions(recommender, training, path, user_mapping, item_mapping,
 
 
 def _reject_unported(args):
-    for flag, on in (("--online-evaluation", args.online_evaluation),
-                     ("--profile", args.profile is not None)):
-        if on:
-            common.abort(f"{flag} {_NOT_PORTED}.")
+    if args.profile is not None:
+        common.abort(f"--profile {_NOT_PORTED}.")
 
 
 def main(argv=None):
@@ -248,6 +247,11 @@ def main(argv=None):
             recommender.feedback = training_data
 
     def evaluate():
+        if args.online_evaluation:
+            return evaluate_items_online(
+                recommender, test_data, training_data, test_users=test_users,
+                candidate_items=explicit_candidates,
+                candidate_item_mode=candidate_mode(args))
         return evaluate_items(
             recommender, test_data, training_data, test_users=test_users,
             candidate_items=explicit_candidates,

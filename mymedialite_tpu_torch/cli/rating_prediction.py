@@ -8,9 +8,9 @@ the standard train/evaluate path, ``--test-ratio``,
 ``--chronological-split``, ``--save-model`` / ``--load-model``,
 ``--prediction-file``, ``--compute-fit``, ``--find-iter``,
 ``--cross-validation=K`` (with ``--find-iter``: the folds iterated in
-lockstep) and ``--search-hp`` (the Nelder-Mead search of
-``hyperopt.py``). The flags whose protocols are not ported yet
-(``--online-evaluation``, ``--profile``) abort with "not yet ported".
+lockstep), ``--search-hp`` (the Nelder-Mead search of ``hyperopt.py``)
+and ``--online-evaluation`` (the prequential protocol of
+``eval/online.py``). ``--profile`` aborts with "not yet ported".
 
     python -m mymedialite_tpu_torch.cli.rating_prediction \\
         --training-file train.tsv --test-file test.tsv \\
@@ -37,6 +37,7 @@ from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.crossval import (
     crossvalidate_ratings, iterative_crossvalidate_ratings,
 )
+from mymedialite_tpu_torch.eval.online import evaluate_ratings_online
 from mymedialite_tpu_torch.eval.rating import compute_fit, evaluate_ratings
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
@@ -94,10 +95,8 @@ def write_predictions(recommender, test, path, user_mapping, item_mapping,
 
 
 def _reject_unported(args):
-    for flag, on in (("--online-evaluation", args.online_evaluation),
-                     ("--profile", args.profile is not None)):
-        if on:
-            common.abort(f"{flag} {_NOT_PORTED}.")
+    if args.profile is not None:
+        common.abort(f"--profile {_NOT_PORTED}.")
 
 
 def main(argv=None):
@@ -236,9 +235,15 @@ def main(argv=None):
         _, train_seconds = timer.measure("training", recommender.train)
         print(f"training_time {common.fmt_seconds(train_seconds)} ", end="")
     if test_data is not None and not args.test_no_ratings:
-        results, eval_seconds = timer.measure(
-            "evaluation",
-            lambda: evaluate_ratings(recommender, test_data, training_data))
+        if args.online_evaluation:
+            results, eval_seconds = timer.measure(
+                "evaluation",
+                lambda: evaluate_ratings_online(recommender, test_data))
+        else:
+            results, eval_seconds = timer.measure(
+                "evaluation",
+                lambda: evaluate_ratings(recommender, test_data,
+                                         training_data))
         print(f"{show(results)} testing_time {common.fmt_seconds(eval_seconds)}",
               end="")
     if args.compute_fit:

@@ -7,9 +7,14 @@ The same interfaces as ``mymedialite_tpu/models/base.py`` (reference
 ``catalog_scorer`` hand the evaluators scorers on device tensors on the
 device that ``tables_device`` names, ``score_catalog`` and ``recommend``
 (reference ``Recommender.cs:52-103``) serve from them, ``train``,
-``save_model`` and ``load_model``. The incremental APIs
-(``add_ratings`` / ``add_feedback``, ``_retrain``, ``retrain_user``) and
-fold-in are not ported yet and raise.
+``save_model`` and ``load_model``; the incremental updates
+(``IncrementalRatingPredictor``: ``add_ratings`` and the buffered
+prequential mode of ``eval/online.py``; ``IncrementalItemRecommender``:
+``add_feedback``; reference ``IncrementalRatingPredictor.cs:24-108``,
+``IncrementalItemRecommender.cs:29-102``) and the fold-in interfaces.
+As in the JAX package, only the incremental classes have
+``add_ratings`` / ``add_feedback``: the online evaluators test for
+them with ``hasattr``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,6 @@ import torch
 from torch import nn
 
 from mymedialite_tpu_torch.utils.params import echo
-
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 
 
 class Recommender(nn.Module):
@@ -167,19 +170,135 @@ class RatingPredictor(Recommender):
             self.num_users_trained = data.num_users
             self.num_items_trained = data.num_items
 
-    # incremental updates (reference IncrementalRatingPredictor.cs:24-108)
+
+class IncrementalRatingPredictor(RatingPredictor):
+    """Online updates for explicit feedback (reference
+    IncrementalRatingPredictor.cs:24-108; JAX ``models/base.py:171-306``).
+    ``add_ratings`` and its siblings change ``ratings`` and call the
+    model's ``_retrain`` on the touched ids."""
+
+    # Models whose _retrain reads per-entity histories through
+    # _rated_by_user/_rated_by_item (rather than self.ratings directly)
+    # run prequential eval in buffered mode: events append to host
+    # buffers and fold into the immutable dataset once at the end.
+    SUPPORTS_ONLINE_BUFFER = False
+    # Prediction for (u, i) reads only u's and i's rows: the online
+    # evaluator batches predictions between touched-row collisions.
+    ONLINE_PREDICT_ROW_LOCAL = False
+
+    def __init__(self):
+        super().__init__()
+        self.update_users = True
+        self.update_items = True
+        self._online_active = False
+
+    def begin_online_updates(self) -> bool:
+        """Enter buffered prequential-update mode (``eval/online.py``);
+        False (and the per-event path) for models whose ``_retrain``
+        reads the whole dataset."""
+        if not self.SUPPORTS_ONLINE_BUFFER:
+            return False
+        self._online_user_hist = {}
+        self._online_item_hist = {}
+        self._online_events = ([], [], [])
+        self._online_active = True
+        return True
+
+    def end_online_updates(self) -> None:
+        """Fold the buffered events into the dataset (one array rebuild)."""
+        if not self._online_active:
+            return
+        self._online_active = False
+        ue, ie, ve = self._online_events
+        if ue:
+            self.ratings = self.ratings.add(ue, ie, ve)
+        self._online_user_hist = None
+        self._online_item_hist = None
+        self._online_events = None
+        self._online_flush()
+
+    def _online_flush(self) -> None:
+        """Hook: drop the epoch state built on the dataset before the
+        buffered events folded in."""
+
+    def _history(self, csr, other, k: int, buffers):
+        data = self.ratings
+        if 0 <= k < csr.indptr.size - 1:
+            idx = csr.segment(k)
+            ids, vals = other[idx], data.values[idx]
+        else:
+            ids = np.array([], dtype=np.int32)
+            vals = np.array([], dtype=np.float32)
+        if self._online_active:
+            hist = buffers.get(k)
+            if hist:
+                ids = np.concatenate([ids, np.asarray(hist[0], np.int32)])
+                vals = np.concatenate([vals, np.asarray(hist[1],
+                                                        np.float32)])
+        return ids, vals
+
+    def _rated_by_user(self, u: int):
+        """(items, values) rated by u: the dataset plus any buffered
+        online events (reference DataSet.ByUser)."""
+        data = self.ratings
+        return self._history(data.by_user, data.items, u,
+                             getattr(self, "_online_user_hist", None))
+
+    def _rated_by_item(self, i: int):
+        """(users, values) who rated i: the dataset plus buffered events."""
+        data = self.ratings
+        return self._history(data.by_item, data.users, i,
+                             getattr(self, "_online_item_hist", None))
 
     def add_ratings(self, users, items, values) -> None:
-        raise NotImplementedError(f"add_ratings is {_NOT_PORTED}")
+        if self._online_active:
+            ue, ie, ve = self._online_events
+            for u, i, v in zip(users, items, values):
+                u, i, v = int(u), int(i), float(v)
+                ue.append(u)
+                ie.append(i)
+                ve.append(v)
+                uh = self._online_user_hist.setdefault(u, ([], []))
+                uh[0].append(i)
+                uh[1].append(v)
+                ih = self._online_item_hist.setdefault(i, ([], []))
+                ih[0].append(u)
+                ih[1].append(v)
+            self._retrain(users, items)
+            return
+        self.ratings = self.ratings.add(users, items, values)
+        self._retrain(users, items)
 
     def update_ratings(self, users, items, values) -> None:
-        raise NotImplementedError(f"update_ratings is {_NOT_PORTED}")
+        self.ratings = self.ratings.update(users, items, values)
+        self._retrain(users, items)
 
     def remove_ratings(self, users, items) -> None:
-        raise NotImplementedError(f"remove_ratings is {_NOT_PORTED}")
+        data = self.ratings
+        keep = np.ones(len(data), dtype=bool)
+        for u, i in zip(users, items):
+            seg = data.by_user.segment(u)
+            keep[seg[data.items[seg] == i]] = False
+        self.ratings = data.remove_indices(np.flatnonzero(~keep))
+        self._retrain(users, items)
+
+    def add_user(self, user_id: int) -> None:
+        self.num_users_trained = max(self.num_users_trained, user_id + 1)
+
+    def add_item(self, item_id: int) -> None:
+        self.num_items_trained = max(self.num_items_trained, item_id + 1)
+
+    def remove_user(self, user_id: int) -> None:
+        self.ratings = self.ratings.remove_user(user_id)
+        self._retrain([user_id], [])
+
+    def remove_item(self, item_id: int) -> None:
+        self.ratings = self.ratings.remove_item(item_id)
+        self._retrain([], [item_id])
 
     def _retrain(self, users, items) -> None:
-        raise NotImplementedError(f"_retrain is {_NOT_PORTED}")
+        """Hook: refresh per-user/per-item state after an incremental
+        change (reference RetrainUser/RetrainItem)."""
 
 
 class ItemRecommender(Recommender):
@@ -203,33 +322,48 @@ class ItemRecommender(Recommender):
 
 class IncrementalItemRecommender(ItemRecommender):
     """Online updates for implicit feedback (reference
-    IncrementalItemRecommender.cs:29-102); not ported yet."""
+    IncrementalItemRecommender.cs:29-102)."""
 
+    # reference IncrementalItemRecommender.cs:32-35: the C# defaults
+    # (false); models override them (BPRMF.cs:116)
     update_users = False
     update_items = False
 
     def add_feedback(self, users, items) -> None:
-        raise NotImplementedError(f"add_feedback is {_NOT_PORTED}")
+        self.feedback = self.feedback.add(users, items)
+        self._retrain(users, items)
 
     def remove_feedback(self, users, items) -> None:
-        raise NotImplementedError(f"remove_feedback is {_NOT_PORTED}")
+        self.feedback = self.feedback.remove(users, items)
+        self._retrain(users, items)
 
     def remove_user(self, user_id: int) -> None:
-        raise NotImplementedError(f"remove_user is {_NOT_PORTED}")
+        self.feedback = self.feedback.remove_user(user_id)
+        self._retrain([user_id], [])
 
     def remove_item(self, item_id: int) -> None:
-        raise NotImplementedError(f"remove_item is {_NOT_PORTED}")
+        self.feedback = self.feedback.remove_item(item_id)
+        self._retrain([], [item_id])
 
     def _retrain(self, users, items) -> None:
-        raise NotImplementedError(f"_retrain is {_NOT_PORTED}")
+        pass
+
+
+class FoldInRatingPredictor:
+    """Reference IFoldInRatingPredictor: score candidate items for an
+    unseen user given (item_id, rating) pairs, without changing the
+    model."""
+
+    def score_items_foldin(self, rated_items, candidates):
+        raise NotImplementedError
 
 
 class FoldInItemRecommender:
-    """Reference IFoldInItemRecommender: score candidates for an unseen
-    user given the items they accessed; not ported yet."""
+    """Reference IFoldInItemRecommender: the same, given the items the
+    user accessed."""
 
     def score_items_foldin(self, accessed_items, candidates):
-        raise NotImplementedError(f"score_items_foldin is {_NOT_PORTED}")
+        raise NotImplementedError
 
 
 class IterativeModel:

@@ -11,9 +11,10 @@ host from ``np.random.default_rng(random_seed)`` in the JAX package's
 order, so its predictions are equal, not merely alike. The model files
 are the JAX package's text.
 
-The incremental updates (``_retrain``, ``retrain_user``,
-``retrain_item``; JAX ``baselines.py:230-285``) are not ported yet and
-raise, as MF's do (ROADMAP A5).
+Every model is an ``IncrementalRatingPredictor``: the averages
+recompute on ``_retrain`` and UserItemBaseline refreshes the touched
+biases (``retrain_user`` / ``retrain_item``, JAX
+``baselines.py:230-285``), summing in float64 on the device.
 """
 
 from __future__ import annotations
@@ -24,10 +25,9 @@ import torch
 from mymedialite_tpu_torch.device import resolve_device
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.models.base import (
-    IterativeModel, RatingPredictor, pairs_catalog_scorer,
+    IncrementalRatingPredictor, IterativeModel, RatingPredictor,
+    pairs_catalog_scorer,
 )
-
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 
 
 def _f32(x) -> torch.Tensor:
@@ -36,7 +36,7 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(np.float32(x))
 
 
-class _DeviceRatingPredictor(RatingPredictor):
+class _DeviceRatingPredictor(IncrementalRatingPredictor):
     """Shared plumbing: ``device``, predictions through ``pair_scorer``,
     catalog scores from the pair scorer over every item."""
 
@@ -76,12 +76,6 @@ class _DeviceRatingPredictor(RatingPredictor):
     def can_predict(self, user_id, item_id):
         return True
 
-    def retrain_user(self, user_id):
-        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
-
-    def retrain_item(self, item_id):
-        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")
-
 
 class GlobalAverage(_DeviceRatingPredictor):
     """Predicts the global rating average (reference GlobalAverage.cs)."""
@@ -91,6 +85,9 @@ class GlobalAverage(_DeviceRatingPredictor):
         self.global_average = 0.0
 
     def train(self):
+        self.global_average = self.ratings.average
+
+    def _retrain(self, users, items):
         self.global_average = self.ratings.average
 
     def _predict_pairs(self, users, items):
@@ -131,6 +128,9 @@ class _EntityAverage(_DeviceRatingPredictor):
             counts > 0, sums / counts.clamp(min=1).double(),
             torch.tensor(self.global_average, dtype=torch.float64)
         ).float()
+
+    def _retrain(self, users, items):
+        self.train()
 
     def _predict_pairs(self, users, items):
         ids = users if self.ENTITY == "user" else items
@@ -228,12 +228,14 @@ class UserItemBaseline(_DeviceRatingPredictor, IterativeModel):
     """Koren's mu + b_u + b_i baseline, alternating closed-form updates with
     regularization (reference UserItemBaseline.cs:28-140; RegU=15, RegI=10,
     NumIter=10). Each half-step is one ``index_add_`` of the residuals
-    in float64 on the model's device. The JAX package's
-    ``retrain_item`` subtracts the user biases where the C# code does
-    not (ROADMAP §C); it waits, with the rest of the incremental API,
-    for ROADMAP A5."""
+    in float64 on the model's device."""
 
     HYPERPARAMS = {"reg_u": float, "reg_i": float, "num_iter": int}
+
+    # prediction reads only (b_u, b_i); the retrains read the histories
+    # through _rated_by_*: buffered prequential mode works
+    SUPPORTS_ONLINE_BUFFER = True
+    ONLINE_PREDICT_ROW_LOCAL = True
 
     def __init__(self):
         super().__init__()
@@ -310,6 +312,69 @@ class UserItemBaseline(_DeviceRatingPredictor, IterativeModel):
             u = users.clamp(0, max(bu.shape[0] - 1, 0))
             return ((gavg + bu[u][:, None]) + bi[None, :]).clamp(lo, hi)
         return score
+
+    def _refresh_bias(self, own, other, k, ids, vals, reg):
+        """own[k] = (own[k] + sum(r - mu - other[j])) / (reg + n) over the
+        history (ids, vals), the sum in float64 on the device; ids outside
+        ``other`` count a zero bias."""
+        if ids.size == 0:
+            return
+        dev = own.device
+        ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
+        vals = torch.from_numpy(vals.astype(np.float32)).to(dev)
+        n = other.shape[0]
+        ok = (ids >= 0) & (ids < n)
+        b = torch.where(ok, other[ids.clamp(0, max(n - 1, 0))],
+                        torch.zeros((), dtype=torch.float32, device=dev)) \
+            if n else torch.zeros_like(vals)
+        resid = vals - _f32(self.global_average).to(dev) - b
+        s = own[k].double() + resid.double().sum()
+        own[k] = (s / (reg + ids.numel())).float()
+
+    def retrain_user(self, user_id):
+        """Refresh b_u from the user's history (reference
+        UserItemBaseline.cs:151-160): the previous b_u joins the sum
+        before the division, as in the reference."""
+        if not self.update_users or not (
+                0 <= user_id < self.user_biases.shape[0]):
+            return
+        items, vals = self._rated_by_user(user_id)
+        self._refresh_bias(self.user_biases, self.item_biases, user_id,
+                           items, vals, self.reg_u)
+
+    def retrain_item(self, item_id):
+        """Refresh b_i (reference UserItemBaseline.cs:163-172). Copied on
+        purpose from the JAX package: the residuals subtract the user
+        biases, which the C# RetrainItem does not (ROADMAP §C)."""
+        if not self.update_items or not (
+                0 <= item_id < self.item_biases.shape[0]):
+            return
+        users, vals = self._rated_by_item(item_id)
+        self._refresh_bias(self.item_biases, self.user_biases, item_id,
+                           users, vals, self.reg_i)
+
+    def _grow(self, num_users, num_items):
+        """Zero-extend the biases (reference AddUser / AddItem)."""
+        def grow(t, n):
+            if n <= t.shape[0]:
+                return t
+            return torch.cat([t, t.new_zeros(n - t.shape[0])])
+        self.user_biases = grow(self.user_biases, num_users)
+        self.item_biases = grow(self.item_biases, num_items)
+
+    def _retrain(self, users, items):
+        """The touched biases only, users first, then items (reference
+        UserItemBaseline.cs:175-182). Copied on purpose from the JAX
+        package: an id that occurs twice in one batch is refreshed twice,
+        each time folding its previous value into the sum (ROADMAP §C)."""
+        if self.user_biases.numel() == 0:
+            return
+        self._grow(max((int(u) for u in users), default=-1) + 1,
+                   max((int(i) for i in items), default=-1) + 1)
+        for u in users:
+            self.retrain_user(int(u))
+        for i in items:
+            self.retrain_item(int(i))
 
     def save_model(self, path):
         with ModelWriter(path, type(self).__name__, "2.99") as w:

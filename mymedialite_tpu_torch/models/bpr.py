@@ -22,8 +22,17 @@ and fold back into ``params`` when it is read.
 
 Everything computes in float32; ``mxu_dtype`` is accepted so that the
 JAX package's option strings configure the port, and has no effect;
-``batch_size`` sizes the minibatch epoch's batches. ``MultiCoreBPRMF``,
-the incremental API and fold-in are not ported yet.
+``batch_size`` sizes the minibatch epoch's batches.
+
+Online updates (``add_feedback``, reference BPRMF.cs:391-422; JAX
+``bpr.py:579-720``) grow the tables (new rows N(init_mean, init_stdev)
+from the model's generator, new item biases 0), rebuild the sampling
+state on the device from the new feedback (one sort), drop the chunk
+plan and refresh the touched users: a fresh row, then one pairwise step
+over |I_u| triples whose positives and negatives are drawn from that
+state, never from a host CSR of every event. ``score_items_foldin``
+learns a vector for an unseen user without changing the model.
+``MultiCoreBPRMF`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
-from mymedialite_tpu_torch.device import resolve_device
+from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.models.base import (
     FoldInItemRecommender, IncrementalItemRecommender, IterativeModel,
 )
@@ -46,7 +55,6 @@ from mymedialite_tpu_torch.ops.plan import (
     default_slab_blocks, fused_width, select_schedule,
 )
 
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
 # unknown users and items score float.MinValue (reference MF.Predict)
 _UNKNOWN = -np.float32(3.4e38)
 
@@ -221,6 +229,19 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
     def _loaded(self):
         """Hook: drop the training state of the previous tables."""
 
+    def _generator(self):
+        """The model's generator on the tables' device (a loaded model
+        seeds one from ``random_seed``)."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.tables_device())
+            self._gen.manual_seed(self.random_seed)
+        return self._gen
+
+    def _normal_rows(self, n: int) -> torch.Tensor:
+        return self.init_mean + self.init_stdev * torch.randn(
+            (n, self.num_factors), generator=self._generator(),
+            device=self.tables_device())
+
 
 class BPRMF(ItemMF, FoldInItemRecommender):
     """Bayesian Personalized Ranking MF (reference BPRMF.cs:73-553): SGD
@@ -244,6 +265,10 @@ class BPRMF(ItemMF, FoldInItemRecommender):
 
     HAS_ITEM_BIAS = True
     SOFT_MARGIN = False
+    # online updates refresh the users, not the items (reference BPRMF
+    # ctor)
+    update_users = True
+    update_items = False
     # WBPR popularity negatives (WeightedBPRMF): the negative block is
     # drawn by popularity mass and the local slot by inverse CDF
     MXU_POPULARITY = False
@@ -264,6 +289,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._plan = None
         self._tiled = None
         self._sampler = None        # the minibatch route's sampling state
+        self._sampling = None       # (sampler, meta) of the feedback
         self._epoch_counter = 0
 
     def _regime(self) -> int:
@@ -297,26 +323,37 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         the sampling state stays for the minibatch epoch, else the chunk
         plan is built at the next iterate()."""
         f = self.feedback
-        dev = resolve_device(self.device)
-        if self._gen is None:
-            self._gen = torch.Generator(device=dev)
-            self._gen.manual_seed(self.random_seed)
         n = int(math.isqrt(max(f.num_users - 1, 1))) * 100
+        sampler, meta = self._build_sampling()
+        self._loss_sample = bpr_ops.sample_triples(
+            self._generator(), sampler, meta, max(n, 1),
+            bpr_ops.UNIFORM_USER)[:3]
+
+    def _build_sampling(self):
+        """The sampling state of the current feedback, on the device
+        (``make_sampler_data``: one sort of the user * num_items + item
+        keys); drops the chunk plan and the fused rows, so that the next
+        iterate() plans on this feedback. Past the tiled bound the state
+        also feeds the minibatch epoch."""
+        f = self.feedback
+        dev = self.tables_device()
         sampler, meta = bpr_ops.make_sampler_data(f, self.num_neg_trials,
                                                   device=dev)
-        self._loss_sample = bpr_ops.sample_triples(
-            self._gen, sampler, meta, max(n, 1), bpr_ops.UNIFORM_USER)[:3]
+        self._sampling = (sampler, meta)
         self._plan = None
+        self._fused = None
         self._sampler = None
         if select_schedule(f.num_items, self.num_factors) == "minibatch":
             pop = (bpr_ops.popularity_cdf(f.count_by_item, dev)
                    if self.MXU_POPULARITY else None)
             self._sampler = (sampler, meta, pop)
+        return sampler, meta
 
     def _loaded(self):
         self._loss_sample = None
         self._plan = None
         self._sampler = None
+        self._sampling = None
         self._epoch_counter = 0
 
     def _ensure_epoch_ready(self):
@@ -329,11 +366,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
             raise RuntimeError(
                 f"{type(self).__name__}: no feedback set; assign "
                 ".feedback before iterating a loaded model")
-        p = self.params
-        if (p["user_factors"].shape[0] != self.feedback.num_users
-                or p["item_factors"].shape[0] != self.feedback.num_items):
-            raise NotImplementedError(
-                f"growing the tables to new users or items is {_NOT_PORTED}")
+        self._grow_tables()
         self._build_epoch_state()
 
     def _prepare_plan(self):
@@ -458,13 +491,158 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         with torch.no_grad():
             return float(bpr_objective(self.params, self._hp(), u, i, j))
 
-    # --- incremental updates: not ported yet ---
+    # --- incremental updates (reference BPRMF.cs:391-422) ---
+
+    def _grow_tables(self):
+        """Rows for users and items the feedback has and the tables lack:
+        N(init_mean, init_stdev) factors from the model's generator, item
+        biases 0 (JAX ``_grow_tables``)."""
+        f = self.feedback
+        p = self.params
+        grow_u = f.num_users - p["user_factors"].shape[0]
+        grow_i = f.num_items - p["item_factors"].shape[0]
+        if grow_u > 0:
+            p["user_factors"] = torch.cat([p["user_factors"],
+                                           self._normal_rows(grow_u)])
+        if grow_i > 0:
+            p["item_factors"] = torch.cat([p["item_factors"],
+                                           self._normal_rows(grow_i)])
+            p["item_bias"] = torch.cat([p["item_bias"],
+                                        p["item_bias"].new_zeros(grow_i)])
+        self._fused = None
+        self.num_users_trained = max(self.num_users_trained, f.num_users)
+        self.num_items_trained = max(self.num_items_trained, f.num_items)
+
+    def _retrain(self, users, items):
+        """Grow the tables, rebuild the sampling state from the current
+        feedback, drop the chunk plan, then refresh the touched users
+        (and items, with ``update_items``)."""
+        if self._params is None and self._mxu_tables is None:
+            return
+        self._ensure_epoch_ready()  # a loaded model: build the state first
+        self._grow_tables()
+        self._build_sampling()
+        with torch.no_grad():
+            if self.update_users:
+                for u in np.unique(np.asarray(users, dtype=np.int64)):
+                    self.retrain_user(int(u))
+            if self.update_items:
+                for i in np.unique(np.asarray(items, dtype=np.int64)):
+                    self.retrain_item(int(i))
 
     def retrain_user(self, user_id):
-        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
+        """A fresh row, then one pairwise step over |I_u| triples:
+        positives drawn from I_u, the first of ``num_neg_trials`` uniform
+        candidates outside it as negatives (a triple without one weighs
+        0); only the user row moves (reference RetrainUser,
+        BPRMF.cs:391-403). I_u is the user's slice of the sampling
+        state's sorted keys, duplicates kept."""
+        p = self.params
+        p["user_factors"][user_id] = self._normal_rows(1)[0]
+        sampler, meta = self._sampling
+        lo, hi = sampler["indptr"][user_id:user_id + 2].tolist()
+        n = hi - lo
+        if n == 0:
+            return
+        gen, dev = self._generator(), p["user_factors"].device
+        items_u = sampler["hist_items"][lo:hi]
+        pos = items_u[torch.randint(0, n, (n,), generator=gen, device=dev)]
+        users = torch.full((n,), user_id, dtype=torch.int64, device=dev)
+        cand = bpr_ops.negative_candidates(gen, meta["num_items"],
+                                           meta["num_neg_trials"], n, dev)
+        neg, ok = bpr_ops.first_negatives(sampler, users, cand,
+                                          meta["num_items"])
+        bpr_ops.bpr_step(p, users, pos, neg, ok, self._hp(), update_i=False,
+                         update_j=False)
 
     def retrain_item(self, item_id):
-        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")
+        """A fresh item row, then pairwise steps over
+        max(|events| / |items|, 1) triples of sampled users: item_id is
+        the positive where the user has it (its row moves as i), else
+        the negative against a sampled one (its row moves as j)
+        (reference RetrainItem, BPRMF.cs:405-422)."""
+        p = self.params
+        p["item_factors"][item_id] = self._normal_rows(1)[0]
+        sampler, meta = self._sampling
+        gen, dev = self._generator(), p["user_factors"].device
+        n = max(meta["num_events"] // max(meta["num_items"], 1), 1)
+        valid = sampler["valid_users"]
+        users = valid[torch.randint(0, valid.numel(), (n,), generator=gen,
+                                    device=dev)]
+        this = torch.full((n,), item_id, dtype=torch.int64, device=dev)
+        is_pos = bpr_ops.segment_contains(sampler, users, this,
+                                          meta["num_items"])
+        cand = bpr_ops.negative_candidates(gen, meta["num_items"],
+                                           meta["num_neg_trials"], n, dev)
+        other, ok = bpr_ops.first_negatives(sampler, users, cand,
+                                            meta["num_items"])
+        pos = torch.where(is_pos, this, other)
+        neg = torch.where(is_pos, other, this)
+        w = ok.to(torch.float32)
+        hp = self._hp()
+        bpr_ops.bpr_step(p, users, pos, neg, w * is_pos, hp, update_u=False,
+                         update_j=False)
+        bpr_ops.bpr_step(p, users, pos, neg, w * ~is_pos, hp, update_u=False,
+                         update_i=False, update_j=True)
+
+    # --- fold-in (reference BPRMF.cs:497-542) ---
+
+    def foldin_draws(self, accessed_items):
+        """The draws of one fold-in: (start vector [f] on the device,
+        positives and negatives [num_iter, |I|] numpy), the vector from
+        the model's generator, the ids from a numpy generator seeded from
+        it: each iteration |I| positives from the distinct accessed items
+        and |I| negatives from the other items (the positives again when
+        there are none)."""
+        pos_set = np.unique(np.asarray(list(accessed_items), dtype=np.int32))
+        I = self.params["item_factors"].shape[0]
+        vec = self._normal_rows(1)[0]
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._generator(),
+                                 device=vec.device).item())
+        rng = np.random.default_rng(seed)
+        neg_pool = np.setdiff1d(np.arange(I, dtype=np.int32), pos_set)
+        pos, neg = [], []
+        for _ in range(self.num_iter):
+            p = rng.choice(pos_set, size=pos_set.size)
+            pos.append(p)
+            neg.append(rng.choice(neg_pool, size=pos_set.size)
+                       if neg_pool.size else p)
+        return vec, np.stack(pos), np.stack(neg)
+
+    def foldin_vector(self, vec, pos, neg):
+        """The fold-in loop on given draws: per iteration one BPR step of
+        the user vector over the drawn (positive, negative) pairs, the
+        item side frozen, ``reg_u`` times |I| (JAX
+        ``score_items_foldin``)."""
+        p = self.params
+        H, bias = p["item_factors"], p["item_bias"]
+        dev = H.device
+        n = pos.shape[1]
+        with torch.no_grad(), exact_float32():
+            for it in range(pos.shape[0]):
+                pi = torch.from_numpy(pos[it].astype(np.int64)).to(dev)
+                nj = torch.from_numpy(neg[it].astype(np.int64)).to(dev)
+                hi, hj = H[pi], H[nj]
+                x = bias[pi] - bias[nj] + (hi - hj) @ vec
+                g = torch.sigmoid(-x)
+                vec = vec + self.learn_rate * (
+                    (g[:, None] * (hi - hj)).sum(dim=0)
+                    - self.reg_u * vec * n)
+        return vec
+
+    def score_items_foldin(self, accessed_items, candidates):
+        """Scores of ``candidates`` for an unseen user who accessed
+        ``accessed_items``: ``foldin_vector`` on ``foldin_draws``, then
+        the item bias plus the product; the model does not change."""
+        vec = self.foldin_vector(*self.foldin_draws(accessed_items))
+        p = self.params
+        cand = torch.as_tensor(list(candidates), dtype=torch.int64,
+                               device=vec.device)
+        with torch.no_grad(), exact_float32():
+            scores = p["item_bias"][cand] + p["item_factors"][cand] @ vec
+        return [(int(c), float(s)) for c, s in
+                zip(cand.tolist(), scores.cpu().numpy())]
 
 
 class WeightedBPRMF(BPRMF):

@@ -30,7 +30,8 @@ than K co-raters qualify, the JAX package takes an arbitrary K among
 equal weights at the boundary (``np.argpartition``); the port takes the
 smaller entity id there (ROADMAP §C, a deliberate deviation).
 
-The incremental API is not ported yet (ROADMAP A5).
+An online update (``add_ratings`` / ``add_feedback``) retrains the
+whole model, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ import torch
 from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.models.base import (
-    IncrementalItemRecommender, RatingPredictor, pairs_catalog_scorer,
+    IncrementalItemRecommender, IncrementalRatingPredictor,
+    pairs_catalog_scorer,
 )
 from mymedialite_tpu_torch.models.baselines import UserItemBaseline
 from mymedialite_tpu_torch.ops import correlation as corr_ops
@@ -388,6 +390,11 @@ class _ImplicitKNN(IncrementalItemRecommender, _CorrelationStore):
             out[ok] = scores[inv, i[ok]]
         return out.cpu().numpy()
 
+    def _retrain(self, users, items):
+        """A full retrain on the current data (JAX ``_retrain``)."""
+        if self.corr is not None or self.nbr_ids is not None:
+            self.train()
+
     # correlation matrices round-trip in the reference text format
     # (reference ItemRecommendation/KNN.cs:118-160); top-k mode stores
     # the neighbour lists instead
@@ -473,7 +480,7 @@ class ItemAttributeKNN(_ImplicitKNN, _ItemSimilarityProvider):
 # rating-prediction KNN (reference RatingPrediction/KNN.cs)
 # ---------------------------------------------------------------------------
 
-class _RatingKNN(RatingPredictor, _CorrelationStore):
+class _RatingKNN(IncrementalRatingPredictor, _CorrelationStore):
     HYPERPARAMS = {
         "k": int,
         "correlation": RatingCorrelationType,
@@ -700,6 +707,11 @@ class _RatingKNN(RatingPredictor, _CorrelationStore):
 
     def can_predict(self, user_id, item_id):
         return True
+
+    def _retrain(self, users, items):
+        """A full retrain on the current data (JAX ``_retrain``)."""
+        if self.corr is not None or self.nbr_ids is not None:
+            self.train()
 
     def save_model(self, path):
         self.baseline.ratings = self.ratings

@@ -28,6 +28,17 @@ rounding it selects there is a TPU idiom and has no effect here. The
 and unused; ``group_users`` sets the std layout's user padding, as in
 the JAX package, and with ``batch_size`` the blocked epoch's groups and
 minibatches.
+
+Online updates (``add_ratings`` and its siblings, reference
+MatrixFactorization.cs:142-160, 262-352; JAX ``mf.py:599-848``) refresh
+only the touched rows: a fresh N(init_mean, init_stdev) row from the
+model's own ``torch.Generator``, then ``num_iter`` gradient steps over
+the entity's whole history against the frozen other side
+(``learn_row``). They drop the epoch state (the chunk plan, the blocked
+layout, the kernel-layout tables after folding them back), so that the
+next ``iterate()`` plans on the grown ratings. Fold-in
+(``score_items_foldin``) learns a row for an unseen user the same way
+and changes nothing.
 """
 
 from __future__ import annotations
@@ -39,13 +50,17 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
-from mymedialite_tpu_torch.device import resolve_device
-from mymedialite_tpu_torch.models.base import IterativeModel, RatingPredictor
+from mymedialite_tpu_torch.device import exact_float32, resolve_device
+from mymedialite_tpu_torch.models.base import (
+    FoldInRatingPredictor, IncrementalRatingPredictor, IterativeModel,
+)
 from mymedialite_tpu_torch.ops import plan as mxu
 from mymedialite_tpu_torch.ops import sgd
 from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
 
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
+# the fresh rows of the online updates come from a generator seeded
+# with random_seed + _ROW_SEED_OFFSET (not the init draws' stream)
+_ROW_SEED_OFFSET = 1
 
 
 class OptimizationTarget(enum.Enum):
@@ -62,7 +77,52 @@ _LOSS_ID = {
 }
 
 
-class MatrixFactorization(RatingPredictor, IterativeModel):
+def row_rates(fe: int, learn_rate, reg, bias_lr, bias_reg, *, biased: bool,
+              frozen_col: int, bias_col: int, device="cpu"):
+    """(lr_vec, reg_vec) [fe] float32 of a row refresh: learn_rate and
+    reg on the factor columns, bias_lr * learn_rate and bias_reg * reg
+    on the bias column (0 for the plain model), 0 on the frozen column
+    of 1s (JAX ``_learn_row_body``; the products in float32, as there)."""
+    f32 = np.float32
+    lr_vec = np.full(fe, f32(learn_rate), np.float32)
+    reg_vec = np.full(fe, f32(reg), np.float32)
+    lr_vec[frozen_col] = reg_vec[frozen_col] = 0.0
+    lr_vec[bias_col] = f32(bias_lr) * f32(learn_rate) if biased else 0.0
+    reg_vec[bias_col] = f32(bias_reg) * f32(reg) if biased else 0.0
+    return (torch.from_numpy(lr_vec).to(device),
+            torch.from_numpy(reg_vec).to(device))
+
+
+def learn_row(row, other_rows, values, lr_vec, reg_vec, global_bias,
+              min_rating, rating_range, *, num_iter: int, decay: float,
+              biased: bool, loss: int):
+    """``num_iter`` full-history gradient steps of one fused row against
+    the frozen rows ``other_rows`` [L, fe] it was rated with (``values``
+    [L]): the per-example error of the plain (raw score) or the biased
+    (sigmoid, ``loss``) model, summed over the history, minus
+    ``L * reg_vec * row``, times ``lr_vec``, the rate decaying by
+    ``decay`` a step (JAX ``_learn_row_body``; reference LearnFactors on
+    the ByUser / ByItem lists, MatrixFactorization.cs:142-160). Products
+    in float32 without TF32."""
+    n_real = float(values.numel())
+    lr_scale = 1.0
+    with exact_float32():
+        for _ in range(num_iter):
+            score = other_rows @ row
+            if biased:
+                sig = torch.sigmoid(score + global_bias)
+                err = values - (min_rating + sig * rating_range)
+                g = sgd.gradient_common(loss, err, sig, rating_range)
+            else:
+                g = values - (score + global_bias)
+            grad = g @ other_rows - n_real * reg_vec * row
+            row = row + lr_scale * lr_vec * grad
+            lr_scale *= decay
+    return row
+
+
+class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
+                          FoldInRatingPredictor):
     """Plain MF: prediction = global_bias + <w_u, h_i>, clamped to the
     rating scale (reference MatrixFactorization.cs:50-217)."""
 
@@ -84,6 +144,11 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
 
     BIASED = False
     BOUND = "clip"
+    # the retrains read the histories through _rated_by_user / _item and
+    # prediction touches only rows (u, i): buffered prequential eval and
+    # chunked predictions are exact (eval/online.py)
+    SUPPORTS_ONLINE_BUFFER = True
+    ONLINE_PREDICT_ROW_LOCAL = True
 
     def __init__(self):
         super().__init__()
@@ -110,6 +175,8 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         self._new_of_old = None
         self._blocked = None        # (data, meta, freq) of the blocked route
         self._order_gen = None      # draws the blocked epoch's batch orders
+        self._row_gen = None        # draws the online updates' fresh rows
+        self._group_rows = None     # the user rows of a group of the layout
         self._flat_cache = None
         self._epoch_counter = 0
 
@@ -210,6 +277,7 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             self.num_users_trained = tables["num_users_trained"]
         self.current_learnrate = self.learn_rate
         self._order_gen = None
+        self._row_gen = None
         self._prepare_epoch_data()
 
     def _route(self) -> str:
@@ -242,6 +310,7 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
                     data.count_by_user, data.count_by_item,
                     meta["ngroups"] * meta["group_users"], dev)
             self._blocked = (bdata, meta, freq)
+            self._group_rows = meta["group_users"]
             if self._order_gen is None:
                 self._order_gen = torch.Generator()
                 self._order_gen.manual_seed(self.random_seed)
@@ -468,13 +537,162 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
             out = self._predict_pairs(W, self.H_ext, u, i)
         return out.cpu().numpy()
 
-    # --- incremental updates: not ported yet ---
+    # --- incremental updates (reference MatrixFactorization.cs:262-320) ---
+
+    def add_user(self, user_id):
+        """Grow W_ext to cover user_id, by whole groups of the std layout
+        (JAX ``add_user``); new rows are [0 ... 0 | 0 | 1]."""
+        super().add_user(user_id)
+        W = self.W_ext
+        grow = user_id + 1 - W.shape[0]
+        if grow > 0:
+            G = self._group_rows or self.group_users
+            pad = W.new_zeros((-(-grow // G) * G, W.shape[1]))
+            pad[:, -1] = 1.0
+            self.W_ext = torch.cat([W, pad])
+
+    def add_item(self, item_id):
+        """Grow H_ext to cover item_id; new rows are [0 ... 0 | 1 | 0]."""
+        super().add_item(item_id)
+        H = self.H_ext
+        grow = item_id + 1 - H.shape[0]
+        if grow > 0:
+            pad = H.new_zeros((grow, H.shape[1]))
+            pad[:, -2] = 1.0
+            self.H_ext = torch.cat([H, pad])
+
+    def _drop_epoch_state(self):
+        """Fold the kernel-layout tables back into the std tables and drop
+        every layout built on the previous ratings (the chunk plan, the
+        blocked layout, the objective's flat copy): the next iterate()
+        plans on the current ratings."""
+        self._sync_std_tables()
+        self._plan = None
+        self._blocked = None
+        self._flat_cache = None
+
+    def _retrain(self, users, items):
+        """Refresh the touched rows only, users first (reference
+        AddRatings, MatrixFactorization.cs:262-279)."""
+        if self._W_ext is None and self._mxu_tables is None:
+            return
+        self._drop_epoch_state()
+        for u in np.unique(np.asarray(users, dtype=np.int64)):
+            self.add_user(int(u))
+            if self.update_users:
+                self.retrain_user(int(u))
+        for i in np.unique(np.asarray(items, dtype=np.int64)):
+            self.add_item(int(i))
+            if self.update_items:
+                self.retrain_item(int(i))
+
+    def _online_flush(self):
+        self._drop_epoch_state()
+
+    def _fresh_row(self, frozen_col: int):
+        """N(init_mean, init_stdev) factors, zero biases and the frozen
+        column at 1, on the tables' device."""
+        dev = self._W_ext.device
+        if self._row_gen is None:
+            self._row_gen = torch.Generator(device=dev)
+            self._row_gen.manual_seed(self.random_seed + _ROW_SEED_OFFSET)
+        f = self.num_factors
+        row = torch.zeros(f + 2, dtype=torch.float32, device=dev)
+        row[:f] = self.init_mean + self.init_stdev * torch.randn(
+            f, generator=self._row_gen, device=dev)
+        row[frozen_col] = 1.0
+        return row
+
+    def _row_args(self, side: str, reg):
+        """(frozen_col, lr_vec, reg_vec, hp) of a refresh of a user
+        ("user") or item row, at the model's learn_rate (not the decayed
+        current rate, as in the JAX package)."""
+        fe = self.num_factors + 2
+        frozen, bias = (fe - 1, fe - 2) if side == "user" else (fe - 2, fe - 1)
+        lr_vec, reg_vec = row_rates(
+            fe, self.learn_rate, reg, getattr(self, "bias_learn_rate", 1.0),
+            getattr(self, "bias_reg", 0.0), biased=self.BIASED,
+            frozen_col=frozen, bias_col=bias, device=self._W_ext.device)
+        hp = (float(np.float32(self.global_bias)),
+              float(np.float32(self.min_rating)),
+              float(np.float32(self._rating_range())))
+        return frozen, lr_vec, reg_vec, hp
+
+    def _learn(self, row, other, ids, values, lr_vec, reg_vec, hp):
+        """``learn_row`` over the history (ids, values) against ``other``.
+        An id past ``other`` reads its last row, as the JAX package's
+        gather clamps (a user refreshed in the same batch as a new item
+        it rated, before the item's row exists; ROADMAP §C)."""
+        dev = other.device
+        idx = torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(dev)
+        vals = torch.from_numpy(np.asarray(values, dtype=np.float32)).to(dev)
+        rows = other[idx.clamp(0, other.shape[0] - 1)]
+        return learn_row(row, rows, vals, lr_vec, reg_vec, *hp,
+                         num_iter=self.num_iter, decay=self.learn_rate_decay,
+                         biased=self.BIASED, loss=self.loss_id)
+
+    def refresh_row(self, side: str, row_id: int):
+        """Re-learn one user ("user") or item row from a fresh start row
+        over its whole history, the other side frozen, and write it back
+        (reference RetrainUser / RetrainItem,
+        MatrixFactorization.cs:142-160)."""
+        W, H = self.W_ext, self.H_ext
+        if side == "user":
+            own, other = W, H
+            ids, vals = self._rated_by_user(row_id)
+            reg = self.reg_u
+        else:
+            own, other = H, W
+            ids, vals = self._rated_by_item(row_id)
+            reg = self.reg_i
+        frozen, lr_vec, reg_vec, hp = self._row_args(side, reg)
+        with torch.no_grad():
+            own[row_id] = self._learn(self._fresh_row(frozen), other, ids,
+                                      vals, lr_vec, reg_vec, hp)
 
     def retrain_user(self, user_id):
-        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
+        self.refresh_row("user", user_id)
 
     def retrain_item(self, item_id):
-        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")
+        self.refresh_row("item", item_id)
+
+    def _reset_row(self, table, row_id: int, one_col: int):
+        with torch.no_grad():
+            table[row_id] = 0.0
+            table[row_id, one_col] = 1.0
+
+    def remove_user(self, user_id):
+        super().remove_user(user_id)
+        self._reset_row(self.W_ext, user_id, -1)
+
+    def remove_item(self, item_id):
+        super().remove_item(item_id)
+        self._reset_row(self.H_ext, item_id, -2)
+
+    # --- fold-in (reference MatrixFactorization.cs:326-352) ---
+
+    def score_items_foldin(self, rated_items, candidates):
+        """Scores of ``candidates`` for an unseen user given (item,
+        rating) pairs: a user row learned as ``retrain_user`` learns one,
+        with ``regularization``; the model does not change."""
+        items = [i for i, _ in rated_items]
+        values = [v for _, v in rated_items]
+        H = self.H_ext
+        frozen, lr_vec, reg_vec, hp = self._row_args(
+            "user", self.regularization)
+        with torch.no_grad():
+            row = self._learn(self._fresh_row(frozen), H, items, values,
+                              lr_vec, reg_vec, hp)
+            cand = torch.as_tensor(list(candidates), dtype=torch.int64,
+                                   device=H.device)
+            score = self.global_bias + H[cand] @ row
+            if self.BOUND == "sigmoid":
+                score = self.min_rating + torch.sigmoid(score) * \
+                    self._rating_range()
+            else:
+                score = score.clamp(self.min_rating, self.max_rating)
+        return [(int(i), float(s)) for i, s in
+                zip(cand.tolist(), score.cpu().numpy())]
 
     # --- persistence (reference MatrixFactorization SaveModel/LoadModel) ---
 
@@ -506,6 +724,8 @@ class MatrixFactorization(RatingPredictor, IterativeModel):
         self.current_learnrate = self.learn_rate
         self._plan = None
         self._blocked = None
+        self._row_gen = None
+        self._group_rows = min(self.group_users, max(wu.shape[0], 1))
 
 
 class BiasedMatrixFactorization(MatrixFactorization):

@@ -49,7 +49,9 @@ PORTED_RATING_PREDICTORS = {
         "UserKNN", "ItemKNN", "UserAttributeKNN", "ItemAttributeKNN")},
 }
 PORTED_ITEM_RECOMMENDERS = {
-    "MostPopular": "mymedialite_tpu_torch.models.item_baselines:MostPopular",
+    **{name: f"mymedialite_tpu_torch.models.item_baselines:{name}" for name in (
+        "MostPopular", "Zero", "MostPopularByAttributes", "BigramRules")},
+    "Random": "mymedialite_tpu_torch.models.item_baselines:RandomItem",
     "BPRMF": "mymedialite_tpu_torch.models.bpr:BPRMF",
     "WeightedBPRMF": "mymedialite_tpu_torch.models.bpr:WeightedBPRMF",
     "SoftMarginRankingMF":

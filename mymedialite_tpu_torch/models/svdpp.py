@@ -25,7 +25,10 @@ users with ratings or feedback; ``global_bias`` is a float. The epoch
 runs on kernel-layout copies that stay resident across ``iterate()``
 calls and fold back when ``params`` is read.
 
-The incremental API is not ported yet and raises "not yet ported".
+An online update (``add_ratings``, JAX ``svdpp.py:488-509``) re-plans
+on the grown ratings, grows the tables with zero rows and runs one
+``iterate()`` on the route that ``route`` picks; the user AFM passes the
+update to its inner model with users and items swapped.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ import torch
 from mymedialite_tpu_torch.data.arrays import RatingData
 from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
-from mymedialite_tpu_torch.models.base import IterativeModel, RatingPredictor
+from mymedialite_tpu_torch.models.base import (
+    IncrementalRatingPredictor, IterativeModel, RatingPredictor,
+)
 from mymedialite_tpu_torch.models.mf import _LOSS_ID, OptimizationTarget
 from mymedialite_tpu_torch.ops import svdpp_plan as sp
 from mymedialite_tpu_torch.ops.svdpp import (
@@ -78,7 +83,7 @@ def _catalog_scorer(uf, q, user_bias, item_bias, global_bias, min_rating,
     return score
 
 
-class SVDPlusPlus(RatingPredictor, IterativeModel):
+class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
     """prediction(u,i) = mu + b_u + b_i + <q_i, p_u + |I_u|^-1/2 sum y_j>,
     clamped to the rating scale (reference SVDPlusPlus.cs:43)."""
 
@@ -474,6 +479,30 @@ class SVDPlusPlus(RatingPredictor, IterativeModel):
     def score_catalog(self, users):
         return self._scores_from_scorer(users)
 
+    def _retrain(self, users, items):
+        """Re-plan on the current ratings, grow the tables with zero rows
+        for new users and items, and run one epoch over all of them (the
+        JAX package's simplified RetrainUser)."""
+        if self._params is None and self._mxu_tables is None:
+            return
+        old = dict(self.params)
+        self._prepare_edges()
+        self._prepare_epoch()
+        U, I = self.num_users_trained, self.num_items_trained
+
+        def grow(t, n):
+            if t.shape[0] >= n:
+                return t
+            return torch.cat([t, t.new_zeros((n - t.shape[0],)
+                                             + tuple(t.shape[1:]))])
+        for k in ("user_bias", "p"):
+            if k in old:
+                old[k] = grow(old[k], U)
+        for k in ("item_bias", "item_factors", "y"):
+            old[k] = grow(old[k], I)
+        self.params = old
+        self.iterate()
+
     # --- persistence (reference SVDPlusPlus.cs:272-311) ---
 
     def save_model(self, path, model_name=None):
@@ -611,6 +640,13 @@ class SigmoidUserAsymmetricFactorModel(SigmoidSVDPlusPlus):
                                ip["item_bias"], ip["user_bias"][:nI],
                                inner.global_bias, self.min_rating,
                                self.max_rating, True)
+
+    def _retrain(self, users, items):
+        inner = getattr(self, "_inner", None)
+        if inner is None:
+            return
+        inner.ratings = self._ratings_t
+        inner._retrain(items, users)
 
     def save_model(self, path, model_name=None):
         self._inner.save_model(path, model_name or type(self).__name__)

@@ -16,9 +16,10 @@ serving (kernel 6 through ``ItemMF.fused_rows``) and the model file are
 
 ``solve_chunk`` caps the rows of one batched solve; it changes no
 result, only the number of launches (the port's default is larger than
-the JAX package's 256). The mesh form (ROADMAP A9) and the incremental
-``retrain_user``/``retrain_item``/``_retrain`` (ROADMAP A5) are not
-ported yet.
+the JAX package's 256). An online update (``add_feedback``) grows the
+tables with zero rows and re-solves only the touched rows
+(``wrmf_solve_row``); every other row stays bit-unchanged. The mesh
+form waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -27,9 +28,7 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.models.bpr import ItemMF
-from mymedialite_tpu_torch.ops.als import gram, wrmf_optimize
-
-_NOT_PORTED = "not yet ported to mymedialite_tpu_torch"
+from mymedialite_tpu_torch.ops.als import gram, wrmf_optimize, wrmf_solve_row
 
 
 class WRMF(ItemMF):
@@ -110,9 +109,9 @@ class WRMF(ItemMF):
         self._user_hist = self._item_hist = None
 
     def _ensure_epoch_ready(self):
-        """Rebuild the histories when missing, e.g. after ``load_model``,
-        so that ``iterate()`` keeps training (reference Model.Load +
-        --find-iter contract, IO/Model.cs:67-83)."""
+        """Rebuild the histories when missing, e.g. after ``load_model``
+        or an online update, so that ``iterate()`` keeps training
+        (reference Model.Load + --find-iter contract, IO/Model.cs:67-83)."""
         if self._user_hist is not None:
             return
         if self.feedback is None:
@@ -152,7 +151,34 @@ class WRMF(ItemMF):
         self.num_items_trained = max(self.num_items_trained, f.num_items)
 
     def retrain_user(self, user_id):
-        raise NotImplementedError(f"retrain_user is {_NOT_PORTED}")
+        """Re-solve only this user's row against the current item factors
+        (reference WRMF.RetrainUser, WRMF.cs:158-163)."""
+        p = self.params
+        ids = self.feedback.by_user.secondary(user_id)
+        with torch.no_grad():
+            p["user_factors"][user_id] = wrmf_solve_row(
+                p["item_factors"], ids, self.alpha, self.regularization)
 
     def retrain_item(self, item_id):
-        raise NotImplementedError(f"retrain_item is {_NOT_PORTED}")
+        """Reference WRMF.RetrainItem, WRMF.cs:165-172."""
+        p = self.params
+        ids = self.feedback.by_item.secondary(item_id)
+        with torch.no_grad():
+            p["item_factors"][item_id] = wrmf_solve_row(
+                p["user_factors"], ids, self.alpha, self.regularization)
+
+    def _retrain(self, users, items):
+        """Grow the tables, then re-solve only the touched rows; the
+        bucketed histories of iterate() are rebuilt when training
+        resumes."""
+        if self._params is None and self._mxu_tables is None:
+            return
+        self._grow_tables()
+        self._user_hist = self._item_hist = None
+        self._fused = None
+        if self.update_users:
+            for u in np.unique(np.asarray(users, dtype=np.int64)):
+                self.retrain_user(int(u))
+        if self.update_items:
+            for i in np.unique(np.asarray(items, dtype=np.int64)):
+                self.retrain_item(int(i))

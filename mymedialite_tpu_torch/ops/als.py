@@ -19,8 +19,8 @@ H100 this route is about 3x faster than a plain-torch port of the JAX
 package's unrolled Cholesky (``_batched_spd_solve``) on 480,000 systems
 of 40 x 40; ``exp_torch_als_solves.py`` times the two.
 
-``wrmf_optimize_sharded`` (the mesh form) waits for ROADMAP A9 and
-``wrmf_solve_row`` (one row, the incremental update) for A5.
+``wrmf_solve_row`` solves one row, the online update's primitive. The
+mesh form (``wrmf_optimize_sharded``) waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -86,3 +86,15 @@ def wrmf_optimize(H, hist, lens, alpha: float, reg: float, *, chunk: int,
         raise RuntimeError("wrmf_optimize: a row system is not positive "
                            "definite (cholesky_ex info != 0)")
     return W
+
+
+def wrmf_solve_row(H, ids, alpha: float, reg: float, HH=None):
+    """One row's closed-form solve against the fixed side's factors H,
+    its history the ids ``ids`` (JAX ``wrmf_solve_row``; reference
+    WRMF.RetrainUser / RetrainItem, WRMF.cs:158-172): the system of
+    ``row_systems`` and the same ``cholesky_ex`` solve."""
+    ids = torch.as_tensor(ids, dtype=torch.int64, device=H.device)
+    n = ids.numel()
+    hist = ids.reshape(1, n) if n else ids.new_zeros((1, 1))
+    lens = torch.full((1,), n, dtype=torch.int64, device=H.device)
+    return wrmf_optimize(H, hist, lens, alpha, reg, chunk=1, HH=HH)[0]

@@ -67,7 +67,9 @@ def make_sampler_data(feedback, num_neg_trials: int = 8, device="cpu"):
     num_items, num_users = feedback.num_items, feedback.num_users
 
     def dev(a):
-        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+        # int32 across (half the bytes of int64), widened on the device
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+            device).long()
     users, items = dev(feedback.users), dev(feedback.items)
     pos_keys = torch.sort(users * num_items + items).values
     counts = torch.bincount(users, minlength=num_users)
@@ -157,13 +159,16 @@ def sample_triples(generator, sampler, meta, batch_size: int, regime: int,
 
 
 def bpr_step(params, u, i, j, w, hp, *, update_j: bool,
-             soft_margin: bool = False):
+             soft_margin: bool = False, update_u: bool = True,
+             update_i: bool = True):
     """One minibatch update of the triples (u, i, j) with weights w, in
     place on params (user_factors [U, f], item_factors [I, f], item_bias
-    [I]); JAX: the body of ``bpr_epoch``. The sigmoid gradient of BPR,
-    or the hinge's (SoftMarginRankingMF.cs:52-110). As in the JAX
-    package the j bias's regularization reads the bias after the i
-    update."""
+    [I]); JAX: the body of ``bpr_epoch``, and with ``update_u`` /
+    ``update_i`` the online retrains' ``BPRMF._pairwise_updates``. Every
+    delta reads the rows as they were at the start, so duplicate ids sum.
+    The sigmoid gradient of BPR, or the hinge's
+    (SoftMarginRankingMF.cs:52-110). As in the JAX package the j bias's
+    regularization reads the bias after the i update."""
     W, H, bias = params["user_factors"], params["item_factors"], \
         params["item_bias"]
     dtype = W.dtype
@@ -176,11 +181,13 @@ def bpr_step(params, u, i, j, w, hp, *, update_j: bool,
         g = (x_uij < 1.0).to(dtype) * w
     else:
         g = torch.sigmoid(-x_uij) * w
-    W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
-                             - (w * hp["reg_u"])[:, None] * wu))
-    H.index_add_(0, i, lr * (g[:, None] * wu
-                             - (w * hp["reg_i"])[:, None] * hi))
-    bias.index_add_(0, i, lr * (g - hp["bias_reg"] * w * bi))
+    if update_u:
+        W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
+                                 - (w * hp["reg_u"])[:, None] * wu))
+    if update_i:
+        H.index_add_(0, i, lr * (g[:, None] * wu
+                                 - (w * hp["reg_i"])[:, None] * hi))
+        bias.index_add_(0, i, lr * (g - hp["bias_reg"] * w * bi))
     if update_j:
         H.index_add_(0, j, lr * (-g[:, None] * wu
                                  - (w * hp["reg_j"])[:, None] * hj))

@@ -4,7 +4,8 @@ baselines.py``) against the JAX package's on the same data, on the CPU.
 Predictions (in range, past the training ids, negative ids) agree to
 1e-6, the rating evaluation to 1e-6, ``RandomRating``'s draws are equal,
 and model files pass between the packages both ways with predictions
-equal to 1e-6. The incremental API raises "not yet ported".
+equal to 1e-6. The incremental API runs as the JAX package's (its
+parity tests are tests/test_torch_incremental_rating.py).
 """
 
 import numpy as np
@@ -136,14 +137,17 @@ def test_user_item_baseline_iterate_and_state(data):
         j.predict_batch(test.users, test.items), atol=TOL, rtol=0)
 
 
-def test_incremental_api_not_ported(data):
-    train, _ = data
-    _, t = both("UserItemBaseline", train)
-    for call in (lambda: t.retrain_user(0), lambda: t.retrain_item(0),
-                 lambda: t._retrain([0], [1]),
-                 lambda: t.add_ratings([0], [1], [3.0])):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+def test_incremental_api_runs_as_in_jax(data):
+    train, test = data
+    j, t = both("UserItemBaseline", train)
+    for m in (j, t):
+        m.retrain_user(0)
+        m.retrain_item(0)
+        m._retrain([0], [1])
+        m.add_ratings([0], [1], [3.0])
+    np.testing.assert_allclose(
+        t.predict_batch(*pairs(test)), j.predict_batch(*pairs(test)),
+        atol=TOL, rtol=0)
 
 
 def test_cuda_is_asked_for_never_assumed(monkeypatch, data):

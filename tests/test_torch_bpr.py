@@ -275,21 +275,12 @@ def test_tiled_catalog_raises(data, monkeypatch):
     assert all(torch.isfinite(t).all() for t in m.params.values())
 
 
-def test_unported_paths_raise(data):
-    train, _ = data
-    m = create_item_recommender("BPRMF", "num_factors=4 num_iter=1 device=cpu")
-    m.feedback = train
-    m.train()
-    for call in (lambda: m.add_feedback([0], [1]),
-                 lambda: m.remove_feedback([0], [1]),
-                 lambda: m.retrain_user(0), lambda: m.retrain_item(0),
-                 lambda: m._retrain([0], [1]),
-                 lambda: m.score_items_foldin([1, 2], [3, 4])):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
-    for name in ("MultiCoreBPRMF", "BPRSLIM", "Random", "Zero"):
+def test_unported_paths_raise():
+    for name in ("MultiCoreBPRMF", "BPRSLIM"):
         with pytest.raises(KeyError, match="not yet ported"):
             create_item_recommender(name)
+    for name in ("Random", "Zero"):
+        create_item_recommender(name)
     with pytest.raises(KeyError, match="Unknown recommender"):
         create_item_recommender("NoSuchModel")
 

@@ -511,3 +511,129 @@ def test_prefix_check_holds_the_card_to_the_tolerance():
     with pytest.raises(AssertionError, match="non-finite"):
         smoke.prefix_check(dict(W=torch.full((4, 3), float("nan"))), host32,
                            host64, "nan")
+
+
+def test_event_subset_is_seeded_and_stable():
+    """Phase 22's event subsets: the same seed gives the same events, in
+    index order; another seed other events."""
+    import numpy as np
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings,
+    )
+    smoke = _smoke_module()
+    _, test = split_ratings(synthetic_ratings(300, 200, 8000, seed=1), 0.2,
+                            seed=2)
+    a = smoke.event_subset(test, 100, seed=22)
+    b = smoke.event_subset(test, 100, seed=22)
+    c = smoke.event_subset(test, 100, seed=23)
+    assert len(a) == 100
+    for field in ("users", "items", "values"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert not np.array_equal(a.users, c.users)
+    key = a.users.astype(np.int64) * test.num_items + a.items
+    full = test.users.astype(np.int64) * test.num_items + test.items
+    assert np.isin(key, full).all()
+
+
+def _row_witness_model(biased, loss="RMSE"):
+    from mymedialite_tpu_torch.data.synthetic import synthetic_ratings
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    name = "BiasedMatrixFactorization" if biased else "MatrixFactorization"
+    opts = "num_factors=6 num_iter=4 learn_rate_decay=0.9 device=cpu"
+    if biased:
+        opts += f" loss={loss}"
+    m = create_rating_predictor(name, opts)
+    m.ratings = synthetic_ratings(200, 150, 6000, seed=3)
+    m.train()
+    return m
+
+
+@pytest.mark.parametrize("case", [(True, "RMSE"), (True, "MAE"),
+                                  (True, "LogisticLoss"), (False, "RMSE")],
+                         ids=["biased-rmse", "biased-mae", "biased-logistic",
+                              "plain"])
+def test_row_witness_holds_learn_row_and_catches_a_perturbed_row(case):
+    """The step-by-step float64 witness of phase 22 (numpy, apart from
+    ``learn_row``) agrees with ``learn_row`` on the CPU, for both sides,
+    and catches a learner that moves one entry of the row by 1e-3 and
+    one that takes no step."""
+    from mymedialite_tpu_torch.models.mf import learn_row
+    smoke = _smoke_module()
+    m = _row_witness_model(*case)
+    for side, row_id in (("user", 3), ("item", 5)):
+        err, n = smoke.model_row_witness(m, side, row_id)
+        assert n > 0 and err <= 1e-6, (side, err)
+
+    def perturbed(row, *a, **kw):
+        out = learn_row(row, *a, **kw).clone()
+        out[0] += 1e-3
+        return out
+    err, _ = smoke.model_row_witness(m, "user", 3, learner=perturbed)
+    assert err > smoke.ROW_TOL
+    for side, row_id in (("user", 3), ("item", 5)):
+        err, _ = smoke.model_row_witness(m, side, row_id,
+                                         learner=smoke.returns_input)
+        assert err > smoke.ROW_TOL, (side, err)
+
+
+def test_incremental_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
+                                                capsys):
+    """Phase 22 end to end on CPU tensors at a small size, with the
+    card's clock and synchronisation stood in for and the launch counts
+    not held (the plain versions count none): every check of (a)-(f)
+    runs and passes."""
+    import contextlib
+    from collections import defaultdict
+
+    import torch
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    @contextlib.contextmanager
+    def uncounted(expected):
+        yield defaultdict(int, expected)
+    monkeypatch.setattr(smoke, "counted_path", uncounted)
+    for name, value in (("ONLINE_EVENTS", 300), ("FOLDIN_USERS", 40),
+                        ("FOLDIN_INCREMENTAL_USERS", 4),
+                        ("ONLINE_ITEM_USERS", 30), ("WRMF_ONLINE_USERS", 8),
+                        ("SVDPP_EVENTS", 16),
+                        ("ML100K", dict(num_users=150, num_items=200,
+                                        num_ratings=5000))):
+        monkeypatch.setattr(smoke, name, value)
+    dev = torch.device("cpu")
+    train, test = split_ratings(synthetic_ratings(600, 300, 30_000, seed=1),
+                                0.2, seed=2)
+    fb, test_items = posonly_from_ratings(train), posonly_from_ratings(test)
+    bpr = create_item_recommender("BPRMF", "num_factors=8 num_iter=2 "
+                                  "device=cpu")
+    bpr.feedback = fb
+    bpr.train()
+    wrmf = create_item_recommender("WRMF", "num_factors=8 num_iter=2 "
+                                   "regularization=100 device=cpu")
+    wrmf.feedback = posonly_from_ratings(train)
+    wrmf.train()
+    svdpp = create_rating_predictor("SVDPlusPlus", "num_factors=6 num_iter=2 "
+                                    "learn_rate=0.003 device=cpu")
+    svdpp.ratings = train
+    svdpp.additional_feedback = (test.users, test.items)
+    svdpp.train()
+    smoke.phase_incremental(dev, train, test, (bpr, fb, test_items),
+                            (wrmf, wrmf.feedback, test_items), svdpp,
+                            str(tmp_path))
+    out = capsys.readouterr().out
+    for text in ("online BiasedMF, 300 events", "online refresh rows, 16",
+                 "fold-in, 40 users", "fold-in rows, 16 users",
+                 "online BPRMF, ", "pairwise step of user",
+                 "online WRMF, 8 users", "online SVD++, 3 add_ratings",
+                 "online CLI BPRMF", "phase 22 (incremental and online)"):
+        assert text in out, text

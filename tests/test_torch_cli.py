@@ -150,10 +150,29 @@ def test_save_load_and_prediction_file(files, aligned, capsys):
         assert abs(float(pa) - float(pb)) <= 1e-4
 
 
+def test_online_evaluation_user_item_baseline_identical(files, capsys):
+    argv = ["--training-file", files["train"], "--test-file", files["test"],
+            "--recommender", "UserItemBaseline", "--online-evaluation"]
+    jax_out = _run(jax_cli, argv, "reg_u=5", capsys)
+    port_out = _run(port_cli, argv, "reg_u=5 device=cpu", capsys)
+    assert port_out.splitlines()[-1].startswith("UserItemBaseline ")
+    assert _TIMES.sub("", port_out) == _TIMES.sub("", jax_out)
+
+
+def test_online_evaluation_biased_mf(files, aligned, capsys):
+    """At init_stdev=0 a refreshed row starts at init_mean in both
+    packages, so the prequential results agree (1e-4)."""
+    jax_out, port_out = run_both(
+        ["--training-file", files["train"], "--test-file", files["test"],
+         "--online-evaluation"], capsys,
+        opts="num_factors=8 num_iter=3 init_stdev=0")
+    assert "RMSE" in port_out.splitlines()[-1]
+    assert_same_output(port_out, jax_out)
+
+
 @pytest.mark.parametrize("argv", [
-    ["--online-evaluation"], ["--profile", "trace"],
-    ["--recommender", "SocialMF"]],
-    ids=["online-evaluation", "profile", "unported-model"])
+    ["--profile", "trace"], ["--recommender", "SocialMF"]],
+    ids=["profile", "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

@@ -159,5 +159,5 @@ def test_still_unported_flags_abort(files, capsys):
     for main in (port_rating.main, port_item.main):
         rc, _, err = run(main, ["--training-file", files["train"],
                                 "--test-file", files["test"],
-                                "--online-evaluation"], capsys)
-        assert rc == 1 and "--online-evaluation is not yet ported" in err
+                                "--profile", "trace"], capsys)
+        assert rc == 1 and "--profile is not yet ported" in err

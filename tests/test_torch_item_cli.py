@@ -209,10 +209,49 @@ def test_user_prediction_bprmf_same_fields(files, aligned, capsys):
     assert_same_output(port_out, jax_out, atol=1e-3)
 
 
+def test_online_evaluation_most_popular_identical(files, capsys):
+    jax_out, port_out = run_both(
+        ["--training-file", files["train"], "--test-file", files["test"],
+         "--online-evaluation"], capsys)
+    assert "AUC" in port_out
+    assert _TIMES.sub("", port_out) == _TIMES.sub("", jax_out)
+
+
+@pytest.mark.parametrize("flags", [[], ["--find-iter", "1", "--max-iter",
+                                          "3"]], ids=["once", "find-iter"])
+def test_online_evaluation_bprmf_runs(files, capsys, flags):
+    """BPRMF's online refreshes draw from the port's generator, so its
+    numbers are not the JAX package's (whose per-user refreshes take
+    minutes on this data). Its result fields, the candidate items and the
+    users evaluated are those of the JAX CLI's online MostPopular line."""
+    argv = ["--training-file", files["train"], "--test-file", files["test"],
+            "--online-evaluation"]
+    ref = _run(jax_cli, argv, capsys).splitlines()[-1]
+    out = _run(port_cli, argv + flags + [
+        "--recommender", "BPRMF", "--recommender-options",
+        "num_factors=8 num_iter=2 device=cpu"], capsys).splitlines()
+    got = out[-1]
+    if flags:
+        assert got.endswith(" iteration 3")
+        got = got.rsplit(" iteration", 1)[0]
+    tail = got[got.index("AUC"):]
+    assert _NUM.sub("#", _TIMES.sub("", tail)).strip() == \
+        _NUM.sub("#", _TIMES.sub("", ref[ref.index("AUC"):])).strip()
+    assert tail.split("num_items")[1].split()[:3] == \
+        ref.split("num_items")[1].split()[:3]
+
+
+def test_online_evaluation_needs_an_incremental_model(files, capsys):
+    for cli in (port_cli, jax_cli):
+        with pytest.raises(TypeError, match="incremental"):
+            cli.main(["--training-file", files["train"], "--test-file",
+                      files["test"], "--recommender", "Zero",
+                      "--online-evaluation"])
+
+
 @pytest.mark.parametrize("argv", [
-    ["--online-evaluation"], ["--profile", "trace"],
-    ["--recommender", "BPRSLIM"]],
-    ids=["online-evaluation", "profile", "unported-model"])
+    ["--profile", "trace"], ["--recommender", "BPRSLIM"]],
+    ids=["profile", "unported-model"])
 def test_unported_flags_abort(files, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["--training-file", files["train"], "--test-file",

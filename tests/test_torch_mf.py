@@ -204,16 +204,7 @@ def test_train_from_seeded_generator(data):
     assert rmse < baseline
 
 
-def test_unported_paths_raise(data):
-    train, _ = data
-    m = tmf.BiasedMatrixFactorization()
-    configure(m, "num_factors=4 num_iter=1 device=cpu")
-    m.ratings = train
-    m.train()
-    for call in (lambda: m.add_ratings([0], [0], [3.0]),
-                 lambda: m.retrain_user(0), lambda: m._retrain([0], [0])):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+def test_unported_paths_raise():
     with pytest.raises(KeyError, match="not yet ported"):
         create_rating_predictor("SocialMF")
     with pytest.raises(KeyError, match="Unknown recommender"):

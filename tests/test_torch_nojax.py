@@ -6,11 +6,14 @@ evaluate, save, load; rating prediction with BiasedMatrixFactorization,
 SVDPlusPlus, UserItemBaseline, ItemKNN and UserAttributeKNN, item
 recommendation with BPRMF, WeightedBPRMF, MostPopular, WRMF, UserKNN and
 ItemAttributeKNN, also with ``--user-prediction``, rating-based ranking
-with BiasedMatrixFactorization and SigmoidSVDPlusPlus; then the XLA
-slice: cross-validation in all three CLIs, BiasedMatrixFactorization with
-frequency regularization, BPRMF on its minibatch epoch, ``--search-hp``
-and GSVDPlusPlus) from the port's own synthetic data, and must exit
-0."""
+with BiasedMatrixFactorization and SigmoidSVDPlusPlus; the incremental
+slice: ``--online-evaluation`` with BiasedMatrixFactorization,
+UserItemBaseline, BPRMF and MostPopular, the item baselines Zero,
+Random, MostPopularByAttributes and BigramRules, the three fold-in
+protocols; then the XLA slice: cross-validation in all three CLIs,
+BiasedMatrixFactorization with frequency regularization, BPRMF on its
+minibatch epoch, ``--search-hp`` and GSVDPlusPlus) from the port's own
+synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -97,6 +100,35 @@ SCRIPT = textwrap.dedent("""
             items + opts + ["--save-model", f"{d}/{name}.model"]) == 0
         assert item_recommendation.main(
             items + opts + ["--load-model", f"{d}/{name}.model"]) == 0
+    # the incremental slice: online evaluation, item baselines, fold-in
+    assert rating_prediction.main(base + ["--online-evaluation"]) == 0
+    assert rating_prediction.main(
+        base[:4] + ["--recommender", "UserItemBaseline",
+                    "--online-evaluation", "--recommender-options",
+                    "device=cpu"]) == 0
+    assert item_recommendation.main(items + ["--online-evaluation"]) == 0
+    assert item_recommendation.main(
+        items + ["--online-evaluation", "--recommender", "BPRMF",
+                 "--recommender-options",
+                 "num_factors=6 num_iter=2 device=cpu"]) == 0
+    for name, extra in (("Zero", []), ("Random", []),
+                        ("MostPopularByAttributes",
+                         ["--item-attributes", f"{d}/genres.tsv"]),
+                        ("BigramRules", ["--recommender-options",
+                                         "device=cpu"])):
+        assert item_recommendation.main(
+            items + ["--recommender", name] + extra) == 0
+    from mymedialite_tpu_torch.eval import foldin
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    update, held = split_ratings(test, test_fraction=0.5, seed=3)
+    model = create_rating_predictor(
+        "BiasedMatrixFactorization", "num_factors=6 num_iter=2 device=cpu")
+    model.ratings = train
+    model.train()
+    for protocol in (foldin.evaluate_fold_in,
+                     foldin.evaluate_fold_in_complete_retraining,
+                     foldin.evaluate_fold_in_incremental_training):
+        print("fold-in", protocol(model, update, held))
     # the XLA routes and the protocols of the port's XLA slice
     from mymedialite_tpu_torch import hyperopt
     from mymedialite_tpu_torch.ops import plan
@@ -135,9 +167,10 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count("SVDPlusPlus num_factors=6") == 5
     assert proc.stdout.count("SigmoidSVDPlusPlus num_factors=6") == 1
     assert proc.stdout.count("GSVDPlusPlus num_factors=6") == 2
-    assert proc.stdout.count("AUC") == 17
+    assert proc.stdout.count("AUC") == 23
+    assert proc.stdout.count("fold-in RMSE") == 3
     assert "frequency_regularization=True" in proc.stdout
-    assert proc.stdout.count("\nUserItemBaseline reg_u=") == 3
+    assert proc.stdout.count("\nUserItemBaseline reg_u=") == 4
     # UserItemBaseline: trained, loaded, then its --search-hp line
     for name in ("ItemKNNRating", "UserAttributeKNNRating",
                  "WRMF", "UserKNN", "ItemAttributeKNN"):

@@ -276,10 +276,6 @@ def test_unported_paths_raise(data, monkeypatch, tmp_path):
 
     m = model()
     m.train()
-    for call in (lambda: m.add_ratings([0], [0], [3.0]),
-                 lambda: m._retrain([0], [0])):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
     with pytest.raises(KeyError, match="not yet ported"):
         create_rating_predictor("SocialMF")
     path = str(tmp_path / "m.model")

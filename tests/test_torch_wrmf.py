@@ -157,12 +157,16 @@ def test_loaded_model_trains_on(data, tmp_path):
         assert rel_err(t.params[side].numpy(), j2.params[side]) <= REL, side
 
 
-def test_incremental_api_not_ported(data):
+def test_incremental_api_runs_as_in_jax(data):
+    """retrain_user / retrain_item re-solve one row each, as the JAX
+    model's (the add_feedback parity is in
+    tests/test_torch_incremental_item.py)."""
     train, _ = data
-    t = create_item_recommender("WRMF", "num_factors=4 num_iter=1 device=cpu")
-    t.feedback = train
-    t.train()
-    for call in (lambda: t.retrain_user(0), lambda: t.retrain_item(0),
-                 lambda: t._retrain([0], [1]), lambda: t.add_feedback([0], [1])):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    j = jax_model(train, num_iter=1)
+    t = port_model(train, wrmf_tables_from_jax(j))
+    for m in (j, t):
+        m.retrain_user(3)
+        m.retrain_item(4)
+    for side in ("user_factors", "item_factors"):
+        np.testing.assert_allclose(t.params[side].numpy(), j.params[side],
+                                   rtol=0, atol=1e-5)
