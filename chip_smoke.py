@@ -132,24 +132,55 @@ Phases (any failure raises and the script exits non-zero):
     --cross-validation=5;
 22. the incremental API, the online protocol and fold-in (run after
     phase 11c, on phase 6's data): (a) BiasedMatrixFactorization (k=40,
-    3 epochs), then the prequential protocol over 4,096 seeded test
+    3 epochs), then the prequential protocol over 1,024 seeded test
     events, buffered with chunked predictions, each event refreshing its
     user and item rows with 30 steps: RMSE/MAE, events/s, ms per refresh;
     16 refreshes (the most-rated item's among them) held step by step to
     float64 (1e-4); one iterate() on the grown ratings through kernel 1;
     (b) true fold-in over 256 seeded test users (their test ratings split
     50/50 into update and evaluation) and the incremental protocol over
-    32 of them, 16 fold-in rows held step by step to float64; (c) the
+    8 of them, 16 fold-in rows held step by step to float64; (c) the
     per-user online protocol with phase 8's BPRMF over 256 seeded test
     users, ms a user split into evaluation, feedback.add, sampler rebuild
     and refresh, one user's pairwise step held to float64 (1e-5), one
     iterate() through kernel 3 on the grown feedback; (d) add_feedback on
     phase 11a's WRMF for 64 seeded users: untouched rows bit-equal, the
-    re-solved rows within 1e-5 of float64; (e) three add_ratings of 64
-    test events on phase 11's SVDPlusPlus, kernel 5 once each; (f)
+    re-solved rows within 1e-5 of float64; (e) one add_ratings of 64
+    test events on phase 11's SVDPlusPlus, kernel 5 once; (f)
     --online-evaluation at the ML-100K shape (943 x 1,682 x 100,000) in
     the rating CLI (UserItemBaseline, BiasedMatrixFactorization) and the
-    item CLI (BPRMF).
+    item CLI (BPRMF);
+23. the last eight names ((a)-(e) after phase 22, on phase 6's data and
+    the models of phases 7 and 8; (f) after phase 21): (a)
+    TimeAwareBaseline (30 epochs) and TimeAwareBaselineWithFrequencies
+    (40) at the Netflix shape with times and a per-item drift
+    (``synthetic_ratings(..., seed=1, with_times=True, time_drift=1.0)``),
+    split by time 80/20, batches of 65,536: s per epoch, RMSE with the
+    times against UserItemBaseline and the global average, one minibatch
+    step held to float64 (1e-5); (b) SocialMF at quality.py's ML-1M row
+    (400 steps) and at the Epinions shape (49,290 users x 139,738 items x
+    664,824 draws, 50 steps), each with the 10-NN trust graph of the
+    planted factors built on the card: ms per step, RMSE against the
+    global average, one step held to float64 (1e-5); (c) LeastSquareSLIM
+    (15 sweeps) and BPRSLIM (1 epoch of 14.9M triples in batches of
+    1,024) on phase 6's pairs as positive-only feedback: the C and mask
+    builds, s per sweep or epoch, L_max and the padded history's bytes,
+    AUC over 4,096 seeded test users, one BPRSLIM batch held to float64
+    (1e-5); (d) MultiCoreBPRMF: one iterate() from phase 8's tables
+    through kernel 3, against BPRMF's from the same tables and generator
+    (identical negatives, tables within 1e-4), then 1,024 users served
+    through kernel 6; (e) phase 7's test predictions as a prediction
+    file: ExternalRatingPredictor's RMSE equals phase 7's to the file's
+    %.6g rounding (1e-5), ExternalItemRecommender's top-10 of 1,024
+    seeded users equals a plain lookup's; (f) the CLIs at phase 16's
+    size: TimeAwareBaselineWithFrequencies on quality.py's drift data
+    with its times (save -> load), ExternalRatingPredictor and
+    ExternalItemRecommender on its prediction file, LeastSquareSLIM in
+    the item CLI, and ``--profile DIR`` in each of the three CLIs, in a
+    process of their own (``--counted-cli``, the launches counted there),
+    the rating CLI's BiasedMatrixFactorization trace, the process's first
+    profiler session, holding kernel 1's CUDA events. Only (d) and the profiled BiasedMatrixFactorization launch
+    kernels.
 
 Before each main path every kernel's launch count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
@@ -883,8 +914,12 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     log(f"eval: {res} ({eval_s:.2f} s); global-average RMSE {baseline:.5f}")
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("RMSE does not beat the global average")
-    return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    run = dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    # the test pairs' predictions and RMSE: phase 23's external file
+    run["test_predictions"] = model.predict_batch(test.users, test.items)
+    run["test_rmse"] = res["RMSE"]
+    return run
 
 
 def bpr_tiled_epoch_bound(plan, state, tl, W, H, order, bits, rates,
@@ -2617,18 +2652,18 @@ def phase_cv_cli(dev, tmp, files, item_files, num_items=3706):
 # phase 22: the incremental API, the online protocol and fold-in
 # ---------------------------------------------------------------------------
 
-ONLINE_EVENTS = 4096      # (a): test events of the prequential run
+ONLINE_EVENTS = 1024      # (a): test events of the prequential run
 ROW_CHECKS = 16           # (a), (b): rows held step by step to float64
 ROW_TOL = 1e-4
 FOLDIN_USERS = 256        # (b): users of the fold-in protocols
 # (b): users of the incremental protocol (add, evaluate, remove): each
 # add and remove rebuilds the COO arrays of 15M ratings and derives their
 # CSR views, about 1-2 s of host work a user on the card's host
-FOLDIN_INCREMENTAL_USERS = 32
+FOLDIN_INCREMENTAL_USERS = 8
 ONLINE_ITEM_USERS = 256   # (c)
 PAIRWISE_TOL = 1e-5       # (c): one user's pairwise step against float64
 WRMF_ONLINE_USERS = 64    # (d)
-SVDPP_CALLS, SVDPP_EVENTS = 3, 64   # (e)
+SVDPP_CALLS, SVDPP_EVENTS = 1, 64   # (e)
 # (f): GroupLens' published ml-100k counts
 ML100K = dict(num_users=943, num_items=1682, num_ratings=100_000)
 
@@ -3146,6 +3181,552 @@ def phase_incremental(dev, train, test, bpr, wrmf, svdpp, tmp):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the last eight names
+# ---------------------------------------------------------------------------
+
+# (a) the Netflix shape with times and a per-item drift, split by time
+TIME_AWARE_SHAPE = dict(num_users=480_000, num_items=17_770,
+                        num_ratings=20_000_000, seed=1)
+TIME_AWARE_ITERS = {"TimeAwareBaseline": 30,
+                    "TimeAwareBaselineWithFrequencies": 40}
+TIME_AWARE_BATCH = 65_536
+# (b) quality.py's SocialMF row at ML-1M size, and the Epinions shape
+# (Massa & Avesani's trust data as Jamali & Ester 2010 use it): (shape,
+# iterations); each user trusts its TRUST_K nearest users in the planted
+# factor space
+SOCIAL_SHAPES = {
+    "ML-1M": (dict(num_users=6040, num_items=3706, num_ratings=1_000_000,
+                   seed=100), 400),
+    "Epinions": (dict(num_users=49_290, num_items=139_738,
+                      num_ratings=664_824, seed=120), 50),
+}
+SOCIAL_OPTS = "num_factors=40 learn_rate=0.0002 social_regularization=0.5"
+TRUST_K = 10
+TRUST_ROWS = 4096
+# (c) SLIM on phase 6's pairs as positive-only feedback
+SLIM_SWEEPS = 15
+BPRSLIM_EPOCHS = 1
+# (d), (e): users served or ranked
+PHASE23_USERS = 1024
+# (f) quality.py's drift data at ML-1M size, written with its times
+TIMED_CLI_SHAPE = dict(num_users=6040, num_items=3706, num_ratings=1_000_000,
+                       seed=110)
+# float32 steps held to float64
+STEP_TOL = 1e-5
+
+
+def peak_gib(dev) -> str:
+    if dev.type != "cuda":
+        return "n/a"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def synced_seconds(fn, *args, **kwargs):
+    """(result, host seconds) of one call, the card synchronised on both
+    sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def step_check(err, what):
+    log(f"{what}: float32 step vs float64 step, max_abs_err {err:.3e} "
+        f"(tol {STEP_TOL})")
+    if not err <= STEP_TOL:
+        raise AssertionError(f"{what}: float32 step {err} from float64, "
+                             f"past {STEP_TOL}")
+
+
+def phase_time_aware(dev):
+    """(a) TimeAwareBaseline and TimeAwareBaselineWithFrequencies at the
+    Netflix shape with times and a per-item drift, split by time 80/20:
+    s per epoch, RMSE with the times against UserItemBaseline and the
+    global average; one minibatch step of the trained tables held to
+    float64. No kernel runs."""
+    from mymedialite_tpu_torch.data.splits import chronological_split_ratio
+    from mymedialite_tpu_torch.data.synthetic import synthetic_ratings
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import time_aware as ta
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+
+    t0 = time.perf_counter()
+    data = synthetic_ratings(**TIME_AWARE_SHAPE, with_times=True,
+                             time_drift=1.0)
+    train, test = chronological_split_ratio(data, 0.2)
+    del data
+    baseline = global_average_rmse(train, test)
+    log(f"time-aware data: {train.num_users} users x {train.num_items} "
+        f"items, {len(train)} train / {len(test)} test (split by time), "
+        f"{time.perf_counter() - t0:.1f} s")
+    uib = create_rating_predictor("UserItemBaseline", f"device={dev.type}")
+    uib.ratings = train
+    with counted_path({}):
+        uib.train()
+        uib_rmse = evaluate_ratings(uib, test)["RMSE"]
+    del uib
+    for name, iters in TIME_AWARE_ITERS.items():
+        model = create_rating_predictor(
+            name, f"num_iter=0 batch_size={TIME_AWARE_BATCH} "
+            f"device={dev.type}")
+        model.ratings = train
+        torch.cuda.reset_peak_memory_stats()
+        with counted_path({}):
+            _, prep_s = synced_seconds(model.train)
+            epochs = [synced_seconds(model.iterate)[1] for _ in range(iters)]
+            res, eval_s = synced_seconds(evaluate_ratings, model, test, train)
+        model.num_iter = iters
+        days = model.params["user_bias_by_day"]
+        log(f"{name}: {model._num_days} days, {model._num_bins} bins, "
+            f"[U, days] tables of {days.numel() * 4 / 1e6:.0f} MB; prep "
+            f"{prep_s:.2f} s; {iters} epochs of "
+            f"{model._epoch['users'].shape[0] // model._B} batches of "
+            f"{model._B}, mean {np.mean(epochs):.3f} s/epoch; eval with "
+            f"times {eval_s:.2f} s: {res}; UserItemBaseline RMSE "
+            f"{uib_rmse:.5f}, global average {baseline:.5f}; peak device "
+            f"memory {peak_gib(dev)}")
+        if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+            raise AssertionError(f"{name}: RMSE {res['RMSE']} does not beat "
+                                 f"the global average {baseline}")
+        batch = ta.epoch_batch(model._epoch, 0, model._B)
+        p32 = {k: v.clone() for k, v in model.params.items()}
+        p64 = {k: v.double() for k, v in model.params.items()}
+        hp = model._hp()
+        with torch.no_grad():
+            ta.time_aware_step(p32, batch, hp,
+                               with_freq=model.WITH_FREQUENCIES)
+            ta.time_aware_step(p64, batch, hp,
+                               with_freq=model.WITH_FREQUENCIES)
+        step_check(table_distance(tuple(p32.values()),
+                                  tuple(p64[k] for k in p32)),
+                   f"{name} minibatch")
+        del model, p32, p64
+    del train, test
+
+
+def planted_trust(P, k: int, dev):
+    """(trusters, trusted) numpy: every user trusts its k nearest users by
+    cosine of the planted factors P [U, r] (quality.py's graph), the
+    similarities taken on ``dev`` in blocks of TRUST_ROWS rows."""
+    Pd = torch.from_numpy(P).to(dev)
+    Pn = Pd / Pd.norm(dim=1, keepdim=True).clamp(min=1e-9)
+    out = []
+    for r0 in range(0, Pn.shape[0], TRUST_ROWS):
+        sim = Pn[r0:r0 + TRUST_ROWS] @ Pn.T
+        rows = torch.arange(sim.shape[0], device=dev)
+        sim[rows, r0 + rows] = -math.inf
+        out.append(torch.topk(sim, k, dim=1).indices)
+    nbr = torch.cat(out).cpu().numpy()
+    return (np.repeat(np.arange(P.shape[0], dtype=np.int32), k),
+            nbr.astype(np.int32).reshape(-1))
+
+
+def phase_social_mf(dev):
+    """(b) SocialMF on its own full-batch step at the ML-1M size
+    (quality.py's row) and at the Epinions shape, each with the planted
+    10-NN trust graph: ms per step, RMSE against the global average, one
+    step held to float64 with T in float64. No kernel runs."""
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import social_mf as sm
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+
+    for label, (shape, iters) in SOCIAL_SHAPES.items():
+        t0 = time.perf_counter()
+        data, (P, _q, _bu, _bi) = synthetic_ratings(**shape,
+                                                    return_factors=True)
+        train, test = split_ratings(data, 0.1, seed=shape["seed"] + 1)
+        u, v = planted_trust(P, TRUST_K, dev)
+        U = shape["num_users"]
+        trust = PosOnlyData(u, v, num_users=U, num_items=U)
+        log(f"SocialMF {label} data: {U} users x {shape['num_items']} "
+            f"items, {len(train)} train / {len(test)} test, {len(trust)} "
+            f"trust edges; a dense T would be {U * U * 4 / 1e9:.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s")
+        model = create_rating_predictor(
+            "SocialMF", f"{SOCIAL_OPTS} num_iter={iters} device={dev.type}")
+        model.user_relation = trust
+        model.ratings = train
+        torch.cuda.reset_peak_memory_stats()
+        with counted_path({}):
+            _, init_s = synced_seconds(model.init_model)
+            # one step from the initial tables in float32 and in float64
+            model._ensure_epoch_ready()
+            flat, _ = model._flat_data()
+            hp = model._hp()
+            kw = dict(num_users=model.num_users_trained,
+                      num_factors=model.num_factors, loss=model.loss_id)
+            trust64 = sm.trust_matrices(u, v, model.num_users_trained, dev,
+                                        dtype=torch.float64)
+            W32, H32 = sm.social_mf_step(model.W_ext, model.H_ext, flat,
+                                         model._trust, hp, **kw)
+            W64, H64 = sm.social_mf_step(model.W_ext.double(),
+                                         model.H_ext.double(), flat, trust64,
+                                         hp, **kw)
+            err = table_distance((W32, H32), (W64, H64))
+            del W32, H32, W64, H64, trust64
+            steps = [synced_seconds(model.iterate)[1] for _ in range(iters)]
+            res = evaluate_ratings(model, test, train)
+        baseline = global_average_rmse(train, test)
+        log(f"SocialMF {label}: init {init_s:.2f} s; {iters} steps, mean "
+            f"{np.mean(steps) * 1e3:.2f} ms/step; eval {res}; global "
+            f"average {baseline:.5f}; peak device memory {peak_gib(dev)}")
+        step_check(err, f"SocialMF {label} step")
+        if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+            raise AssertionError(f"SocialMF {label}: RMSE {res['RMSE']} does "
+                                 f"not beat the global average {baseline}")
+        del model
+
+
+def phase_slim(dev, feedback, test_items):
+    """(c) LeastSquareSLIM and BPRSLIM on phase 6's pairs as positive-only
+    feedback: the C and mask builds, s per sweep or epoch, L_max and the
+    padded history's bytes, AUC and prec@10 over EVAL_USERS seeded test
+    users; one BPRSLIM batch step held to float64. No kernel runs."""
+    from mymedialite_tpu_torch.models import slim
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import bpr as bpr_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    ls = create_item_recommender(
+        "LeastSquareSLIM", f"num_iter={SLIM_SWEEPS} reg_l1=0.0001 "
+        f"device={dev.type}")
+    ls.feedback = feedback
+    with counted_path({}), timed_calls(slim, "cooccurrence") as c_s, \
+            timed_calls(slim, "feature_mask") as mask_s:
+        ls.init_model()
+        sweeps = [synced_seconds(ls.iterate)[1] for _ in range(SLIM_SWEEPS)]
+        res = sampled_ranking_eval(ls, feedback, test_items,
+                                   "LeastSquareSLIM")
+    I = feedback.num_items
+    log(f"LeastSquareSLIM ({I} items, W, C and the mask "
+        f"{I * I * 4 / 1e9:.2f} GB each, the int8 incidence "
+        f"{feedback.num_users * I / 1e9:.1f} GB while it lives): C "
+        f"{c_s[0]:.2f} s, mask (k={ls.k} cosine) {mask_s[0]:.2f} s, "
+        f"{SLIM_SWEEPS} sweeps, mean {np.mean(sweeps):.3f} s/sweep; "
+        f"{int((ls.W != 0).sum())} nonzero weights; AUC {res['AUC']:.5f}, "
+        f"prec@10 {res['prec@10']:.5f}; peak device memory {peak_gib(dev)}")
+    if not res["AUC"] > 0.5:
+        raise AssertionError(f"LeastSquareSLIM AUC {res['AUC']} <= 0.5")
+    del ls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    bs = create_item_recommender("BPRSLIM", f"num_iter={BPRSLIM_EPOCHS} "
+                                 f"device={dev.type}")
+    bs.feedback = feedback
+    with counted_path({}):
+        _, init_s = synced_seconds(bs.init_model)
+        epochs = [synced_seconds(bs.iterate)[1]
+                  for _ in range(BPRSLIM_EPOCHS)]
+        res = sampled_ranking_eval(bs, feedback, test_items, "BPRSLIM")
+        # one batch of fresh triples in float32 and in float64
+        sampler, meta = bs._sampling
+        gen = torch.Generator(device=dev).manual_seed(23)
+        u, i, j, w = bpr_ops.sample_triples(gen, sampler, meta, bs.batch_size,
+                                            bs._regime())
+        hist, lens = bs._history()
+        W32, W64 = bs.W.clone(), bs.W.double()
+        args = (float(np.float32(bs.learn_rate)),
+                float(np.float32(bs.reg_i)), float(np.float32(bs.reg_j)))
+        slim.bpr_slim_step(W32, hist, lens, u, i, j, w, *args,
+                           update_j=bs.update_j)
+        slim.bpr_slim_step(W64, hist, lens, u, i, j, w, *args,
+                           update_j=bs.update_j)
+        err = table_distance((W32,), (W64,))
+        del W32, W64
+    B, nb = bpr_ops.epoch_batches(meta["num_events"], bs.batch_size)
+    log(f"BPRSLIM: init {init_s:.2f} s (padded history [{hist.shape[0]}, "
+        f"L_max={hist.shape[1]}] int32, {bs.history_bytes / 1e9:.2f} GB); "
+        f"{BPRSLIM_EPOCHS} epochs of {nb} batches of {B} triples, mean "
+        f"{np.mean(epochs):.2f} s/epoch ({meta['num_events'] / np.mean(epochs):.4g} "
+        f"triples/s); AUC {res['AUC']:.5f}, prec@10 {res['prec@10']:.5f}; "
+        f"peak device memory {peak_gib(dev)}")
+    step_check(err, "BPRSLIM batch")
+    if not res["AUC"] > 0.5:
+        raise AssertionError(f"BPRSLIM AUC {res['AUC']} <= 0.5")
+    del bs
+    torch.cuda.empty_cache()
+
+
+def phase_multicore_bpr(dev, bpr_model, feedback):
+    """(d) MultiCoreBPRMF: one iterate() from phase 8's BPRMF tables on
+    phase 8's feedback through kernel 3 once, against BPRMF's iterate()
+    from the same tables and generator state (identical sampled
+    negatives, tables within KERNEL_TOL); then PHASE23_USERS users served
+    through kernel 6."""
+    from mymedialite_tpu_torch.models import bpr as bpr_module
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops.topk import recommend_batch
+
+    real = bpr_module.bpr_epoch
+    runs = {}
+    for name in ("MultiCoreBPRMF", "BPRMF"):
+        model = create_item_recommender(
+            name, f"num_factors={bpr_model.num_factors} device={dev.type}")
+        model.feedback = feedback
+        model.init_model(tables={k: v.clone()
+                                 for k, v in bpr_model.params.items()})
+        negatives = []
+
+        def recording(*a, **kw):
+            out = real(*a, **dict(kw, return_negatives=True))
+            negatives.append(out[2])
+            return out
+        bpr_module.bpr_epoch = recording
+        try:
+            with counted_path({"bpr_epoch": 1}):
+                _, s = synced_seconds(model.iterate)
+        finally:
+            bpr_module.bpr_epoch = real
+        runs[name] = (model, negatives[0], s)
+    multi, neg, seconds = runs["MultiCoreBPRMF"]
+    ref, ref_neg, ref_s = runs["BPRMF"]
+    if not torch.equal(neg, ref_neg):
+        raise AssertionError("MultiCoreBPRMF sampled other negatives than "
+                             "BPRMF")
+    err = max((multi.params[k] - ref.params[k]).abs().max().item()
+              for k in ref.params)
+    rng = np.random.default_rng(24)
+    users = np.sort(rng.choice(feedback.num_users, PHASE23_USERS,
+                               replace=False))
+    with counted_path({"catalog_topk": 1}):
+        ids, _ = recommend_batch(multi, users, 10, training=feedback)
+    log(f"MultiCoreBPRMF: one iterate() {seconds:.2f} s (BPRMF's "
+        f"{ref_s:.2f} s), negatives identical, tables against BPRMF's "
+        f"max_abs_err {err:.3e} (tol {KERNEL_TOL}); {users.size} users "
+        f"served through kernel 6 ({int((ids >= 0).sum())} items listed)")
+    check(err, "MultiCoreBPRMF against BPRMF")
+    del runs, multi, ref
+
+
+def write_scores(path, users, items, scores):
+    """``user item score`` lines, the score as %.6g."""
+    with open(path, "w") as f:
+        f.write("".join(f"{u} {i} {s:.6g}\n" for u, i, s in
+                        zip(users.tolist(), items.tolist(), scores.tolist())))
+
+
+def phase_external(dev, train, test, mf_run, feedback, tmp):
+    """(e) phase 7's BiasedMatrixFactorization predictions of its test
+    pairs as a prediction file: ExternalRatingPredictor's RMSE equals
+    phase 7's to the file's %.6g rounding; ExternalItemRecommender's
+    top-10 of PHASE23_USERS seeded users equals a plain lookup's."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    from mymedialite_tpu_torch.ops.topk import NEG_INF, recommend_batch
+
+    path = os.path.join(tmp, "biasedmf_predictions.txt")
+    preds = mf_run["test_predictions"]
+    _, write_s = synced_seconds(write_scores, path, test.users, test.items,
+                                preds)
+    ext = create_rating_predictor("ExternalRatingPredictor",
+                                  f"prediction_file={path} "
+                                  f"device={dev.type}")
+    ext.ratings = train
+    with counted_path({}):
+        _, read_s = synced_seconds(ext.train)
+        res, eval_s = synced_seconds(evaluate_ratings, ext, test)
+    diff = abs(res["RMSE"] - mf_run["test_rmse"])
+    log(f"ExternalRatingPredictor: {len(test)} lines written {write_s:.2f} "
+        f"s, read {read_s:.2f} s, evaluated {eval_s:.2f} s: {res}; phase 7's "
+        f"RMSE {mf_run['test_rmse']:.6f}, difference {diff:.2e} (tol 1e-5)")
+    if not diff <= 1e-5:
+        raise AssertionError(f"ExternalRatingPredictor RMSE {res['RMSE']} "
+                             f"is not phase 7's {mf_run['test_rmse']}")
+
+    item = create_item_recommender("ExternalItemRecommender",
+                                   f"prediction_file={path} "
+                                   f"device={dev.type}")
+    item.feedback = feedback
+    rng = np.random.default_rng(25)
+    users = np.sort(rng.choice(test.all_users, PHASE23_USERS, replace=False))
+    with counted_path({}):
+        item.train()
+        ids, scores = recommend_batch(item, users, 10, training=feedback)
+    # the plain lookup: each user's listed scores, the training items out
+    I = item.num_items_trained
+    plain = np.full((users.size, I), np.float32(-3.4e38), np.float32)
+    at = {u: r for r, u in enumerate(users.tolist())}
+    sel = np.isin(test.users, users)
+    rows = np.array([at[u] for u in test.users[sel].tolist()], np.int64)
+    plain[rows, test.items[sel]] = preds[sel]
+    for r, u in enumerate(users.tolist()):
+        plain[r, feedback.items_by_user(u)] = NEG_INF
+    order = np.argsort(-plain, axis=1, kind="stable")[:, :10]
+    top = np.take_along_axis(plain, order, axis=1)
+    ref_ids = np.where(top > np.float32(NEG_INF), order, -1)
+    if not np.array_equal(ids, ref_ids):
+        raise AssertionError("ExternalItemRecommender's lists differ from "
+                             "the plain lookup's")
+    log(f"ExternalItemRecommender: top-10 of {users.size} users equal the "
+        f"plain lookup's ({int((ids >= 0).sum())} items listed)")
+    del ext, item
+
+
+def phase_last_models(dev, train, test, mf_run, bpr, wrmf_feedback,
+                      test_items, tmp):
+    """Phase 23 (a)-(e), on phase 6's data and the models of phases 7 and
+    8; ``bpr`` is (model, feedback)."""
+    t0 = time.perf_counter()
+    phase_time_aware(dev)
+    torch.cuda.empty_cache()
+    phase_social_mf(dev)
+    phase_slim(dev, wrmf_feedback, test_items)
+    phase_multicore_bpr(dev, *bpr)
+    phase_external(dev, train, test, mf_run, bpr[1], tmp)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 23 (a)-(e) (the last eight names): {seconds:.1f} s")
+    return seconds
+
+
+def trace_kernels(trace_dir):
+    """The names of the CUDA kernel events, one per event, in the
+    torch.profiler trace that ``--profile`` wrote into ``trace_dir``."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if not files:
+        raise AssertionError(f"--profile wrote no trace into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def counted_clis(runs):
+    """Run CLIs of the port in one process of its own, this script with
+    ``--counted-cli``: ``runs`` is a list of (expected launches, module
+    of ``mymedialite_tpu_torch.cli``, argv), run in order, each with
+    every kernel's launch count set to 0 before it and the expected
+    launches required after it, as ``counted_path`` requires them.
+    Returns the CLIs' output. The first run's ``--profile`` trace is
+    then its process's first profiler session, as a user's run is."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--counted-cli",
+         json.dumps(runs)], capture_output=True, text=True, timeout=600)
+    sys.stderr.write(proc.stderr)
+    log(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLIs in their own process returned "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def counted_clis_child(runs_json: str) -> int:
+    """The process that ``counted_clis`` starts."""
+    import importlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for expected, module, argv in json.loads(runs_json):
+        cli = importlib.import_module(f"mymedialite_tpu_torch.cli.{module}")
+        with counted_path(expected):
+            rc = cli.main(argv)
+        if rc != 0:
+            return rc
+    return 0
+
+
+def phase_last_clis(dev, tmp, files, item_files):
+    """(f) the CLIs at phase 16's size: the rating CLI with
+    TimeAwareBaselineWithFrequencies on quality.py's drift data written
+    with its times (save -> load), then ExternalRatingPredictor on its
+    prediction file and the item CLI with ExternalItemRecommender on it;
+    the item CLI with LeastSquareSLIM; --profile in each of the three
+    CLIs, in a process of their own, the rating CLI's
+    BiasedMatrixFactorization trace holding kernel 1's CUDA events."""
+    from mymedialite_tpu_torch.cli import item_recommendation, rating_prediction
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings,
+    )
+
+    t0 = time.perf_counter()
+    on = f"device={dev.type}"
+    data = synthetic_ratings(**TIMED_CLI_SHAPE, with_times=True,
+                             time_drift=1.0)
+    train, test = split_ratings(data, 0.1, seed=TIMED_CLI_SHAPE["seed"] + 1)
+    timed = []
+    for name, part in (("timed_train", train), ("timed_test", test)):
+        path = os.path.join(tmp, f"{name}.tsv")
+        np.savetxt(path, np.column_stack([part.users, part.items,
+                                          part.values, part.times]),
+                   fmt=("%d", "%d", "%g", "%d"), delimiter="\t")
+        timed.append(path)
+    timed_files = ["--training-file", timed[0], "--test-file", timed[1]]
+    predictions = os.path.join(tmp, "time_aware_predictions.txt")
+    with counted_path({}):
+        text = save_load_same(
+            rating_prediction.main, timed_files + [
+                "--recommender", "TimeAwareBaselineWithFrequencies",
+                "--recommender-options", on, "--prediction-file",
+                predictions], os.path.join(tmp, "time_aware.model"))
+        rmse = result_value(text, "RMSE")
+        if not (math.isfinite(rmse) and rmse < global_average_rmse(train,
+                                                                   test)):
+            raise AssertionError(f"timed CLI RMSE {rmse} does not beat the "
+                                 "global average")
+        # the prediction file (original ids, predictions without times)
+        # served back through both CLIs
+        lines = np.loadtxt(predictions, dtype=np.float64)
+        want = float(np.sqrt(np.mean((lines[:, 2].astype(np.float32)
+                                      - test.values) ** 2)))
+        opts = ["--recommender-options", f"prediction_file={predictions} {on}"]
+        text = run_cli(rating_prediction.main, timed_files + [
+            "--recommender", "ExternalRatingPredictor"] + opts)
+        if not abs(result_value(text, "RMSE") - want) <= 1e-5:
+            raise AssertionError("ExternalRatingPredictor through the CLI: "
+                                 f"RMSE {result_value(text, 'RMSE')}, the "
+                                 f"file's {want}")
+        text = run_cli(item_recommendation.main, timed_files + [
+            "--recommender", "ExternalItemRecommender"] + opts)
+        if not result_value(text, "AUC") > 0.9:
+            raise AssertionError("ExternalItemRecommender through the CLI "
+                                 "does not rank its listed items first")
+        text = run_cli(item_recommendation.main, item_files + [
+            "--recommender", "LeastSquareSLIM", "--recommender-options",
+            f"num_iter=5 reg_l1=0.0001 {on}"])
+        if not result_value(text, "AUC") > 0.5:
+            raise AssertionError("LeastSquareSLIM through the CLI: AUC <= 0.5")
+    # the profiled CLIs in a process of their own, the rating CLI's
+    # first: in this script's long process, after its other profiler
+    # sessions, one trace on an H100 held no event of kernel 1 although
+    # the kernel had run three times
+    profiled = (
+        ("rating", "rating_prediction", files + [
+            "--recommender-options", f"num_factors=40 num_iter=3 {on}"],
+         {"sgd_epoch": 3}),
+        ("item", "item_recommendation", item_files, {}),
+        ("rating_based_ranking", "rating_based_ranking", files + [
+            "--recommender", "UserItemBaseline", "--recommender-options",
+            on], {}))
+    trace_dirs = {label: os.path.join(tmp, f"trace_{label}")
+                  for label, *_ in profiled}
+    # the plain versions, on CPU tensors, count no launch
+    counted_clis([(kernels if dev.type == "cuda" else {}, module,
+                   argv + ["--profile", trace_dirs[label]])
+                  for label, module, argv, kernels in profiled])
+    for label, _, _, kernels in profiled:
+        events = trace_kernels(trace_dirs[label]) if dev.type == "cuda" \
+            else []
+        sgd = sum("sgd_epoch_kernel" in name for name in events)
+        log(f"--profile {label} CLI: {len(events)} CUDA kernel events of "
+            f"{len(set(events))} names in the trace, {sgd} of kernel 1")
+        if dev.type == "cuda" and kernels.get("sgd_epoch") and not sgd:
+            raise AssertionError(
+                f"the {label} CLI's trace holds no event of kernel 1 "
+                f"(sgd_epoch_kernel) in {len(events)} kernel events: "
+                f"{sorted(set(events))[:20]}")
+    seconds = time.perf_counter() - t0
+    log(f"phase 23 (f) (the last eight names through the CLIs): "
+        f"{seconds:.1f} s")
+    return seconds
+
+
 KERNELS = {
     "sgd_epoch": ("mymedialite_tpu_torch/csrc/sgd_epoch.cu",
                   "mymedialite_tpu/ops/pallas_sgd.py:324"),
@@ -3228,7 +3809,12 @@ def main() -> int:
         phase_incremental(dev, train, test,
                           (bpr_model, bpr_feedback, test_items),
                           (model, feedback, test_items), svdpp_model, tmp)
-    del model, feedback, test_items, bpr_model, bpr_feedback, svdpp_model
+        del model, svdpp_model
+        torch.cuda.empty_cache()
+        phase23_s = phase_last_models(dev, train, test, runs["sgd_epoch"],
+                                      (bpr_model, bpr_feedback), feedback,
+                                      test_items, tmp)
+    del feedback, test_items, bpr_model, bpr_feedback
     del train, test
     torch.cuda.empty_cache()
     # the published ml-25m catalog (GroupLens' README): 162,541 users,
@@ -3263,6 +3849,8 @@ def main() -> int:
         phase_ranking_cli(dev, tmp, files)
         phase_knn_cli(dev, tmp, files, item_files)
         phase_cv_cli(dev, tmp, files, item_files)
+        phase23_s += phase_last_clis(dev, tmp, files, item_files)
+    log(f"phase 23 (the last eight names): {phase23_s:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
 
     kernels = []
@@ -3285,4 +3873,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-cli"]:
+        sys.exit(counted_clis_child(*sys.argv[2:]))
     sys.exit(main())

@@ -6,13 +6,17 @@ ID mapping, the train/eval orchestration, per-phase timing stats.
 
 The port's own copy of ``mymedialite_tpu/cli/common.py``:
 the same behaviour, and no import of the JAX package. The JAX
-package's compile cache and profiler start are left out: they are
-jax-only.
+package's compile cache is left out: it is jax-only. ``--profile DIR``
+takes one ``torch.profiler`` trace of the whole run (CPU activity, and
+CUDA activity when a card is present) and writes it into DIR when the
+run ends (``profiling``), as the JAX package's ``maybe_start_profile``
+writes a jax profiler trace at the process's exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -43,7 +47,7 @@ def add_common_options(parser: argparse.ArgumentParser):
     add("--prediction-file", default=None)
     add("--measures", default=None)
     # extension beyond the reference's wall-clock Wrap.MeasureTime (a
-    # profiler trace of the run); the port's CLIs abort on it for now
+    # profiler trace of the run)
     add("--profile", default=None, metavar="DIR")
     add("--find-iter", type=int, default=0)
     add("--max-iter", type=int, default=500)
@@ -64,6 +68,28 @@ def add_common_options(parser: argparse.ArgumentParser):
 
 
 VERSION = "3.13"
+
+
+@contextlib.contextmanager
+def profiling(args):
+    """--profile=DIR: trace the block with ``torch.profiler`` (CPU, plus
+    CUDA when a card is present) and write the trace into DIR (a
+    TensorBoard trace file) when the block ends, also when it ends by
+    an abort. Without the flag the block runs untraced."""
+    if not getattr(args, "profile", None):
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    print(f"profiling to {args.profile}", file=sys.stderr)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(args.profile)):
+        yield
 
 
 def handle_info_flags(args, prog_name: str, measures):

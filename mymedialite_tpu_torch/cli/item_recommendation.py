@@ -11,7 +11,9 @@ standard train/evaluate path, ``--test-ratio``, ``--test-users``,
 ``--find-iter``, ``--cross-validation=K`` (with ``--find-iter``: the
 folds iterated in lockstep) and ``--online-evaluation`` (the per-user
 prequential protocol of ``eval/online.py``, also under
-``--find-iter``). ``--profile`` aborts with "not yet ported".
+``--find-iter``) and ``--profile DIR`` (a ``torch.profiler`` trace of
+the run). A model with a ``user_mapping`` (the external recommender)
+gets the program's ID mappings before training.
 
     python -m mymedialite_tpu_torch.cli.item_recommendation \\
         --training-file train.tsv --test-file test.tsv \\
@@ -41,11 +43,9 @@ from mymedialite_tpu_torch.utils.params import configure
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    ITEM_RECOMMENDERS, create_item_recommender, list_item_recommenders,
+    create_item_recommender, list_item_recommenders,
 )
 from mymedialite_tpu_torch.ops.topk import recommend_batch
-
-_NOT_PORTED = "is not yet ported to mymedialite_tpu_torch"
 
 
 def build_parser():
@@ -114,26 +114,22 @@ def write_predictions(recommender, training, path, user_mapping, item_mapping,
             f.write(f"{user_mapping.to_original(int(u))}\t[{inner}]\n")
 
 
-def _reject_unported(args):
-    if args.profile is not None:
-        common.abort(f"--profile {_NOT_PORTED}.")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     common.handle_info_flags(args, "item_recommendation",
                              ItemRecommendationResults.ALL_MEASURES)
-    _reject_unported(args)
+    with common.profiling(args):
+        return _run(args)
+
+
+def _run(args):
     timer = common.PhaseTimer()
 
     name = args.recommender or "MostPopular"
     try:
         recommender = create_item_recommender(name)
-    except KeyError as e:
-        # the JAX CLI's line; a known name keeps "not yet ported"
-        reason = e.args[0] if name in ITEM_RECOMMENDERS else \
-            f"Unknown recommender {name!r}"
-        common.abort(f"{reason}. Choose from:\n  " +
+    except KeyError:
+        common.abort(f"Unknown recommender {name!r}. Choose from:\n  " +
                      "\n  ".join(list_item_recommenders()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):
@@ -152,6 +148,11 @@ def main(argv=None):
                      "--load-model=FILE.")
 
     user_mapping, item_mapping = common.make_mappings(args)
+    # models that read files of their own take the program's mappings
+    # (reference INeedsMappings: the external recommender)
+    if hasattr(recommender, "user_mapping"):
+        recommender.user_mapping = user_mapping
+        recommender.item_mapping = item_mapping
     common.wire_side_information(args, recommender, user_mapping, item_mapping)
 
     training_data = None

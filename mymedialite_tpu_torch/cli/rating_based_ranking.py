@@ -8,7 +8,8 @@ RatingBasedRanking.cs:27-117``): rating data in, ranking measures
 another. Covered: train and evaluate, the candidate-item flags,
 ``--test-users``, ``--find-iter``, ``--save-model`` / ``--load-model``
 and ``--cross-validation=K`` (without ``--find-iter``, which the JAX
-program refuses too). ``--profile`` aborts with "not yet ported". As
+program refuses too) and ``--profile DIR`` (a ``torch.profiler``
+trace of the run). As
 in the JAX program, only ``ratings`` is set: the test pairs are not the
 SVD++ models' additional feedback here (the rating_prediction CLI does
 that).
@@ -36,11 +37,9 @@ from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    RATING_PREDICTORS, create_rating_predictor, list_rating_predictors,
+    create_rating_predictor, list_rating_predictors,
 )
 from mymedialite_tpu_torch.utils.params import configure
-
-_NOT_PORTED = "is not yet ported to mymedialite_tpu_torch"
 
 
 def build_parser():
@@ -81,27 +80,22 @@ def to_posonly(data):
                        num_items=data.num_items)
 
 
-def _reject_unported(args):
-    for flag, on in (("--profile", args.profile is not None),):
-        if on:
-            common.abort(f"{flag} {_NOT_PORTED}.")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     common.handle_info_flags(args, "rating_based_ranking",
                              ItemRecommendationResults.ALL_MEASURES)
-    _reject_unported(args)
+    with common.profiling(args):
+        return _run(args)
+
+
+def _run(args):
     timer = common.PhaseTimer()
 
     name = args.recommender or "BiasedMatrixFactorization"
     try:
         recommender = create_rating_predictor(name)
-    except KeyError as e:
-        # the JAX CLI's line; a known name keeps "not yet ported"
-        reason = e.args[0] if name in RATING_PREDICTORS else \
-            f"Unknown recommender {name!r}"
-        common.abort(f"{reason}. Choose from:\n  " +
+    except KeyError:
+        common.abort(f"Unknown recommender {name!r}. Choose from:\n  " +
                      "\n  ".join(list_rating_predictors()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):

@@ -8,9 +8,12 @@ the standard train/evaluate path, ``--test-ratio``,
 ``--chronological-split``, ``--save-model`` / ``--load-model``,
 ``--prediction-file``, ``--compute-fit``, ``--find-iter``,
 ``--cross-validation=K`` (with ``--find-iter``: the folds iterated in
-lockstep), ``--search-hp`` (the Nelder-Mead search of ``hyperopt.py``)
-and ``--online-evaluation`` (the prequential protocol of
-``eval/online.py``). ``--profile`` aborts with "not yet ported".
+lockstep), ``--search-hp`` (the Nelder-Mead search of ``hyperopt.py``),
+``--online-evaluation`` (the prequential protocol of
+``eval/online.py``) and ``--profile DIR`` (a ``torch.profiler`` trace of
+the run). A time-aware model reads the files' timestamp column, and a
+model with a ``user_mapping`` (the external predictor) gets the
+program's ID mappings before training.
 
     python -m mymedialite_tpu_torch.cli.rating_prediction \\
         --training-file train.tsv --test-file test.tsv \\
@@ -41,10 +44,8 @@ from mymedialite_tpu_torch.eval.online import evaluate_ratings_online
 from mymedialite_tpu_torch.eval.rating import compute_fit, evaluate_ratings
 from mymedialite_tpu_torch.models.base import IterativeModel
 from mymedialite_tpu_torch.models.registry import (
-    RATING_PREDICTORS, create_rating_predictor, list_rating_predictors,
+    create_rating_predictor, list_rating_predictors,
 )
-
-_NOT_PORTED = "is not yet ported to mymedialite_tpu_torch"
 
 
 def build_parser():
@@ -69,11 +70,13 @@ def build_parser():
     return p
 
 
-def load_ratings(args, path, user_mapping, item_mapping):
+def load_ratings(args, path, user_mapping, item_mapping, timed=False):
+    """The ratings of ``path``; with their times (a fourth column) for
+    ``timed`` (a time-aware model) or a chronological split."""
     if args.file_format == "movielens_1m":
         return read_movielens_1m_rating_data(path, user_mapping, item_mapping)
     ignore_first = args.file_format == "ignore_first_line"
-    if args.chronological_split is not None:
+    if timed or args.chronological_split is not None:
         return read_timed_rating_data(path, user_mapping, item_mapping,
                                       ignore_first_line=ignore_first)
     return read_rating_data(path, user_mapping, item_mapping,
@@ -94,26 +97,22 @@ def write_predictions(recommender, test, path, user_mapping, item_mapping,
                                        f"{p:.6g}") + "\n")
 
 
-def _reject_unported(args):
-    if args.profile is not None:
-        common.abort(f"--profile {_NOT_PORTED}.")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     common.handle_info_flags(args, "rating_prediction",
                              ("RMSE", "MAE", "NMAE", "CBD"))
-    _reject_unported(args)
+    with common.profiling(args):
+        return _run(args)
+
+
+def _run(args):
     timer = common.PhaseTimer()
 
     name = args.recommender or "BiasedMatrixFactorization"
     try:
         recommender = create_rating_predictor(name)
-    except KeyError as e:
-        # the JAX CLI's line; a known name keeps "not yet ported"
-        reason = e.args[0] if name in RATING_PREDICTORS else \
-            f"Unknown recommender {name!r}"
-        common.abort(f"{reason}. Choose from:\n  " +
+    except KeyError:
+        common.abort(f"Unknown recommender {name!r}. Choose from:\n  " +
                      "\n  ".join(list_rating_predictors()))
     common.seed_everything(args, recommender)
     for opts in (args.recommender_options or []):
@@ -140,14 +139,22 @@ def main(argv=None):
                      "--save-model=FILE.")
 
     user_mapping, item_mapping = common.make_mappings(args)
+    # models that read files of their own take the program's mappings
+    # (reference INeedsMappings: the external predictors)
+    if hasattr(recommender, "user_mapping"):
+        recommender.user_mapping = user_mapping
+        recommender.item_mapping = item_mapping
     common.wire_side_information(args, recommender, user_mapping, item_mapping)
 
+    # time-aware models read the timestamp column (reference
+    # RatingPrediction.LoadData on ITimeAwareRatingPredictor)
+    timed = getattr(recommender, "time_aware", False)
     training_data = None
     test_data = None
     if args.training_file:
         training_data, loading_time = timer.measure("loading", lambda: load_ratings(
             args, common.data_path(args, args.training_file),
-            user_mapping, item_mapping))
+            user_mapping, item_mapping, timed=timed))
         print(f"loading_time {loading_time:.2f}", file=sys.stderr)
 
     if args.test_file:
@@ -163,7 +170,7 @@ def main(argv=None):
         else:
             test_data = load_ratings(
                 args, common.data_path(args, args.test_file),
-                user_mapping, item_mapping)
+                user_mapping, item_mapping, timed=timed)
         # the test set may name entities unseen in training
         if training_data is not None:
             n_users = max(training_data.num_users, test_data.num_users)

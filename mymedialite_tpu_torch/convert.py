@@ -8,10 +8,14 @@ family), ``bpr_tables_from_jax`` (BPR family) and
 ``wrmf_tables_from_jax`` (WRMF) take a JAX model's parameters as numpy
 arrays; the port's ``init_model(tables=...)`` starts from them, so that
 both packages train from the same tables. ``baseline_state_from_jax``
-(UserItemBaseline's biases) and ``knn_state_from_jax`` (a KNN model's
-dense correlation, or its neighbour ids and values) carry trained state
-the same way, into the port's ``load_state``. Work from a model object
-or a dict, and import no jax.
+(UserItemBaseline's biases), ``knn_state_from_jax`` (a KNN model's
+dense correlation, or its neighbour ids and values) and
+``time_aware_state_from_jax`` (the time-aware baselines' tables and
+time grid) carry trained state the same way, into the port's
+``load_state``; ``slim_state_from_jax`` (SLIM's W) feeds the SLIM
+models' ``init_model(tables=...)``. SocialMF takes ``tables_from_jax``,
+as BiasedMatrixFactorization does. Work from a model object or a dict,
+and import no jax.
 """
 
 from __future__ import annotations
@@ -102,3 +106,26 @@ def knn_state_from_jax(model) -> dict:
         return {"corr": np.array(model.corr, dtype=np.float32)}
     return {"nbr_ids": np.array(model.nbr_ids, dtype=np.int32),
             "nbr_vals": np.array(model.nbr_vals, dtype=np.float32)}
+
+
+def time_aware_state_from_jax(model) -> dict:
+    """{params (float32 numpy arrays), earliest, num_days, latest_day,
+    num_bins, user_mean_day, global_average, and freq_by_day for the
+    frequency model} of a trained JAX time-aware baseline."""
+    out = {"params": {k: np.array(v, dtype=np.float32)
+                      for k, v in model.params.items()},
+           "earliest": int(model._earliest),
+           "num_days": int(model._num_days),
+           "latest_day": int(model._latest_day),
+           "num_bins": int(model._num_bins),
+           "user_mean_day": np.array(model._user_mean_day, dtype=np.float32),
+           "global_average": float(model.global_average)}
+    if getattr(model, "_freq_by_day", None) is not None:
+        out["freq_by_day"] = np.array(model._freq_by_day, dtype=np.int32)
+    return out
+
+
+def slim_state_from_jax(model_or_w) -> dict:
+    """{W} (float32 numpy [I, I]) of a JAX SLIM model, or of its W."""
+    W = getattr(model_or_w, "W", model_or_w)
+    return {"W": np.array(W, dtype=np.float32)}

@@ -385,13 +385,15 @@ class PosOnlyData(InteractionData):
 def padded_history(csr: Csr, max_len: Optional[int] = None, pad: int = -1):
     """Densify ragged per-key histories into a padded [num_keys, L] int32 matrix
     plus a length vector. The fixed-shape form of the reference's per-user
-    item lists (used by SVD++-family segment sums and BPR sampling)."""
+    item lists (used by SVD++-family segment sums and BPR sampling).
+    One scatter of every kept entry, no loop over the keys."""
     counts = csr.counts()
     L = int(max_len if max_len is not None else (counts.max() if counts.size else 0))
     L = max(L, 1)
     num_keys = csr.indptr.size - 1
     out = np.full((num_keys, L), pad, dtype=np.int32)
-    for k in range(num_keys):
-        seg = csr.secondary(k)[:L]
-        out[k, :seg.size] = seg
+    rows = np.repeat(np.arange(num_keys, dtype=np.int64), counts)
+    pos = np.arange(rows.size, dtype=np.int64) - csr.indptr[rows]
+    keep = pos < L
+    out[rows[keep], pos[keep]] = csr.keys[keep]
     return out, np.minimum(counts, L).astype(np.int32)

@@ -67,16 +67,26 @@ def _metric_sums(scorer, u, i, v, w, lo, hi, breakdown):
     return sums, masks.sum(dim=-1)
 
 
+def _with_times(recommender, test) -> bool:
+    """A time-aware model on timed test data predicts with the times."""
+    return getattr(recommender, "time_aware", False) and \
+        test.times is not None
+
+
 def _evaluate_indices(recommender, test, idx):
     """The host protocol over the test pairs ``idx`` from
-    ``predict_batch`` in float64, for models without a pair scorer (JAX:
+    ``predict_batch`` (``predict_batch_time`` for a time-aware model on
+    timed data) in float64, for models without a pair scorer (JAX:
     ``_evaluate_indices``)."""
     if idx.size == 0:
         return None
     actual = test.values[idx]
-    pred = np.asarray(recommender.predict_batch(test.users[idx],
-                                                test.items[idx]),
-                      dtype=np.float64)
+    users, items = test.users[idx], test.items[idx]
+    if _with_times(recommender, test):
+        pred = recommender.predict_batch_time(users, items, test.times[idx])
+    else:
+        pred = recommender.predict_batch(users, items)
+    pred = np.asarray(pred, dtype=np.float64)
     err = pred - actual
     lo, hi = recommender.min_rating, recommender.max_rating
     return {
@@ -113,9 +123,11 @@ def evaluate_ratings(recommender, test, training=None) -> RatingPredictionResult
     """Full protocol, with the cold-start breakdown when ``training`` is
     given (reference Eval/Ratings.cs:82-92: new-user / new-item /
     new-user-new-item subsets by zero training count or unseen id).
-    Models without a pair scorer (``RandomRating``) take the host path
-    through ``predict_batch``, as in the JAX package."""
-    scorer = recommender.pair_scorer() if len(test) else None
+    Models without a pair scorer (``RandomRating``) and a time-aware
+    model on timed data take the host path through ``predict_batch`` or
+    ``predict_batch_time``, as in the JAX package."""
+    scorer = recommender.pair_scorer() \
+        if len(test) and not _with_times(recommender, test) else None
     if scorer is None:
         return _evaluate_host(recommender, test, training)
     device = resolve_device(recommender.device)

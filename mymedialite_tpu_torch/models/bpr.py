@@ -32,7 +32,9 @@ plan and refresh the touched users: a fresh row, then one pairwise step
 over |I_u| triples whose positives and negatives are drawn from that
 state, never from a host CSR of every event. ``score_items_foldin``
 learns a vector for an unseen user without changing the model.
-``MultiCoreBPRMF`` is not ported yet.
+``MultiCoreBPRMF`` is BPRMF with a ``max_threads`` knob: on one card
+the fused epoch already is the parallel path (JAX ``bpr.py:722-800``;
+its mesh of several devices is not ported).
 """
 
 from __future__ import annotations
@@ -643,6 +645,24 @@ class BPRMF(ItemMF, FoldInItemRecommender):
             scores = p["item_bias"][cand] + p["item_factors"][cand] @ vec
         return [(int(c), float(s)) for c, s in
                 zip(cand.tolist(), scores.cpu().numpy())]
+
+
+class MultiCoreBPRMF(BPRMF):
+    """Reference MultiCoreBPRMF.cs:30 (hogwild BPR over index blocks).
+    On one device the JAX package trains it on BPRMF's route (its
+    ``_setup_mesh`` finds no mesh), and so does the port: the kernel
+    plan, or the minibatch epoch past the tiled bound. ``max_threads``
+    is accepted and unused."""
+
+    HYPERPARAMS = dict(BPRMF.HYPERPARAMS, max_threads=int)
+
+    def __init__(self):
+        super().__init__()
+        self.max_threads = 1
+
+    def _setup_mesh(self):
+        """The device mesh of a multi-device run; one device has none."""
+        return None
 
 
 class WeightedBPRMF(BPRMF):

@@ -276,9 +276,14 @@ def test_tiled_catalog_raises(data, monkeypatch):
 
 
 def test_unported_paths_raise():
-    for name in ("MultiCoreBPRMF", "BPRSLIM"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            create_item_recommender(name)
+    """Every name resolves now: MultiCoreBPRMF is BPRMF's route with a
+    max_threads knob, BPRSLIM the SLIM module's; only an unknown name
+    raises."""
+    from mymedialite_tpu_torch.models.slim import BPRSLIM
+    multi = create_item_recommender("MultiCoreBPRMF", "max_threads=4")
+    assert isinstance(multi, tbpr.BPRMF) and multi.max_threads == 4
+    assert multi._setup_mesh() is None
+    assert isinstance(create_item_recommender("BPRSLIM"), BPRSLIM)
     for name in ("Random", "Zero"):
         create_item_recommender(name)
     with pytest.raises(KeyError, match="Unknown recommender"):
@@ -291,3 +296,29 @@ def test_cuda_is_asked_for_never_assumed(monkeypatch, data):
     m.feedback = data[0]
     with pytest.raises(RuntimeError, match="device=cpu"):
         m.train()
+
+
+def test_multicore_bprmf_trains_as_bprmf(data):
+    """MultiCoreBPRMF on one device is BPRMF's route: from the same
+    tables and generator the plain epoch gives the same tables, its
+    model file is headed MultiCoreBPRMF, and BPRMF's reader takes the
+    tables back."""
+    import tempfile
+    models = []
+    for name in ("BPRMF", "MultiCoreBPRMF"):
+        m = create_item_recommender(name, "num_factors=6 num_iter=2 "
+                                    "device=cpu")
+        m.feedback = data[0]
+        m.train()
+        models.append(m)
+    assert models[1].max_threads == 1
+    for k in ("user_factors", "item_factors", "item_bias"):
+        assert torch.equal(models[0].params[k], models[1].params[k]), k
+    with tempfile.TemporaryDirectory() as d:
+        models[1].save_model(f"{d}/m.model")
+        with open(f"{d}/m.model") as f:
+            assert f.readline().startswith("MultiCoreBPRMF")
+        loaded = create_item_recommender("MultiCoreBPRMF", "device=cpu")
+        loaded.load_model(f"{d}/m.model")
+        assert torch.equal(loaded.params["item_bias"],
+                           models[1].params["item_bias"])

@@ -606,7 +606,7 @@ def test_incremental_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
     for name, value in (("ONLINE_EVENTS", 300), ("FOLDIN_USERS", 40),
                         ("FOLDIN_INCREMENTAL_USERS", 4),
                         ("ONLINE_ITEM_USERS", 30), ("WRMF_ONLINE_USERS", 8),
-                        ("SVDPP_EVENTS", 16),
+                        ("SVDPP_CALLS", 3), ("SVDPP_EVENTS", 16),
                         ("ML100K", dict(num_users=150, num_items=200,
                                         num_ratings=5000))):
         monkeypatch.setattr(smoke, name, value)
@@ -637,3 +637,86 @@ def test_incremental_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
                  "online WRMF, 8 users", "online SVD++, 3 add_ratings",
                  "online CLI BPRMF", "phase 22 (incremental and online)"):
         assert text in out, text
+
+
+def test_last_models_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
+                                                capsys):
+    """Phase 23 end to end on CPU tensors at a small size, with the
+    card's clock and synchronisation stood in for and the launch counts
+    not held (the plain versions count none): every check of (a)-(f)
+    runs and passes, the float32 steps within 1e-5 of float64."""
+    import contextlib
+    from collections import defaultdict
+
+    import torch
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    @contextlib.contextmanager
+    def uncounted(expected):
+        yield defaultdict(int, expected)
+    monkeypatch.setattr(smoke, "counted_path", uncounted)
+    small = dict(num_users=300, num_items=200, num_ratings=12_000)
+    for name, value in (
+            ("TIME_AWARE_SHAPE", dict(small, seed=1)),
+            ("TIME_AWARE_ITERS", {"TimeAwareBaseline": 3,
+                                  "TimeAwareBaselineWithFrequencies": 3}),
+            ("TIME_AWARE_BATCH", 2048),
+            ("SOCIAL_SHAPES", {"ML-1M": (dict(small, seed=100), 60),
+                               "Epinions": (dict(num_users=400,
+                                                 num_items=900,
+                                                 num_ratings=9000,
+                                                 seed=120), 60)}),
+            ("SOCIAL_OPTS", "num_factors=6 learn_rate=0.002 "
+                            "social_regularization=0.5"),
+            ("TRUST_ROWS", 64), ("SLIM_SWEEPS", 3), ("BPRSLIM_EPOCHS", 1),
+            ("PHASE23_USERS", 64), ("EVAL_USERS", 100),
+            ("TIMED_CLI_SHAPE", dict(small, seed=110))):
+        monkeypatch.setattr(smoke, name, value)
+    dev = torch.device("cpu")
+    train, test = split_ratings(synthetic_ratings(**small, seed=1), 0.2,
+                                seed=2)
+    fb, test_items = posonly_from_ratings(train), posonly_from_ratings(test)
+    mf = create_rating_predictor("BiasedMatrixFactorization",
+                                 "num_factors=6 num_iter=2 device=cpu")
+    mf.ratings = train
+    mf.train()
+    mf_run = {"test_predictions": mf.predict_batch(test.users, test.items),
+              "test_rmse": evaluate_ratings(mf, test)["RMSE"]}
+    bpr = create_item_recommender("BPRMF", "num_factors=8 num_iter=2 "
+                                  "device=cpu")
+    bpr.feedback = fb
+    bpr.train()
+    smoke.phase_last_models(dev, train, test, mf_run, (bpr, fb), fb,
+                            test_items, str(tmp_path))
+    files = []
+    for name, part in (("train", train), ("test", test)):
+        path = str(tmp_path / f"{name}.tsv")
+        with open(path, "w") as f:
+            f.writelines(f"{u}\t{i}\t{v:g}\n" for u, i, v in
+                         zip(part.users, part.items, part.values))
+        files += [f"--{name.replace('train', 'training')}-file", path]
+    smoke.phase_last_clis(dev, str(tmp_path), files, list(files))
+    out = capsys.readouterr().out
+    for text in ("TimeAwareBaseline: ", "TimeAwareBaselineWithFrequencies: ",
+                 "TimeAwareBaseline minibatch: float32 step",
+                 "SocialMF ML-1M step: float32 step",
+                 "SocialMF Epinions: init", "LeastSquareSLIM (200 items",
+                 "BPRSLIM: init", "BPRSLIM batch: float32 step",
+                 "MultiCoreBPRMF: one iterate()",
+                 "ExternalRatingPredictor: ", "ExternalItemRecommender: top",
+                 "--profile rating CLI", "phase 23 (a)-(e)",
+                 "phase 23 (f)"):
+        assert text in out, text
+    assert list((tmp_path / "trace_rating").glob("*.pt.trace.json"))

@@ -170,15 +170,44 @@ def test_online_evaluation_biased_mf(files, aligned, capsys):
     assert_same_output(port_out, jax_out)
 
 
+def write_trust(path, num_users=150, seed=4):
+    """Each user of the rating files trusts three others (original ids)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for u in range(num_users):
+            for v in rng.choice(num_users, 3, replace=False):
+                f.write(f"{u + 100}\t{v + 100}\n")
+    return str(path)
+
+
 @pytest.mark.parametrize("argv", [
     ["--profile", "trace"], ["--recommender", "SocialMF"]],
     ids=["profile", "unported-model"])
-def test_unported_flags_abort(files, argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_cli.main(["--training-file", files["train"], "--test-file",
-                       files["test"]] + argv)
-    assert exc.value.code == 1
-    assert "not yet ported" in capsys.readouterr().err
+def test_unported_flags_abort(files, argv, capsys, tmp_path, request):
+    """What the port refused before: ``--profile DIR`` now writes a
+    torch.profiler trace into DIR; SocialMF (with the --user-relations it
+    requires) trains from the JAX model's tables and prints the JAX
+    CLI's lines."""
+    base = ["--training-file", files["train"], "--test-file", files["test"]]
+    if argv[0] == "--profile":
+        trace = tmp_path / "trace"
+        capsys.readouterr()
+        assert port_cli.main(base + ["--profile", str(trace),
+                                     "--recommender-options",
+                                     "num_factors=4 num_iter=1 device=cpu"]) \
+            == 0
+        out, err = capsys.readouterr()
+        assert f"profiling to {trace}" in err and "RMSE" in out
+        assert list(trace.glob("*.pt.trace.json"))
+        return
+    request.getfixturevalue("aligned")
+    argv = base + argv + ["--user-relations",
+                          write_trust(tmp_path / "trust.tsv")]
+    jax_out, port_out = run_both(
+        argv, capsys, opts="num_factors=6 num_iter=20 learn_rate=0.002 "
+        "social_regularization=0.5")
+    assert port_out.splitlines()[-1].startswith("SocialMF num_factors=6")
+    assert_same_output(port_out, jax_out)
 
 
 def test_version_flag(capsys):

@@ -242,3 +242,61 @@ def test_registry_params_and_cli_helpers_equal():
     jcommon.add_common_options(pj)
     assert sorted(a.dest for a in pt._actions) == \
         sorted(a.dest for a in pj._actions)
+
+
+@pytest.mark.parametrize("track", ["train", "test"])
+def test_kddcup_rating_files_parse_equal(tmp_path, track):
+    """Track 1's blocked format (``user|count`` then ``item<TAB>rating``
+    lines; the test format without ratings) read by both packages."""
+    from mymedialite_tpu.data import kddcup2011 as jk
+    from mymedialite_tpu_torch.data import kddcup2011 as tk
+    rng = np.random.default_rng(3)
+    path = tmp_path / "kdd.txt"
+    with open(path, "w") as f:
+        for u in (0, 5, 17, 2):
+            n = int(rng.integers(1, 6))
+            f.write(f"{u}|{n}\n")
+            for i in rng.choice(50, n, replace=False):
+                f.write(f"{i}\t{rng.integers(0, 101)}\t0\t00:00:00\n"
+                        if track == "train" else f"{i}\t0\t00:00:00\n")
+        f.write("\n")
+    read_t, read_j = ((tk.read_kddcup_ratings, jk.read_kddcup_ratings)
+                      if track == "train" else
+                      (tk.read_kddcup_test_ratings,
+                       jk.read_kddcup_test_ratings))
+    _same_data(read_t(str(path)), read_j(str(path)))
+
+
+def test_kddcup_taxonomy_reads_equal(tmp_path):
+    """Track 2's taxonomy files (tracks, albums, artists, genres)."""
+    from mymedialite_tpu.data import kddcup2011 as jk
+    from mymedialite_tpu_torch.data import kddcup2011 as tk
+    files = {"tracks": ["1|10|20|30|31", "2|None|21", "3||22|32"],
+             "albums": ["10|20|30", "11|None"], "artists": ["20", "21", "22"],
+             "genres": ["30", "31", "32"]}
+    paths = []
+    for name, lines in files.items():
+        (tmp_path / name).write_text("\n".join(lines) + "\n")
+        paths.append(str(tmp_path / name))
+    a, b = tk.read_kddcup_items(*paths), jk.read_kddcup_items(*paths)
+    for item in (1, 2, 3, 10, 11, 20, 30, 99):
+        assert a.get_type(item).name == b.get_type(item).name
+        assert (a.get_album(item), a.get_artist(item), a.get_genres(item)) \
+            == (b.get_album(item), b.get_artist(item), b.get_genres(item))
+        assert (a.has_album(item), a.has_artist(item), a.has_genres(item)) \
+            == (b.has_album(item), b.has_artist(item), b.has_genres(item))
+
+
+@pytest.mark.parametrize("max_len", [None, 3, 1])
+def test_padded_history_equals_the_loop(max_len):
+    """``padded_history``'s one scatter against the JAX package's loop
+    over the keys (empty keys, duplicates, truncation at max_len)."""
+    from mymedialite_tpu.data.arrays import PosOnlyData as JPosOnly
+    from mymedialite_tpu.data.arrays import padded_history as j_padded
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData, padded_history
+    rng = np.random.default_rng(6)
+    u, i = rng.integers(0, 50, 700), rng.integers(0, 40, 700)
+    a = padded_history(PosOnlyData(u, i, num_users=57).by_user, max_len)
+    b = j_padded(JPosOnly(u, i, num_users=57).by_user, max_len)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)

@@ -751,6 +751,9 @@ SVDPP_IDS = ["plain", "sigmoid-rmse", "sigmoid-mae", "no-p"]
 # masked, the widest copy that fits), through L2 at k=200 (fe 208, two
 # float4s per lane)
 SVDPP_ON_CHIP = {20: "shared", 100: "shared", 200: "global"}
+# plain float32 runs whose farthest distance from float64 is the witness
+# of the duplicate-heavy SVD++ test
+PLAIN_WITNESS_RUNS = 3
 SVDPP_VARIANTS += [(False, S.LOSS_RMSE, True, 100),
                    (True, S.LOSS_MAE, True, 200)]
 SVDPP_IDS += ["plain-f100", "sigmoid-mae-f200"]
@@ -957,10 +960,13 @@ def test_svdpp_duplicate_users_and_items_one_step(cuda):
     of ``SVDPP_ON_CHIP``. From the
     float64 trajectory's state, every R step run alone after its block's
     S steps (``_svdpp_r_steps``) and every user block in one launch are
-    held within 1e-4 of float64 or 4x the plain float32 version's
-    distance, whichever is larger, as in
-    ``test_svdpp_duplicate_items_within_a_chunk``: a non-atomic sum into
-    s, c or a table row loses most of a chunk's updates."""
+    held within 1e-4 of float64 or 4x the distance of the farthest of
+    ``PLAIN_WITNESS_RUNS`` plain float32 runs on the card, whichever is
+    larger (the plain version's atomics add in a run-dependent order as
+    well, so one plain run is a moving witness; chip_smoke.py's
+    ``whole_epoch_witness`` takes the farthest of several too): a
+    non-atomic sum into s, c or a table row loses most of a chunk's
+    updates."""
     rng = np.random.default_rng(8)
     U, I, n = 1100, 8, 12000
     users = (rng.zipf(1.2, n) % U).astype(np.int32)
@@ -978,18 +984,24 @@ def test_svdpp_duplicate_users_and_items_one_step(cuda):
         hp, rates, kw = _svdpp_args(plan, cuda, True, S.LOSS_RMSE, True, f=f,
                                     lr=0.05)
         blocks = _block_slices(plan)
-        got = {}
-        for reference in (False, True):
-            got[reference] = (
-                _svdpp_r_steps(plan, tables(True), hp, rates, kw, reference),
-                _svdpp_blockwise(plan, tables(True), hp, rates, kw, blocks,
-                                 reference))
+
+        def distances(reference):
+            return (_svdpp_r_steps(plan, tables(True), hp, rates, kw,
+                                   reference),
+                    _svdpp_blockwise(plan, tables(True), hp, rates, kw,
+                                     blocks, reference))
+        kernel = distances(False)
+        # the plain version's atomics sum in a run-dependent order too:
+        # the farthest of several plain runs is the witness
+        runs = [distances(True) for _ in range(PLAIN_WITNESS_RUNS)]
+        plain = tuple(max(r[k] for r in runs) for k in range(2))
         out.append(f"f={f} (users up to {top_u}, items up to {top_i} slots "
-                   f"of a chunk): R steps kernel {got[False][0]:.3e} plain "
-                   f"{got[True][0]:.3e}, user blocks kernel "
-                   f"{got[False][1]:.3e} plain {got[True][1]:.3e}")
+                   f"of a chunk): R steps kernel {kernel[0]:.3e} plain "
+                   f"{plain[0]:.3e}, user blocks kernel {kernel[1]:.3e} "
+                   f"plain {plain[1]:.3e} (farthest of "
+                   f"{PLAIN_WITNESS_RUNS} plain runs)")
         for k in range(2):
-            assert got[False][k] <= max(1e-4, 4 * got[True][k])
+            assert kernel[k] <= max(1e-4, 4 * plain[k])
     print("\nsvdpp duplicate users and items, vs float64: " + "; ".join(out))
 
 

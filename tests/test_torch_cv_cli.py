@@ -155,9 +155,17 @@ def test_search_hp(files, capsys, monkeypatch):
     assert "estimated quality (on split)" in err
 
 
-def test_still_unported_flags_abort(files, capsys):
-    for main in (port_rating.main, port_item.main):
+def test_still_unported_flags_abort(files, capsys, tmp_path):
+    """--profile, the last flag the port refused, traces a
+    cross-validation run in both CLIs."""
+    opts = {port_rating.main: ["--recommender-options",
+                               "num_factors=4 num_iter=2 device=cpu"],
+            port_item.main: []}
+    for k, main in enumerate((port_rating.main, port_item.main)):
+        trace = tmp_path / f"trace{k}"
         rc, _, err = run(main, ["--training-file", files["train"],
-                                "--test-file", files["test"],
-                                "--profile", "trace"], capsys)
-        assert rc == 1 and "--profile is not yet ported" in err
+                                "--cross-validation", "2",
+                                "--profile", str(trace)] + opts[main],
+                         capsys)
+        assert rc == 0 and f"profiling to {trace}" in err
+        assert list(trace.glob("*.pt.trace.json"))

@@ -37,7 +37,7 @@ from mymedialite_tpu_torch.convert import (
 from mymedialite_tpu_torch.data.arrays import PosOnlyData, RatingData
 from mymedialite_tpu_torch.models import mf as tmf
 from mymedialite_tpu_torch.models.registry import (
-    PORTED_RATING_PREDICTORS, create_rating_predictor,
+    RATING_PREDICTOR_CLASSES, create_rating_predictor,
 )
 from mymedialite_tpu_torch.ops import sgd as tsgd
 from test_torch_svdpp import jax_f32_interpret
@@ -365,7 +365,7 @@ def test_svdpp_retrain_matches_jax(data):
 def test_hasattr_add_ratings_follows_the_jax_hierarchy():
     """Every ported rating model has add_ratings exactly where the JAX
     model of the same name has it (the online evaluator's gate)."""
-    for name in PORTED_RATING_PREDICTORS:
+    for name in RATING_PREDICTOR_CLASSES:
         t = create_rating_predictor(name, "device=cpu")
         j = jax_create(name)
         for attr in ("add_ratings", "begin_online_updates",

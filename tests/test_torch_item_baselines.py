@@ -22,7 +22,7 @@ from mymedialite_tpu_torch.data.arrays import PosOnlyData
 from mymedialite_tpu_torch.eval.ranking import evaluate_items
 from mymedialite_tpu_torch.models import item_baselines as tib
 from mymedialite_tpu_torch.models.registry import (
-    PORTED_ITEM_RECOMMENDERS, PORTED_RATING_PREDICTORS,
+    ITEM_RECOMMENDER_CLASSES, RATING_PREDICTOR_CLASSES,
     create_item_recommender,
 )
 from test_torch_incremental_item import jax_posonly, port_feedback
@@ -138,7 +138,8 @@ def test_bigram_counts_stay_exact(data):
 
 
 def test_registry_serves_31_of_39_names():
-    assert len(PORTED_RATING_PREDICTORS) + len(PORTED_ITEM_RECOMMENDERS) == 31
+    # every one of the 39 names since the last eight were ported
+    assert len(RATING_PREDICTOR_CLASSES) + len(ITEM_RECOMMENDER_CLASSES) == 39
     for name in NAMES:
         model = create_item_recommender(name)
         assert not hasattr(model, "add_feedback")

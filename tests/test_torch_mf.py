@@ -205,8 +205,11 @@ def test_train_from_seeded_generator(data):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(KeyError, match="not yet ported"):
-        create_rating_predictor("SocialMF")
+    """SocialMF resolves now (a BiasedMatrixFactorization with its own
+    full-batch step); only an unknown name raises."""
+    social = create_rating_predictor("SocialMF", "social_regularization=2")
+    assert isinstance(social, tmf.BiasedMatrixFactorization)
+    assert social.social_regularization == 2.0
     with pytest.raises(KeyError, match="Unknown recommender"):
         create_rating_predictor("NoSuchModel")
 

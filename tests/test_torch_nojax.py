@@ -12,8 +12,9 @@ UserItemBaseline, BPRMF and MostPopular, the item baselines Zero,
 Random, MostPopularByAttributes and BigramRules, the three fold-in
 protocols; then the XLA slice: cross-validation in all three CLIs,
 BiasedMatrixFactorization with frequency regularization, BPRMF on its
-minibatch epoch, ``--search-hp`` and GSVDPlusPlus) from the port's own
-synthetic data, and must exit 0."""
+minibatch epoch, ``--search-hp`` and GSVDPlusPlus; then the last eight
+names trained, the KDD Cup reader, and the rating CLI under
+``--profile``) from the port's own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -152,6 +153,49 @@ SCRIPT = textwrap.dedent("""
         items[:2] + ["--cross-validation", "2", "--recommender", "BPRMF",
                      "--recommender-options",
                      "num_factors=6 num_iter=2 device=cpu"]) == 0
+    # the last eight names, the KDD Cup reader and --profile
+    import numpy as np
+    from mymedialite_tpu_torch.data import kddcup2011
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData
+    from mymedialite_tpu_torch.data.synthetic import synthetic_posonly
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    with open(f"{d}/kdd.txt", "w") as f:
+        f.write("3|2\\n5\\t80\\n6\\t90\\n")
+    assert len(kddcup2011.read_kddcup_ratings(f"{d}/kdd.txt")) == 2
+    timed = synthetic_ratings(num_users=120, num_items=150, num_ratings=3000,
+                              seed=2, with_times=True, time_drift=1.0)
+    with open(f"{d}/pred.tsv", "w") as f:
+        for u, i, v in zip(test.users, test.items, test.values):
+            f.write(f"{u}\\t{i}\\t{v:g}\\n")
+    users = np.arange(120)
+    trust = PosOnlyData(users, (users + 1) % 120, num_users=120,
+                        num_items=120)
+    fb = synthetic_posonly(num_users=120, num_items=150, num_events=2000,
+                           seed=3)
+    for name, opts, data in (
+            ("TimeAwareBaseline", "num_iter=2", timed),
+            ("TimeAwareBaselineWithFrequencies", "num_iter=2", timed),
+            ("SocialMF", "num_factors=6 num_iter=3", train),
+            ("ExternalRatingPredictor", f"prediction_file={d}/pred.tsv",
+             train)):
+        model = create_rating_predictor(name, opts + " device=cpu")
+        model.user_relation = trust
+        model.ratings = data
+        model.train()
+        print("trained", name, model.predict_batch(test.users[:3],
+                                                   test.items[:3]))
+    for name, opts in (("MultiCoreBPRMF", "num_factors=6 num_iter=2"),
+                       ("LeastSquareSLIM", "num_iter=2"),
+                       ("BPRSLIM", "num_iter=1"),
+                       ("ExternalItemRecommender",
+                        f"prediction_file={d}/pred.tsv")):
+        model = create_item_recommender(name, opts + " device=cpu")
+        model.feedback = fb
+        model.train()
+        print("trained", name, model.score_catalog(np.arange(2)).shape)
+    assert rating_prediction.main(
+        base + ["--profile", f"{d}/trace"]) == 0
+    assert any(n.endswith(".pt.trace.json") for n in os.listdir(f"{d}/trace"))
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -169,6 +213,7 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count("GSVDPlusPlus num_factors=6") == 2
     assert proc.stdout.count("AUC") == 23
     assert proc.stdout.count("fold-in RMSE") == 3
+    assert proc.stdout.count("\ntrained ") == 8
     assert "frequency_regularization=True" in proc.stdout
     assert proc.stdout.count("\nUserItemBaseline reg_u=") == 4
     # UserItemBaseline: trained, loaded, then its --search-hp line

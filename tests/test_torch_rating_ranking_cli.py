@@ -142,12 +142,18 @@ def test_save_load(files, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--profile", "trace"]], ids=["profile"])
-def test_unported_flags_abort(files, argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_cli.main(["--training-file", files["train"], "--test-file",
-                       files["test"]] + argv)
-    assert exc.value.code == 1
-    assert "not yet ported" in capsys.readouterr().err
+def test_unported_flags_abort(files, argv, capsys, tmp_path):
+    """--profile DIR, refused before, writes a torch.profiler trace into
+    DIR and the run prints its result line."""
+    trace = tmp_path / argv[1]
+    capsys.readouterr()
+    assert port_cli.main(["--training-file", files["train"], "--test-file",
+                          files["test"], "--profile", str(trace),
+                          "--recommender-options",
+                          "num_factors=4 num_iter=1 device=cpu"]) == 0
+    out, err = capsys.readouterr()
+    assert "AUC" in out.splitlines()[-1] and "profiling to" in err
+    assert list(trace.glob("*.pt.trace.json"))
 
 
 def test_needs_a_test_file(files, capsys):

@@ -276,8 +276,10 @@ def test_unported_paths_raise(data, monkeypatch, tmp_path):
 
     m = model()
     m.train()
-    with pytest.raises(KeyError, match="not yet ported"):
-        create_rating_predictor("SocialMF")
+    # every JAX name resolves in the port; an unknown one raises
+    assert type(create_rating_predictor("SocialMF")).__name__ == "SocialMF"
+    with pytest.raises(KeyError, match="Unknown recommender"):
+        create_rating_predictor("NoSuchModel")
     path = str(tmp_path / "m.model")
     m.save_model(path)
     with pytest.raises(RuntimeError, match="ratings"):
