@@ -30,12 +30,15 @@ Phases (any failure raises and the script exits non-zero):
    draws), split 80/20, shared by phases 7-11;
 7. the rating main path on the resident schedule: BiasedMatrixFactorization
    (k=40, 3 epochs) trained through the registry and evaluated; the SGD
-   kernel against the plain version at this shape, both timed;
+   kernel against the plain version at this shape on the first 4,096
+   chunks of an epoch's order, both timed, and a whole epoch's bound;
 8. the item-recommendation main path on the resident schedule: BPRMF (k=40,
    3 epochs) on the same pairs as positive-only feedback; the BPR kernel
-   against the plain version at this shape, both timed, and its call
-   split into the sampling kernel and the walk (torch.profiler); ranking
-   evaluation of 4,096 seeded test users against MostPopular;
+   against the plain version at this shape on the first 4,096 chunks,
+   both timed, the bound of a whole epoch (from one more kernel epoch's
+   negatives), and its call split into the sampling kernel and the walk
+   (torch.profiler); ranking evaluation of 4,096 seeded test users against
+   MostPopular;
 9. serving phase 8's BPRMF: the top-10 of all 480,000 users, training
    items excluded, through ``recommend_batch`` (the top-k kernel once per
    block of 1,024 users, 469 calls, no other kernel); each block's
@@ -83,12 +86,12 @@ Phases (any failure raises and the script exits non-zero):
     take the slab-tiled schedule; phases 13-15 share them;
 13. the rating main path on the tiled schedule: BiasedMatrixFactorization
     as in phase 7, through the tiled SGD kernel, compared with its plain
-    version at this shape on the shortest prefix of an epoch's order that
-    crosses three slab boundaries (plus 256 chunks), and the bound of a
-    whole epoch;
+    version at this shape on a window of 4,096 chunks of an epoch's order
+    that runs through the end of its first slab into the next (256
+    chunks past the boundary), and the bound of a whole epoch;
 14. the item main path on the tiled schedule: BPRMF as in phase 8, through
     the tiled BPR kernel with sub-bucketed keys, compared with its plain
-    version at this shape on such a prefix (identical negatives), the
+    version at this shape on such a window (identical negatives), the
     bound of a whole epoch (from one more kernel epoch's negatives),
     ranked against MostPopular;
 15. serving phase 14's BPRMF as in phase 9: 162,541 users, 159 launches;
@@ -132,28 +135,28 @@ Phases (any failure raises and the script exits non-zero):
     --cross-validation=5;
 22. the incremental API, the online protocol and fold-in (run after
     phase 11c, on phase 6's data): (a) BiasedMatrixFactorization (k=40,
-    3 epochs), then the prequential protocol over 1,024 seeded test
+    3 epochs), then the prequential protocol over 512 seeded test
     events, buffered with chunked predictions, each event refreshing its
     user and item rows with 30 steps: RMSE/MAE, events/s, ms per refresh;
     16 refreshes (the most-rated item's among them) held step by step to
     float64 (1e-4); one iterate() on the grown ratings through kernel 1;
     (b) true fold-in over 256 seeded test users (their test ratings split
     50/50 into update and evaluation) and the incremental protocol over
-    8 of them, 16 fold-in rows held step by step to float64; (c) the
-    per-user online protocol with phase 8's BPRMF over 256 seeded test
+    4 of them, 16 fold-in rows held step by step to float64; (c) the
+    per-user online protocol with phase 8's BPRMF over 64 seeded test
     users, ms a user split into evaluation, feedback.add, sampler rebuild
     and refresh, one user's pairwise step held to float64 (1e-5), one
     iterate() through kernel 3 on the grown feedback; (d) add_feedback on
     phase 11a's WRMF for 64 seeded users: untouched rows bit-equal, the
     re-solved rows within 1e-5 of float64; (e) one add_ratings of 64
     test events on phase 11's SVDPlusPlus, kernel 5 once; (f)
-    --online-evaluation at the ML-100K shape (943 x 1,682 x 100,000) in
-    the rating CLI (UserItemBaseline, BiasedMatrixFactorization) and the
-    item CLI (BPRMF);
+    --online-evaluation at the ML-100K shape (943 x 1,682 x 100,000) over
+    4,096 seeded test events in the rating CLI (UserItemBaseline,
+    BiasedMatrixFactorization) and the item CLI (BPRMF);
 23. the last eight names ((a)-(e) after phase 22, on phase 6's data and
     the models of phases 7 and 8; (f) after phase 21): (a)
-    TimeAwareBaseline (30 epochs) and TimeAwareBaselineWithFrequencies
-    (40) at the Netflix shape with times and a per-item drift
+    TimeAwareBaseline (15 epochs) and TimeAwareBaselineWithFrequencies
+    (20) at the Netflix shape with times and a per-item drift
     (``synthetic_ratings(..., seed=1, with_times=True, time_drift=1.0)``),
     split by time 80/20, batches of 65,536: s per epoch, RMSE with the
     times against UserItemBaseline and the global average, one minibatch
@@ -180,9 +183,42 @@ Phases (any failure raises and the script exits non-zero):
     process of their own (``--counted-cli``, the launches counted there),
     the rating CLI's BiasedMatrixFactorization trace, the process's first
     profiler session, holding kernel 1's CUDA events. Only (d) and the profiled BiasedMatrixFactorization launch
-    kernels.
+    kernels;
+24. the mesh (``parallel/mesh.py``): Gemulla's DSGD diagonal over a rig of
+    one card named 4 times (``make_mesh(devices=["cuda:0"] * 4)``), whose
+    cells run one after another, so that its times say nothing of a mesh
+    of cards; it checks the schedule, the offsets and the routes. (a)
+    after phase 4, at phase 3's shape on 3 and 4 devices (empty cells in
+    both): each of the four sharded epochs against the same kernel run
+    cell by cell in (sub-epoch, device) order and against its plain
+    version (every variant of phases 3 and 4 on 4 devices, the first on
+    3; the MAE rows under phase 3's witnesses; BPR negatives identical);
+    BiasedMatrixFactorization and BPRMF trained on the rig through the
+    registry on the sharded route (4 devices) and on the sharded-tiled one
+    (2 devices, the bounds lowered to one item block), saved and loaded
+    with their predictions kept (at this shape: a Netflix-shaped model
+    file holds 20M lines); (b) after phase 8, on phase 6's data:
+    BiasedMatrixFactorization and BPRMF (3 epochs) on the rig, the
+    "sharded" route, kernels 1 and 3 once per non-empty cell per epoch and
+    no other kernel, RMSE under the global average and AUC of 4,096 seeded
+    users above 0.6 beside phases 7 and 8, the epoch's ms and the largest
+    cell over the mean cell (the imbalance a mesh of cards would pace
+    itself by); one MultiCoreBPRMF.iterate() on the rig from that BPRMF's
+    tables (kernel 3 once per cell); (c) after phase 20, on its big
+    catalog: both models (1 epoch) on the "sharded-tiled" route, kernels
+    2 and 4 once per cell, where one device takes the minibatch epochs;
+    RMSE under the global average and AUC of 1,024 seeded users above 0.5,
+    beside phase 20's. In (b) and (c), after training, each model's
+    kernel is held to its cells in turn and to its plain version on one
+    more epoch from the trained tables, over 4,096 chunks drawn across all
+    its cells (partition-relative item blocks, slabs and negative blocks
+    past the first, the partitions' CDF rows; BPR negatives identical),
+    and the standard tables that prediction, save and the incremental
+    API read are held to rows picked straight out of the shards (no pad
+    row leaks; at this shape in place of a save -> load).
 
-Before each main path every kernel's launch count is set to 0, and after
+Before each main path (phase 24's models included) every kernel's launch
+count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
 kernel once per epoch, the top-k kernel once per block of users, and no
 kernel in WRMF's training, the KNN builds or the XLA routes, which are
@@ -199,6 +235,7 @@ port, numpy and torch.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -213,6 +250,10 @@ import numpy as np
 import torch
 
 KERNEL_TOL = 1e-4   # atomics add in a run-dependent order
+# the main paths hold an epoch kernel to its plain version over this many
+# chunks of an epoch's order (the plain version is host-bound: a whole
+# Netflix-shaped epoch took 8-26 s of it)
+PLAIN_PREFIX = 4096
 # the whole-epoch witness of the MAE checks: the kernel lies no farther
 # from float64 than this many times the farthest plain run
 WITNESS_FACTOR = 4.0
@@ -398,15 +439,17 @@ def topk_agreement(ids, vals, ref_ids, ref_vals, *, exact=False,
     return err, int(((ids[:, :k] != ref_ids[:, :k]) & sure).sum())
 
 
-def slab_prefix(slabs, crossings: int = 3, extra: int = 256) -> int:
-    """Length of the shortest prefix of a slab-major order (its chunks'
-    item slabs ``slabs``) that crosses ``crossings`` slab boundaries, plus
-    ``extra`` chunks of the slab it then enters."""
+def slab_window(slabs, length: int = PLAIN_PREFIX,
+                extra: int = 256) -> tuple:
+    """[start, end) of the window of at most ``length`` chunks of a
+    slab-major order (its chunks' item slabs ``slabs``) that ends
+    ``extra`` chunks past its first slab boundary: the walk through the
+    end of the first slab into the next."""
     change = torch.nonzero(slabs[1:] != slabs[:-1]).flatten()
-    if change.numel() < crossings:
-        raise AssertionError(f"the order crosses {change.numel()} slab "
-                             f"boundaries, fewer than {crossings}")
-    return min(int(change[crossings - 1]) + 1 + extra, slabs.numel())
+    if change.numel() < 1:
+        raise AssertionError("the order crosses no slab boundary")
+    end = min(int(change[0]) + 1 + extra, slabs.numel())
+    return max(end - length, 0), end
 
 
 def time_kernel_and_plain(kernel, plain):
@@ -569,7 +612,8 @@ def witness_check(step_err, kernel_dist, plain_dist, what):
             f"({plain_dist})")
 
 
-def sgd_one_step_witness(plan, W, H, order, hp, rates, *, loss, biased):
+def sgd_one_step_witness(plan, W, H, order, hp, rates, *, loss, biased,
+                         kernel_run=None):
     """The MAE check of the SGD kernel on the plan's schedule. The MAE
     gradient is the sign of the error, so where a rating lies within
     rounding of its prediction the atomics' run-dependent order can flip
@@ -577,13 +621,15 @@ def sgd_one_step_witness(plan, W, H, order, hp, rates, *, loss, biased):
     (1) every chunk stepped alone by the kernel from the float64 plain
     trajectory's state before it, against the float64 step (the largest
     difference); (2) the whole epoch, the kernel's distance from float64
-    against the farthest plain witness's (``whole_epoch_witness``).
-    Returns (one-step error, kernel distance, plain distance)."""
-    from mymedialite_tpu_torch.ops import plan as mxu
+    against the farthest plain witness's (``whole_epoch_witness``), the
+    epoch run by ``kernel_run(tables)`` where given (a sharded epoch,
+    whose order flattened is ``order``). A plan with slabs is stepped on
+    the tiled schedule. Returns (one-step error, kernel distance, plain
+    distance)."""
     from mymedialite_tpu_torch.ops import sgd_epoch as se
     kw = dict(user_block=plan.user_block, item_block=plan.item_block,
               loss=loss, biased=biased)
-    if isinstance(plan, mxu.MxuTiledPlan):
+    if hasattr(plan, "slab_blocks"):
         kernel, plain = se.sgd_epoch_tiled, se.sgd_epoch_tiled_reference
         kw["slab_blocks"] = plan.slab_blocks
     else:
@@ -610,13 +656,14 @@ def sgd_one_step_witness(plan, W, H, order, hp, rates, *, loss, biased):
         step_err = max(step_err, table_distance(got, nxt))
         state = nxt
 
-    def kernel_run(tabs):
+    def one_device_run(tabs):
         out = tuple(t.clone() for t in tabs)
         kernel(*out, plan.packed, order, hp, rates, **kw)
         return out
 
     return (step_err, *whole_epoch_witness(
-        (W, H), kernel_run, lambda tabs: plain_on(tabs, order)))
+        (W, H), kernel_run or one_device_run,
+        lambda tabs: plain_on(tabs, order)))
 
 
 def phase_kernel_check(dev):
@@ -879,8 +926,9 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the kernel against the plain version at the main path's shape, from
-    # the trained tables (one more epoch each; on the tiled schedule the
-    # prefix of the order that crosses three slab boundaries)
+    # the trained tables, on PLAIN_PREFIX chunks of one more epoch's order:
+    # on the tiled schedule the window across its first slab boundary, on
+    # the resident one the prefix
     rates = model._epoch_rates(True, True)
     hp = (model.global_bias, model.min_rating, model._rating_range())
     order = plan.epoch_order(12345)
@@ -888,19 +936,22 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
         ub, ibr, sl, row = order
         epoch_bound = sgd_bound(plan, ub, sl * plan.slab_blocks + ibr, row,
                                 model.num_factors)
-        n = slab_prefix(order[2])
-        order = tuple(t[:n].contiguous() for t in order)
+        lo, n = slab_window(order[2])
+        span = (f"chunks {lo}-{n} of {plan.num_chunks}, across 1 slab "
+                "boundary")
+    else:
+        epoch_bound = sgd_bound(plan, *order, model.num_factors)
+        lo, n = 0, min(PLAIN_PREFIX, plan.num_chunks)
+        span = f"prefix of {n} of {plan.num_chunks} chunks"
+    order = tuple(t[lo:n].contiguous() for t in order)
+    if tiled:
         ub, ibr, sl, row = order
         ib = sl * plan.slab_blocks + ibr
-        span = f"prefix of {n} of {plan.num_chunks} chunks, 3 slab boundaries"
     else:
         ub, ib, row = order
-        span = f"all {plan.num_chunks} chunks"
     err, kernel_ms, plain_ms = kernel_vs_plain(
         plan, We, He, order, hp, rates, loss=model.loss_id, biased=True)
     b_ms, b_by = sgd_bound(plan, ub, ib, row, model.num_factors)
-    if not tiled:
-        epoch_bound = b_ms, b_by
     log(f"full-shape {name} ({span}): kernel {kernel_ms:.1f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
         f"{err:.3e} (tol {KERNEL_TOL}); a whole epoch's bound "
@@ -915,28 +966,39 @@ def phase_mf_path(dev, train, test, *, tiled: bool):
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError("RMSE does not beat the global average")
     run = dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               epoch_ms=epoch_ms)
     # the test pairs' predictions and RMSE: phase 23's external file
     run["test_predictions"] = model.predict_batch(test.users, test.items)
     run["test_rmse"] = res["RMSE"]
     return run
 
 
-def bpr_tiled_epoch_bound(plan, state, tl, W, H, order, bits, rates,
-                          num_factors: int):
-    """``bpr_bound`` over a whole tiled epoch: the kernel runs the epoch
-    once more on copies of the tables for its negatives (the plain
-    version is held to the kernel on a prefix only)."""
-    from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch_tiled
-    _, _, neg = bpr_epoch_tiled(
-        W.clone(), H.clone(), plan.packed, state["subkeys_tbl"],
-        state["cdf_tbl"], bits, order, rates, slab_blocks=tl["slab_blocks"],
-        user_block=plan.user_block, item_block=plan.item_block, subkeys=True,
-        return_negatives=True)
-    ub, ibr, isl, jb, _, _, _, _, row = order
-    table = state["subkeys_tbl"]
-    return bpr_bound(plan, ub, isl * tl["slab_blocks"] + ibr, row, jb, neg,
-                     num_factors, probe_bytes=table.element_size(),
+def bpr_epoch_bound(plan, state, tl, W, H, order, bits, neg_plan, rates,
+                    num_factors: int):
+    """``bpr_bound`` over a whole epoch (resident when ``neg_plan`` is
+    given, else tiled): the kernel runs the epoch once more on copies of
+    the tables for its negatives (the plain version is held to the kernel
+    on a prefix only)."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              return_negatives=True)
+    if neg_plan is not None:
+        table = state.get("bitmask_tbl", state["keys_tbl"])
+        _, _, neg = bpr_epoch(
+            W.clone(), H.clone(), plan.packed, state["keys_tbl"],
+            state["cdf_tbl"], bits, order, *neg_plan, rates,
+            bitmask_tbl=state.get("bitmask_tbl"), **kw)
+        (ub, ib, row), jb = order, neg_plan[0]
+    else:
+        table = state["subkeys_tbl"]
+        _, _, neg = bpr_epoch_tiled(
+            W.clone(), H.clone(), plan.packed, table, state["cdf_tbl"], bits,
+            order, rates, slab_blocks=tl["slab_blocks"], subkeys=True, **kw)
+        ub, ibr, isl, jb, _, _, _, _, row = order
+        ib = isl * tl["slab_blocks"] + ibr
+    return bpr_bound(plan, ub, ib, row, jb, neg, num_factors,
+                     probe_bytes=table.element_size(),
                      table_bytes=table.numel() * table.element_size())
 
 
@@ -1008,46 +1070,49 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the kernel against the plain version at the main path's shape, from
-    # the trained tables (one more epoch each; on the tiled schedule the
-    # prefix of the order that crosses three slab boundaries)
+    # the trained tables, on PLAIN_PREFIX chunks of one more epoch's order:
+    # on the tiled schedule the window across its first slab boundary, on
+    # the resident one the prefix
     rates = bpr_plan.bpr_mxu_column_rates(
         40, We.shape[1], model.learn_rate, model.reg_u, model.reg_i,
         model.reg_j, model.bias_reg, model.update_j, device=dev)
     if tiled:
         order, bits = bpr_tiled_epoch_inputs(plan, state, model._neg_meta,
                                              tl, 12345)
-        epoch_bound = bpr_tiled_epoch_bound(plan, state, tl, We, He, order,
-                                            bits, rates, model.num_factors)
-        n = slab_prefix(order[2])
-        order = tuple(t[:n].contiguous() for t in order)
-        bits = bits[:n].contiguous()
-        err, kernel_ms, plain_ms, neg = bpr_tiled_kernel_vs_plain(
-            plan, state, tl, We, He, order, bits, rates, soft_margin=False,
-            wbpr=False)
-        call_split = bpr_call_split(plan, state, tl, We, He, order, bits,
-                                    None, rates)
-        ub, ibr, isl, jb, _, _, _, _, row = order
-        ib = isl * tl["slab_blocks"] + ibr
-        table = state["subkeys_tbl"]
-        span = f"prefix of {n} of {plan.num_chunks} chunks, 3 slab boundaries"
+        neg_plan = None
+        lo, n = slab_window(order[2])
+        span = (f"chunks {lo}-{n} of {plan.num_chunks}, across 1 slab "
+                "boundary")
     else:
         order, neg_plan, bits = bpr_epoch_inputs(plan, state,
                                                  model._neg_meta, 12345)
+        lo, n = 0, min(PLAIN_PREFIX, plan.num_chunks)
+        span = f"prefix of {n} of {plan.num_chunks} chunks"
+    epoch_bound = bpr_epoch_bound(plan, state, tl, We, He, order, bits,
+                                  neg_plan, rates, model.num_factors)
+    order = tuple(t[lo:n].contiguous() for t in order)
+    bits = bits[lo:n].contiguous()
+    if tiled:
+        err, kernel_ms, plain_ms, neg = bpr_tiled_kernel_vs_plain(
+            plan, state, tl, We, He, order, bits, rates, soft_margin=False,
+            wbpr=False)
+        ub, ibr, isl, jb, _, _, _, _, row = order
+        ib = isl * tl["slab_blocks"] + ibr
+        table = state["subkeys_tbl"]
+    else:
+        neg_plan = tuple(t[lo:n].contiguous() for t in neg_plan)
         bitmask = "bitmask_tbl" in state
         err, kernel_ms, plain_ms, neg = bpr_kernel_vs_plain(
             plan, state, We, He, order, neg_plan, bits, rates,
             soft_margin=False, wbpr=False, bitmask=bitmask)
-        call_split = bpr_call_split(plan, state, None, We, He, order, bits,
-                                    neg_plan, rates)
         (ub, ib, row), jb = order, neg_plan[0]
         table = state["bitmask_tbl" if bitmask else "keys_tbl"]
-        span = f"all {plan.num_chunks} chunks"
+    call_split = bpr_call_split(plan, state, tl, We, He, order, bits,
+                                neg_plan, rates)
     b_ms, b_by = bpr_bound(
         plan, ub, ib, row, jb, neg, model.num_factors,
         probe_bytes=table.element_size(),
         table_bytes=table.numel() * table.element_size())
-    if not tiled:
-        epoch_bound = b_ms, b_by
     log(f"full-shape {name} ({span}): kernel {kernel_ms:.1f} ms, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), negatives "
         f"identical, max_abs_err {err:.3e} (tol {KERNEL_TOL}); a whole "
@@ -1068,7 +1133,8 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
     if not auc > 0.6:
         raise AssertionError(f"BPRMF AUC {auc} <= 0.6")
     return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), model, train
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                epoch_ms=epoch_ms, auc=auc, test=test), model, train
 
 
 def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
@@ -2470,6 +2536,7 @@ def phase_mf_blocked(dev, train, test, label, opts=""):
     baseline = global_average_rmse(train, test)
     log(f"mf blocked {label} eval: {res}; global-average RMSE "
         f"{baseline:.5f}")
+    rmse = res["RMSE"]
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError(f"{label}: blocked MF RMSE does not beat the "
                              "global average")
@@ -2507,7 +2574,7 @@ def phase_mf_blocked(dev, train, test, label, opts=""):
         + f"; largest entries |W| "
         f"{card['W'].abs().max().item():.4g}, |H| "
         f"{card['H'].abs().max().item():.4g}")
-    return dict(epoch_ms=epoch_ms)
+    return dict(epoch_ms=epoch_ms, rmse=rmse)
 
 
 def phase_bpr_minibatch(dev, train, test, label):
@@ -2571,7 +2638,7 @@ def phase_bpr_minibatch(dev, train, test, label):
         f"({time.perf_counter() - t0:.2f} s)")
     if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
         raise AssertionError(f"{label}: BPRMF AUC {res['AUC']} <= 0.5")
-    return dict(epoch_ms=epoch_ms)
+    return dict(epoch_ms=epoch_ms, auc=res["AUC"])
 
 
 def finite_lines(text, key, count):
@@ -2652,20 +2719,22 @@ def phase_cv_cli(dev, tmp, files, item_files, num_items=3706):
 # phase 22: the incremental API, the online protocol and fold-in
 # ---------------------------------------------------------------------------
 
-ONLINE_EVENTS = 1024      # (a): test events of the prequential run
+ONLINE_EVENTS = 512       # (a): test events of the prequential run
 ROW_CHECKS = 16           # (a), (b): rows held step by step to float64
 ROW_TOL = 1e-4
 FOLDIN_USERS = 256        # (b): users of the fold-in protocols
 # (b): users of the incremental protocol (add, evaluate, remove): each
 # add and remove rebuilds the COO arrays of 15M ratings and derives their
 # CSR views, about 1-2 s of host work a user on the card's host
-FOLDIN_INCREMENTAL_USERS = 8
-ONLINE_ITEM_USERS = 256   # (c)
+FOLDIN_INCREMENTAL_USERS = 4
+ONLINE_ITEM_USERS = 64    # (c)
 PAIRWISE_TOL = 1e-5       # (c): one user's pairwise step against float64
 WRMF_ONLINE_USERS = 64    # (d)
 SVDPP_CALLS, SVDPP_EVENTS = 1, 64   # (e)
 # (f): GroupLens' published ml-100k counts
 ML100K = dict(num_users=943, num_items=1682, num_ratings=100_000)
+# (f): test events of the online CLIs (of the split's 15,039)
+ONLINE_CLI_EVENTS = 4096
 
 
 def event_subset(test, n: int, seed: int):
@@ -3131,7 +3200,8 @@ def phase_online_svdpp(dev, model, train, test):
 def phase_online_cli(dev, tmp):
     """(f) ``--online-evaluation`` at the ML-100K shape (943 users x 1,682
     items x 100,000 ratings, GroupLens' published ml-100k counts,
-    synthetic, split 80/20): the rating CLI with UserItemBaseline and
+    synthetic, split 80/20, ONLINE_CLI_EVENTS seeded events of the test
+    part in its order): the rating CLI with UserItemBaseline and
     BiasedMatrixFactorization, the item CLI with BPRMF."""
     from mymedialite_tpu_torch.cli import item_recommendation
     from mymedialite_tpu_torch.cli import rating_prediction
@@ -3140,6 +3210,7 @@ def phase_online_cli(dev, tmp):
     )
     train, test = split_ratings(synthetic_ratings(**ML100K, seed=30), 0.2,
                                 seed=31)
+    test = event_subset(test, ONLINE_CLI_EVENTS, seed=32)
     files = []
     for name, part in (("training", train), ("test", test)):
         path = os.path.join(tmp, f"ml100k-{name}.tsv")
@@ -3188,8 +3259,8 @@ def phase_incremental(dev, train, test, bpr, wrmf, svdpp, tmp):
 # (a) the Netflix shape with times and a per-item drift, split by time
 TIME_AWARE_SHAPE = dict(num_users=480_000, num_items=17_770,
                         num_ratings=20_000_000, seed=1)
-TIME_AWARE_ITERS = {"TimeAwareBaseline": 30,
-                    "TimeAwareBaselineWithFrequencies": 40}
+TIME_AWARE_ITERS = {"TimeAwareBaseline": 15,
+                    "TimeAwareBaselineWithFrequencies": 20}
 TIME_AWARE_BATCH = 65_536
 # (b) quality.py's SocialMF row at ML-1M size, and the Epinions shape
 # (Massa & Avesani's trust data as Jamali & Ester 2010 use it): (shape,
@@ -3727,6 +3798,749 @@ def phase_last_clis(dev, tmp, files, item_files):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the mesh (parallel/mesh.py), Gemulla's DSGD diagonal over
+# devices: kernels 1-4 once per (device, sub-epoch) cell
+# ---------------------------------------------------------------------------
+
+# the rig: one card named MESH_DEVICES times. Its cells run one after
+# another, so its times say nothing of a mesh of cards; what it checks is
+# the schedule, the offsets and the routes
+MESH_DEVICES = 4
+# epochs of each model on the big catalog's mesh (one device's minibatch
+# epochs train 3 in phase 20)
+MESH_BIG_EPOCHS = 1
+# (a)'s data: phase 3's
+MESH_CHECK_SHAPE = dict(num_users=2000, num_items=3000, num_ratings=100_000,
+                        seed=3)
+
+
+def rig_mesh(D: int = MESH_DEVICES):
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(devices=[f"cuda:{torch.cuda.current_device()}"] * D
+                     if torch.cuda.is_available() else ["cpu"] * D)
+
+
+def mesh_cells(plan, order):
+    """The non-empty cells in (sub-epoch, device) order: (d, p, cols),
+    cols the cell's columns of ``order`` as int32 tensors on the plan's
+    device, p the partition its device holds."""
+    D, dev = plan.num_devices, plan.packed.device
+    out = []
+    for k in range(D):
+        for d in range(D):
+            n = int(plan.cell_counts[d, k])
+            if n:
+                out.append((d, (d + k) % D, tuple(
+                    torch.from_numpy(np.ascontiguousarray(a[d, k, :n]))
+                    .to(dev) for a in order)))
+    return out
+
+
+def flat_order(plan, order):
+    """The sharded order as one order over the whole tables: the cells
+    in (sub-epoch, device) order, blocks absolute. The sharded epoch is
+    the one-device epoch over it (disjoint cells of a sub-epoch commute),
+    which the MAE witnesses step through chunk by chunk."""
+    tiled = hasattr(plan, "slab_blocks")
+    cols = []
+    for d, p, c in mesh_cells(plan, order):
+        c = list(c)
+        c[0] = c[0] + d * plan.ub_per_dev
+        if tiled:
+            c[2] = c[2] + p * plan.slabs_per_part
+        else:
+            c[1] = c[1] + p * plan.part_blocks
+        cols.append(c)
+    return tuple(torch.cat(parts).contiguous() for parts in zip(*cols))
+
+
+def sharded_sgd(plan, W, H, order, hp, rates, *, loss, biased, plain=False):
+    """One sharded SGD epoch on copies of the whole tables W [u_pad] and H
+    [i_pad], over the rig mesh; returns the gathered tables."""
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    mesh = rig_mesh(plan.num_devices)
+    Ws, Hs = mesh.shard_rows(W.clone()), mesh.shard_rows(H.clone())
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=loss, biased=biased, plain=plain)
+    if hasattr(plan, "slab_blocks"):
+        se.sgd_epoch_sharded_tiled(mesh, Ws, Hs, plan.packed, order,
+                                   plan.cell_counts, hp, rates,
+                                   slab_blocks=plan.slab_blocks, **kw)
+    else:
+        se.sgd_epoch_sharded(mesh, Ws, Hs, plan.packed, order,
+                             plan.cell_counts, hp, rates, **kw)
+    return mesh.gather_rows(Ws), mesh.gather_rows(Hs)
+
+
+def sgd_cells_in_turn(plan, W, H, order, hp, rates, *, loss, biased):
+    """The sharded epoch's cells run one after another in (k, d) order by
+    the one-device kernel on views of copies of the whole tables."""
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    W, H = W.clone(), H.clone()
+    upd, pr = plan.u_pad_dev, plan.part_rows
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=loss, biased=biased)
+    for d, p, cols in mesh_cells(plan, order):
+        Wd, Hp = W[d * upd:(d + 1) * upd], H[p * pr:(p + 1) * pr]
+        if hasattr(plan, "slab_blocks"):
+            se.sgd_epoch_tiled(Wd, Hp, plan.packed, cols, hp, rates,
+                               slab_blocks=plan.slab_blocks, **kw)
+        else:
+            se.sgd_epoch(Wd, Hp, plan.packed, cols, hp, rates, **kw)
+    return W, H
+
+
+def timed(fn):
+    """(fn()'s result, its ms on CUDA events)."""
+    s, e = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def mesh_sgd_check(plan, W, H, order, hp, rates, *, loss, biased, what):
+    """The sharded SGD epoch held to its cells run in turn and to its
+    plain version (the MAE rows under phase 3's witnesses, stepped through
+    the flat order). Returns (max error, kernel ms)."""
+    from mymedialite_tpu_torch.ops import sgd
+    kw = dict(loss=loss, biased=biased)
+    if loss == sgd.LOSS_MAE:
+        (Wk, Hk), k_ms = timed(lambda: sharded_sgd(plan, W, H, order, hp,
+                                                   rates, **kw))
+        step, k_dist, p_dist = sgd_one_step_witness(
+            plan, W, H, flat_order(plan, order), hp, rates,
+            kernel_run=lambda tabs: sharded_sgd(plan, *tabs, order, hp,
+                                                rates, **kw), **kw)
+        log(f"{what}: one step at a time max_abs_err {step:.3e} (tol "
+            f"{KERNEL_TOL}); whole epoch vs float64: kernel {k_dist:.3e}, "
+            f"farthest plain {p_dist:.3e} (bound {WITNESS_FACTOR} x); "
+            f"kernel {k_ms:.2f} ms")
+        witness_check(step, k_dist, p_dist, what)
+        return step, k_ms
+    (Wk, Hk), k_ms = timed(lambda: sharded_sgd(plan, W, H, order, hp, rates,
+                                               **kw))
+    cells = sgd_cells_in_turn(plan, W, H, order, hp, rates, **kw)
+    plain = sharded_sgd(plan, W, H, order, hp, rates, plain=True, **kw)
+    err_cells = table_error((Wk, Hk), cells)
+    err_plain = table_error((Wk, Hk), plain)
+    log(f"{what}: against its cells in turn max_abs_err {err_cells:.3e}, "
+        f"against the plain version {err_plain:.3e} (tol {KERNEL_TOL}); "
+        f"kernel {k_ms:.2f} ms")
+    check(err_cells, f"{what}, cells in turn")
+    check(err_plain, what)
+    return max(err_cells, err_plain), k_ms
+
+
+def cell_bits(plan, trials: int, seed: int):
+    """[D, D, nc_pad, trials, C] random bits on the plan's device."""
+    gen = torch.Generator(device=plan.packed.device)
+    gen.manual_seed(seed)
+    D = plan.num_devices
+    return torch.randint(0, 2 ** 31, (D, D, plan.nc_pad, trials, plan.chunk),
+                         dtype=torch.int32, generator=gen,
+                         device=plan.packed.device)
+
+
+def sharded_bpr(plan, state, W, H, bits, order, rates, *, soft_margin, wbpr,
+                bitmask, plain=False):
+    """One sharded BPR epoch on copies of the whole tables over the rig
+    mesh; returns (W, H, negatives [d][k])."""
+    from mymedialite_tpu_torch.ops import bpr_epoch as be
+    mesh = rig_mesh(plan.num_devices)
+    Ws, Hs = mesh.shard_rows(W.clone()), mesh.shard_rows(H.clone())
+    kw = dict(part_blocks=plan.part_blocks, user_block=plan.user_block,
+              item_block=plan.item_block, soft_margin=soft_margin, wbpr=wbpr,
+              return_negatives=True, plain=plain)
+    if hasattr(plan, "slab_blocks"):
+        _, _, negs = be.bpr_epoch_sharded_tiled(
+            mesh, Ws, Hs, plan.packed, state["subkeys_tbl"], state["cdf_tbl"],
+            bits, order, plan.cell_counts, rates,
+            slab_blocks=plan.slab_blocks, **kw)
+    else:
+        _, _, negs = be.bpr_epoch_sharded(
+            mesh, Ws, Hs, plan.packed, state["keys_tbl"], state["cdf_tbl"],
+            bits, order, plan.cell_counts, rates,
+            bitmask_tbl=state["bitmask_tbl"] if bitmask else None, **kw)
+    return mesh.gather_rows(Ws), mesh.gather_rows(Hs), negs
+
+
+def bpr_cells_in_turn(plan, state, W, H, bits, order, rates, *, soft_margin,
+                      wbpr, bitmask):
+    """The sharded BPR epoch's cells run in turn by the one-device kernel
+    on views of copies of the whole tables, each with its partition's CDF
+    rows and its negative blocks relative to the partition."""
+    from mymedialite_tpu_torch.ops import bpr_epoch as be
+    W, H = W.clone(), H.clone()
+    D, upd, pr, PB = (plan.num_devices, plan.u_pad_dev, plan.part_rows,
+                      plan.part_blocks)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              soft_margin=soft_margin, wbpr=wbpr, return_negatives=True)
+    negs = [[None] * D for _ in range(D)]
+    for d, p, cols in mesh_cells(plan, order):
+        k = (p - d) % D
+        Wd, Hp = W[d * upd:(d + 1) * upd], H[p * pr:(p + 1) * pr]
+        cdf = state["cdf_tbl"][p * PB:(p + 1) * PB]
+        b = bits[d, k, :cols[0].numel()]
+        if hasattr(plan, "slab_blocks"):
+            ub, ibr, isl, _, jbr, jsl, nval, bkt, row = cols
+            _, _, negs[d][k] = be.bpr_epoch_tiled(
+                Wd, Hp, plan.packed, state["subkeys_tbl"], cdf, b,
+                (ub, ibr, isl, jsl * plan.slab_blocks + jbr, jbr, jsl, nval,
+                 bkt, row), rates, slab_blocks=plan.slab_blocks,
+                subkeys=True, **kw)
+        else:
+            ub, ib, jb, _, nval, bkt, row = cols
+            _, _, negs[d][k] = be.bpr_epoch(
+                Wd, Hp, plan.packed, state["keys_tbl"], cdf, b,
+                (ub, ib, row), jb, nval, bkt, rates,
+                bitmask_tbl=state["bitmask_tbl"] if bitmask else None, **kw)
+    return W, H, negs
+
+
+def same_negatives(a, b, what):
+    for row_a, row_b in zip(a, b):
+        for x, y in zip(row_a, row_b):
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"{what}: sampled negatives differ")
+
+
+def mesh_bpr_check(plan, state, W, H, bits, order, rates, *, what, **kw):
+    """The sharded BPR epoch held to its cells in turn and to its plain
+    version: identical negatives, tables within KERNEL_TOL. Returns (max
+    error, kernel ms)."""
+    (Wk, Hk, nk), k_ms = timed(lambda: sharded_bpr(plan, state, W, H, bits,
+                                                   order, rates, **kw))
+    Wc, Hc, nc = bpr_cells_in_turn(plan, state, W, H, bits, order, rates,
+                                   **kw)
+    Wr, Hr, nr = sharded_bpr(plan, state, W, H, bits, order, rates,
+                             plain=True, **kw)
+    same_negatives(nk, nc, f"{what}, cells in turn")
+    same_negatives(nk, nr, what)
+    err_cells = table_error((Wk, Hk), (Wc, Hc))
+    err_plain = table_error((Wk, Hk), (Wr, Hr))
+    log(f"{what}: negatives identical; against its cells in turn "
+        f"max_abs_err {err_cells:.3e}, against the plain version "
+        f"{err_plain:.3e} (tol {KERNEL_TOL}); kernel {k_ms:.2f} ms")
+    check(err_cells, f"{what}, cells in turn")
+    check(err_plain, what)
+    return max(err_cells, err_plain), k_ms
+
+
+def cells_line(plan) -> str:
+    c = plan.cell_counts
+    return (f"{plan.num_devices} devices, {int((c > 0).sum())} of "
+            f"{c.size} cells non-empty, {plan.num_chunks} chunks, largest "
+            f"cell {int(c.max())}")
+
+
+def phase_mesh_kernel_check(dev):
+    """(a) The four sharded epochs at phase 3/4's shape on rigs of 3 and
+    4 devices (both with empty cells): on 4 every variant of phases 3 and
+    4, on 3 the first. Returns the largest error of each kernel."""
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.ops import bpr_plan
+    from mymedialite_tpu_torch.ops import plan as mxu
+    from mymedialite_tpu_torch.ops import sgd
+    t0 = time.perf_counter()
+    data = synthetic_ratings(**MESH_CHECK_SHAPE)
+    feedback = posonly_from_ratings(data)
+    U, I = data.num_users, data.num_items
+    args = (data.users, data.items, data.values, U, I)
+    rng = np.random.default_rng(5)
+    tabs = (0.1 * rng.standard_normal((U, 40)),
+            0.1 * rng.standard_normal((I, 40)),
+            0.1 * rng.standard_normal(U), 0.1 * rng.standard_normal(I))
+    bpr_rates = bpr_plan.bpr_mxu_column_rates(40, 64, 0.05, 0.0025, 0.0025,
+                                              0.00025, 0.0, True, device=dev)
+    worst = {}
+    for D in (4, 3):
+        every = D == MESH_DEVICES
+        plans = {
+            "sgd_epoch": mxu.prepare_mxu_sharded(
+                *args, D, chunk=640, shuffle_seed=4, device=dev),
+            "sgd_epoch_tiled": mxu.prepare_mxu_sharded_tiled(
+                *args, D, chunk=None, slab_blocks=1, shuffle_seed=4,
+                device=dev)}
+        for name, plan in plans.items():
+            if not (plan.cell_counts == 0).any():
+                raise AssertionError(f"{name} on {D} devices: no empty cell")
+            W, H = mxu.extend_tables_mxu(plan, *tabs)
+            order = plan.epoch_order(6)
+            variants = [(b, loss) for b in (True, False) for loss in (
+                sgd.LOSS_RMSE, sgd.LOSS_MAE, sgd.LOSS_LOGISTIC)]
+            for biased, loss in variants if every else variants[:1]:
+                rates = mxu.mxu_column_rates(40, W.shape[1], 0.01, 0.015,
+                                             0.015, 1.0, 0.01, biased, True,
+                                             True, device=dev)
+                hp = (0.6, 1.0, 4.0) if biased else (3.6, 1.0, 4.0)
+                err, _ = mesh_sgd_check(
+                    plan, W, H, order, hp, rates, loss=loss, biased=biased,
+                    what=f"mesh {name} ({cells_line(plan)}) loss={loss} "
+                         f"biased={biased}")
+                worst[name] = max(worst.get(name, 0.0), err)
+        plan, state, meta = bpr_plan.prepare_bpr_mxu_sharded(
+            feedback, D, uniform_user=True, shuffle_seed=4, bitmask=True,
+            device=dev)
+        tplan, tstate, _ = bpr_plan.prepare_bpr_mxu_sharded_tiled(
+            feedback, D, uniform_user=True, shuffle_seed=4, slab_blocks=1,
+            device=dev)
+        for name, p, st, variants in (
+                ("bpr_epoch", plan, state,
+                 [(h, w, b) for h, w in ((False, False), (True, False),
+                                         (False, True))
+                  for b in (False, True)]),
+                ("bpr_epoch_tiled", tplan, tstate,
+                 [(h, w, False) for h in (False, True)
+                  for w in (False, True)])):
+            W, H = bpr_tables(dev, p, feedback.num_users, feedback.num_items,
+                              5)
+            bits = cell_bits(p, meta[2], 7)
+            for soft_margin, wbpr, bitmask in variants if every \
+                    else variants[:1]:
+                epoch_order = (bpr_plan.bpr_sharded_tiled_epoch_order
+                               if name == "bpr_epoch_tiled"
+                               else bpr_plan.bpr_sharded_epoch_order)
+                order = epoch_order(p, st["nvalid"], 6 + wbpr,
+                                    block_mass=(st["block_mass"] if wbpr
+                                                else None))
+                err, _ = mesh_bpr_check(
+                    p, st, W, H, bits, order, bpr_rates,
+                    soft_margin=soft_margin, wbpr=wbpr, bitmask=bitmask,
+                    what=f"mesh {name} ({cells_line(p)}) soft_margin="
+                         f"{soft_margin} wbpr={wbpr} membership="
+                         f"{'bitmask' if bitmask else 'keys'}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    mesh_save_load(dev, data, feedback)
+    log(f"phase 24 (a) (the sharded kernels at phase 3's shape): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def mesh_save_load(dev, data, feedback):
+    """BiasedMatrixFactorization and BPRMF trained through the registry on
+    the rig (2 epochs; the sharded route on 4 devices, the sharded-tiled
+    one on 2 with the resident bound lowered to one item block), saved and
+    loaded: the loaded model predicts as the trained one. At phase 3's
+    shape: a model file at the Netflix shape holds 20M lines."""
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    from mymedialite_tpu_torch.ops import plan as mxu
+    users = np.arange(0, data.num_users, 7, dtype=np.int32)
+    items = (users * 13 % data.num_items).astype(np.int32)
+    bounds = mxu.RESIDENT_ITEM_TABLE_BYTES, mxu.TILED_SLAB_BYTES
+    with tempfile.TemporaryDirectory() as tmp:
+        for D, route in ((4, "sharded"), (2, "sharded-tiled")):
+            if route == "sharded-tiled":
+                # one 1,024-row block: two-block partitions pass it, slabs
+                # of one block fit it
+                mxu.RESIDENT_ITEM_TABLE_BYTES = mxu.TILED_SLAB_BYTES = \
+                    1024 * mxu.fused_width(40) * 4
+            try:
+                for name, create, attr in (
+                        ("BiasedMatrixFactorization", create_rating_predictor,
+                         "ratings"),
+                        ("BPRMF", create_item_recommender, "feedback")):
+                    opts = f"num_factors=40 num_iter=2 device={dev.type}"
+                    model = create(name, opts)
+                    model.mesh = rig_mesh(D)
+                    setattr(model, attr, data if attr == "ratings"
+                            else feedback)
+                    model.train()
+                    got = model._route()
+                    if got != route:
+                        raise AssertionError(f"{name} on {D} devices took "
+                                             f"{got}, not {route}")
+                    path = os.path.join(tmp, f"{name}-{D}.model")
+                    before = model.predict_batch(users, items)
+                    model.save_model(path)
+                    loaded = create(name, opts)
+                    setattr(loaded, attr, data if attr == "ratings"
+                            else feedback)
+                    loaded.load_model(path)
+                    after = loaded.predict_batch(users, items)
+                    if not np.array_equal(before, after):
+                        raise AssertionError(
+                            f"{name} ({route}): save -> load changed "
+                            f"{int((before != after).sum())} predictions")
+                    log(f"mesh {name} on {D} devices ({route}): save -> "
+                        f"load keeps all {len(users)} predictions")
+            finally:
+                mxu.RESIDENT_ITEM_TABLE_BYTES, mxu.TILED_SLAB_BYTES = bounds
+
+
+@contextlib.contextmanager
+def timed_cells():
+    """CUDA events around each cell of the sharded epochs inside the block
+    (``parallel/mesh.py diagonal_epoch``'s calls of its ``run_cell``);
+    yields a list that holds each cell's ms afterwards."""
+    from mymedialite_tpu_torch.parallel import mesh as mesh_module
+    real = mesh_module.diagonal_epoch
+    events = []
+
+    def timed_epoch(mesh, H_parts, order, counts, run_cell):
+        def cell(*a):
+            s, e = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            s.record()
+            run_cell(*a)
+            e.record()
+            events.append((s, e))
+        return real(mesh, H_parts, order, counts, cell)
+
+    mesh_module.diagonal_epoch = timed_epoch
+    out = []
+    try:
+        yield out
+    finally:
+        mesh_module.diagonal_epoch = real
+    torch.cuda.synchronize()
+    out.extend(s.elapsed_time(e) for s, e in events)
+
+
+def imbalance(cell_ms, cells_per_epoch: int) -> float:
+    """The mean over epochs of the largest cell's ms over the mean
+    cell's: the pace a mesh of cards would keep against its average."""
+    ms = np.asarray(cell_ms).reshape(-1, cells_per_epoch)
+    return float(np.mean(ms.max(axis=1) / ms.mean(axis=1)))
+
+
+def mesh_model(dev, kind, data, *, iters: int, label: str, route: str,
+               tables=None, name=None):
+    """A model of ``kind`` ("mf" or "bpr") trained through the registry on
+    the rig mesh for ``iters`` epochs on ``route``: its kernel, and only
+    it, launches once per non-empty cell per epoch. Returns (model, epoch
+    ms, cell ms)."""
+    from mymedialite_tpu_torch.models import bpr as bpr_module
+    from mymedialite_tpu_torch.models import mf as mf_module
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    from mymedialite_tpu_torch.ops import bpr_plan
+    from mymedialite_tpu_torch.ops import plan as mxu
+    tiled = route == "sharded-tiled"
+    opts = f"num_factors=40 num_iter={iters} device={dev.type}"
+    if kind == "mf":
+        model = create_rating_predictor("BiasedMatrixFactorization", opts)
+        model.ratings = data
+        kernel = "sgd_epoch_tiled" if tiled else "sgd_epoch"
+        prepare = (mxu, "prepare_mxu_sharded_tiled" if tiled
+                   else "prepare_mxu_sharded")
+        epoch = (mf_module, "sgd_epoch_sharded_tiled" if tiled
+                 else "sgd_epoch_sharded")
+    else:
+        model = create_item_recommender(name or "BPRMF", opts)
+        model.feedback = data
+        kernel = "bpr_epoch_tiled" if tiled else "bpr_epoch"
+        prepare = (bpr_plan, "prepare_bpr_mxu_sharded_tiled" if tiled
+                   else "prepare_bpr_mxu_sharded")
+        epoch = (bpr_module, "bpr_epoch_sharded_tiled" if tiled
+                 else "bpr_epoch_sharded")
+    model.mesh = rig_mesh()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    expected = {}
+    with timed_training(prepare, epoch) as timings, \
+            counted_path(expected) as counted, \
+            timed_cells() as cell_ms:
+        t0 = time.perf_counter()
+        if tables is None:
+            model.train()
+        else:
+            model.init_model(tables=tables)
+            for _ in range(iters):
+                model.iterate()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        plan = model._plan
+        nonempty = int((plan.cell_counts > 0).sum())
+        expected[kernel] = nonempty * iters
+    if model._route() != route:
+        raise AssertionError(f"{label}: {model._route()}, not {route}")
+    tiled_line = (f", {plan.slabs_per_part} slabs of {plan.slab_blocks} "
+                  f"blocks a partition" if tiled else "")
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    log(f"{label} on the rig ({route}): train {train_s:.2f} s; plan prep "
+        f"{timings['plan_s'][0]:.2f} s ({cells_line(plan)}, {plan.ub_per_dev} "
+        f"user blocks a device, {plan.part_blocks} item blocks a "
+        f"partition{tiled_line}); {kernel} launches {counted[kernel]} "
+        f"({nonempty} cells x {iters} epochs); epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; cells "
+        f"{min(cell_ms):.2f}-{max(cell_ms):.2f} ms, largest over mean "
+        f"{imbalance(cell_ms, nonempty):.3f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return model, epoch_ms, cell_ms
+
+
+def sampled_cells(plan, order, per_cell: int, seed: int):
+    """A sub-schedule of the sharded epoch ``order``: in each cell,
+    ``per_cell`` of its chunks drawn at random (seeded), kept in the
+    order's sequence, so that the draw spreads over every user block,
+    item block, slab and negative block of the cell, where a prefix would
+    stay in the first ones. A walk over a subsequence of an order is
+    still a walk (the kernels take any order). Returns (the plan with
+    those cells, the [D, D, n] order)."""
+    rng = np.random.default_rng(seed)
+    D = plan.num_devices
+    keep = [[np.sort(rng.choice(int(n), min(per_cell, int(n)), replace=False))
+             for n in row] for row in plan.cell_counts]
+    width = max(max(k.size for k in row) for row in keep)
+    out = []
+    for a in order:
+        sub = np.zeros((D, D, width), a.dtype)
+        for d in range(D):
+            for k in range(D):
+                sel = keep[d][k]
+                if sel.size:
+                    sub[d, k, :sel.size] = a[d, k, sel]
+                    sub[d, k, sel.size:] = a[d, k, sel[-1]]
+        out.append(sub)
+    cells = [[out[-1][d, k, :keep[d][k].size].astype(np.int64)
+              for k in range(D)] for d in range(D)]
+    return dataclasses.replace(plan, cells=cells), tuple(out)
+
+
+def sample_reach(plan, order, sub, sub_order, bpr: bool) -> str:
+    """How far the sampled cells (``sub``, ``sub_order``) reach into the
+    epoch's (``plan``, ``order``): the largest partition-relative item
+    block (or slab) and negative block (or slab) of each, and the
+    partitions. Raises where the epoch goes past a cell's first block
+    (or slab) and the draw does not."""
+    D = plan.num_devices
+    tiled = hasattr(plan, "slab_blocks")
+    cols = ({"slab": 2, "negative slab": 5} if tiled
+            else {"item block": 1, "negative block": 2})
+    if not bpr:
+        cols.pop("negative slab" if tiled else "negative block")
+
+    def top(p, o, col):
+        c = p.cell_counts
+        return max(int(o[col][d, k, :c[d, k]].max()) for d in range(D)
+                   for k in range(D) if c[d, k])
+
+    parts = sorted({(d + k) % D for d in range(D) for k in range(D)
+                    if sub.cell_counts[d, k]})
+    out = [f"partitions {parts}"]
+    for what, col in cols.items():
+        got, avail = top(sub, sub_order, col), top(plan, order, col)
+        if avail > 0 and got == 0:
+            raise AssertionError(f"the sampled cells reach no {what} past "
+                                 f"a cell's first (the epoch's go to {avail})")
+        out.append(f"{what} up to {got} (epoch {avail})")
+    return ", ".join(out)
+
+
+def mesh_model_check(model, kind: str, label: str) -> float:
+    """One more epoch of the trained mesh model (``kind`` "mf" or "bpr"),
+    from its tables, rates and sampling state, its kernel held to its
+    cells in turn and to its plain version (``mesh_sgd_check`` /
+    ``mesh_bpr_check``: BPR negatives identical, tables within
+    KERNEL_TOL) on PLAIN_PREFIX chunks drawn across all its cells
+    (``sampled_cells``): the mesh's indexing at the main path's shape,
+    the partition-relative item blocks, slabs and negative blocks past
+    the first and the partitions' CDF rows. Returns the largest error."""
+    from mymedialite_tpu_torch.ops import bpr_plan
+    from mymedialite_tpu_torch.ops.plan import fused_width
+    plan, mesh = model._plan, model._mesh
+    Ws, Hs = model._mxu_tables
+    W, H = mesh.gather_rows(Ws), mesh.gather_rows(Hs)
+    per_cell = max(PLAIN_PREFIX // int((plan.cell_counts > 0).sum()), 1)
+    if kind == "mf":
+        order = plan.epoch_order(11)
+        sub, sub_order = sampled_cells(plan, order, per_cell, 12)
+        reach = sample_reach(plan, order, sub, sub_order, bpr=False)
+        hp = (model.global_bias, model.min_rating, model._rating_range())
+        err, _ = mesh_sgd_check(
+            sub, W, H, sub_order, hp, model._epoch_rates(True, True),
+            loss=model.loss_id, biased=model.BIASED,
+            what=f"{label}, {int(sub.cell_counts.sum())} chunks drawn "
+                 f"across its cells ({reach})")
+        return err
+    state = model._neg_state
+    wbpr = model.MXU_POPULARITY
+    epoch_order = (bpr_plan.bpr_sharded_tiled_epoch_order
+                   if hasattr(plan, "slab_blocks")
+                   else bpr_plan.bpr_sharded_epoch_order)
+    order = epoch_order(plan, state["nvalid"], 11,
+                        block_mass=state["block_mass"] if wbpr else None)
+    sub, sub_order = sampled_cells(plan, order, per_cell, 12)
+    reach = sample_reach(plan, order, sub, sub_order, bpr=True)
+    f = model.num_factors
+    rates = bpr_plan.bpr_mxu_column_rates(
+        f, fused_width(f), model.learn_rate, model.reg_u, model.reg_i,
+        model.reg_j, model.bias_reg, model.update_j,
+        device=plan.packed.device)
+    err, _ = mesh_bpr_check(
+        sub, state, W, H, cell_bits(sub, model._neg_meta[2], 13), sub_order,
+        rates, soft_margin=model.SOFT_MARGIN, wbpr=wbpr,
+        bitmask=state.get("bitmask_tbl") is not None,
+        what=f"{label}, {int(sub.cell_counts.sum())} chunks drawn across "
+             f"its cells ({reach})")
+    return err
+
+
+def picked_rows(shards, rows, per_shard: int):
+    """Rows ``rows`` of a row-sharded table picked out of its shards: row
+    g from shard g // per_shard, at g % per_shard."""
+    rows = torch.as_tensor(rows, device=shards[0].device).long()
+    out = shards[0].new_empty((rows.numel(), shards[0].shape[1]))
+    for s, shard in enumerate(shards):
+        sel = rows // per_shard == s
+        out[sel] = shard[rows[sel] % per_shard].to(out.device)
+    return out
+
+
+def mesh_layout_check(model, kind: str, label: str):
+    """The standard tables of the trained mesh model, as its prediction,
+    save and incremental API read them (gathered by the model), held
+    exactly to rows picked out of its shards: user u from W shard u //
+    u_pad_dev, item i from partition new_of_old[i] // part_rows, in the
+    shapes the standard tables had, so that no pad row of a shard or a
+    partition leaks into them. At the main path's shape in place of a
+    save -> load (a Netflix-shaped model file holds 20M lines)."""
+    plan = model._plan
+    Ws, Hs = model._mxu_tables
+    if kind == "mf":
+        rows, fe = model._mxu_std_shape
+        nu = min(rows, plan.u_pad)
+        W, H = model.W_ext, model.H_ext
+        got = {"W": (W.shape, W[:nu]), "H": (H.shape, H)}
+        want = {"W": ((rows, fe), picked_rows(Ws, np.arange(nu),
+                                              plan.u_pad_dev)[:, :fe]),
+                "H": ((plan.num_items, fe), picked_rows(
+                    Hs, plan.new_of_old, plan.part_rows)[:, :fe])}
+    else:
+        f, nu = model.num_factors, model._mxu_num_users
+        Hp = picked_rows(Hs, plan.new_of_old, plan.part_rows)
+        p = model.params
+        got = {k: (p[k].shape, p[k]) for k in ("user_factors", "item_factors",
+                                               "item_bias")}
+        want = {"user_factors": ((nu, f), picked_rows(
+                    Ws, np.arange(nu), plan.u_pad_dev)[:, :f]),
+                "item_factors": ((plan.num_items, f), Hp[:, :f]),
+                "item_bias": ((plan.num_items,), Hp[:, f])}
+    for name, (shape, table) in got.items():
+        want_shape, want_rows = want[name]
+        if tuple(shape) != tuple(want_shape):
+            raise AssertionError(f"{label}: {name} gathered as {tuple(shape)}"
+                                 f", not {tuple(want_shape)}")
+        if not torch.equal(table, want_rows):
+            raise AssertionError(f"{label}: {name} differs from the rows "
+                                 "picked out of the shards")
+    log(f"{label}: the gathered tables equal the rows picked out of the "
+        f"shards ({', '.join(f'{k} {tuple(v[0])}' for k, v in got.items())}"
+        f"; {plan.u_pad} user rows and {plan.i_pad} item rows sharded)")
+
+
+def phase_mesh_netflix(dev, train, test, mf_run, bpr_run, bpr_feedback):
+    """(b) BiasedMatrixFactorization and BPRMF on phase 6's data, 3 epochs
+    each on the rig mesh ("sharded": kernels 1 and 3 once per cell), each
+    then held to its plain version across its cells (``mesh_model_check``)
+    and its gathered tables to its shards (``mesh_layout_check``), RMSE
+    and AUC beside phases 7 and 8; one MultiCoreBPRMF.iterate() on the
+    mesh from the mesh BPRMF's tables (kernel 3). Returns the largest
+    error of kernels 1 and 3."""
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    t0 = time.perf_counter()
+    worst = {}
+    label = "mesh BiasedMF Netflix-shaped"
+    model, epoch_ms, _ = mesh_model(dev, "mf", train, iters=3, label=label,
+                                    route="sharded")
+    worst["sgd_epoch"] = mesh_model_check(model, "mf", label)
+    mesh_layout_check(model, "mf", label)
+    res = evaluate_ratings(model, test, train)
+    baseline = global_average_rmse(train, test)
+    log(f"mesh BiasedMF Netflix-shaped eval: {res}; one device (phase 7) "
+        f"RMSE {mf_run['test_rmse']:.5f}, epoch {mf_run['epoch_ms']:.1f} ms "
+        f"against {epoch_ms:.1f} ms on the rig; global-average RMSE "
+        f"{baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError("mesh BiasedMF RMSE does not beat the global "
+                             "average")
+    del model
+    label = "mesh BPRMF Netflix-shaped"
+    model, epoch_ms, _ = mesh_model(dev, "bpr", bpr_feedback, iters=3,
+                                    label=label, route="sharded")
+    worst["bpr_epoch"] = mesh_model_check(model, "bpr", label)
+    mesh_layout_check(model, "bpr", label)
+    auc = sampled_ranking_eval(model, bpr_feedback, bpr_run["test"],
+                               "mesh BPRMF")["AUC"]
+    log(f"mesh BPRMF Netflix-shaped: AUC {auc:.5f}; one device (phase 8) "
+        f"AUC {bpr_run['auc']:.5f}, epoch {bpr_run['epoch_ms']:.1f} ms "
+        f"against {epoch_ms:.1f} ms on the rig")
+    if not auc > 0.6:
+        raise AssertionError(f"mesh BPRMF AUC {auc} <= 0.6")
+    tables = {k: v.clone() for k, v in model.params.items()}
+    del model
+    mesh_model(dev, "bpr", bpr_feedback, iters=1, tables=tables,
+               name="MultiCoreBPRMF", label="mesh MultiCoreBPRMF, one "
+               "iterate()", route="sharded")
+    log(f"phase 24 (b) (the mesh, Netflix-shaped): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_mesh_big_catalog(dev, train, test, mf_blocked, bpr_minibatch):
+    """(c) BiasedMatrixFactorization and BPRMF on phase 20's big catalog on
+    the rig mesh: "sharded-tiled", kernels 2 and 4 once per cell, where one
+    device takes the minibatch epochs; each model then held to its plain
+    version across its cells and its gathered tables to its shards, as in
+    (b); RMSE under the global average, AUC of AUC_USERS seeded users
+    above 0.5, beside phase 20's. Returns the largest error of kernels 2
+    and 4."""
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    t0 = time.perf_counter()
+    worst = {}
+    label = "mesh BiasedMF big-catalog"
+    model, epoch_ms, _ = mesh_model(
+        dev, "mf", train, iters=MESH_BIG_EPOCHS, label=label,
+        route="sharded-tiled")
+    worst["sgd_epoch_tiled"] = mesh_model_check(model, "mf", label)
+    mesh_layout_check(model, "mf", label)
+    res = evaluate_ratings(model, test, train)
+    baseline = global_average_rmse(train, test)
+    log(f"mesh BiasedMF big-catalog eval: {res}; one device (phase 20, "
+        f"blocked, 3 epochs) RMSE {mf_blocked['rmse']:.5f}, epoch "
+        f"{mf_blocked['epoch_ms']:.1f} ms against {epoch_ms:.1f} ms on the "
+        f"rig; global-average RMSE {baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError("mesh big-catalog BiasedMF RMSE does not beat "
+                             "the global average")
+    del model
+    torch.cuda.empty_cache()
+    train, test = posonly_from_ratings(train), posonly_from_ratings(test)
+    label = "mesh BPRMF big-catalog"
+    model, epoch_ms, _ = mesh_model(
+        dev, "bpr", train, iters=MESH_BIG_EPOCHS, label=label,
+        route="sharded-tiled")
+    worst["bpr_epoch_tiled"] = mesh_model_check(model, "bpr", label)
+    mesh_layout_check(model, "bpr", label)
+    rng = np.random.default_rng(9)
+    users = np.sort(rng.choice(test.all_users, AUC_USERS, replace=False))
+    res = evaluate_items(model, test, train, test_users=users, batch_size=128)
+    log(f"mesh BPRMF big-catalog: ranking eval of {res['num_users']} users: "
+        f"{res}; one device (phase 20, minibatch, 3 epochs) AUC "
+        f"{bpr_minibatch['auc']:.5f}, epoch {bpr_minibatch['epoch_ms']:.1f} "
+        f"ms against {epoch_ms:.1f} ms on the rig")
+    if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
+        raise AssertionError(f"mesh big-catalog BPRMF AUC {res['AUC']} <= 0.5")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 24 (c) (the mesh, big catalog): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 KERNELS = {
     "sgd_epoch": ("mymedialite_tpu_torch/csrc/sgd_epoch.cu",
                   "mymedialite_tpu/ops/pallas_sgd.py:324"),
@@ -3771,6 +4585,8 @@ def main() -> int:
              "bpr_epoch": bpr_worst["resident"],
              "bpr_epoch_tiled": bpr_worst["tiled"],
              "catalog_topk": phase_topk_kernel_check(dev)}
+    for name, err in phase_mesh_kernel_check(dev).items():
+        worst[name] = max(worst[name], err)
     log(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
     runs = {}
     train, test = shaped_ratings("Netflix-shaped", num_users=480_000,
@@ -3779,6 +4595,11 @@ def main() -> int:
     runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
     runs["bpr_epoch"], bpr_model, bpr_feedback = phase_bpr_path(
         dev, train, test, tiled=False)
+    for name, err in phase_mesh_netflix(dev, train, test, runs["sgd_epoch"],
+                                        runs["bpr_epoch"],
+                                        bpr_feedback).items():
+        worst[name] = max(worst[name], err)
+    torch.cuda.empty_cache()
     runs["catalog_topk"] = phase_serving(dev, bpr_model, bpr_feedback,
                                          "Netflix-shaped")
     worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
@@ -3838,8 +4659,12 @@ def main() -> int:
     train, test = shaped_ratings("big-catalog", num_users=500_000,
                                  num_items=2_200_000, num_ratings=10_000_000,
                                  seed=7)
-    phase_mf_blocked(dev, train, test, "big-catalog")
-    phase_bpr_minibatch(dev, train, test, "big-catalog")
+    mf_blocked = phase_mf_blocked(dev, train, test, "big-catalog")
+    bpr_minibatch = phase_bpr_minibatch(dev, train, test, "big-catalog")
+    torch.cuda.empty_cache()
+    for name, err in phase_mesh_big_catalog(dev, train, test, mf_blocked,
+                                            bpr_minibatch).items():
+        worst[name] = max(worst[name], err)
     del train, test
     torch.cuda.empty_cache()
     log(f"XLA-route paths: {time.perf_counter() - t_start:.1f} s")

@@ -32,9 +32,14 @@ plan and refresh the touched users: a fresh row, then one pairwise step
 over |I_u| triples whose positives and negatives are drawn from that
 state, never from a host CSR of every event. ``score_items_foldin``
 learns a vector for an unseen user without changing the model.
-``MultiCoreBPRMF`` is BPRMF with a ``max_threads`` knob: on one card
-the fused epoch already is the parallel path (JAX ``bpr.py:722-800``;
-its mesh of several devices is not ported).
+On a device mesh (the ``mesh`` attribute, None for one device;
+``parallel/mesh.py``) the kernel routes become "sharded"
+and "sharded-tiled": the epoch runs the same kernel once per cell of the
+DSGD diagonal (``bpr_epoch_sharded``), each cell's negatives drawn within
+the item partition its device holds (JAX ``bpr.py:273-330``).
+``MultiCoreBPRMF`` is BPRMF with a ``max_threads`` knob and takes the
+same routes (JAX ``bpr.py:739-770``); its XLA fallback on a mesh is not
+ported, so past the sharded-tiled bound it trains on one device.
 """
 
 from __future__ import annotations
@@ -52,10 +57,13 @@ from mymedialite_tpu_torch.models.base import (
 from mymedialite_tpu_torch.ops import bpr as bpr_ops
 from mymedialite_tpu_torch.ops import bpr_plan
 from mymedialite_tpu_torch.ops.bpr import bpr_objective
-from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
-from mymedialite_tpu_torch.ops.plan import (
-    default_slab_blocks, fused_width, select_schedule,
+from mymedialite_tpu_torch.ops.bpr_epoch import (
+    bpr_epoch, bpr_epoch_sharded, bpr_epoch_sharded_tiled, bpr_epoch_tiled,
 )
+from mymedialite_tpu_torch.ops.plan import (
+    MxuShardedTiledPlan, default_slab_blocks, fused_width, select_schedule,
+)
+from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
 
 # unknown users and items score float.MinValue (reference MF.Predict)
 _UNKNOWN = -np.float32(3.4e38)
@@ -84,8 +92,11 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
         self.mxu_dtype = "bf16"
         self.random_seed = 42
         self.device = "cuda"
+        # the device mesh (parallel/mesh.py); None: one device
+        self.mesh = None
         self._params = None
-        self._mxu_tables = None     # resident kernel-layout (W, H)
+        # resident kernel-layout (W, H); on a mesh (W shards, partitions)
+        self._mxu_tables = None
         self._fused = None          # (tables, users, items) of fused_rows
         self._gen = None
 
@@ -152,7 +163,8 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
 
     def tables_device(self):
         if self._mxu_tables is not None:
-            return self._mxu_tables[0].device
+            W = self._mxu_tables[0]
+            return self._mxu_std_device if isinstance(W, list) else W.device
         if self._params is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._params["user_factors"].device
@@ -290,6 +302,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._loss_sample = None
         self._plan = None
         self._tiled = None
+        self._mesh = None           # the mesh of a sharded plan
         self._sampler = None        # the minibatch route's sampling state
         self._sampling = None       # (sampler, meta) of the feedback
         self._epoch_counter = 0
@@ -345,7 +358,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._plan = None
         self._fused = None
         self._sampler = None
-        if select_schedule(f.num_items, self.num_factors) == "minibatch":
+        if self._route() == "minibatch":
             pop = (bpr_ops.popularity_cdf(f.count_by_item, dev)
                    if self.MXU_POPULARITY else None)
             self._sampler = (sampler, meta, pop)
@@ -371,17 +384,55 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._grow_tables()
         self._build_epoch_state()
 
+    def _route(self) -> str:
+        """"resident", "tiled" or "minibatch" on one device, "sharded" or
+        "sharded-tiled" on a mesh (``model_mesh``), from the catalog, the
+        factors and the mesh (JAX: ``_mxu_mode``); past the sharded-tiled
+        bound the minibatch epoch runs on one device."""
+        mesh = model_mesh(self)
+        route = select_schedule(self.feedback.num_items, self.num_factors,
+                                mesh.size if mesh else 1)
+        if mesh is not None and not route.startswith("sharded"):
+            one_device_route(self, route, mesh)
+        return route
+
     def _prepare_plan(self):
         f = self.feedback
-        schedule = select_schedule(f.num_items, self.num_factors)
+        schedule = self._route()
         # a new plan means a new item permutation: fold resident tables
         # back into params first
         params = self.params
+        dev = params["user_factors"].device
         tiled = schedule == "tiled"
+        self._tiled = None
+        self._mesh = None
+        uniform_user = self.uniform_user_sampling and not self.MXU_POPULARITY
+        # half the rating path's slab: each chunk reads two slabs
+        half_slab = max(default_slab_blocks(self.num_factors) // 2, 1)
+        if schedule.startswith("sharded"):
+            self._mesh = model_mesh(self)
+            if schedule == "sharded":
+                prepare = bpr_plan.prepare_bpr_mxu_sharded
+                kw = dict(chunk=640, bitmask="auto")
+            else:
+                prepare = bpr_plan.prepare_bpr_mxu_sharded_tiled
+                kw = dict(slab_blocks=half_slab)
+            self._plan, self._neg_state, self._neg_meta = prepare(
+                f, self._mesh.size, uniform_user=uniform_user,
+                shuffle_seed=self.random_seed,
+                num_neg_trials=self.num_neg_trials, device=dev, **kw)
+            self._new_of_old = torch.from_numpy(
+                self._plan.new_of_old.astype(np.int64)).to(dev)
+            # the chunks and the epoch's sampling tables once on each
+            # mesh device
+            self._packed = self._mesh.replicate(self._plan.packed)
+            used = (("subkeys_tbl", "cdf_tbl") if schedule == "sharded-tiled"
+                    else ("keys_tbl", "cdf_tbl", "bitmask_tbl"))
+            self._mesh_state = {k: self._mesh.replicate(self._neg_state[k])
+                                for k in used if k in self._neg_state}
+            return
         self._plan, self._neg_state, self._neg_meta = bpr_plan.prepare_bpr_mxu(
-            f, uniform_user=self.uniform_user_sampling
-            and not self.MXU_POPULARITY,
-            shuffle_seed=self.random_seed,
+            f, uniform_user=uniform_user, shuffle_seed=self.random_seed,
             num_neg_trials=self.num_neg_trials,
             # tiled: the histogram-optimal chunk, at a fixed cost of 256
             # slots per chunk, and sub-bucketed membership keys (the flat
@@ -389,22 +440,25 @@ class BPRMF(ItemMF, FoldInItemRecommender):
             chunk=None if tiled else 640, kcap=128 if tiled else None,
             subkeys=tiled, ksub_cap=256 if tiled else None,
             bitmask=False if tiled else "auto",
-            chunk_overhead=256 if tiled else 0,
-            device=params["user_factors"].device)
+            chunk_overhead=256 if tiled else 0, device=dev)
         self._new_of_old = torch.from_numpy(
-            self._plan.new_of_old.astype(np.int64)).to(self._plan.packed.device)
-        self._tiled = None
+            self._plan.new_of_old.astype(np.int64)).to(dev)
         if tiled:
-            # half the rating path's slab: each chunk reads two slabs
             B, S, slab_items = bpr_plan.bpr_tiled_plan(
-                self._plan, self._neg_state["nvalid"],
-                slab_blocks=max(default_slab_blocks(self.num_factors) // 2, 1))
+                self._plan, self._neg_state["nvalid"], slab_blocks=half_slab)
             self._tiled = dict(slab_blocks=B, num_slabs=S,
                                slab_items=slab_items)
 
     def _materialize_params(self, tabs):
+        We, He = tabs
+        if isinstance(We, list):
+            # the mesh's W shards and item partitions, gathered on the
+            # params' device; their pad rows are never read back
+            dev = self._mxu_std_device
+            We, He = self._mesh.gather_rows(We, dev), \
+                self._mesh.gather_rows(He, dev)
         W, H, bias = bpr_plan.bpr_tables_from_mxu(
-            *tabs, self._new_of_old, num_users=self._mxu_num_users,
+            We, He, self._new_of_old, num_users=self._mxu_num_users,
             num_factors=self.num_factors)
         return dict(user_factors=W, item_factors=H, item_bias=bias)
 
@@ -444,22 +498,30 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         plan = self._plan
         f = self.num_factors
         fe = fused_width(f)
+        mesh = self._mesh
         if self._mxu_tables is not None:
             We, He = self._mxu_tables
         else:
             p = self._params
             self._mxu_num_users = p["user_factors"].shape[0]
+            self._mxu_std_device = p["user_factors"].device
             We, He = bpr_plan.bpr_tables_to_mxu(
                 p["user_factors"], p["item_factors"], p["item_bias"],
                 self._new_of_old, u_pad=plan.u_pad, i_pad=plan.i_pad, fe=fe)
+            if mesh is not None:
+                We, He = mesh.shard_rows(We), mesh.shard_rows(He)
         rates = bpr_plan.bpr_mxu_column_rates(
             f, fe, self.learn_rate, self.reg_u, self.reg_i, self.reg_j,
-            self.bias_reg, self.update_j, device=We.device)
+            self.bias_reg, self.update_j, device=plan.packed.device)
         self._epoch_counter += 1
         trials, num_items = self._neg_meta[2], self._neg_meta[3]
         seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
         state = self._neg_state
         block_mass = state["block_mass"] if self.MXU_POPULARITY else None
+        if mesh is not None:
+            self._iterate_sharded(We, He, seed, trials, rates, block_mass)
+            self._mxu_tables = (We, He)
+            return
         bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
         if self._tiled is not None:
             tl = self._tiled
@@ -486,6 +548,49 @@ class BPRMF(ItemMF, FoldInItemRecommender):
                   soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
                   bitmask_tbl=state.get("bitmask_tbl"))
         self._mxu_tables = (We, He)
+
+    def _cell_bits(self, seed: int, trials: int) -> list:
+        """[d][k] int32 random bits [n, trials, C] of each cell's n chunks
+        on mesh device d, from one ``torch.Generator`` a device seeded
+        with a hash of ``seed`` and d."""
+        plan, mesh = self._plan, self._mesh
+        out = []
+        for d, (dev, counts) in enumerate(zip(mesh.devices,
+                                              plan.cell_counts)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((seed * 1_000_003 + d) & 0x7FFFFFFF)
+            out.append([torch.randint(0, 2 ** 31, (int(n), trials,
+                                                  plan.chunk),
+                                      dtype=torch.int32, generator=gen,
+                                      device=dev) for n in counts])
+        return out
+
+    def _iterate_sharded(self, W_shards, H_parts, seed, trials, rates,
+                         block_mass):
+        """One epoch of the mesh's diagonal schedule (JAX: ``_iterate_mxu``
+        on a ``BprShardedPlan`` / ``BprShardedTiledPlan``), in place on
+        the shards and partitions."""
+        plan, state = self._plan, self._neg_state
+        tables = self._mesh_state
+        kw = dict(part_blocks=plan.part_blocks, user_block=plan.user_block,
+                  item_block=plan.item_block, soft_margin=self.SOFT_MARGIN,
+                  wbpr=self.MXU_POPULARITY)
+        bits = self._cell_bits(seed, trials)
+        if isinstance(plan, MxuShardedTiledPlan):
+            order = bpr_plan.bpr_sharded_tiled_epoch_order(
+                plan, state["nvalid"], seed, block_mass=block_mass)
+            bpr_epoch_sharded_tiled(
+                self._mesh, W_shards, H_parts, self._packed,
+                tables["subkeys_tbl"], tables["cdf_tbl"], bits, order,
+                plan.cell_counts, rates, slab_blocks=plan.slab_blocks, **kw)
+        else:
+            order = bpr_plan.bpr_sharded_epoch_order(
+                plan, state["nvalid"], seed, block_mass=block_mass)
+            bpr_epoch_sharded(
+                self._mesh, W_shards, H_parts, self._packed,
+                tables["keys_tbl"], tables["cdf_tbl"], bits, order,
+                plan.cell_counts, rates,
+                bitmask_tbl=tables.get("bitmask_tbl"), **kw)
 
     def compute_objective(self):
         self._ensure_epoch_ready()
@@ -649,10 +754,14 @@ class BPRMF(ItemMF, FoldInItemRecommender):
 
 class MultiCoreBPRMF(BPRMF):
     """Reference MultiCoreBPRMF.cs:30 (hogwild BPR over index blocks).
-    On one device the JAX package trains it on BPRMF's route (its
-    ``_setup_mesh`` finds no mesh), and so does the port: the kernel
-    plan, or the minibatch epoch past the tiled bound. ``max_threads``
-    is accepted and unused."""
+    The JAX model prefers BPRMF's kernel routes, on a mesh the sharded
+    ones (``models/bpr.py:739-770``), and so does the port: the DSGD
+    cells of the mesh's diagonal, conflict-free where the reference
+    tolerates races; on one device the kernel plan, or the minibatch
+    epoch past the tiled bound. Its XLA fallback on a mesh
+    (``bpr_epoch_sharded`` of ``ops/bpr.py``) is not ported: past the
+    sharded-tiled bound it trains on one device. ``max_threads`` is
+    accepted and unused."""
 
     HYPERPARAMS = dict(BPRMF.HYPERPARAMS, max_threads=int)
 
@@ -661,8 +770,9 @@ class MultiCoreBPRMF(BPRMF):
         self.max_threads = 1
 
     def _setup_mesh(self):
-        """The device mesh of a multi-device run; one device has none."""
-        return None
+        """The JAX model's hook (``models/bpr.py:739``): the mesh it
+        trains on, ``model_mesh``; None on one device."""
+        return model_mesh(self)
 
 
 class WeightedBPRMF(BPRMF):

@@ -14,6 +14,15 @@ schedule's ``MAX_SLABS``, the blocked minibatch epoch of ``ops/sgd.py``
 (plain PyTorch, as the JAX package's XLA epoch), whose minibatches are
 ``batch_size`` ratings of one group of ``group_users`` users.
 
+On a device mesh (the ``mesh`` attribute, None for one device;
+``parallel/mesh.py``) the kernel routes become "sharded"
+and "sharded-tiled" (JAX ``_mxu_mode`` on a mesh): the epoch runs the
+same kernel once per cell of the DSGD diagonal (``sgd_epoch_sharded``),
+on W shards and item partitions that stay on their devices across
+``iterate()`` calls and are gathered back when the std tables are read.
+Frequency regularization and catalogs past the sharded-tiled bound keep
+the one-device blocked epoch, and say so in the log.
+
 Tables: the fused std layout ([factors | b_u | 1] x [factors | 1 | b_i],
 ``ops/sgd.py extend_tables``) is what predict, the objective and
 save/load read; the epoch runs on kernel-layout copies (user rows on
@@ -56,7 +65,10 @@ from mymedialite_tpu_torch.models.base import (
 )
 from mymedialite_tpu_torch.ops import plan as mxu
 from mymedialite_tpu_torch.ops import sgd
-from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
+from mymedialite_tpu_torch.ops.sgd_epoch import (
+    sgd_epoch, sgd_epoch_sharded, sgd_epoch_sharded_tiled, sgd_epoch_tiled,
+)
+from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
 
 # the fresh rows of the online updates come from a generator seeded
 # with random_seed + _ROW_SEED_OFFSET (not the init draws' stream)
@@ -166,12 +178,16 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         self.random_seed = 42
         self.device = "cuda"
 
+        # the device mesh (parallel/mesh.py); None: one device
+        self.mesh = None
         self.register_buffer("_W_ext", None)   # [U_pad, f+2] std layout
         self.register_buffer("_H_ext", None)   # [I, f+2]
-        self._mxu_tables = None     # resident kernel-layout (W, H)
+        # resident kernel-layout (W, H); on a mesh (W shards, partitions)
+        self._mxu_tables = None
         self.global_bias = 0.0
         self.current_learnrate = None
         self._plan = None
+        self._mesh = None           # the mesh of a sharded plan
         self._new_of_old = None
         self._blocked = None        # (data, meta, freq) of the blocked route
         self._order_gen = None      # draws the blocked epoch's batch orders
@@ -206,6 +222,12 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         if self._mxu_tables is None:
             return
         We, He = self._mxu_tables
+        if isinstance(We, list):
+            # the mesh's W shards and item partitions, gathered on the
+            # std tables' device; their pad rows are never read back
+            dev = self._mxu_std_device
+            We, He = self._mesh.gather_rows(We, dev), \
+                self._mesh.gather_rows(He, dev)
         num_users_pad, fe_std = self._mxu_std_shape
         self._W_ext, self._H_ext = mxu.tables_mxu_to_std(
             We, He, self._new_of_old, num_users_pad=num_users_pad,
@@ -281,13 +303,23 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         self._prepare_epoch_data()
 
     def _route(self) -> str:
-        """"resident", "tiled" or "minibatch" (the blocked epoch): the
-        JAX package's choice on one TPU chip (``_mxu_mode``), from the data
-        and the hyperparameters alone. The kernels take per-column rates,
-        so frequency regularization takes the blocked epoch."""
+        """"resident", "tiled" or "minibatch" (the blocked epoch) on one
+        device, "sharded" or "sharded-tiled" on a mesh (``model_mesh``):
+        the JAX package's choice (``_mxu_mode``), from the data, the
+        hyperparameters and the mesh. The kernels take per-column rates,
+        so frequency regularization takes the blocked epoch, on one
+        device also on a mesh (its sharded form is not ported), as does
+        a catalog past the sharded-tiled bound."""
+        mesh = model_mesh(self)
         if self.frequency_regularization:
-            return "minibatch"
-        return mxu.select_schedule(self.ratings.num_items, self.num_factors)
+            route = "minibatch"
+        else:
+            route = mxu.select_schedule(self.ratings.num_items,
+                                        self.num_factors,
+                                        mesh.size if mesh else 1)
+        if mesh is not None and not route.startswith("sharded"):
+            one_device_route(self, route, mesh)
+        return route
 
     def _prepare_epoch_data(self):
         # a new plan means a new item permutation: fold resident
@@ -299,6 +331,7 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         self._blocked = None
         self._flat_cache = None
         route = self._route()
+        self._mesh = model_mesh(self) if route.startswith("sharded") else None
         if route == "minibatch":
             bdata, meta = sgd.prepare_blocked_data(
                 data.users, data.items, data.values, data.num_users,
@@ -315,7 +348,22 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
                 self._order_gen = torch.Generator()
                 self._order_gen.manual_seed(self.random_seed)
             return
-        if route == "tiled":
+        if route == "sharded-tiled":
+            # a mesh and a big catalog: slab-tiled partitions, the
+            # histogram-optimal chunk as on the tiled route
+            self._plan = mxu.prepare_mxu_sharded_tiled(
+                data.users, data.items, data.values, data.num_users,
+                data.num_items, self._mesh.size, user_block=512,
+                item_block=1024, chunk=None,
+                slab_blocks=mxu.default_slab_blocks(self.num_factors),
+                shuffle_seed=self.random_seed, device=dev)
+        elif route == "sharded":
+            self._plan = mxu.prepare_mxu_sharded(
+                data.users, data.items, data.values, data.num_users,
+                data.num_items, self._mesh.size, user_block=512,
+                item_block=1024, chunk=640, shuffle_seed=self.random_seed,
+                device=dev)
+        elif route == "tiled":
             # big catalogs: the histogram-optimal chunk keeps padding
             # bounded in their sparse (512 x 1024) cells
             self._plan = mxu.prepare_mxu_tiled(
@@ -330,6 +378,9 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
                 shuffle_seed=self.random_seed, device=dev)
         self._new_of_old = torch.from_numpy(
             self._plan.new_of_old.astype(np.int64)).to(dev)
+        if self._mesh is not None:
+            # the chunks once on each mesh device
+            self._packed = self._mesh.replicate(self._plan.packed)
 
     def _flat_data(self):
         """Every training rating once, on device, for the objective."""
@@ -417,26 +468,40 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
 
     def iterate(self, update_user: bool = True, update_item: bool = True):
         """One epoch: through ``sgd_epoch`` / ``sgd_epoch_tiled`` on the
-        resident kernel-layout tables (JAX: ``_iterate_mxu``), or the
-        blocked epoch on the std tables."""
+        resident kernel-layout tables (JAX: ``_iterate_mxu``), on a mesh
+        through ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` on
+        the W shards and item partitions, or the blocked epoch on the std
+        tables."""
         self._ensure_epoch_ready()
         if self._blocked is not None:
             return self._iterate_blocked(update_user, update_item)
         plan = self._plan
+        mesh = self._mesh
         if self._mxu_tables is not None:
             We, He = self._mxu_tables
         else:
             self._mxu_std_shape = tuple(self._W_ext.shape)
+            self._mxu_std_device = self._W_ext.device
             We, He = mxu.tables_std_to_mxu(
                 self._W_ext, self._H_ext, self._new_of_old, u_pad=plan.u_pad,
                 i_pad=plan.i_pad, fe_mxu=mxu.fused_width(self.num_factors))
+            if mesh is not None:
+                We, He = mesh.shard_rows(We), mesh.shard_rows(He)
         rates = self._epoch_rates(update_user, update_item)
         hp = (self.global_bias, self.min_rating, self._rating_range())
         self._epoch_counter += 1
         seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
         kw = dict(user_block=plan.user_block, item_block=plan.item_block,
                   loss=self.loss_id, biased=self.BIASED)
-        if isinstance(plan, mxu.MxuTiledPlan):
+        if mesh is not None:
+            sharded = (sgd_epoch_sharded_tiled
+                       if isinstance(plan, mxu.MxuShardedTiledPlan)
+                       else sgd_epoch_sharded)
+            if sharded is sgd_epoch_sharded_tiled:
+                kw["slab_blocks"] = plan.slab_blocks
+            sharded(mesh, We, He, self._packed, plan.epoch_order(seed),
+                    plan.cell_counts, hp, rates, **kw)
+        elif isinstance(plan, mxu.MxuTiledPlan):
             sgd_epoch_tiled(We, He, plan.packed, plan.epoch_order(seed), hp,
                             rates, slab_blocks=plan.slab_blocks, **kw)
         else:
@@ -497,7 +562,8 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
 
     def tables_device(self):
         if self._mxu_tables is not None:
-            return self._mxu_tables[0].device
+            return self._mxu_std_device if self._mesh is not None \
+                else self._mxu_tables[0].device
         if self._W_ext is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._W_ext.device

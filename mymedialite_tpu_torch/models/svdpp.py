@@ -51,6 +51,7 @@ from mymedialite_tpu_torch.ops.svdpp import (
     svdpp_epoch_grouped,
 )
 from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
+from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
 
 
 def _rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -127,6 +128,9 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self.random_seed = 42
         self.loss = OptimizationTarget.RMSE
         self.device = "cuda"
+        # the device mesh (parallel/mesh.py): SVD++ has no sharded route
+        # in the port, so it trains on one device also on a mesh
+        self.mesh = None
         # IncrementalRatingPredictor's switches (update both sides)
         self.update_users = True
         self.update_items = True
@@ -236,6 +240,9 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         hu, hi = self._hist
         dev = resolve_device(self.device)
         self._plan = self._groups = None
+        mesh = model_mesh(self)
+        if mesh is not None:
+            one_device_route(self, "SVD++", mesh)
         if (self.KERNEL_ELIGIBLE and not self.frequency_regularization
                 and sp.svdpp_mxu_supported(self._num_items(),
                                            self.num_factors)):

@@ -19,7 +19,8 @@ result, only the number of launches (the port's default is larger than
 the JAX package's 256). An online update (``add_feedback``) grows the
 tables with zero rows and re-solves only the touched rows
 (``wrmf_solve_row``); every other row stays bit-unchanged. The mesh
-form waits for ROADMAP A9.
+form waits for ROADMAP A9b: with a ``mesh`` the model solves on one
+device and says so in the log.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from mymedialite_tpu_torch.models.bpr import ItemMF
 from mymedialite_tpu_torch.ops.als import gram, wrmf_optimize, wrmf_solve_row
+from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
 
 
 class WRMF(ItemMF):
@@ -56,6 +58,11 @@ class WRMF(ItemMF):
 
     def init_model(self, tables=None):
         super().init_model(tables)
+        mesh = model_mesh(self)
+        if mesh is not None:
+            # the sharded solves (JAX ops/als.py wrmf_optimize_sharded)
+            # are not ported
+            one_device_route(self, "ALS", mesh)
         self._build_histories()
 
     def _build_histories(self):

@@ -20,7 +20,7 @@ package's unrolled Cholesky (``_batched_spd_solve``) on 480,000 systems
 of 40 x 40; ``exp_torch_als_solves.py`` times the two.
 
 ``wrmf_solve_row`` solves one row, the online update's primitive. The
-mesh form (``wrmf_optimize_sharded``) waits for ROADMAP A9.
+mesh form (``wrmf_optimize_sharded``) waits for ROADMAP A9b.
 """
 
 from __future__ import annotations

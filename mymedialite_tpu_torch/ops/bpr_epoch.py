@@ -13,7 +13,10 @@ the whole card, then the walk of the chunks; the tiled wrapper passes
 the absolute positive blocks isl * slab_blocks + ibr and the order's
 absolute negative blocks jb) or raise; on CPU tensors they run
 ``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
-own calls.
+own calls. ``bpr_epoch_sharded`` / ``bpr_epoch_sharded_tiled``
+(``pallas_bpr.py:1519``, ``:1860``) run one epoch over a device mesh: the
+same wrapper once for each non-empty (device, sub-epoch) cell, its
+negatives drawn within the item partition the device holds.
 
 Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
@@ -234,15 +237,18 @@ def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
         membership, keys = _BITMASK, bits       # keys unread
     else:
         membership, keys = (_SUBKEYS if subkeys else _KEYS), keys_tbl
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = fn(
-        W.data_ptr(), H.data_ptr(), packed.data_ptr(),
-        *(t.data_ptr() for t in cols), keys.data_ptr(),
-        bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
-        cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
-        rates.data_ptr(), scratch.data_ptr(), neg.data_ptr(), nc, C, user_block, item_block, fe, trials,
-        keys.shape[1] if membership != _BITMASK else 0,
-        int(bool(soft_margin)), int(bool(wbpr)), membership, stream)
+    # the kernels launch on the current device: make it W's
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = fn(
+            W.data_ptr(), H.data_ptr(), packed.data_ptr(),
+            *(t.data_ptr() for t in cols), keys.data_ptr(),
+            bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
+            cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
+            rates.data_ptr(), scratch.data_ptr(), neg.data_ptr(), nc, C,
+            user_block, item_block, fe, trials,
+            keys.shape[1] if membership != _BITMASK else 0,
+            int(bool(soft_margin)), int(bool(wbpr)), membership, stream)
     if err != 0:
         raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
     return neg if return_negatives else None
@@ -294,6 +300,109 @@ def bpr_epoch_tiled(W, H, packed, keys_tbl, cdf_tbl, bits, order, rates, *,
                   user_block=user_block, item_block=item_block, **kw)
     bpr_epoch_tiled.launches += 1
     return W, H, neg
+
+
+def _sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl, bits,
+             order, counts, rates, run_cell, *, part_blocks, bitmask_tbl,
+             return_negatives):
+    """The diagonal epoch over the BPR cells: ``run_cell(W, H, packed,
+    keys, cdf, bits, cols, rates, bitmask_tbl)`` on each, with the
+    partition's rows of ``cdf_tbl`` (the cell's negative blocks are
+    relative to the partition). Returns (W_shards, H_parts, negs), negs
+    [d][k] the cells' negatives or None."""
+    from mymedialite_tpu_torch.parallel.mesh import diagonal_epoch
+    D = mesh.size
+    packed, keys, cdf, rates = (mesh.replicate(t) for t in (
+        packed, keys_tbl, cdf_tbl, rates))
+    masks = (mesh.replicate(bitmask_tbl) if bitmask_tbl is not None
+             else [None] * D)
+    negs = [[None] * D for _ in range(D)]
+
+    def cell(d, k, H, cols):
+        dev = W_shards[d].device
+        lo = ((d + k) % D) * part_blocks
+        part_cdf = cdf[d][lo:lo + part_blocks]
+        cell_bits = bits[d][k][:cols[0].numel()].to(dev)
+        negs[d][k] = run_cell(W_shards[d], H, packed[d], keys[d], part_cdf,
+                              cell_bits, cols, rates[d], masks[d])[2]
+
+    H_parts[:] = diagonal_epoch(mesh, H_parts, order, counts, cell)
+    return W_shards, H_parts, negs if return_negatives else None
+
+
+def bpr_epoch_sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl,
+                      bits, order, counts, rates, *, part_blocks: int,
+                      user_block: int, item_block: int,
+                      soft_margin: bool = False, wbpr: bool = False,
+                      bitmask_tbl=None, return_negatives: bool = False,
+                      plain: bool = False):
+    """One BPR epoch of the sharded schedule (``pallas_bpr.py:1519
+    bpr_epoch_mxu_sharded``) over the mesh: ``bpr_epoch`` once for each
+    non-empty cell (device d, sub-epoch k) on W shard d and the
+    partition that device d holds, over the order (ub, ib, jb, jbg, nval,
+    bkt, row) of ``bpr_plan.bpr_sharded_epoch_order`` (``counts`` its
+    cells' chunks): blocks ub, ib and the negative block jb relative to
+    the shard and the partition, so that the kernel reads H and the
+    partition's rows of ``cdf_tbl`` at jb; the membership buckets bkt
+    index the global ``keys_tbl`` / ``bitmask_tbl``, which every device
+    reads whole (jbg is not read: the JAX kernel's CDF row). ``bits[d][k]``
+    holds at least the cell's [n, T, C] random bits. ``packed`` and the
+    tables may each be one tensor or its copies on the mesh devices
+    (``Mesh.replicate``), which a caller keeps across epochs. The partitions
+    ring-shift between sub-epochs (``parallel/mesh.py diagonal_epoch``).
+    W shards update in place and ``H_parts`` is refilled. ``plain``
+    selects the reference: each cell runs ``bpr_epoch_reference``, on any
+    device, over the same cells, ring and CDF rows (what ``chip_smoke.py``
+    and the tests hold the kernel to; no model sets it). Returns
+    (W_shards, H_parts, negs), negs[d][k] the cell's [n, 2, C] negatives
+    with ``return_negatives`` (None for an empty cell), else None."""
+    epoch = bpr_epoch_reference if plain else bpr_epoch
+
+    def run_cell(W, H, pk, keys, cdf, cell_bits, cols, rt, mask):
+        ub, ib, jb, _jbg, nval, bkt, row = cols
+        return epoch(W, H, pk, keys, cdf, cell_bits, (ub, ib, row), jb, nval,
+                     bkt, rt, user_block=user_block, item_block=item_block,
+                     soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=mask,
+                     return_negatives=return_negatives)
+
+    return _sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl, bits,
+                    order, counts, rates, run_cell, part_blocks=part_blocks,
+                    bitmask_tbl=bitmask_tbl,
+                    return_negatives=return_negatives)
+
+
+def bpr_epoch_sharded_tiled(mesh, W_shards, H_parts, packed, keys_tbl,
+                            cdf_tbl, bits, order, counts, rates, *,
+                            part_blocks: int, slab_blocks: int,
+                            user_block: int, item_block: int,
+                            soft_margin: bool = False, wbpr: bool = False,
+                            subkeys: bool = True,
+                            return_negatives: bool = False,
+                            plain: bool = False):
+    """``bpr_epoch_sharded`` over slab-tiled partitions (``pallas_bpr.py
+    :1860 bpr_epoch_mxu_sharded_tiled``): ``bpr_epoch_tiled`` once for
+    each non-empty cell over the order (ub, ibr, isl, jb, jbr, jsl, nval,
+    bkt, row) of ``bpr_plan.bpr_sharded_tiled_epoch_order``, its global
+    negative block jb handed to the kernel as jsl * slab_blocks + jbr,
+    relative to the partition (the H row and the partition's CDF row);
+    ``keys_tbl`` the sub-bucketed keys with ``subkeys``. ``plain``
+    selects the reference, ``bpr_epoch_tiled_reference``, as in
+    ``bpr_epoch_sharded``."""
+    epoch = bpr_epoch_tiled_reference if plain else bpr_epoch_tiled
+
+    def run_cell(W, H, pk, keys, cdf, cell_bits, cols, rt, _mask):
+        ub, ibr, isl, _jb, jbr, jsl, nval, bkt, row = cols
+        jb_rel = jsl * slab_blocks + jbr
+        return epoch(W, H, pk, keys, cdf, cell_bits,
+                     (ub, ibr, isl, jb_rel, jbr, jsl, nval, bkt, row), rt,
+                     slab_blocks=slab_blocks, user_block=user_block,
+                     item_block=item_block, soft_margin=soft_margin,
+                     wbpr=wbpr, subkeys=subkeys,
+                     return_negatives=return_negatives)
+
+    return _sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl, bits,
+                    order, counts, rates, run_cell, part_blocks=part_blocks,
+                    bitmask_tbl=None, return_negatives=return_negatives)
 
 
 bpr_epoch.launches = 0

@@ -32,6 +32,14 @@ slabs and ``bpr_tiled_epoch_order`` draws each epoch's visit order and
 negative blocks, array for array the JAX package's, without its pad
 entries, pass split and refetch flags (TPU-only: they bound scalar
 memory and stand in for buffer aliasing under interpret mode).
+
+On a device mesh, ``prepare_bpr_mxu_sharded`` / ``_tiled`` group the
+chunks into the DSGD cells (``plan.shard_plan``) and
+``bpr_sharded_epoch_order`` / ``bpr_sharded_tiled_epoch_order`` draw
+each epoch's order and negative blocks within the partition a device
+holds, equal to the JAX package's ``[D, D, nc_pad]`` arrays
+(``pallas_bpr.py:1421-1475``, ``:1715-1795``); the membership and CDF
+tables stay global.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.ops.plan import (  # noqa: F401  (re-exported)
-    MxuPlan, _round_up, mxu_supported, prepare_mxu_data,
+    MxuPlan, MxuShardedPlan, MxuShardedTiledPlan, _round_up, mxu_supported,
+    prepare_mxu_data, shard_plan,
 )
 
 BITMASK_HBM_BYTES = 2 * 1024 ** 3
@@ -309,6 +318,191 @@ def bpr_tiled_epoch_order(plan: MxuPlan, nvalid: np.ndarray,
                  .to(dev)
                  for a in (plan.ub_c, ibr_c, isl_c, jb_c, jbr_c, jsl_c,
                            nval_c, bkt_c, np.arange(nc)))
+
+
+def prepare_bpr_mxu_sharded(feedback, num_devices: int, *, uniform_user: bool,
+                            user_block: int = 512, item_block: int = 1024,
+                            chunk=640, shuffle_seed=0,
+                            num_neg_trials: int = 8, bitmask="auto",
+                            device="cpu"):
+    """``prepare_bpr_mxu``, then its chunks grouped into the DSGD cells of
+    ``num_devices`` devices (``pallas_bpr.py:1477
+    prepare_bpr_mxu_sharded``). Returns (plan, neg_state, neg_meta), the
+    plan a ``plan.MxuShardedPlan``; the membership and CDF tables stay
+    global (every device reads them whole)."""
+    plan, neg_state, neg_meta = prepare_bpr_mxu(
+        feedback, uniform_user=uniform_user, user_block=user_block,
+        item_block=item_block, chunk=chunk, shuffle_seed=shuffle_seed,
+        num_neg_trials=num_neg_trials, bitmask=bitmask, device=device)
+    return shard_plan(plan, num_devices), neg_state, neg_meta
+
+
+def prepare_bpr_mxu_sharded_tiled(feedback, num_devices: int, *,
+                                  uniform_user: bool, user_block: int = 512,
+                                  item_block: int = 1024, chunk=None,
+                                  slab_blocks: int = 8, shuffle_seed=0,
+                                  num_neg_trials: int = 8,
+                                  chunk_overhead: int = 256,
+                                  ksub_cap: int = 256, device="cpu"):
+    """``prepare_bpr_mxu`` with the sub-bucketed keys of the tiled
+    sampler, then its chunks grouped into diagonal cells whose partitions
+    are whole slabs (``pallas_bpr.py:1797
+    prepare_bpr_mxu_sharded_tiled``). Returns (plan, neg_state,
+    neg_meta), the plan a ``plan.MxuShardedTiledPlan``."""
+    plan, neg_state, neg_meta = prepare_bpr_mxu(
+        feedback, uniform_user=uniform_user, user_block=user_block,
+        item_block=item_block, chunk=chunk, shuffle_seed=shuffle_seed,
+        num_neg_trials=num_neg_trials, kcap=128, subkeys=True,
+        ksub_cap=ksub_cap, bitmask=False, chunk_overhead=chunk_overhead,
+        device=device)
+    return (shard_plan(plan, num_devices, slab_blocks=slab_blocks),
+            neg_state, neg_meta)
+
+
+def bpr_sharded_epoch_order(plan: MxuShardedPlan, nvalid: np.ndarray, seed,
+                            block_mass=None) -> tuple:
+    """One epoch of the sharded schedule: [D, D, nc_pad] int32 numpy
+    arrays (ub, ib, jb, jbg, nval, bkt, row), equal to
+    ``pallas_bpr.BprShardedPlan.epoch_order`` (:1421-1475). ub is
+    relative to the device, ib and the negative block jb to the
+    partition, jbg = jb + the partition's first block is global, and so
+    is the membership bucket bkt = ub_global * n_ib + jbg. A chunk's
+    negative block is drawn within the partition its device holds:
+    P(block b) = nvalid_b / (the partition's items), or WBPR
+    (``block_mass``) by popularity mass within it. Each cell's chunks
+    grouped by user block, shuffled within each group; pads as in
+    ``MxuShardedPlan.epoch_order``."""
+    D, nc_pad = plan.num_devices, plan.nc_pad
+    PB, n_ib = plan.part_blocks, plan.n_iblocks
+    rng = np.random.default_rng(seed)
+    shape = (D, D, nc_pad)
+    ub, ib, jbr, jbg, bkt = (np.zeros(shape, np.int32) for _ in range(5))
+    nval = np.ones(shape, np.int32)
+    row = np.full(shape, plan.num_chunks, np.int32)
+    for d in range(D):
+        for k in range(D):
+            rows = plan.cells[d][k]
+            if rows.size == 0:
+                continue
+            perm = np.argsort(plan.ub_c[rows].astype(np.float64) * 2.0
+                              + rng.random(rows.size), kind="stable")
+            r = rows[perm]
+            n = r.size
+            lo = ((d + k) % D) * PB
+            hi = min(lo + PB, n_ib)
+            nb = max(hi - lo, 1)
+            if block_mass is not None:
+                m = np.asarray(block_mass[lo:hi], dtype=np.float64)
+                tot = m.sum()
+                jl = rng.choice(nb, size=n, p=m / tot).astype(np.int32) \
+                    if tot > 0 else np.zeros(n, np.int32)
+            else:
+                items_p = int(nvalid[lo:hi].sum())
+                jl = (rng.integers(0, max(items_p, 1), n) % nb).astype(
+                    np.int32)
+            ub[d, k, :n] = plan.ub_c[r] - d * plan.ub_per_dev
+            ib[d, k, :n] = plan.ib_c[r] - lo
+            jbr[d, k, :n] = jl
+            jbg[d, k, :n] = lo + jl
+            nval[d, k, :n] = np.maximum(nvalid[lo + jl], 1)
+            bkt[d, k, :n] = (plan.ub_c[r].astype(np.int64) * n_ib
+                             + lo + jl).astype(np.int32)
+            row[d, k, :n] = r
+            ub[d, k, n:] = ub[d, k, n - 1]
+    return ub, ib, jbr, jbg, nval, bkt, row
+
+
+def bpr_sharded_tiled_epoch_order(plan: MxuShardedTiledPlan,
+                                  nvalid: np.ndarray, seed,
+                                  block_mass=None) -> tuple:
+    """One epoch of the sharded slab-tiled schedule: [D, D, nc_pad] int32
+    numpy arrays (ub, ibr, isl, jb, jbr, jsl, nval, bkt, row), equal to
+    ``pallas_bpr.BprShardedTiledPlan.epoch_order`` (:1715-1795) without
+    its refetch flags. isl and jsl are slabs relative to the partition,
+    ibr and jbr blocks relative to their slab, jb the global negative
+    block and bkt = ub_global * n_ib + jb. One negative slab is drawn per
+    (isl, user block) group within the partition (P(slab) = its items /
+    the partition's), then one negative block per chunk within that slab,
+    uniform by item count, so P(block b) = nvalid_b / (the partition's
+    items) as on the sharded resident schedule; WBPR draws both by
+    popularity mass. Each cell's chunks sorted by (isl, jsl, user block)
+    and shuffled within each group; pads as in
+    ``MxuShardedPlan.epoch_order``."""
+    D, nc_pad, B = plan.num_devices, plan.nc_pad, plan.slab_blocks
+    PB, n_ib, n_ub = plan.part_blocks, plan.n_iblocks, plan.n_ublocks
+    SP = plan.slabs_per_part
+    rng = np.random.default_rng(seed)
+    shape = (D, D, nc_pad)
+    ub, ibr, isl, jb, jbr, jsl, bkt = (np.zeros(shape, np.int32)
+                                       for _ in range(7))
+    nval = np.ones(shape, np.int32)
+    row = np.full(shape, plan.num_chunks, np.int32)
+    for d in range(D):
+        for k in range(D):
+            rows = plan.cells[d][k]
+            if rows.size == 0:
+                continue
+            lo = ((d + k) % D) * PB
+            hi = min(lo + PB, n_ib)
+            n = rows.size
+            ib_rel = plan.ib_c[rows] - lo
+            sl = ib_rel // B
+            # one negative slab per (isl, user block) group
+            gid = sl.astype(np.int64) * n_ub + plan.ub_c[rows]
+            uniq, inv = np.unique(gid, return_inverse=True)
+            pad_b = np.zeros(SP * B - (hi - lo), np.int64)
+            nv_p = np.concatenate([nvalid[lo:hi].astype(np.int64), pad_b])
+            if block_mass is not None:
+                m_p = np.concatenate([
+                    np.asarray(block_mass[lo:hi], np.float64),
+                    pad_b.astype(np.float64)])
+                sm = m_p.reshape(SP, B).sum(axis=1)
+                tot = sm.sum()
+                jsl_g = (rng.choice(SP, size=uniq.size, p=sm / tot)
+                         .astype(np.int32) if tot > 0
+                         else np.zeros(uniq.size, np.int32))
+            else:
+                items_p = max(int(nv_p.sum()), 1)
+                rr = rng.integers(0, items_p, uniq.size)
+                jsl_g = ((rr % max(hi - lo, 1)) // B).astype(np.int32)
+            jsl_c = jsl_g[inv]
+            # one negative block per chunk within its group's slab
+            nb_of = np.maximum(np.minimum((jsl_c + 1) * B, hi - lo)
+                               - jsl_c * B, 1)
+            if block_mass is not None:
+                jl = np.zeros(n, np.int32)
+                for s in np.unique(jsl_c):
+                    sel = np.nonzero(jsl_c == s)[0]
+                    l2 = lo + s * B
+                    h2 = min(l2 + B, hi)
+                    m = np.asarray(block_mass[l2:h2], np.float64)
+                    tot = m.sum()
+                    if tot > 0:
+                        jl[sel] = rng.choice(h2 - l2, size=sel.size,
+                                             p=m / tot).astype(np.int32)
+            else:
+                si = np.maximum(nv_p.reshape(SP, B).sum(axis=1)[jsl_c], 1)
+                r2 = (rng.random(n) * si).astype(np.int64)
+                jl = (r2 % nb_of).astype(np.int32)
+            jb_c = (lo + jsl_c * B + jl).astype(np.int32)
+            perm = np.argsort(
+                sl.astype(np.float64) * (2.0 * SP * n_ub)
+                + jsl_c * (2.0 * n_ub) + plan.ub_c[rows] * 2.0
+                + rng.random(n), kind="stable")
+            r = rows[perm]
+            ub[d, k, :n] = plan.ub_c[r] - d * plan.ub_per_dev
+            isl[d, k, :n] = sl[perm]
+            ibr[d, k, :n] = ib_rel[perm] - sl[perm] * B
+            jsl[d, k, :n] = jsl_c[perm]
+            jbr[d, k, :n] = jl[perm]
+            jb[d, k, :n] = jb_c[perm]
+            nval[d, k, :n] = np.maximum(nvalid[jb_c[perm]], 1)
+            bkt[d, k, :n] = (plan.ub_c[r].astype(np.int64) * n_ib
+                             + jb_c[perm]).astype(np.int32)
+            row[d, k, :n] = r
+            for a in (ub, isl, ibr, jsl, jbr, jb, nval, bkt):
+                a[d, k, n:] = a[d, k, n - 1]
+    return ub, ibr, isl, jb, jbr, jsl, nval, bkt, row
 
 
 def bpr_mxu_column_rates(num_factors: int, fe: int, learn_rate, reg_u,

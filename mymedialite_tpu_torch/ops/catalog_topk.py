@@ -149,12 +149,14 @@ def _launch(user_rows, item_table, mask8, k_run: int):
     part = (torch.empty((B, splits, k_run), dtype=torch.int32, device=dev),
             torch.empty((B, splits, k_run), dtype=torch.float32, device=dev)) \
         if splits > 1 else (None, None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(user_rows.data_ptr(), item_table.data_ptr(),
-             mask8.data_ptr() if mask8 is not None else None,
-             *(t.data_ptr() if t is not None else None for t in part),
-             ids.data_ptr(), vals.data_ptr(), B, N, user_rows.shape[1],
-             k_run, per, stream)
+    # the kernels launch on the current device: make it the rows'
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(user_rows.data_ptr(), item_table.data_ptr(),
+                 mask8.data_ptr() if mask8 is not None else None,
+                 *(t.data_ptr() if t is not None else None for t in part),
+                 ids.data_ptr(), vals.data_ptr(), B, N, user_rows.shape[1],
+                 k_run, per, stream)
     if err != 0:
         raise RuntimeError(f"catalog_topk: kernel launch failed, CUDA error "
                            f"{err}")

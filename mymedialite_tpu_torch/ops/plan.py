@@ -24,17 +24,28 @@ slab and one user block stay in VMEM; on the H100 the kernels gather
 rows from device memory and the order keeps one slab hot in L2. The
 TPU-only parts of the JAX plan stay behind: the all-zero pad chunk, the
 pass split (``pass_len``, a scalar-memory bound), the refetch flags and
-the table padding to whole slabs. ``select_schedule`` is the port of the
-single-device choice of ``ops/kernel_select.py:53-96``, for both model
-families.
+the table padding to whole slabs. ``select_schedule`` is the port of
+``ops/kernel_select.py:53-114``, for both model families.
+
+On a device mesh (``parallel/mesh.py``) the same chunks are regrouped
+into the cells of Gemulla's DSGD diagonal (``MxuShardedPlan``,
+``MxuShardedTiledPlan``, ``shard_plan``; JAX: ``pallas_sgd.py
+:1017-1124``, ``:1212-1353``): device d owns a contiguous range of user
+blocks, the item table splits into one partition per device, and at
+sub-epoch k device d visits the chunks of its users on partition (d + k)
+% D. The orders are the JAX package's ``[D, D, nc_pad]`` arrays, pads
+included, and the port visits only each cell's real chunks.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+log = logging.getLogger("mymedialite_tpu_torch")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -241,13 +252,63 @@ def mxu_tiled_supported(num_items: int, num_factors: int,
     return (n_ib + slab_blocks - 1) // slab_blocks <= MAX_SLABS
 
 
-def select_schedule(num_items: int, num_factors: int) -> str:
-    """The epoch schedule of the MF and BPR families for one device:
-    "resident" while the item table fits the resident bound, "tiled"
-    past it, "minibatch" past the tiled schedule's ``MAX_SLABS`` slabs
-    (``ops/kernel_select.py:53-96``): there the JAX package runs its XLA
-    epochs, which the port runs as plain PyTorch minibatch epochs
-    (``ops/sgd.py sgd_epoch_blocked``, ``ops/bpr.py bpr_epoch``)."""
+def mxu_sharded_supported(num_items: int, num_factors: int,
+                          num_devices: int, item_block: int = 1024) -> bool:
+    """Whether the sharded schedule applies: each of ``num_devices``
+    item partitions within ``RESIDENT_ITEM_TABLE_BYTES``
+    (``pallas_sgd.mxu_sharded_supported``)."""
+    if num_devices < 2:
+        return False
+    n_ib = max((num_items + item_block - 1) // item_block, 1)
+    part_blocks = max((n_ib + num_devices - 1) // num_devices, 1)
+    return (part_blocks * item_block * fused_width(num_factors) * 4
+            <= RESIDENT_ITEM_TABLE_BYTES)
+
+
+def mxu_sharded_tiled_supported(num_items: int, num_factors: int,
+                                num_devices: int,
+                                item_block: int = 1024) -> bool:
+    """Whether the sharded slab-tiled schedule applies: a default slab
+    within the resident bound, each device's partition within
+    ``MAX_SLABS`` slabs (``pallas_sgd.mxu_sharded_tiled_supported``)."""
+    if num_devices < 2:
+        return False
+    slab_blocks = default_slab_blocks(num_factors, item_block)
+    if (slab_blocks * item_block * fused_width(num_factors) * 4
+            > RESIDENT_ITEM_TABLE_BYTES):
+        return False
+    n_ib = max((num_items + item_block - 1) // item_block, 1)
+    part_blocks = _round_up(max((n_ib + num_devices - 1) // num_devices, 1),
+                            slab_blocks)
+    return part_blocks // slab_blocks <= MAX_SLABS
+
+
+def select_schedule(num_items: int, num_factors: int,
+                    num_devices: int = 1) -> str:
+    """The epoch schedule of the MF and BPR families
+    (``ops/kernel_select.py:53-114``). On one device: "resident" while
+    the item table fits the resident bound, "tiled" past it, "minibatch"
+    past the tiled schedule's ``MAX_SLABS`` slabs: there the JAX package
+    runs its XLA epochs, which the port runs as plain PyTorch minibatch
+    epochs (``ops/sgd.py sgd_epoch_blocked``, ``ops/bpr.py bpr_epoch``).
+    On a mesh of ``num_devices`` > 1: "sharded" while each device's item
+    partition fits the resident bound, "sharded-tiled" while it fits
+    ``MAX_SLABS`` slabs, else a logged warning and "minibatch"."""
+    if num_devices > 1:
+        if mxu_sharded_supported(num_items, num_factors, num_devices):
+            return "sharded"
+        if mxu_sharded_tiled_supported(num_items, num_factors, num_devices):
+            return "sharded-tiled"
+        fe = fused_width(num_factors)
+        log.warning(
+            "select_schedule: no kernel schedule for num_items=%d "
+            "num_factors=%d on a %d-device mesh (per-device partition "
+            "%.1f MB against the %.0f MB resident bound; the partition "
+            "passes %d slabs): the minibatch epoch instead",
+            num_items, num_factors, num_devices,
+            ((num_items + num_devices - 1) // num_devices) * fe * 4 / 2**20,
+            RESIDENT_ITEM_TABLE_BYTES / 2**20, MAX_SLABS)
+        return "minibatch"
     if mxu_supported(num_items, num_factors):
         return "resident"
     if mxu_tiled_supported(num_items, num_factors):
@@ -330,6 +391,212 @@ def prepare_mxu_tiled(users, items, values, num_users: int, num_items: int,
         num_users=num_users, num_items=num_items, n_ratings=plan.n_ratings,
         packed=plan.packed, ub_c=plan.ub_c, ib_c=plan.ib_c,
         new_of_old=plan.new_of_old, old_of_new=plan.old_of_new)
+
+
+@dataclass
+class MxuShardedPlan:
+    """Host-side layout of the sharded schedule, Gemulla's DSGD diagonal
+    over a mesh of D devices (``pallas_sgd.MxuShardedPlan``): device d
+    owns the user blocks [d * ub_per_dev, (d + 1) * ub_per_dev) (its W
+    shard of ``u_pad_dev`` rows), the item table splits into D
+    partitions of ``part_blocks`` blocks (``part_rows`` rows), and at
+    sub-epoch k device d visits the chunks of its users on partition
+    (d + k) % D: cell (d, k), ``cells[d][k]`` (rows of ``packed``, the
+    one-device plan's chunks). ``packed`` holds the real chunks only: a
+    cell is launched over its own chunks, and an empty cell not at all.
+    """
+    num_devices: int
+    chunk: int
+    user_block: int
+    item_block: int
+    ub_per_dev: int          # user blocks per device
+    part_blocks: int         # item blocks per partition
+    n_ublocks: int
+    n_iblocks: int
+    num_users: int
+    num_items: int
+    n_ratings: int
+    # [nc, 4, C] int32, as MxuPlan.packed
+    packed: torch.Tensor = field(repr=False)
+    ub_c: np.ndarray = field(repr=False)
+    ib_c: np.ndarray = field(repr=False)
+    cells: list = field(repr=False)           # [d][k] -> chunk rows
+    new_of_old: np.ndarray = field(repr=False)
+    old_of_new: np.ndarray = field(repr=False)
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.ub_c.size)
+
+    @property
+    def cell_counts(self) -> np.ndarray:
+        """[D, D] chunks of cell (device, sub-epoch)."""
+        return np.array([[r.size for r in row] for row in self.cells],
+                        np.int64)
+
+    @property
+    def nc_pad(self) -> int:
+        """The largest cell: the JAX package pads every cell to it."""
+        return max(int(self.cell_counts.max()), 1)
+
+    @property
+    def u_pad_dev(self) -> int:
+        return self.ub_per_dev * self.user_block
+
+    @property
+    def u_pad(self) -> int:
+        return self.num_devices * self.u_pad_dev
+
+    @property
+    def part_rows(self) -> int:
+        return self.part_blocks * self.item_block
+
+    @property
+    def i_pad(self) -> int:
+        return self.num_devices * self.part_rows
+
+    def epoch_order(self, seed) -> tuple:
+        """[D, D, nc_pad] int32 numpy arrays (ub, ib, row), axis 0 the
+        device, axis 1 the sub-epoch, equal to
+        ``pallas_sgd.MxuShardedPlan.epoch_order``: ub relative to the
+        device's first user block, ib to the partition's first item
+        block; each cell's chunks grouped by user block, shuffled within
+        each group. The first ``cell_counts[d, k]`` entries of a cell are
+        its chunks; the rest are the JAX package's pads (the last user
+        block again, row ``num_chunks``), which the port never visits."""
+        D, nc_pad = self.num_devices, self.nc_pad
+        rng = None if seed is None else np.random.default_rng(seed)
+        ub = np.zeros((D, D, nc_pad), np.int32)
+        ib = np.zeros((D, D, nc_pad), np.int32)
+        row = np.full((D, D, nc_pad), self.num_chunks, np.int32)
+        for d in range(D):
+            for k in range(D):
+                rows = self.cells[d][k]
+                if rows.size == 0:
+                    continue
+                if rng is None:
+                    perm = np.arange(rows.size)
+                else:
+                    perm = np.argsort(self.ub_c[rows].astype(np.float64) * 2.0
+                                      + rng.random(rows.size), kind="stable")
+                r = rows[perm]
+                p = (d + k) % D
+                ub[d, k, :r.size] = self.ub_c[r] - d * self.ub_per_dev
+                ib[d, k, :r.size] = self.ib_c[r] - p * self.part_blocks
+                row[d, k, :r.size] = r
+                ub[d, k, r.size:] = ub[d, k, r.size - 1]
+        return ub, ib, row
+
+
+@dataclass
+class MxuShardedTiledPlan(MxuShardedPlan):
+    """The sharded schedule with slab-tiled partitions
+    (``pallas_sgd.MxuShardedTiledPlan``): each partition is a whole
+    number of slabs of ``slab_blocks`` item blocks, and a cell's chunks
+    are visited slab-major within the partition."""
+    slab_blocks: int = 1
+
+    @property
+    def slabs_per_part(self) -> int:
+        return self.part_blocks // self.slab_blocks
+
+    @property
+    def slab_rows(self) -> int:
+        return self.slab_blocks * self.item_block
+
+    def epoch_order(self, seed) -> tuple:
+        """[D, D, nc_pad] int32 numpy arrays (ub, ibr, isl, row), equal
+        to ``pallas_sgd.MxuShardedTiledPlan.epoch_order`` without its
+        refetch flags: isl the slab relative to the partition, ibr the
+        block relative to the slab; each cell's chunks sorted by (slab,
+        user block), shuffled within each (slab, user block) group; pads
+        as in ``MxuShardedPlan.epoch_order`` (the last real ids again)."""
+        D, nc_pad, B = self.num_devices, self.nc_pad, self.slab_blocks
+        rng = None if seed is None else np.random.default_rng(seed)
+        ub = np.zeros((D, D, nc_pad), np.int32)
+        ibr = np.zeros((D, D, nc_pad), np.int32)
+        isl = np.zeros((D, D, nc_pad), np.int32)
+        row = np.full((D, D, nc_pad), self.num_chunks, np.int32)
+        for d in range(D):
+            for k in range(D):
+                rows = self.cells[d][k]
+                if rows.size == 0:
+                    continue
+                p = (d + k) % D
+                ib_rel = self.ib_c[rows] - p * self.part_blocks
+                sl = ib_rel // B
+                key = (sl.astype(np.float64) * (2.0 * self.n_ublocks)
+                       + self.ub_c[rows] * 2.0)
+                if rng is not None:
+                    key = key + rng.random(rows.size)
+                perm = np.argsort(key, kind="stable")
+                r = rows[perm]
+                n = r.size
+                ub[d, k, :n] = self.ub_c[r] - d * self.ub_per_dev
+                isl[d, k, :n] = sl[perm]
+                ibr[d, k, :n] = ib_rel[perm] - sl[perm] * B
+                row[d, k, :n] = r
+                for a in (ub, isl, ibr):
+                    a[d, k, n:] = a[d, k, n - 1]
+        return ub, ibr, isl, row
+
+
+def shard_plan(plan: MxuPlan, num_devices: int, *, slab_blocks=None):
+    """The one-device plan's chunks regrouped into the DSGD cells of
+    ``num_devices`` devices: an ``MxuShardedPlan``, or with
+    ``slab_blocks`` an ``MxuShardedTiledPlan`` whose partitions are
+    rounded up to whole slabs of min(slab_blocks, partition) blocks
+    (``pallas_sgd.prepare_mxu_sharded`` / ``_tiled``, also the BPR ones,
+    after their one-device plan)."""
+    D = num_devices
+    ub_per_dev = max((plan.n_ublocks + D - 1) // D, 1)
+    part_blocks = max((plan.n_iblocks + D - 1) // D, 1)
+    extra = {}
+    cls = MxuShardedPlan
+    if slab_blocks is not None:
+        B = max(min(slab_blocks, part_blocks), 1)
+        part_blocks = _round_up(part_blocks, B)
+        extra = dict(slab_blocks=B)
+        cls = MxuShardedTiledPlan
+    dev_of = plan.ub_c // ub_per_dev
+    part_of = plan.ib_c // part_blocks
+    cells = [[np.nonzero((dev_of == d) & (part_of == (d + k) % D))[0]
+              for k in range(D)] for d in range(D)]
+    return cls(
+        num_devices=D, chunk=plan.chunk, user_block=plan.user_block,
+        item_block=plan.item_block, ub_per_dev=ub_per_dev,
+        part_blocks=part_blocks, n_ublocks=plan.n_ublocks,
+        n_iblocks=plan.n_iblocks, num_users=plan.num_users,
+        num_items=plan.num_items, n_ratings=plan.n_ratings,
+        packed=plan.packed, ub_c=plan.ub_c, ib_c=plan.ib_c, cells=cells,
+        new_of_old=plan.new_of_old, old_of_new=plan.old_of_new, **extra)
+
+
+def prepare_mxu_sharded(users, items, values, num_users: int, num_items: int,
+                        num_devices: int, *, user_block: int = 512,
+                        item_block: int = 1024, chunk=640, shuffle_seed=0,
+                        device="cpu") -> MxuShardedPlan:
+    """``prepare_mxu_data``, then its chunks grouped into the diagonal
+    cells (``pallas_sgd.prepare_mxu_sharded``)."""
+    return shard_plan(prepare_mxu_data(
+        users, items, values, num_users, num_items, user_block=user_block,
+        item_block=item_block, chunk=chunk, shuffle_seed=shuffle_seed,
+        device=device), num_devices)
+
+
+def prepare_mxu_sharded_tiled(users, items, values, num_users: int,
+                              num_items: int, num_devices: int, *,
+                              user_block: int = 512, item_block: int = 1024,
+                              chunk=None, slab_blocks: int = 8,
+                              shuffle_seed=0,
+                              device="cpu") -> MxuShardedTiledPlan:
+    """``prepare_mxu_data``, then its chunks grouped into diagonal cells
+    whose partitions are whole slabs
+    (``pallas_sgd.prepare_mxu_sharded_tiled``)."""
+    return shard_plan(prepare_mxu_data(
+        users, items, values, num_users, num_items, user_block=user_block,
+        item_block=item_block, chunk=chunk, shuffle_seed=shuffle_seed,
+        device=device), num_devices, slab_blocks=slab_blocks)
 
 
 def extend_tables_mxu(plan: MxuPlan, user_factors, item_factors,

@@ -14,6 +14,11 @@ take the shape (``check_kernel_shape``: fe and the chunk multiples of 4,
 fe <= 256, two chunks and the rates within 227 KB of shared memory); on
 CPU tensors they run ``sgd_epoch_reference`` /
 ``sgd_epoch_tiled_reference``. Each counts its own launches.
+``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` (``pallas_sgd.py
+:1126``, ``:1354``) run one epoch over a device mesh: the same wrapper
+once for each non-empty (device, sub-epoch) cell, on that device's W
+shard and the item partition it holds (``parallel/mesh.py
+diagonal_epoch``); each cell's launch counts once.
 
 Arguments shared by both:
 
@@ -136,11 +141,14 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
     fn = load_library().lib.mml_sgd_epoch
     scratch = torch.empty(2 * C * fe, dtype=torch.float32, device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = fn(W.data_ptr(), H.data_ptr(), packed.data_ptr(),
-             *(o.data_ptr() for o in order), rates.data_ptr(),
-             scratch.data_ptr(), order[0].numel(), C, user_block, item_block, fe, gb,
-             min_rating, rating_range, int(loss), int(bool(biased)), stream)
+    # the kernel launches on the current device: make it W's
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = fn(W.data_ptr(), H.data_ptr(), packed.data_ptr(),
+                 *(o.data_ptr() for o in order), rates.data_ptr(),
+                 scratch.data_ptr(), order[0].numel(), C, user_block,
+                 item_block, fe, gb, min_rating, rating_range, int(loss),
+                 int(bool(biased)), stream)
     if err != 0:
         raise RuntimeError(f"sgd_epoch: kernel launch failed, CUDA error {err}")
 
@@ -174,6 +182,60 @@ def sgd_epoch_tiled(W, H, packed, order, hp, rates, *, slab_blocks: int,
     _launch(W, H, packed, (ub, sl * slab_blocks + ibr, row), hp, rates, **kw)
     sgd_epoch_tiled.launches += 1
     return W, H
+
+
+def _sharded(mesh, W_shards, H_parts, packed, order, counts, hp, rates,
+             run, **kw):
+    """The diagonal epoch with ``run`` on each cell: the cell's W shard
+    and partition, the chunks of ``packed`` on its device, its order."""
+    from mymedialite_tpu_torch.parallel.mesh import diagonal_epoch
+    packed, rates = mesh.replicate(packed), mesh.replicate(rates)
+
+    def cell(d, k, H, cols):
+        run(W_shards[d], H, packed[d], cols, hp, rates[d], **kw)
+
+    H_parts[:] = diagonal_epoch(mesh, H_parts, order, counts, cell)
+    return W_shards, H_parts
+
+
+def sgd_epoch_sharded(mesh, W_shards, H_parts, packed, order, counts, hp,
+                      rates, *, user_block: int, item_block: int, loss: int,
+                      biased: bool, plain: bool = False):
+    """One epoch of the sharded schedule (``pallas_sgd.py:1126
+    sgd_epoch_mxu_sharded``) over the mesh: ``sgd_epoch`` once for each
+    non-empty cell (device d, sub-epoch k), on W shard d [u_pad_dev, fe]
+    and the partition [part_rows, fe] that device d holds, the order
+    (ub, ib, row) of ``MxuShardedPlan.epoch_order`` relative to both
+    (``counts`` its cells' chunks); the partitions ring-shift between
+    sub-epochs (``parallel/mesh.py diagonal_epoch``). ``packed`` is the
+    plan's chunks, or their copies on the mesh devices
+    (``Mesh.replicate``), which a caller keeps across epochs. W shards
+    update in place; ``H_parts`` (partition p on mesh device p) is
+    refilled with the partitions after the epoch. ``plain`` selects the
+    reference: every cell runs ``sgd_epoch_reference`` instead, on any
+    device, over the same cells and ring (what ``chip_smoke.py`` and the
+    tests hold the kernel to; no model sets it). Returns (W_shards,
+    H_parts)."""
+    return _sharded(mesh, W_shards, H_parts, packed, order, counts, hp, rates,
+                    sgd_epoch_reference if plain else sgd_epoch,
+                    user_block=user_block, item_block=item_block, loss=loss,
+                    biased=biased)
+
+
+def sgd_epoch_sharded_tiled(mesh, W_shards, H_parts, packed, order, counts,
+                            hp, rates, *, slab_blocks: int, user_block: int,
+                            item_block: int, loss: int, biased: bool,
+                            plain: bool = False):
+    """``sgd_epoch_sharded`` over the slab-tiled partitions
+    (``pallas_sgd.py:1354 sgd_epoch_mxu_sharded_tiled``): ``sgd_epoch_tiled``
+    once for each non-empty cell, on the order (ub, ibr, isl, row) of
+    ``MxuShardedTiledPlan.epoch_order`` (isl relative to the partition);
+    ``plain`` selects the reference, ``sgd_epoch_tiled_reference``, as
+    in ``sgd_epoch_sharded``."""
+    return _sharded(mesh, W_shards, H_parts, packed, order, counts, hp, rates,
+                    sgd_epoch_tiled_reference if plain else sgd_epoch_tiled,
+                    slab_blocks=slab_blocks, user_block=user_block,
+                    item_block=item_block, loss=loss, biased=biased)
 
 
 sgd_epoch.launches = 0

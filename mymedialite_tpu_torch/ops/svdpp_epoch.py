@@ -189,13 +189,15 @@ def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
     scratch = torch.empty(2 * C * fe + sums, dtype=torch.float32,
                           device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = fn(W.data_ptr(), Q.data_ptr(), Y.data_ptr(), packed.data_ptr(),
-             *(t.data_ptr() for t in schedule), rates.data_ptr(),
-             scratch.data_ptr(), schedule[0].numel(), C, user_block,
-             item_block, fe, num_factors, gb, min_rating, rating_range,
-             int(loss), int(bool(sigmoid)), int(variant == "shared"),
-             stream)
+    # the kernel launches on the current device: make it W's
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = fn(W.data_ptr(), Q.data_ptr(), Y.data_ptr(), packed.data_ptr(),
+                 *(t.data_ptr() for t in schedule), rates.data_ptr(),
+                 scratch.data_ptr(), schedule[0].numel(), C, user_block,
+                 item_block, fe, num_factors, gb, min_rating, rating_range,
+                 int(loss), int(bool(sigmoid)), int(variant == "shared"),
+                 stream)
     if err != 0:
         raise RuntimeError(f"svdpp_epoch: kernel launch failed, CUDA error "
                            f"{err}")

@@ -346,6 +346,19 @@ def test_wrmf_and_knn_phases_rehearse_on_the_cpu(monkeypatch, tmp_path,
     assert "item attributes for" in out
 
 
+def test_slab_window_runs_across_the_first_slab_boundary():
+    """The tiled paths' plain check covers a window of the order that ends
+    ``extra`` chunks into the second slab, at most ``length`` long."""
+    import torch
+    smoke = _smoke_module()
+    slabs = torch.tensor([0] * 10 + [1] * 6 + [2] * 4)
+    assert smoke.slab_window(slabs, length=8, extra=3) == (5, 13)
+    assert smoke.slab_window(slabs, length=100, extra=3) == (0, 13)
+    assert smoke.slab_window(slabs, length=8, extra=50) == (12, 20)
+    with pytest.raises(AssertionError, match="no slab boundary"):
+        smoke.slab_window(torch.zeros(5, dtype=torch.int64))
+
+
 def test_topk_agreement_gap():
     """``gap`` sets the near-tie rule: at 1e-6 a pair 5e-6 apart is
     judged, at the default 1e-5 it is not."""
@@ -720,3 +733,102 @@ def test_last_models_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
                  "phase 23 (f)"):
         assert text in out, text
     assert list((tmp_path / "trace_rating").glob("*.pt.trace.json"))
+
+
+def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 24 end to end on CPU tensors at small sizes, on a rig of
+    ``["cpu"] * D``, with the card's clock and synchronisation stood in
+    for and the launch counts not held (the plain versions count none):
+    (a) the four sharded epochs against their cells in turn and their
+    plain versions (the MAE rows under the witnesses), every variant on
+    4 devices, with save -> load on both sharded routes; (b) the models
+    on the sharded route; (c) on the sharded-tiled route, the bounds
+    lowered so that a 5,000-item catalog takes it; in (b) and (c) each
+    model's kernel against its plain version on chunks drawn across its
+    cells, and its gathered tables against its shards."""
+    import contextlib
+    from collections import defaultdict
+
+    import torch
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.ops import plan as tplan
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    @contextlib.contextmanager
+    def uncounted(expected):
+        yield defaultdict(int, expected)
+    monkeypatch.setattr(smoke, "counted_path", uncounted)
+    monkeypatch.setattr(smoke, "MESH_CHECK_SHAPE", dict(
+        num_users=300, num_items=3000, num_ratings=6000, seed=3))
+    monkeypatch.setattr(smoke, "EVAL_USERS", 100)
+    monkeypatch.setattr(smoke, "AUC_USERS", 100)
+    monkeypatch.setattr(smoke, "MESH_BIG_EPOCHS", 1)
+    dev = torch.device("cpu")
+    worst = smoke.phase_mesh_kernel_check(dev)
+    assert set(worst) == {"sgd_epoch", "sgd_epoch_tiled", "bpr_epoch",
+                          "bpr_epoch_tiled"}
+    assert all(0 <= e <= 1e-6 for e in worst.values()), worst
+
+    train, test = split_ratings(synthetic_ratings(600, 300, 30_000, seed=1),
+                                0.2, seed=2)
+    fb, test_items = posonly_from_ratings(train), posonly_from_ratings(test)
+    smoke.phase_mesh_netflix(
+        dev, train, test, {"test_rmse": 0.9, "epoch_ms": 1.0},
+        {"auc": 0.7, "epoch_ms": 1.0, "test": test_items}, fb)
+    monkeypatch.setattr(tplan, "RESIDENT_ITEM_TABLE_BYTES", 256 * 1024)
+    monkeypatch.setattr(tplan, "TILED_SLAB_BYTES", 256 * 1024)
+    train, test = split_ratings(synthetic_ratings(300, 5000, 16_000, seed=7),
+                                0.2, seed=2)
+    assert tplan.select_schedule(5000, 40, 4) == "sharded-tiled"
+    smoke.phase_mesh_big_catalog(dev, train, test,
+                                 {"rmse": 1.0, "epoch_ms": 1.0},
+                                 {"auc": 0.5, "epoch_ms": 1.0})
+    out = capsys.readouterr().out
+    for text in ("mesh sgd_epoch (4 devices", "mesh sgd_epoch (3 devices",
+                 "mesh sgd_epoch_tiled (4 devices", "loss=1 biased=True: "
+                 "one step at a time", "mesh bpr_epoch (4 devices",
+                 "membership=bitmask", "mesh bpr_epoch_tiled (3 devices",
+                 "(sharded): save -> load keeps",
+                 "(sharded-tiled): save -> load keeps",
+                 "mesh BiasedMF Netflix-shaped on the rig (sharded)",
+                 "mesh BPRMF Netflix-shaped on the rig (sharded)",
+                 "mesh MultiCoreBPRMF, one iterate() on the rig (sharded)",
+                 "mesh BiasedMF big-catalog on the rig (sharded-tiled)",
+                 "mesh BPRMF big-catalog on the rig (sharded-tiled)",
+                 "phase 24 (a)", "phase 24 (b)", "phase 24 (c)"):
+        assert text in out, text
+    # (b) and (c): each model's kernel against its plain version across
+    # its cells, its gathered tables against its shards
+    for label in ("mesh BiasedMF Netflix-shaped", "mesh BPRMF Netflix-shaped",
+                  "mesh BiasedMF big-catalog", "mesh BPRMF big-catalog"):
+        assert f"{label}, " in out and "chunks drawn across its cells (" \
+            in out.split(f"{label}, ", 1)[1].split("\n", 1)[0], label
+        assert f"{label}: the gathered tables equal the rows picked out of " \
+            "the shards" in out, label
+    assert out.count("negatives identical; against its cells in turn") == 14
+
+
+def test_mesh_phase_is_in_main_and_the_line_keeps_six_kernels():
+    """Phase 24's three parts run from ``main`` (after phase 4, after
+    phase 8 and after phase 20), and the kernels line still names the six
+    kernels, each once: the mesh adds no kernel body."""
+    import inspect
+    smoke = _smoke_module()
+    assert list(smoke.KERNELS) == ["sgd_epoch", "sgd_epoch_tiled",
+                                   "bpr_epoch", "bpr_epoch_tiled",
+                                   "svdpp_epoch", "catalog_topk"]
+    main = inspect.getsource(smoke.main)
+    order = [main.index(name) for name in (
+        "phase_bpr_kernel_check(", "phase_mesh_kernel_check(",
+        "phase_bpr_path(", "phase_mesh_netflix(", "phase_bpr_minibatch(",
+        "phase_mesh_big_catalog(")]
+    assert order == sorted(order)
+    assert "24." in smoke.__doc__ and "phase 24" in smoke.__doc__

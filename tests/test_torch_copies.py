@@ -24,6 +24,7 @@ from mymedialite_tpu.eval import results as jresults
 from mymedialite_tpu.io import model_io as jmodel_io
 from mymedialite_tpu.models import registry as jregistry
 from mymedialite_tpu.ops import pallas_sgd as ps
+from mymedialite_tpu.parallel import mesh as jmesh
 from mymedialite_tpu.utils import params as jparams
 from mymedialite_tpu_torch import native as tnative
 from mymedialite_tpu_torch.cli import common as tcommon
@@ -38,6 +39,7 @@ from mymedialite_tpu_torch.eval import results as tresults
 from mymedialite_tpu_torch.io import model_io as tmodel_io
 from mymedialite_tpu_torch.models import registry as tregistry
 from mymedialite_tpu_torch.ops import plan as tplan
+from mymedialite_tpu_torch.parallel import mesh as tmesh
 from mymedialite_tpu_torch.utils import params as tparams
 
 
@@ -300,3 +302,12 @@ def test_padded_history_equals_the_loop(max_len):
     b = j_padded(JPosOnly(u, i, num_users=57).by_user, max_len)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("n,multiple", [(5, 4), (8, 4), (1, 8), (3, 1)])
+def test_pad_rows_to_multiple_equal(n, multiple):
+    a = np.arange(n * 3, dtype=np.float32).reshape(n, 3) + 1
+    out_t = tmesh.pad_rows_to_multiple(a, multiple)
+    out_j = jmesh.pad_rows_to_multiple(a, multiple)
+    assert out_t.dtype == out_j.dtype
+    np.testing.assert_array_equal(out_t, out_j)

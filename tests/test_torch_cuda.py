@@ -1,6 +1,7 @@
 """GPU tier of the port: the CUDA kernels (SGD epoch and BPR epoch, each
-on the resident and on the slab-tiled schedule; the SVD++ epoch; the
-fused catalog top-k) against
+on the resident and on the slab-tiled schedule, also once per cell of
+the mesh's sharded epochs; the SVD++ epoch; the fused catalog top-k)
+against
 their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
@@ -1522,3 +1523,181 @@ def test_grouped_svdpp_epoch_card_vs_cpu(cuda, attrs):
                            _host(regs), attr_norm=None if attr is None
                            else attr.double(), **kw)
     assert _far(card, host) <= 1e-4
+
+
+# --- the mesh (parallel/mesh.py): the sharded epochs on a rig of one card
+# named four times, and on every card of the machine where it has several
+
+
+def _rig(cuda, D=4):
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(devices=[f"cuda:{torch.cuda.current_device()}"] * D)
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["sharded",
+                                                      "sharded-tiled"])
+def test_sgd_sharded_matches_reference(cuda, tiled):
+    """The sharded SGD epoch on the rig launches kernel 1 (2) once per
+    non-empty cell and agrees with its plain version on the CPU."""
+    from mymedialite_tpu_torch.ops.sgd_epoch import (
+        sgd_epoch_sharded, sgd_epoch_sharded_tiled,
+    )
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=4)
+    args = (data.users, data.items, data.values, 2000, 3000, 4)
+    plan_kw = dict(chunk=None, slab_blocks=1) if tiled else dict(chunk=640)
+    plans = [(P.prepare_mxu_sharded_tiled if tiled else P.prepare_mxu_sharded)(
+        *args, shuffle_seed=2, device=dev, **plan_kw)
+        for dev in (cuda, "cpu")]
+    rng = np.random.default_rng(1)
+    tabs = (0.1 * rng.standard_normal((2000, 40)),
+            0.1 * rng.standard_normal((3000, 40)), None, None)
+    order = plans[0].epoch_order(3)
+    out = []
+    for plan, mesh in ((plans[0], _rig(cuda)),
+                       (plans[1], make_mesh(devices=["cpu"] * 4))):
+        W, H = P.extend_tables_mxu(plan, *tabs)
+        Ws, Hs = mesh.shard_rows(W), mesh.shard_rows(H)
+        rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0,
+                                   0.01, True, True, True, device=W.device)
+        kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+                  loss=S.LOSS_RMSE, biased=True)
+        fn = sgd_epoch_tiled if tiled else sgd_epoch
+        before = fn.launches
+        if tiled:
+            sgd_epoch_sharded_tiled(mesh, Ws, Hs, plan.packed, order,
+                                    plan.cell_counts, (0.6, 1.0, 4.0), rates,
+                                    slab_blocks=plan.slab_blocks, **kw)
+        else:
+            sgd_epoch_sharded(mesh, Ws, Hs, plan.packed, order,
+                              plan.cell_counts, (0.6, 1.0, 4.0), rates, **kw)
+        launched = fn.launches - before
+        out.append(torch.cat([mesh.gather_rows(Ws).cpu(),
+                              mesh.gather_rows(Hs).cpu()]))
+        if W.device.type == "cuda":
+            assert launched == int((plan.cell_counts > 0).sum())
+        else:
+            assert launched == 0
+    torch.cuda.synchronize()
+    assert (out[0] - out[1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["sharded",
+                                                      "sharded-tiled"])
+def test_bpr_sharded_matches_reference(cuda, tiled):
+    """The sharded BPR epoch on the rig: negatives identical to its plain
+    version on the CPU, tables within 1e-4, kernel 3 (4) once per cell."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import (
+        bpr_epoch_sharded, bpr_epoch_sharded_tiled,
+    )
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=5))
+    outs = []
+    for dev, mesh in ((cuda, _rig(cuda)), ("cpu", make_mesh(
+            devices=["cpu"] * 4))):
+        if tiled:
+            plan, state, meta = BP.prepare_bpr_mxu_sharded_tiled(
+                fb, 4, uniform_user=True, slab_blocks=1, shuffle_seed=2,
+                device=dev)
+            order = BP.bpr_sharded_tiled_epoch_order(plan, state["nvalid"], 3)
+        else:
+            plan, state, meta = BP.prepare_bpr_mxu_sharded(
+                fb, 4, uniform_user=True, shuffle_seed=2, device=dev)
+            order = BP.bpr_sharded_epoch_order(plan, state["nvalid"], 3)
+        gen = torch.Generator().manual_seed(6)
+        bits = torch.randint(0, 2 ** 31, (4, 4, plan.nc_pad, meta[2],
+                                          plan.chunk), dtype=torch.int32,
+                             generator=gen).to(dev)
+        rng = np.random.default_rng(1)
+        W, H = BP.bpr_tables_to_mxu(
+            *(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                0.1 * rng.standard_normal((fb.num_users, 40)),
+                0.1 * rng.standard_normal((fb.num_items, 40)),
+                np.zeros(fb.num_items))),
+            torch.from_numpy(plan.new_of_old.astype(np.int64)).to(dev),
+            u_pad=plan.u_pad, i_pad=plan.i_pad, fe=64)
+        Ws, Hs = mesh.shard_rows(W), mesh.shard_rows(H)
+        rates = BP.bpr_mxu_column_rates(40, 64, 0.05, 0.0025, 0.0025,
+                                        0.00025, 0.0, True, device=dev)
+        kw = dict(part_blocks=plan.part_blocks, user_block=plan.user_block,
+                  item_block=plan.item_block, return_negatives=True)
+        fn = bpr_epoch_tiled if tiled else bpr_epoch
+        before = fn.launches
+        if tiled:
+            _, _, negs = bpr_epoch_sharded_tiled(
+                mesh, Ws, Hs, plan.packed, state["subkeys_tbl"],
+                state["cdf_tbl"], bits, order, plan.cell_counts, rates,
+                slab_blocks=plan.slab_blocks, **kw)
+        else:
+            _, _, negs = bpr_epoch_sharded(
+                mesh, Ws, Hs, plan.packed, state["keys_tbl"],
+                state["cdf_tbl"], bits, order, plan.cell_counts, rates,
+                bitmask_tbl=state.get("bitmask_tbl"), **kw)
+        if dev != "cpu":
+            assert fn.launches - before == int((plan.cell_counts > 0).sum())
+        outs.append((torch.cat([mesh.gather_rows(Ws).cpu(),
+                                mesh.gather_rows(Hs).cpu()]),
+                     [[n if n is None else n.cpu() for n in row]
+                      for row in negs]))
+    (ta, na), (tb, nb) = outs
+    for ra, rb in zip(na, nb):
+        for a, b in zip(ra, rb):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert (ta - tb).abs().max().item() <= 1e-4
+
+
+def test_models_on_the_rig_take_the_sharded_route(cuda):
+    """BiasedMatrixFactorization and BPRMF with a mesh train on the
+    sharded route on the card, and their tables come back to it."""
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=7)
+    mf = create_rating_predictor("BiasedMatrixFactorization",
+                                 "num_factors=16 num_iter=2")
+    mf.mesh = _rig(cuda)
+    mf.ratings = data
+    before = sgd_epoch.launches
+    mf.train()
+    assert mf._route() == "sharded"
+    assert sgd_epoch.launches - before == 2 * int(
+        (mf._plan.cell_counts > 0).sum())
+    assert mf.W_ext.device.type == "cuda" and torch.isfinite(mf.W_ext).all()
+    bpr = create_item_recommender("BPRMF", "num_factors=16 num_iter=2")
+    bpr.mesh = _rig(cuda)
+    bpr.feedback = posonly_from_ratings(data)
+    bpr.train()
+    assert bpr._route() == "sharded"
+    assert all(torch.isfinite(t).all() for t in bpr.params.values())
+
+
+def test_sharded_epoch_on_every_card(cuda):
+    """On a machine with several cards the epoch runs one cell per card at
+    a time (the launches set each card current, the partitions move by
+    peer copies) and equals the rig's; with one card it is skipped."""
+    from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch_sharded
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh()
+    D = mesh.size
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=8)
+    plan = P.prepare_mxu_sharded(data.users, data.items, data.values, 2000,
+                                 3000, D, shuffle_seed=2, device=cuda)
+    rng = np.random.default_rng(1)
+    W, H = P.extend_tables_mxu(plan, 0.1 * rng.standard_normal((2000, 40)),
+                               0.1 * rng.standard_normal((3000, 40)))
+    rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0, 0.01,
+                               True, True, True, device=cuda)
+    order = plan.epoch_order(3)
+    out = []
+    for m in (mesh, _rig(cuda, D)):
+        Ws, Hs = m.shard_rows(W.clone()), m.shard_rows(H.clone())
+        sgd_epoch_sharded(m, Ws, Hs, plan.packed, order, plan.cell_counts,
+                          (0.6, 1.0, 4.0), rates, user_block=512,
+                          item_block=1024, loss=S.LOSS_RMSE, biased=True)
+        out.append(torch.cat([m.gather_rows(Ws, cuda),
+                              m.gather_rows(Hs, cuda)]))
+    torch.cuda.synchronize()
+    assert (out[0] - out[1]).abs().max().item() <= 1e-4

@@ -14,7 +14,8 @@ protocols; then the XLA slice: cross-validation in all three CLIs,
 BiasedMatrixFactorization with frequency regularization, BPRMF on its
 minibatch epoch, ``--search-hp`` and GSVDPlusPlus; then the last eight
 names trained, the KDD Cup reader, and the rating CLI under
-``--profile``) from the port's own synthetic data, and must exit 0."""
+``--profile``; BiasedMatrixFactorization and BPRMF trained on a mesh of
+four CPU devices) from the port's own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -130,6 +131,22 @@ SCRIPT = textwrap.dedent("""
                      foldin.evaluate_fold_in_complete_retraining,
                      foldin.evaluate_fold_in_incremental_training):
         print("fold-in", protocol(model, update, held))
+    # the mesh: BiasedMatrixFactorization and BPRMF on four CPU devices
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    for create, name, attr, data in (
+            (create_rating_predictor, "BiasedMatrixFactorization", "ratings",
+             train),
+            (create_item_recommender, "BPRMF", "feedback",
+             posonly_from_ratings(train))):
+        model = create(name, "num_factors=6 num_iter=2 device=cpu")
+        model.mesh = make_mesh(devices=["cpu"] * 4)
+        setattr(model, attr, data)
+        model.train()
+        assert type(model._plan).__name__ == "MxuShardedPlan"
+        print("\\nmesh", name, model._route(),
+              model.predict_batch(test.users[:3], test.items[:3]))
     # the XLA routes and the protocols of the port's XLA slice
     from mymedialite_tpu_torch import hyperopt
     from mymedialite_tpu_torch.ops import plan
@@ -214,6 +231,8 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count("AUC") == 23
     assert proc.stdout.count("fold-in RMSE") == 3
     assert proc.stdout.count("\ntrained ") == 8
+    assert proc.stdout.count("\nmesh ") == 2
+    assert proc.stdout.count(" sharded [") == 2
     assert "frequency_regularization=True" in proc.stdout
     assert proc.stdout.count("\nUserItemBaseline reg_u=") == 4
     # UserItemBaseline: trained, loaded, then its --search-hp line
