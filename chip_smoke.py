@@ -215,7 +215,30 @@ Phases (any failure raises and the script exits non-zero):
     past the first, the partitions' CDF rows; BPR negatives identical),
     and the standard tables that prediction, save and the incremental
     API read are held to rows picked straight out of the shards (no pad
-    row leaks; at this shape in place of a save -> load).
+    row leaks; at this shape in place of a save -> load);
+25. the plain-PyTorch mesh routes on the same rig, no kernel of csrc/ on
+    them: (a) after phase 24 (a), at phase 3's shape, each op on the rig
+    against the same op on a CPU mesh from the same inputs within 1e-5
+    (the sharded grouped SVD++ epoch, 8 sharded BPR steps on fixed
+    triples, the sharded blocked MF epoch, the data-parallel ranking
+    eval, whose line also equals one device's), WRMF's sharded solves
+    against one device's within 1e-6, then the dry run
+    (``mymedialite_tpu_torch/dryrun.py``) on the rig; (d) meanwhile two
+    processes of the multi-process driver (``parallel/driver.py``, gloo,
+    each a mesh of the card named twice) run one sharded blocked MF step:
+    bit for bit equal, within 1e-6 of the one-process 4-device run; (b)
+    after phase 11a, on phase 6's data: SVDPlusPlus (k=20, 2 epochs,
+    transductive, groups of 128 users: 4 of them one device's default
+    group) with ``model.mesh`` on the sharded grouped epoch (ms an
+    epoch and a group step, the largest device's ratings over the mean,
+    RMSE beside phase 11's), WRMF (2 alternations) with ``model.mesh`` (ms
+    a side; the user side re-solved on the mesh against one device's,
+    1e-6; 1,024 users served through kernel 6 against the plain version;
+    the data-parallel eval of 4,096 users equal to one device's line); (c)
+    after phase 24 (c), on the big catalog's pairs: one sharded minibatch
+    BPR epoch (``ops/bpr.py bpr_epoch_sharded``) from seeded tables, its
+    first 8 steps held to the CPU's on the same per-device triples, its
+    ms beside phase 20's one-device epoch, AUC of 1,024 users.
 
 Before each main path (phase 24's models included) every kernel's launch
 count is set to 0, and after
@@ -241,6 +264,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4541,6 +4565,491 @@ def phase_mesh_big_catalog(dev, train, test, mf_blocked, bpr_minibatch):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the plain-PyTorch mesh routes (no kernel of csrc/ on them)
+# ---------------------------------------------------------------------------
+
+PLAIN_MESH_TOL = 1e-5      # each op on the rig against the CPU's
+WRMF_MESH_TOL = 1e-6       # the sharded solves against one device's
+BPR_WINDOW = 8             # sharded steps held to the CPU, big catalog
+MESH_SVDPP_GROUP = 128     # the Netflix shape's SVD++ groups on the rig
+
+
+def table_gap(a: dict, b: dict) -> float:
+    """``table_distance`` over the tables of two dicts; raises where the
+    first holds a non-finite entry."""
+    for k, t in a.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {k}")
+    return table_distance([a[k] for k in a], [b[k] for k in a])
+
+
+def plain_check(err, what, tol=PLAIN_MESH_TOL):
+    log(f"{what}: max_abs_err {err:.3e} (tol {tol})")
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err} past {tol}")
+
+
+def start_driver_pair(device: str):
+    """The two ranks of the multi-process driver (``parallel/driver.py``
+    dist), started in the background: (processes, port, output paths)."""
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    tmp = tempfile.mkdtemp(prefix="mml-driver-")
+    outs = [os.path.join(tmp, f"p{i}.npy") for i in range(2)]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mymedialite_tpu_torch.parallel.driver",
+         "dist", str(port), str(i), outs[i], "--device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+        for i in range(2)]
+    return procs, port, outs
+
+
+def finish_driver_pair(procs, port, outs, device: str):
+    """(d) Wait for the two ranks (gloo, 2 devices each), then run the
+    one-process 4-device run on the same data here; the ranks agree bit
+    for bit and agree with it to 1e-6."""
+    from mymedialite_tpu_torch.parallel.driver import run
+    try:
+        texts = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0 or f"driver-ok dist {i}" not in text:
+            raise AssertionError(f"driver rank {i} failed:\n{text[-3000:]}")
+    ref = os.path.join(os.path.dirname(outs[0]), "ref.npy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run("single", port, 0, ref, device)
+    a, b, r = (np.load(x) for x in outs + [ref])
+    shutil.rmtree(os.path.dirname(ref), ignore_errors=True)
+    gap = float(np.abs(a - r).max())
+    log(f"two processes on gloo, each a mesh of [{device}] x 2: ranks "
+        f"equal bit for bit {np.array_equal(a, b)}; against the one-process "
+        f"4-device run: max_abs_err {gap:.3e} (tol 1e-6)")
+    if not np.array_equal(a, b):
+        raise AssertionError("the two ranks disagree")
+    if not gap <= 1e-6:
+        raise AssertionError(f"two processes vs one: {gap} > 1e-6")
+
+
+def phase_plain_mesh_check(dev):
+    """(a) and (d): at phase 3's shape each plain mesh op on the rig
+    against the same op on a CPU mesh from the same inputs (1e-5): the
+    sharded SVD++ epoch, the sharded BPR steps on fixed triples, the
+    sharded blocked MF epoch, the data-parallel ranking eval; the WRMF
+    sharded solves against one device's on the card (1e-6); the dry run
+    on the rig; two driver processes on gloo. Returns the seconds."""
+    from mymedialite_tpu_torch import dryrun
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import als, bpr, sgd, svdpp
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    device = f"cuda:{torch.cuda.current_device()}" \
+        if dev.type == "cuda" else "cpu"
+    pair = start_driver_pair(device)
+    rig, cpu = rig_mesh(), make_mesh(devices=["cpu"] * MESH_DEVICES)
+    D = rig.size
+    data = synthetic_ratings(**MESH_CHECK_SHAPE)
+    U, I = data.num_users, data.num_items
+    rng = np.random.default_rng(25)
+
+    def normal(*shape):
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    def on(tables, d):
+        return {k: torch.from_numpy(v.copy()).to(d)
+                for k, v in tables.items()}
+
+    # the sharded grouped SVD++ epoch
+    hu, hi = svdpp.history_edges(data.users, data.items, I)
+    groups = svdpp.prepare_groups(data.users, data.items, data.values, hu,
+                                  hi, U, 64, pad_groups_multiple=D)
+    tables = dict(user_bias=normal(U), p=normal(U, 20), item_bias=normal(I),
+                  item_factors=normal(I, 20), y=normal(I, 20))
+    regs = dict(user_reg=np.full(U, 0.015, np.float32),
+                item_reg=np.full(I, 0.015, np.float32),
+                y_reg=np.full(I, 0.015, np.float32))
+    inv = svdpp.inv_sqrt_counts(hu, U)
+    hp = dict(global_bias=float(data.average), learn_rate=0.003,
+              bias_learn_rate=0.7, bias_reg=0.33, min_rating=1.0,
+              rating_range=4.0)
+    runs = []
+    for mesh, d in ((rig, dev), (cpu, torch.device("cpu"))):
+        params = on(tables, d)
+        _, ms = timed(lambda: svdpp.svdpp_epoch_sharded(
+            mesh, params, groups.to(d), torch.from_numpy(inv).to(d), hp,
+            on(regs, d), loss=0, sigmoid=False, use_p=True))
+        runs.append((params, ms))
+    plain_check(table_gap(runs[0][0], runs[1][0]),
+                f"sharded SVD++ epoch ({groups.ngroups} groups of 64 on "
+                f"{D} devices, k=20) on the rig, {runs[0][1]:.1f} ms, vs "
+                f"the CPU's")
+
+    # WRMF's sharded solves against one device's, on the card
+    fb = posonly_from_ratings(data)
+    counts = fb.by_user.counts()
+    L, chunk = int(counts.max()), 256
+    rows = -(-U // (chunk * D)) * chunk * D
+    hist = np.zeros((rows, L), np.int64)
+    for u in range(U):
+        hist[u, :counts[u]] = fb.by_user.secondary(u)
+    lens = np.zeros(rows, np.int64)
+    lens[:U] = counts
+    H = torch.from_numpy(normal(I, 40)).to(dev)
+    args = (H, torch.from_numpy(hist).to(dev), torch.from_numpy(lens).to(dev),
+            1.0, 0.015)
+    # each call once before it is timed: the first solve sets up the
+    # solver, which would otherwise land in the one-device time
+    solve_one = lambda: als.wrmf_optimize(*args, chunk=chunk)  # noqa: E731
+    solve_rig = lambda: als.wrmf_optimize_sharded(  # noqa: E731
+        rig, *args, chunk=chunk)
+    solve_one(), solve_rig()
+    one, one_ms = timed(solve_one)
+    many, many_ms = timed(solve_rig)
+    plain_check((one - many).abs().max().item(),
+                f"WRMF sharded solves ({rows} rows of 40 x 40, {D} devices, "
+                f"warm, {many_ms:.1f} ms) vs one device's (warm, "
+                f"{one_ms:.1f} ms)", WRMF_MESH_TOL)
+
+    # the sharded BPR steps on fixed triples
+    sdata, smeta = bpr.make_sampler_data_sharded(fb, D)
+    samplers = bpr.device_samplers(cpu, sdata, smeta)
+    gens = [torch.Generator().manual_seed(40 + d) for d in range(D)]
+    steps = [[bpr.sample_triples_sharded(gens[d], samplers[d], smeta, 4096,
+                                         bpr.UNIFORM_USER)
+              for d in range(D)] for _ in range(BPR_WINDOW)]
+    btables = dict(user_factors=normal(smeta["u_loc"] * D, 40),
+                   item_factors=normal(I, 40), item_bias=normal(I))
+    bhp = dict(learn_rate=0.05, reg_u=0.0025, reg_i=0.0025, reg_j=0.00025,
+               bias_reg=0.0)
+    runs = []
+    for mesh, d in ((rig, dev), (cpu, torch.device("cpu"))):
+        t = on(btables, d)
+        W = mesh.shard_rows(t["user_factors"])
+        Hr, br = mesh.replicate(t["item_factors"]), mesh.replicate(
+            t["item_bias"])
+
+        def go():
+            nonlocal Hr, br
+            for step in steps:
+                Hr, br = bpr.bpr_step_sharded(
+                    mesh, W, Hr, br, [tuple(x.to(d) for x in tr)
+                                      for tr in step], bhp, update_j=True)
+        _, ms = timed(go)
+        t["user_factors"] = mesh.gather_rows(W)
+        t["item_factors"], t["item_bias"] = Hr[0], br[0]
+        runs.append((t, ms))
+    plain_check(table_gap(runs[0][0], runs[1][0]),
+                f"sharded BPR steps ({BPR_WINDOW} of {D} x 4,096 fixed "
+                f"triples, k=40) on the rig, {runs[0][1]:.1f} ms, vs the "
+                f"CPU's")
+
+    # the sharded blocked MF epoch
+    G = -(-U // (2 * D))
+    bdata, meta = sgd.prepare_blocked_data(data.users, data.items,
+                                           data.values, U, batch_size=1024,
+                                           group_users=G, shuffle_seed=4)
+    nb = meta["l_pad"] // meta["batch"]
+    orders = np.stack([rng.permutation(nb)
+                       for _ in range(meta["ngroups"] // D)])
+    We, He = sgd.extend_tables(normal(U, 40), normal(I, 40), normal(U),
+                               normal(I), group_users=G)
+    rates = sgd.column_rates(40, 0.01, 0.015, 0.015, 1.0, 0.01, True, True,
+                             True)
+    runs = []
+    for mesh, d in ((rig, dev), (cpu, torch.device("cpu"))):
+        W, Hm = We.clone().to(d), He.clone().to(d)
+        local = {k: (v.to(d) if torch.is_tensor(v) else v)
+                 for k, v in bdata.items()}
+        _, ms = timed(lambda: sgd.sgd_epoch_blocked_sharded(
+            mesh, W, Hm, local, orders, (float(data.average), 1.0, 4.0),
+            tuple(r.to(d) for r in rates), meta=meta, loss=0, biased=True))
+        runs.append((dict(W=W, H=Hm), ms))
+    plain_check(table_gap(runs[0][0], runs[1][0]),
+                f"sharded blocked MF epoch ({meta['ngroups']} groups of {G} "
+                f"on {D} devices, k=40) on the rig, {runs[0][1]:.1f} ms, vs "
+                f"the CPU's")
+
+    # the data-parallel ranking eval: on the rig, on one device, on the CPU
+    train, test = split_ratings(data, 0.2, seed=2)
+    train, test = posonly_from_ratings(train), posonly_from_ratings(test)
+    lines = {}
+    for name, d, mesh in (("one device", dev, None), ("rig", dev, rig),
+                          ("CPU mesh", torch.device("cpu"), cpu)):
+        model = create_item_recommender(
+            "WRMF", f"num_factors=40 num_iter=1 regularization=100 "
+            f"device={d.type}")
+        model.feedback = train
+        model.init_model(tables=dict(user_factors=btables["user_factors"][
+            :train.num_users], item_factors=btables["item_factors"][
+            :train.num_items]))
+        model.mesh = mesh
+        res = evaluate_items(model, test, train)
+        lines[name] = res
+    log(f"data-parallel ranking eval on the rig: {lines['rig']}; one device: "
+        f"{lines['one device']}; CPU mesh: {lines['CPU mesh']}")
+    if str(lines["rig"]) != str(lines["one device"]):
+        raise AssertionError("the data-parallel eval's line differs from one "
+                             "device's")
+    gap = max(abs(lines["rig"][k] - lines["CPU mesh"][k])
+              for k in ("AUC", "MAP", "NDCG", "MRR", "prec@5", "recall@10"))
+    plain_check(gap, "data-parallel ranking eval, rig vs CPU mesh")
+
+    with contextlib.redirect_stdout(io.StringIO()) as dry:
+        dryrun.dryrun_multichip(D, [device] * D)
+    log(dry.getvalue().strip().splitlines()[-1])
+    finish_driver_pair(*pair, device)
+    seconds = time.perf_counter() - t0
+    log(f"phase 25 (a), (d) (the plain mesh routes, phase 3's shape): "
+        f"{seconds:.1f} s")
+    return seconds
+
+
+def phase_plain_mesh_netflix(dev, train, test, svdpp_model, wrmf_train,
+                             wrmf_test):
+    """(b) At the Netflix shape on the rig: SVDPlusPlus (k=20, learn rate
+    0.003, transductive, 2 epochs) with ``model.mesh`` on the sharded
+    grouped epoch: ms per epoch and per group step, the largest device's
+    ratings over the mean, RMSE beside phase 11's kernel route (groups
+    of MESH_SVDPP_GROUP users: D of them hold one device's default
+    group); WRMF
+    (2 alternations) with ``model.mesh``: ms per side, the user side
+    re-solved from the trained item factors on the mesh against one
+    device's (1e-6), 1,024 users served through kernel 6 against the
+    plain version, the data-parallel ranking eval's line equal to one
+    device's. No epoch kernel runs. Returns the seconds."""
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.eval.rating import evaluate_ratings
+    from mymedialite_tpu_torch.models import svdpp as svdpp_module
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    from mymedialite_tpu_torch.ops import als
+    from mymedialite_tpu_torch.ops.catalog_topk import topk_reference
+    from mymedialite_tpu_torch.ops.topk import recommend_batch
+    t0 = time.perf_counter()
+    rig = rig_mesh()
+    # groups of MESH_SVDPP_GROUP users: a step merges D groups' y deltas,
+    # so D of them take one device's default group (512 users here); the
+    # default size diverges on the mesh, in both packages (ROADMAP C)
+    model = create_rating_predictor(
+        "SVDPlusPlus", f"num_factors=20 num_iter=2 learn_rate=0.003 "
+        f"group_users={MESH_SVDPP_GROUP} device={dev.type}")
+    model.mesh = rig
+    model.ratings = train
+    model.additional_feedback = (test.users, test.items)
+    torch.cuda.empty_cache()
+    with timed_training((svdpp_module, "prepare_groups"),
+                        (svdpp_module, "svdpp_epoch_sharded")) as timings, \
+            counted_path({}):
+        t1 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+    if model.route() != "sharded":
+        raise AssertionError(f"SVD++ on the rig took {model.route()}")
+    shards = model._shards[1]
+    per_device = np.array([int(g.r_off[-1]) for g in shards], np.float64)
+    epoch_ms = float(np.mean(timings["epoch_ms"]))
+    res = evaluate_ratings(model, test, train)
+    kernel_rmse = evaluate_ratings(svdpp_model, test, train)["RMSE"]
+    baseline = global_average_rmse(train, test)
+    log(f"mesh SVDPlusPlus Netflix-shaped on the rig (sharded grouped "
+        f"epoch): train {train_s:.2f} s, groups {timings['plan_s'][0]:.2f} "
+        f"s ({model._groups.ngroups} groups of {model._groups.group_users} "
+        f"users, {shards[0].ngroups} steps of {rig.size} groups); epochs "
+        f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms, "
+        f"{epoch_ms / shards[0].ngroups:.2f} ms a group step; largest "
+        f"device's ratings over the mean "
+        f"{per_device.max() / per_device.mean():.3f}; {res}; one device "
+        f"(phase 11, kernel route, 3 epochs) RMSE {kernel_rmse:.5f}; "
+        f"global-average RMSE {baseline:.5f}")
+    if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
+        raise AssertionError("mesh SVD++ RMSE does not beat the global "
+                             "average")
+    del model
+    torch.cuda.empty_cache()
+
+    model = create_item_recommender(
+        "WRMF", f"num_factors=40 num_iter=2 regularization=100 "
+        f"device={dev.type}")
+    model.mesh = rig
+    model.feedback = wrmf_train
+    with recorded_events((model, "_optimize", "side")) as ev, \
+            counted_path({}):
+        t1 = time.perf_counter()
+        model.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+    del model._optimize
+    sides = [s.elapsed_time(e) for s, e in ev["side"]]
+    H = model.params["item_factors"]
+    U = model.params["user_factors"].shape[0]
+    many = model._optimize(H, model._user_hist, U)
+    one = torch.zeros_like(many)
+    HH = als.gram(H)
+    for rows, hist, lens, chunk in model._user_hist:
+        one[rows] = als.wrmf_optimize(
+            H, torch.cat(hist), torch.cat(lens), model.alpha,
+            model.regularization, chunk=chunk, HH=HH)[:rows.shape[0]]
+    log(f"mesh WRMF Netflix-shaped on the rig: train {train_s:.2f} s for 2 "
+        f"alternations; user side {', '.join(f'{t:.1f}' for t in sides[0::2])}"
+        f" ms, item side {', '.join(f'{t:.1f}' for t in sides[1::2])} ms")
+    plain_check((many - one).abs().max().item(),
+                f"mesh WRMF user side ({U} rows) on the rig vs one device's "
+                f"solves", WRMF_MESH_TOL)
+    users = np.arange(1024, dtype=np.int32)
+    with recorded_topk() as calls, counted_path({"catalog_topk": 1}):
+        ids, scores = recommend_batch(model, users, 10, training=wrmf_train)
+    ref = topk_reference(*calls[0][0], k=11)
+    err, bad = topk_agreement(ids, scores, ref[0].cpu().numpy(),
+                              ref[1].cpu().numpy())
+    log(f"mesh WRMF serving: top-10 of {users.size} users through kernel 6 "
+        f"(1 launch): max_abs_err {err:.3e} (tol {KERNEL_TOL}), ids "
+        f"differing outside near-ties {bad}")
+    check(err, "mesh WRMF serving")
+    if bad:
+        raise AssertionError(f"mesh WRMF serving: {bad} ids differ")
+    sample = np.sort(np.random.default_rng(9).choice(
+        wrmf_test.all_users, EVAL_USERS, replace=False))
+    lines = {}
+    for label, mesh in (("rig", rig), ("one device", None)):
+        model.mesh = mesh
+        t1 = time.perf_counter()
+        lines[label] = evaluate_items(model, wrmf_test, wrmf_train,
+                                      test_users=sample)
+        lines[label + " s"] = time.perf_counter() - t1
+    log(f"mesh WRMF data-parallel ranking eval of {EVAL_USERS} users on the "
+        f"rig: {lines['rig']} ({lines['rig s']:.2f} s); one device: "
+        f"{lines['one device']} ({lines['one device s']:.2f} s)")
+    if str(lines["rig"]) != str(lines["one device"]):
+        raise AssertionError("the data-parallel eval's line differs from one "
+                             "device's")
+    del model, many, one
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 25 (b) (the plain mesh routes, Netflix shape): "
+        f"{seconds:.1f} s")
+    return seconds
+
+
+def phase_plain_mesh_big_catalog(dev, train, test, bpr_minibatch):
+    """(c) On the big catalog (positive-only pairs): one sharded minibatch
+    BPR epoch on the rig (``ops/bpr.py bpr_epoch_sharded``, k=40, from
+    seeded tables; the 4-device model route there is sharded-tiled):
+    first ``BPR_WINDOW`` sharded steps on the card against the same steps
+    on the CPU from the same per-device triples (1e-5), then the epoch's
+    ms beside one device's minibatch epoch and the AUC of AUC_USERS
+    seeded users. Returns the seconds."""
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    from mymedialite_tpu_torch.ops import bpr
+    from mymedialite_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    rig = rig_mesh()
+    D = rig.size
+    t1 = time.perf_counter()
+    data, meta = bpr.make_sampler_data_sharded(train, D)
+    samplers = bpr.device_samplers(rig, data, meta)
+    prep_s = time.perf_counter() - t1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    f = 40
+    params = dict(
+        user_factors=0.1 * torch.randn((meta["u_loc"] * D, f), generator=gen,
+                                       device=dev),
+        item_factors=0.1 * torch.randn((meta["num_items"], f), generator=gen,
+                                       device=dev),
+        item_bias=torch.zeros(meta["num_items"], device=dev))
+    hp = dict(learn_rate=0.05, reg_u=0.0025, reg_i=0.0025, reg_j=0.00025,
+              bias_reg=0.0)
+    batch, num_batches = bpr.sharded_epoch_batches(meta["num_events"], 8192,
+                                                   D)
+
+    def generators(seed):
+        out = []
+        for d, gdev in enumerate(rig.devices):
+            out.append(torch.Generator(device=gdev))
+            out[-1].manual_seed(seed + d)
+        return out
+    # the window: the card's sharded steps against the CPU's, same triples
+    gens = generators(100)
+    card = {k: v.clone() for k, v in params.items()}
+    host = host_copy(card, torch.float32)
+    cpu = make_mesh(devices=["cpu"] * D)
+    W_card, W_host = rig.shard_rows(card["user_factors"]), cpu.shard_rows(
+        host["user_factors"])
+    reps = (rig.replicate(card["item_factors"]),
+            rig.replicate(card["item_bias"]))
+    host_reps = (cpu.replicate(host["item_factors"]),
+                 cpu.replicate(host["item_bias"]))
+    for _ in range(BPR_WINDOW):
+        step = [bpr.sample_triples_sharded(gens[d], samplers[d], meta, batch,
+                                           bpr.UNIFORM_USER)
+                for d in range(D)]
+        reps = bpr.bpr_step_sharded(rig, W_card, *reps, step, hp,
+                                    update_j=True)
+        host_reps = bpr.bpr_step_sharded(
+            cpu, W_host, *host_reps, [tuple(x.cpu() for x in t)
+                                      for t in step], hp, update_j=True)
+    card = dict(user_factors=rig.gather_rows(W_card),
+                item_factors=reps[0][0], item_bias=reps[1][0])
+    host = dict(user_factors=cpu.gather_rows(W_host),
+                item_factors=host_reps[0][0], item_bias=host_reps[1][0])
+    plain_check(table_gap(card, host),
+                f"big-catalog sharded BPR: the first {BPR_WINDOW} steps of "
+                f"{D} x {batch} triples on the rig vs the CPU's")
+    del card, host, W_card, W_host, reps, host_reps
+    torch.cuda.empty_cache()
+
+    shards = rig.shard_rows(params["user_factors"])
+    run = dict(params, user_factors=shards)
+    with counted_path({}):
+        _, epoch_ms = timed(lambda: bpr.bpr_epoch_sharded(
+            rig, run, samplers, meta, generators(200), hp,
+            batch_size=batch, num_batches=num_batches,
+            regime=bpr.UNIFORM_USER, update_j=True))
+    model = create_item_recommender("BPRMF",
+                                    f"num_factors={f} device={dev.type}")
+    model.feedback = train
+    model.params = dict(
+        user_factors=rig.gather_rows(shards)[:train.num_users],
+        item_factors=params["item_factors"], item_bias=params["item_bias"])
+    model.num_users_trained, model.num_items_trained = \
+        train.num_users, train.num_items
+    rng = np.random.default_rng(9)
+    users = np.sort(rng.choice(test.all_users, AUC_USERS, replace=False))
+    res = evaluate_items(model, test, train, test_users=users,
+                         batch_size=128)
+    log(f"big-catalog sharded minibatch BPR on the rig: sampler state "
+        f"{prep_s:.2f} s; one epoch of {num_batches} steps of {D} x "
+        f"{batch} triples: {epoch_ms:.1f} ms (one device's minibatch "
+        f"epoch, phase 20: {bpr_minibatch['epoch_ms']:.1f} ms, AUC "
+        f"{bpr_minibatch['auc']:.5f} after 3); AUC of {res['num_users']} "
+        f"users after the one epoch from the seeded tables: "
+        f"{res['AUC']:.5f}")
+    if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
+        raise AssertionError(f"big-catalog sharded BPR AUC {res['AUC']} "
+                             "<= 0.5")
+    del model, params, run, shards, samplers
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 25 (c) (the plain mesh routes, big catalog): "
+        f"{seconds:.1f} s")
+    return seconds
+
+
 KERNELS = {
     "sgd_epoch": ("mymedialite_tpu_torch/csrc/sgd_epoch.cu",
                   "mymedialite_tpu/ops/pallas_sgd.py:324"),
@@ -4570,12 +5079,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
         f"{np.__version__} python {sys.version.split()[0]}")
 
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
     from mymedialite_tpu_torch.ops._build import load_library
     lib = load_library()
     log(f"build: {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+    from mymedialite_tpu_torch import native
+    t0 = time.perf_counter()
+    text_lib = native.get_text_lib()
+    log(f"model text library (native/model_text.cpp): "
+        f"{'built' if text_lib is not None else 'unavailable, the Python path'}"
+        f" ({time.perf_counter() - t0:.1f} s)")
 
     t_start = time.perf_counter()
     sgd_worst = phase_kernel_check(dev)
@@ -4587,6 +5103,7 @@ def main() -> int:
              "catalog_topk": phase_topk_kernel_check(dev)}
     for name, err in phase_mesh_kernel_check(dev).items():
         worst[name] = max(worst[name], err)
+    phase25_s = phase_plain_mesh_check(dev)
     log(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
     runs = {}
     train, test = shaped_ratings("Netflix-shaped", num_users=480_000,
@@ -4622,6 +5139,8 @@ def main() -> int:
                         wrmf_serving["max_abs_err"]),
         bound_by=bpr_serving["bound_by"])
     torch.cuda.empty_cache()
+    phase25_s += phase_plain_mesh_netflix(dev, train, test, svdpp_model,
+                                          feedback, test_items)
     phase_knn_path(dev, feedback, test_items)
     phase_rating_knn_path(dev, train, test)
     torch.cuda.empty_cache()
@@ -4665,6 +5184,9 @@ def main() -> int:
     for name, err in phase_mesh_big_catalog(dev, train, test, mf_blocked,
                                             bpr_minibatch).items():
         worst[name] = max(worst[name], err)
+    phase25_s += phase_plain_mesh_big_catalog(
+        dev, posonly_from_ratings(train), posonly_from_ratings(test),
+        bpr_minibatch)
     del train, test
     torch.cuda.empty_cache()
     log(f"XLA-route paths: {time.perf_counter() - t_start:.1f} s")
@@ -4676,6 +5198,7 @@ def main() -> int:
         phase_cv_cli(dev, tmp, files, item_files)
         phase23_s += phase_last_clis(dev, tmp, files, item_files)
     log(f"phase 23 (the last eight names): {phase23_s:.1f} s")
+    log(f"phase 25 (the plain mesh routes): {phase25_s:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
 
     kernels = []

@@ -35,11 +35,14 @@ from mymedialite_tpu_torch.eval.results import (
 
 def clone_recommender(recommender):
     """A fresh instance with the same hyperparameters, ``device``
-    included (reference Clone() in RatingsCrossValidation.cs:41-68)."""
+    included (reference Clone() in RatingsCrossValidation.cs:41-68), and
+    the same ``mesh``: not a hyperparameter, but the clone trains where
+    the recommender does, as the JAX package's folds train on its
+    mesh."""
     fresh = type(recommender)()
     names = list(getattr(recommender, "HYPERPARAMS", {}))
     names += list(getattr(recommender, "EXTRA_PARAMS", {}))
-    names += ["random_seed"]
+    names += ["random_seed", "mesh"]
     for name in names:
         if hasattr(recommender, name):
             setattr(fresh, name, getattr(recommender, name))

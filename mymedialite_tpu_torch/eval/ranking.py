@@ -15,6 +15,15 @@ without one), the candidate and ignore
 masks, and the stable descending rank of each correct item — # greater
 + # equal with a smaller index, -inf ties included — read off a stable
 ``torch.sort``.
+
+Data-parallel over a mesh (JAX ``eval/ranking.py:270-300``): where the
+recommender has a mesh (``model_mesh``) and a catalog scorer, the batch
+(a multiple of the devices) splits into one equal part per mesh device,
+the ragged tail padded with its last user as the JAX package pads it;
+each device scores and ranks its part against its replica of the
+scoring tables (``catalog_scorer(device)``) and the candidate mask, and the
+measure sums are taken on the host over the batch's real users: the
+numbers of one device.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.eval.results import ItemRecommendationResults
+from mymedialite_tpu_torch.parallel.mesh import model_mesh
 
 
 def candidates_for_mode(mode: str, test, training,
@@ -170,6 +180,22 @@ def rank_correct_items(scores, cand_mask, ignore_rows, correct_rows,
                        torch.full_like(r, num_items))
 
 
+def _ranks_on_mesh(mesh, scorers, masks, batch, ignore_rows, correct_rows,
+                   num_items: int) -> np.ndarray:
+    """The batch's rank rows, its users split into one equal part per mesh
+    device, each part scored and ranked there; gathered on the host."""
+    part = batch.size // mesh.size
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        sl = slice(d * part, (d + 1) * part)
+        scores = scorers[d](torch.from_numpy(batch[sl].astype(np.int64))
+                            .to(dev))
+        out.append(rank_correct_items(
+            scores, masks[d], torch.from_numpy(ignore_rows[sl]).to(dev),
+            torch.from_numpy(correct_rows[sl]).to(dev), num_items))
+    return torch.cat([r.cpu() for r in out]).numpy()
+
+
 def evaluate_items(recommender, test, training,
                    test_users: Optional[Sequence[int]] = None,
                    candidate_items: Optional[Sequence[int]] = None,
@@ -194,6 +220,12 @@ def evaluate_items(recommender, test, training,
     scorer = recommender.catalog_scorer()
     dev = recommender.tables_device()
     cand_mask_dev = torch.from_numpy(cand_mask).to(dev)
+    mesh = model_mesh(recommender) if scorer is not None else None
+    if mesh is not None:
+        D = mesh.size
+        batch_size = max(-(-batch_size // D), 1) * D
+        scorers = [recommender.catalog_scorer(d) for d in mesh.devices]
+        masks = mesh.replicate(cand_mask_dev)
     cand_mask_ext = np.append(cand_mask, False)   # pad id num_items
     te_csr = test.by_user
     tr_csr = None if repeated_events else training.by_user
@@ -215,6 +247,13 @@ def evaluate_items(recommender, test, training,
     num_evaluated = 0
     for start in range(0, test_users.size, batch_size):
         batch = test_users[start:start + batch_size]
+        nreal = batch.size
+        if mesh is not None:
+            target = batch_size if test_users.size > batch_size else \
+                max(-(-nreal // D) * D, D)
+            # the ragged tail padded with its last user (JAX)
+            batch = np.concatenate([batch, np.full(target - nreal, batch[-1],
+                                                   dtype=batch.dtype)])
         if tr_csr is not None:
             tmat = ragged_rows(tr_csr, batch, training.num_users, w_ignore,
                                num_items)
@@ -229,19 +268,25 @@ def evaluate_items(recommender, test, training,
         ckeep = first_of_each(cmat) & cand_mask_ext[cmat]
         correct_rows = np.sort(np.where(ckeep, cmat, num_items), axis=1)
         with torch.no_grad():
-            if scorer is not None:
-                scores = scorer(torch.from_numpy(batch.astype(np.int64))
-                                .to(dev))
+            if mesh is not None:
+                ranks = _ranks_on_mesh(mesh, scorers, masks, batch,
+                                       ignore_rows, correct_rows, num_items)
             else:
-                scores = torch.from_numpy(np.asarray(
-                    recommender.score_catalog(batch), dtype=np.float32)
-                    ).to(dev)
-            ranks = rank_correct_items(
-                scores, cand_mask_dev, torch.from_numpy(ignore_rows).to(dev),
-                torch.from_numpy(correct_rows).to(dev), num_items)
+                if scorer is not None:
+                    scores = scorer(torch.from_numpy(batch.astype(np.int64))
+                                    .to(dev))
+                else:
+                    scores = torch.from_numpy(np.asarray(
+                        recommender.score_catalog(batch), dtype=np.float32)
+                        ).to(dev)
+                ranks = rank_correct_items(
+                    scores, cand_mask_dev,
+                    torch.from_numpy(ignore_rows).to(dev),
+                    torch.from_numpy(correct_rows).to(dev),
+                    num_items).cpu().numpy()
         num_evaluated += _measures_batch(
-            ranks.cpu().numpy(), ckeep.sum(axis=1),
-            num_candidates - ignored_in_cand, n, sums)
+            ranks[:nreal], ckeep.sum(axis=1)[:nreal],
+            (num_candidates - ignored_in_cand)[:nreal], n, sums)
 
     result = ItemRecommendationResults()
     for key in sums:

@@ -55,12 +55,23 @@ class Recommender(nn.Module):
         reduces without leaving the device. None = host scoring only."""
         return None
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         """Optional scorer ``fn(users) -> [len(users), num_items_trained]``
-        float32 scores, users an int64 tensor on the model's device, so
+        float32 scores, users an int64 tensor on the model's device (or
+        on ``device``, the data-parallel ranking eval's replica), so
         that the ranking evaluator scores and ranks on the device. None =
         host scoring only (``score_catalog``)."""
         return None
+
+    def _on_device(self, scorer, device):
+        """``scorer`` for users on ``device``: where that is not the
+        tables' device, users move there and scores back (models with a
+        mesh route build their replicas on copies of their tables
+        instead)."""
+        home = self.tables_device()
+        if scorer is None or device is None or torch.device(device) == home:
+            return scorer
+        return lambda users: scorer(users.to(home)).to(device)
 
     def tables_device(self) -> torch.device:
         """The device the model's tables live on, where its scorers take

@@ -66,9 +66,9 @@ class _DeviceRatingPredictor(IncrementalRatingPredictor):
         with torch.no_grad():
             return self._predict_pairs(u, i).cpu().numpy()
 
-    def catalog_scorer(self):
-        return pairs_catalog_scorer(self._predict_pairs,
-                                    self.num_items_trained)
+    def catalog_scorer(self, device=None):
+        return self._on_device(pairs_catalog_scorer(
+            self._predict_pairs, self.num_items_trained), device)
 
     def score_catalog(self, users):
         return self._scores_from_scorer(users)
@@ -206,7 +206,7 @@ class RandomRating(_DeviceRatingPredictor):
     def pair_scorer(self):
         return None
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         return None
 
     def predict_batch(self, users, items):
@@ -303,7 +303,7 @@ class UserItemBaseline(_DeviceRatingPredictor, IterativeModel):
         gavg = _f32(self.global_average).to(users.device)
         return ((gavg + bu) + bi).clamp(self.min_rating, self.max_rating)
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         bu, bi = self.user_biases, self.item_biases
         gavg = _f32(self.global_average).to(bu.device)
         lo, hi = self.min_rating, self.max_rating
@@ -311,7 +311,7 @@ class UserItemBaseline(_DeviceRatingPredictor, IterativeModel):
         def score(users):
             u = users.clamp(0, max(bu.shape[0] - 1, 0))
             return ((gavg + bu[u][:, None]) + bi[None, :]).clamp(lo, hi)
-        return score
+        return self._on_device(score, device)
 
     def _refresh_bias(self, own, other, k, ids, vals, reg):
         """own[k] = (own[k] + sum(r - mu - other[j])) / (reg + n) over the

@@ -169,11 +169,16 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._params["user_factors"].device
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
+        """``fn(users)``: ``W[users] @ H.T`` (+ the item bias) on the
+        tables' device, or on copies on ``device``."""
         if self.params is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         p = self.params
         W, H, bias = p["user_factors"], p["item_factors"], p.get("item_bias")
+        if device is not None:
+            W, H = W.to(device), H.to(device)
+            bias = None if bias is None else bias.to(device)
 
         def score(users):
             s = W[users.clamp(0, W.shape[0] - 1)] @ H.T
@@ -286,6 +291,8 @@ class BPRMF(ItemMF, FoldInItemRecommender):
     # WBPR popularity negatives (WeightedBPRMF): the negative block is
     # drawn by popularity mass and the local slot by inverse CDF
     MXU_POPULARITY = False
+    # the minibatch epoch has a mesh form for this class (MultiCoreBPRMF)
+    SHARDED_MINIBATCH = False
 
     def __init__(self):
         super().__init__()
@@ -304,6 +311,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._tiled = None
         self._mesh = None           # the mesh of a sharded plan
         self._sampler = None        # the minibatch route's sampling state
+        self._sharded = None        # its mesh form's (MultiCoreBPRMF)
         self._sampling = None       # (sampler, meta) of the feedback
         self._epoch_counter = 0
 
@@ -358,16 +366,35 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._plan = None
         self._fused = None
         self._sampler = None
+        self._sharded = None
         if self._route() == "minibatch":
             pop = (bpr_ops.popularity_cdf(f.count_by_item, dev)
                    if self.MXU_POPULARITY else None)
             self._sampler = (sampler, meta, pop)
+            mesh = model_mesh(self)
+            if mesh is not None and self.SHARDED_MINIBATCH:
+                self._build_sharded_sampling(mesh, pop)
         return sampler, meta
+
+    def _build_sharded_sampling(self, mesh, pop):
+        """The mesh's sampling state (``make_sampler_data_sharded``), one
+        generator a device seeded from ``random_seed`` and the device, and
+        the popularity CDF on each device (WBPR)."""
+        data, meta = bpr_ops.make_sampler_data_sharded(
+            self.feedback, mesh.size, self.num_neg_trials)
+        gens = []
+        for d, dev in enumerate(mesh.devices):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((self.random_seed * 1_000_003 + d) & 0x7FFFFFFF)
+            gens.append(gen)
+        self._sharded = (mesh, bpr_ops.device_samplers(mesh, data, meta),
+                         meta, gens, mesh.replicate(pop) if pop is not None
+                         else None)
 
     def _loaded(self):
         self._loss_sample = None
         self._plan = None
-        self._sampler = None
+        self._sampler = self._sharded = None
         self._sampling = None
         self._epoch_counter = 0
 
@@ -392,7 +419,8 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         mesh = model_mesh(self)
         route = select_schedule(self.feedback.num_items, self.num_factors,
                                 mesh.size if mesh else 1)
-        if mesh is not None and not route.startswith("sharded"):
+        if mesh is not None and not route.startswith("sharded") and not (
+                route == "minibatch" and self.SHARDED_MINIBATCH):
             one_device_route(self, route, mesh)
         return route
 
@@ -475,7 +503,10 @@ class BPRMF(ItemMF, FoldInItemRecommender):
     def _iterate_minibatch(self):
         """One minibatch epoch on ``params`` (JAX: ``iterate`` with
         ``bpr_ops.bpr_epoch``), triples drawn from the model's
-        generator."""
+        generator; on a mesh, where the model has the sharded form
+        (MultiCoreBPRMF), ``bpr_ops.bpr_epoch_sharded``."""
+        if self._sharded is not None:
+            return self._iterate_minibatch_sharded()
         sampler, meta, pop = self._sampler
         batch, num_batches = bpr_ops.epoch_batches(meta["num_events"],
                                                    self.batch_size)
@@ -485,6 +516,30 @@ class BPRMF(ItemMF, FoldInItemRecommender):
                 batch_size=batch, num_batches=num_batches,
                 regime=self._regime(), update_j=self.update_j,
                 soft_margin=self.SOFT_MARGIN)
+
+    def _iterate_minibatch_sharded(self):
+        """One sharded minibatch epoch (JAX ``MultiCoreBPRMF.iterate``):
+        per device min(batch_size, events // D) triples a step for its
+        own users, ceil(events / (D x batch)) steps; W row-sharded,
+        padded to u_loc x D rows."""
+        mesh, samplers, meta, gens, pop = self._sharded
+        p = self.params
+        U = p["user_factors"].shape[0]
+        rows = meta["u_loc"] * mesh.size
+        W = p["user_factors"]
+        if rows > U:
+            W = torch.cat([W, W.new_zeros((rows - U, W.shape[1]))])
+        batch, num_batches = bpr_ops.sharded_epoch_batches(
+            meta["num_events"], self.batch_size, mesh.size)
+        shards = mesh.shard_rows(W[:rows])
+        with torch.no_grad():
+            bpr_ops.bpr_epoch_sharded(
+                mesh, dict(p, user_factors=shards), samplers, meta, gens,
+                self._hp(), pop, batch_size=batch, num_batches=num_batches,
+                regime=self._regime(), update_j=self.update_j,
+                soft_margin=self.SOFT_MARGIN)
+            p["user_factors"].copy_(mesh.gather_rows(
+                shards, p["user_factors"].device)[:U])
 
     def iterate(self):
         """One epoch through ``bpr_epoch`` (or ``bpr_epoch_tiled``) on the
@@ -758,12 +813,14 @@ class MultiCoreBPRMF(BPRMF):
     ones (``models/bpr.py:739-770``), and so does the port: the DSGD
     cells of the mesh's diagonal, conflict-free where the reference
     tolerates races; on one device the kernel plan, or the minibatch
-    epoch past the tiled bound. Its XLA fallback on a mesh
-    (``bpr_epoch_sharded`` of ``ops/bpr.py``) is not ported: past the
-    sharded-tiled bound it trains on one device. ``max_threads`` is
+    epoch past the tiled bound. Past the sharded-tiled bound on a mesh
+    it takes the sharded minibatch epoch (``ops/bpr.py
+    bpr_epoch_sharded``, JAX ``models/bpr.py:770-800``): users split over
+    the devices, item deltas merged every minibatch. ``max_threads`` is
     accepted and unused."""
 
     HYPERPARAMS = dict(BPRMF.HYPERPARAMS, max_threads=int)
+    SHARDED_MINIBATCH = True
 
     def __init__(self):
         super().__init__()

@@ -123,7 +123,7 @@ class ExternalItemRecommender(_ExternalScores, ItemRecommender):
     def train(self):
         self._read()
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         """[B, num_items_trained] scores: each user's listed scores
         scattered into a row of -3.4e38 (the user's keys are one run of
         the sorted keys, found by two ``searchsorted`` calls)."""
@@ -147,7 +147,7 @@ class ExternalItemRecommender(_ExternalScores, ItemRecommender):
                 - start[row]
             out[row, keys[at] - users[row] * width] = scores[at]
             return out
-        return score
+        return self._on_device(score, device)
 
     def score_catalog(self, users):
         return self._scores_from_scorer(users)

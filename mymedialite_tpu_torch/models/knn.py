@@ -326,7 +326,7 @@ class _ImplicitKNN(IncrementalItemRecommender, _CorrelationStore):
         self._scoring = st
         return st
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         if self.corr is None and self.nbr_ids is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         st = self._scoring_state()
@@ -354,7 +354,7 @@ class _ImplicitKNN(IncrementalItemRecommender, _CorrelationStore):
                 if "norm" in st:
                     out = out / st["norm"][None, :]
             return out[:, :n_items].contiguous()
-        return score
+        return self._on_device(score, device)
 
     def _gather_user_scores(self, st, users, n_items):
         """Top-k user entity: each user's score row is the weighted sum of
@@ -692,9 +692,9 @@ class _RatingKNN(IncrementalRatingPredictor, _CorrelationStore):
             return None
         return self._predict_pairs
 
-    def catalog_scorer(self):
-        return pairs_catalog_scorer(self._predict_pairs,
-                                    self.num_items_trained)
+    def catalog_scorer(self, device=None):
+        return self._on_device(pairs_catalog_scorer(
+            self._predict_pairs, self.num_items_trained), device)
 
     def score_catalog(self, users):
         return self._scores_from_scorer(users)

@@ -568,15 +568,18 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._W_ext.device
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         """``fn(users) -> [len(users), num_items]`` on the tables' device
-        (JAX: ``_mf_catalog_clip`` / ``_mf_catalog_sigmoid``): the fused
-        ``W_ext @ H_ext.T`` over all columns (both biases inside) for the
-        biased model, the factor columns alone for the plain one, plus the
-        global bias, then the model's clip or sigmoid."""
+        (or on copies on ``device``; JAX: ``_mf_catalog_clip`` /
+        ``_mf_catalog_sigmoid``): the fused ``W_ext @ H_ext.T`` over all
+        columns (both biases inside) for the biased model, the factor
+        columns alone for the plain one, plus the global bias, then the
+        model's clip or sigmoid."""
         if self._W_ext is None and self._mxu_tables is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         W, H = self.W_ext, self.H_ext
+        if device is not None:
+            W, H = W.to(device), H.to(device)
         if not self.BIASED:
             f = self.num_factors
             W, H = W[:, :f], H[:, :f]

@@ -226,12 +226,13 @@ class _SLIM(IncrementalItemRecommender, IterativeModel):
                                               self.feedback.num_users)
         return self._score_hist
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         if self.W is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         W = self.W
         hist, lens = self._history()
-        return lambda users: slim_scores(W, hist, lens, users)
+        return self._on_device(
+            lambda users: slim_scores(W, hist, lens, users), device)
 
     def score_catalog(self, users):
         return self._scores_from_scorer(users)

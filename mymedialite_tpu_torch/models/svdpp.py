@@ -33,6 +33,7 @@ update to its inner model with users and items swapped.
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -48,10 +49,12 @@ from mymedialite_tpu_torch.models.mf import _LOSS_ID, OptimizationTarget
 from mymedialite_tpu_torch.ops import svdpp_plan as sp
 from mymedialite_tpu_torch.ops.svdpp import (
     history_edges, inv_sqrt_counts, precompute_user_factors, prepare_groups,
-    svdpp_epoch_grouped,
+    shard_groups, svdpp_epoch_grouped, svdpp_epoch_sharded,
 )
 from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
 from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
+
+log = logging.getLogger("mymedialite_tpu_torch")
 
 
 def _rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -110,6 +113,8 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
     # the kernel route is open to the model (GSVD++'s x updates keep the
     # grouped epoch)
     KERNEL_ELIGIBLE = True
+    # the grouped epoch has a mesh form (GSVD++'s has not, JAX :737)
+    SHARDABLE = True
 
     def __init__(self):
         super().__init__()
@@ -128,8 +133,8 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self.random_seed = 42
         self.loss = OptimizationTarget.RMSE
         self.device = "cuda"
-        # the device mesh (parallel/mesh.py): SVD++ has no sharded route
-        # in the port, so it trains on one device also on a mesh
+        # the device mesh (parallel/mesh.py): on a mesh the model trains
+        # on the sharded grouped epoch (GSVD++ on one device)
         self.mesh = None
         # IncrementalRatingPredictor's switches (update both sides)
         self.update_users = True
@@ -142,6 +147,7 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self._mxu_tables = None     # resident kernel-layout (W, Q, Y)
         self._plan = None
         self._groups = None         # the grouped route's layout
+        self._shards = None         # (mesh, each device's groups)
         self._new_of_old = None
         self._edges = None          # (users, items, inv_sqrt) on device
         self._user_factors_cache = None
@@ -203,7 +209,7 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
                        torch.from_numpy(hi.astype(np.int64)).to(dev),
                        torch.from_numpy(inv_sqrt_counts(hu, U)).to(dev))
         self._plan = None
-        self._groups = None
+        self._groups = self._shards = None
         self._user_factors_cache = None
         self._prepare_side()
 
@@ -217,20 +223,47 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         learn rates above 0.001), at least 64 users, at most 16,384."""
         if self.group_users > 0:
             return min(self.group_users, max(num_users, 1))
-        avg = max(1.0, len(self.ratings) / max(num_users, 1))
-        budget = 65_536.0 * min(1.0, 0.001 / max(self.learn_rate, 1e-9))
+        avg, budget = self._y_step_budget(num_users)
         g = int(2 ** np.floor(np.log2(max(budget / avg, 64.0))))
         return min(g, 16_384, max(num_users, 1))
 
+    def _y_step_budget(self, num_users: int):
+        """(ratings per user, the ratings one y step may aggregate):
+        ``_auto_group_users``'s bound."""
+        avg = max(1.0, len(self.ratings) / max(num_users, 1))
+        return avg, 65_536.0 * min(1.0, 0.001 / max(self.learn_rate, 1e-9))
+
+    def _warn_mesh_step(self, group: int, mesh):
+        """Warn where a step of the sharded epoch, which merges the y
+        steps of one group a device, aggregates more ratings than
+        ``_auto_group_users`` lets one group's y step take: at the
+        automatic size on D >= 2 devices the tables can turn non-finite
+        (the Netflix shape at D = 4, in both packages; ROADMAP C). The
+        size stays the JAX package's; ``group_users`` sets a smaller
+        one."""
+        avg, budget = self._y_step_budget(self.num_users_trained)
+        step = mesh.size * group * avg
+        if step > budget:
+            log.warning(
+                "%s: a step of the sharded epoch merges %d groups of %d "
+                "users, about %.0f ratings, past the %.0f that one y step "
+                "is kept under; the tables may diverge: set group_users "
+                "to at most %d", type(self).__name__, mesh.size, group,
+                step, budget, max(int(budget / (avg * mesh.size)), 1))
+
     def route(self) -> str:
-        """"kernel" (``csrc/svdpp_epoch.cu``) or "grouped" (the grouped
-        epoch), from the data and the hyperparameters alone, as the JAX
-        package decides on one TPU chip."""
+        """"kernel" (``csrc/svdpp_epoch.cu``), "grouped" (the grouped
+        epoch) or "sharded" (its mesh form), from the data, the
+        hyperparameters and the mesh, as the JAX package decides: on a
+        mesh the sharded grouped epoch even where the kernel fits (JAX
+        ``_prepare``: a mesh keeps the XLA epoch)."""
         if self._plan is None and self._groups is None:
             if self._edges is None:
                 self._prepare_edges()
             self._prepare_epoch()
-        return "kernel" if self._plan is not None else "grouped"
+        if self._plan is not None:
+            return "kernel"
+        return "sharded" if self._shards is not None else "grouped"
 
     def _prepare_epoch(self):
         """The kernel route's chunk plan where Q and Y fit, the
@@ -239,11 +272,13 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         data = self.ratings
         hu, hi = self._hist
         dev = resolve_device(self.device)
-        self._plan = self._groups = None
+        self._plan = self._groups = self._shards = None
         mesh = model_mesh(self)
-        if mesh is not None:
-            one_device_route(self, "SVD++", mesh)
-        if (self.KERNEL_ELIGIBLE and not self.frequency_regularization
+        if mesh is not None and not self.SHARDABLE:
+            one_device_route(self, "grouped", mesh)
+            mesh = None
+        if (mesh is None and self.KERNEL_ELIGIBLE
+                and not self.frequency_regularization
                 and sp.svdpp_mxu_supported(self._num_items(),
                                            self.num_factors)):
             try:
@@ -260,9 +295,14 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
                 self._plan.new_of_old.astype(np.int64)).to(dev)
             return
         U = self.num_users_trained
+        group = self._auto_group_users(U)
         self._groups = prepare_groups(
-            data.users, data.items, data.values, hu, hi, U,
-            self._auto_group_users(U), device=dev)
+            data.users, data.items, data.values, hu, hi, U, group,
+            device=dev,
+            pad_groups_multiple=mesh.size if mesh is not None else 1)
+        if mesh is not None:
+            self._warn_mesh_step(group, mesh)
+            self._shards = (mesh, shard_groups(mesh, self._groups))
         self._regs = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
                       for k, v in self._entity_regs().items()}
 
@@ -363,8 +403,20 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
                     rating_range=self._rating_range())
 
     def _iterate_grouped(self):
-        """One grouped epoch on ``params`` (JAX: ``svdpp_epoch``)."""
+        """One grouped epoch on ``params`` (JAX: ``svdpp_epoch``), on the
+        mesh where there is one (``svdpp_epoch_sharded``)."""
         with torch.no_grad():
+            if self._shards is not None:
+                mesh, shards = self._shards
+                svdpp_epoch_sharded(
+                    mesh, self.params, shards, self._edges[2],
+                    self._grouped_hp(), self._regs, loss=_LOSS_ID[self.loss],
+                    sigmoid=self.SIGMOID, use_p=self.USE_P,
+                    update_user=self.update_users,
+                    update_item=self.update_items)
+                self._user_factors_cache = None
+                self.current_learnrate *= self.learn_rate_decay
+                return
             svdpp_epoch_grouped(
                 self.params, self._groups, self._edges[2],
                 self._grouped_hp(), self._regs, loss=_LOSS_ID[self.loss],
@@ -475,13 +527,17 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._params["item_factors"].device
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
+        """The catalog scorer on the tables' device, or on copies of its
+        tables on ``device``."""
         if self._params is None and self._mxu_tables is None:
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         uf, p = self._user_factors(), self.params
-        return _catalog_scorer(uf, self._item_factors(p), p["user_bias"],
-                               p["item_bias"], self.global_bias,
-                               self.min_rating, self.max_rating, self.SIGMOID)
+        tabs = (uf, self._item_factors(p), p["user_bias"], p["item_bias"])
+        if device is not None:
+            tabs = tuple(t.to(device) for t in tabs)
+        return _catalog_scorer(*tabs, self.global_bias, self.min_rating,
+                               self.max_rating, self.SIGMOID)
 
     def score_catalog(self, users):
         return self._scores_from_scorer(users)
@@ -577,10 +633,13 @@ class SigmoidItemAsymmetricFactorModel(SigmoidSVDPlusPlus):
 
 
 def _copy_hyperparameters(src, dst):
+    """The hyperparameters, the seed and the mesh (not a hyperparameter:
+    it goes to no model file) of ``src`` onto an inner model."""
     for name in list(src.HYPERPARAMS) + list(src.EXTRA_PARAMS):
         if hasattr(src, name) and hasattr(dst, name):
             setattr(dst, name, getattr(src, name))
     dst.random_seed = src.random_seed
+    dst.mesh = getattr(src, "mesh", None)
 
 
 class SigmoidUserAsymmetricFactorModel(SigmoidSVDPlusPlus):
@@ -637,15 +696,18 @@ class SigmoidUserAsymmetricFactorModel(SigmoidSVDPlusPlus):
     def tables_device(self):
         return self._trained_inner().tables_device()
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         """The role swap (JAX: ``catalog_scorer`` of this model): the
         inner model's item factors and biases are this model's user side,
-        its user factors and biases, cut to its real users, the catalog."""
+        its user factors and biases, cut to its real users, the catalog
+        (on copies on ``device`` where one is given)."""
         inner = self._trained_inner()
         ip, nI = inner.params, inner.num_users_trained
-        return _catalog_scorer(ip["item_factors"], inner._user_factors()[:nI],
-                               ip["item_bias"], ip["user_bias"][:nI],
-                               inner.global_bias, self.min_rating,
+        tabs = (ip["item_factors"], inner._user_factors()[:nI],
+                ip["item_bias"], ip["user_bias"][:nI])
+        if device is not None:
+            tabs = tuple(t.to(device) for t in tabs)
+        return _catalog_scorer(*tabs, inner.global_bias, self.min_rating,
                                self.max_rating, True)
 
     def _retrain(self, users, items):
@@ -704,12 +766,12 @@ class SigmoidCombinedAsymmetricFactorModel(SigmoidSVDPlusPlus):
             raise RuntimeError(f"{type(self).__name__}: model not trained")
         return self._item_afm.tables_device()
 
-    def catalog_scorer(self):
+    def catalog_scorer(self, device=None):
         """The mean of the two models' catalog scores (JAX:
         ``_svdpp_catalog_combined``)."""
         self.tables_device()
-        a = self._item_afm.catalog_scorer()
-        b = self._user_afm.catalog_scorer()
+        a = self._item_afm.catalog_scorer(device)
+        b = self._user_afm.catalog_scorer(device)
         return lambda users: 0.5 * (a(users) + b(users))
 
     def save_model(self, path):
@@ -735,6 +797,7 @@ class GSVDPlusPlus(SVDPlusPlus):
 
     REQUIRED_SIDE_INFO = ("item_attributes",)
     KERNEL_ELIGIBLE = False
+    SHARDABLE = False
     SIDE_TABLES = ("x",)
 
     def __init__(self):

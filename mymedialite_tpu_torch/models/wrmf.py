@@ -18,9 +18,15 @@ serving (kernel 6 through ``ItemMF.fused_rows``) and the model file are
 result, only the number of launches (the port's default is larger than
 the JAX package's 256). An online update (``add_feedback``) grows the
 tables with zero rows and re-solves only the touched rows
-(``wrmf_solve_row``); every other row stays bit-unchanged. The mesh
-form waits for ROADMAP A9b: with a ``mesh`` the model solves on one
-device and says so in the log.
+(``wrmf_solve_row``); every other row stays bit-unchanged.
+
+With a ``mesh`` (``model.mesh = make_mesh(...)``) each bucket's rows
+split into one contiguous shard per mesh device, padded with empty rows
+to a multiple of chunk x the devices (JAX ``models/wrmf.py:79-80``; on
+the mesh a bucket's chunk is at most its rows over the devices, so that
+the padding stays under one row a device), and each device solves its
+shard against its replica of the fixed side (``wrmf_optimize_sharded``):
+the same W as one device's solves.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.models.bpr import ItemMF
-from mymedialite_tpu_torch.ops.als import gram, wrmf_optimize, wrmf_solve_row
-from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
+from mymedialite_tpu_torch.ops.als import (
+    gram, wrmf_optimize, wrmf_optimize_sharded, wrmf_solve_row,
+)
+from mymedialite_tpu_torch.parallel.mesh import model_mesh
 
 
 class WRMF(ItemMF):
@@ -55,27 +63,27 @@ class WRMF(ItemMF):
         self.solve_chunk = 1 << 16
         self._user_hist = None
         self._item_hist = None
+        self._hist_mesh = None   # the mesh the histories are laid out for
 
     def init_model(self, tables=None):
         super().init_model(tables)
-        mesh = model_mesh(self)
-        if mesh is not None:
-            # the sharded solves (JAX ops/als.py wrmf_optimize_sharded)
-            # are not ported
-            one_device_route(self, "ALS", mesh)
         self._build_histories()
 
     def _build_histories(self):
         f = self.feedback
-        self._user_hist = self._bucketize(f.by_user, f.num_users)
-        self._item_hist = self._bucketize(f.by_item, f.num_items)
+        self._hist_mesh = mesh = model_mesh(self)
+        self._user_hist = self._bucketize(f.by_user, f.num_users, mesh)
+        self._item_hist = self._bucketize(f.by_item, f.num_items, mesh)
 
-    def _bucketize(self, csr, num_rows: int):
+    def _bucketize(self, csr, num_rows: int, mesh):
         """Length-bucketed padded histories: rows grouped by history
         length into power-of-two buckets (memory O(2 nnz), not rows x
         Lmax). Returns a list of (row_ids, hist [n, L], lens [n], chunk),
-        tensors on the model's device."""
+        tensors on the model's device; on a ``mesh`` hist and lens are
+        lists of the devices' row shards, n padded to a multiple of chunk
+        x the devices."""
         dev = self.params["user_factors"].device
+        D = mesh.size if mesh is not None else 1
         counts = csr.counts()[:num_rows]
         bounds = [16]
         while bounds[-1] < max(int(counts.max()) if counts.size else 1, 1):
@@ -88,8 +96,14 @@ class WRMF(ItemMF):
                 continue
             cap = max(self._GATHER_BUDGET // L, 8)
             chunk = min(self.solve_chunk, 1 << (cap.bit_length() - 1))
+            n_pad = rows.size
+            if D > 1:
+                chunk = min(chunk, -(-rows.size // D))
+                n_pad = -(-rows.size // (chunk * D)) * chunk * D
             cnt_r = counts[rows].astype(np.int64)
-            hist = np.zeros((rows.size, L), np.int64)
+            hist = np.zeros((n_pad, L), np.int64)
+            lens = np.zeros(n_pad, np.int64)
+            lens[:rows.size] = cnt_r
             # vectorized ragged fill: flat positions within each row
             total = int(cnt_r.sum())
             row_rep = np.repeat(np.arange(rows.size, dtype=np.int64), cnt_r)
@@ -97,19 +111,29 @@ class WRMF(ItemMF):
                 np.cumsum(cnt_r) - cnt_r, cnt_r)
             starts = np.repeat(csr.indptr[rows].astype(np.int64), cnt_r)
             hist[row_rep, within] = csr.keys[starts + within]
-            buckets.append(tuple(torch.from_numpy(a).to(dev) for a in (
-                rows.astype(np.int64), hist, cnt_r)) + (chunk,))
+            hist, lens = (torch.from_numpy(a).to(dev) for a in (hist, lens))
+            if mesh is not None:
+                hist, lens = mesh.shard_rows(hist), mesh.shard_rows(lens)
+            buckets.append((torch.from_numpy(rows.astype(np.int64)).to(dev),
+                            hist, lens, chunk))
         return buckets
 
     def _optimize(self, H, buckets, num_rows: int):
         """Solve all rows bucket by bucket (each row's system involves
-        only its own history, so the buckets are independent)."""
+        only its own history, so the buckets are independent), on the
+        mesh the histories were laid out for."""
         W = torch.zeros((num_rows, H.shape[1]), dtype=H.dtype,
                         device=H.device)
-        HH = gram(H)
+        mesh = self._hist_mesh
+        HH = gram(H) if mesh is None else None
         for rows, hist, lens, chunk in buckets:
-            W[rows] = wrmf_optimize(H, hist, lens, self.alpha,
-                                    self.regularization, chunk=chunk, HH=HH)
+            if mesh is None:
+                Wb = wrmf_optimize(H, hist, lens, self.alpha,
+                                   self.regularization, chunk=chunk, HH=HH)
+            else:
+                Wb = wrmf_optimize_sharded(mesh, H, hist, lens, self.alpha,
+                                           self.regularization, chunk=chunk)
+            W[rows] = Wb[:rows.shape[0]]
         return W
 
     def _loaded(self):
@@ -118,8 +142,10 @@ class WRMF(ItemMF):
     def _ensure_epoch_ready(self):
         """Rebuild the histories when missing, e.g. after ``load_model``
         or an online update, so that ``iterate()`` keeps training
-        (reference Model.Load + --find-iter contract, IO/Model.cs:67-83)."""
-        if self._user_hist is not None:
+        (reference Model.Load + --find-iter contract, IO/Model.cs:67-83),
+        or laid out for another mesh than the model's."""
+        if self._user_hist is not None and \
+                self._hist_mesh is model_mesh(self):
             return
         if self.feedback is None:
             raise RuntimeError(

@@ -1,5 +1,7 @@
 """Native (C++) host helpers, loaded via ctypes: the numeric rating-file
-parser, the threaded item count and the chunk plan's counting sort.
+parser, the threaded item count and the chunk plan's counting sort; and,
+from ``model_text.cpp`` (a library of its own), the model files' text
+sections formatted and parsed (``format_values``, ``parse_values``).
 
 The port's own copy of ``mymedialite_tpu/native`` (``fast_parser.cpp``
 verbatim, the same loader functions). The library is compiled with the
@@ -31,19 +33,23 @@ _lib = None
 _tried = False
 
 
-def _lib_path() -> str:
+_TEXT_SRC = os.path.join(_HERE, "model_text.cpp")
+_text_lib = None
+_text_tried = False
+
+
+def _lib_path(src: str = _SRC, name: str = "libfastparser") -> str:
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
+    with open(src, "rb") as f:
         digest.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f"libfastparser-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> bool:
+def _build(path: str, src: str = _SRC) -> bool:
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+        subprocess.run(["g++", *_FLAGS, src, "-o", tmp],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, path)
         return True
@@ -178,3 +184,86 @@ def parse_numeric_file(path: str, min_columns: int,
             if p:
                 lib.mml_free(ctypes.cast(p, ctypes.c_void_p))
     return users, items, values, times
+
+
+def get_text_lib():
+    """The model-text library, or None where it cannot be built (a C++
+    compiler without ``std::to_chars`` for doubles, GCC < 11): the model
+    files then take their Python paths."""
+    global _text_lib, _text_tried
+    with _lock:
+        if _text_lib is not None or _text_tried:
+            return _text_lib
+        _text_tried = True
+        path = _lib_path(_TEXT_SRC, "libmodeltext")
+        if not os.path.exists(path) and not _build(path, _TEXT_SRC):
+            return None
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+        lib.mml_format_values.restype = ctypes.c_int64
+        lib.mml_format_values.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+        lib.mml_text_free.restype = None
+        lib.mml_text_free.argtypes = [ctypes.c_void_p]
+        lib.mml_parse_values.restype = ctypes.c_int64
+        lib.mml_parse_values.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        _text_lib = lib
+        return _text_lib
+
+
+def format_values(write, values, cols: int = 0, ii=None, jj=None):
+    """Hand ``write`` the text lines (a bytes-like view) of float32
+    ``values`` (row-major): one value a line (``cols`` 0), ``i j value``
+    lines of a dense matrix of ``cols`` columns, or of the ids ``ii`` /
+    ``jj``; each value laid out as Python's ``repr`` of it widened to
+    double. Returns True, or False without the library."""
+    lib = get_text_lib()
+    if lib is None:
+        return False
+    vals = np.ascontiguousarray(values, dtype=np.float32).ravel()
+    ids = [None if a is None else np.ascontiguousarray(a, dtype=np.int64)
+           for a in (ii, jj)]
+    if (ids[0] is None) != (ids[1] is None) or any(
+            a is not None and a.size != vals.size for a in ids):
+        raise ValueError("format_values: ii and jj need one id per value")
+    out = ctypes.c_void_p()
+    n = lib.mml_format_values(
+        _c(vals), vals.size, cols, *(None if a is None else _c(a)
+                                     for a in ids),
+        min(os.cpu_count() or 1, 16), ctypes.byref(out))
+    if n < 0:
+        raise MemoryError("mml_format_values: no memory for the text")
+    try:
+        if n:
+            write(memoryview((ctypes.c_char * n).from_address(out.value)))
+    finally:
+        lib.mml_text_free(out)
+    return True
+
+
+def parse_values(buf, offset: int, n: int, fields: int):
+    """``n`` lines of ``buf`` (bytes) from ``offset``: values, or ``i j
+    value`` triples (``fields`` 1 or 3). Returns (ii, jj, values) numpy
+    (int64, int64, float64; ids None for values only) and the offset past
+    the last line; None without the library."""
+    lib = get_text_lib()
+    if lib is None:
+        return None
+    vals = np.empty(n, np.float64)
+    ii = np.empty(n, np.int64) if fields == 3 else None
+    jj = np.empty(n, np.int64) if fields == 3 else None
+    # the bytes object's own buffer, no copy
+    base = ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p).value
+    used = lib.mml_parse_values(
+        base + offset, len(buf) - offset, n, fields,
+        None if ii is None else _c(ii), None if jj is None else _c(jj),
+        _c(vals))
+    if used < 0:
+        raise EOFError("model file: a line does not parse or the file "
+                       "ends early")
+    return (ii, jj, vals), offset + used

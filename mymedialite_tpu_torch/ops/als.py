@@ -19,8 +19,12 @@ H100 this route is about 3x faster than a plain-torch port of the JAX
 package's unrolled Cholesky (``_batched_spd_solve``) on 480,000 systems
 of 40 x 40; ``exp_torch_als_solves.py`` times the two.
 
-``wrmf_solve_row`` solves one row, the online update's primitive. The
-mesh form (``wrmf_optimize_sharded``) waits for ROADMAP A9b.
+``wrmf_solve_row`` solves one row, the online update's primitive.
+``wrmf_optimize_sharded`` is the mesh form (JAX ``ops/als.py:107-128``,
+the reference's Parallel.For over rows, WRMF.cs:87-91): the rows split
+into one contiguous shard per mesh device, H replicated, each device
+solving its rows; the rows' systems are independent, so the result is
+one device's.
 """
 
 from __future__ import annotations
@@ -98,3 +102,31 @@ def wrmf_solve_row(H, ids, alpha: float, reg: float, HH=None):
     hist = ids.reshape(1, n) if n else ids.new_zeros((1, 1))
     lens = torch.full((1,), n, dtype=torch.int64, device=H.device)
     return wrmf_optimize(H, hist, lens, alpha, reg, chunk=1, HH=HH)[0]
+
+
+def wrmf_optimize_sharded(mesh, H, hist, lens, alpha: float, reg: float, *,
+                          chunk: int, out_device=None):
+    """``wrmf_optimize`` over the mesh: ``hist`` [U, L] and ``lens`` [U]
+    (U a multiple of ``chunk`` x the devices, as the JAX package pads
+    them; or lists of the devices' row shards) split into contiguous row
+    shards, shard d solved on mesh device d against its replica of H and
+    its own Gram matrix, ``chunk`` rows at a time. Returns W [U, f], the
+    shards gathered in row order on ``out_device`` (default H's)."""
+    mesh.one_process("wrmf_optimize_sharded")
+    D = mesh.size
+    if not isinstance(hist, (list, tuple)):
+        if hist.shape[0] % (chunk * D):
+            raise ValueError("rows must be a multiple of chunk x the mesh "
+                             "devices (pad them as the JAX package does)")
+        hist, lens = mesh.shard_rows(hist), mesh.shard_rows(lens)
+    replicas = mesh.replicate(H)
+    grams = {}
+    parts = []
+    for d, dev in enumerate(mesh.devices):
+        Hd = replicas[d]
+        if dev not in grams:
+            grams[dev] = gram(Hd)
+        parts.append(wrmf_optimize(Hd, hist[d].to(dev), lens[d].to(dev),
+                                   alpha, reg, chunk=chunk, HH=grams[dev]))
+    return mesh.gather_rows(parts, H.device if out_device is None
+                            else out_device)

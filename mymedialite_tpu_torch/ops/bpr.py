@@ -25,6 +25,16 @@ update step, so a test can feed the JAX package's triples to
 other triples than the JAX package's threefry draws from the same seed;
 the regimes are the same. Plain PyTorch: gathers and ``index_add_``
 (duplicate ids within a batch sum).
+
+The mesh form (JAX ``ops/bpr.py:246-452``, reference MultiCoreBPRMF):
+``make_sampler_data_sharded`` splits the users into one contiguous range
+per device, array for array as the JAX package does; each device draws
+its triples for its own users (``sample_triples_sharded``), its W rows
+are its own, and ``bpr_step_sharded`` merges the devices' item updates
+after every minibatch as start + the sum of their touched-row deltas. A
+device's j bias reads its own bias after its i updates, as in the JAX
+package, so a sharded step is not one ``bpr_step`` over the devices'
+concatenated triples.
 """
 
 from __future__ import annotations
@@ -230,3 +240,225 @@ def popularity_cdf(count_by_item, device="cpu") -> torch.Tensor:
         total = counts.sum()
     return torch.from_numpy(np.cumsum(counts / total).astype(
         np.float32)).to(device)
+
+
+def make_sampler_data_sharded(feedback, n_devices: int,
+                              num_neg_trials: int = 8):
+    """Per-device sampling state, stacked on a leading device axis, as
+    the JAX package builds it (``make_sampler_data_sharded``): the users
+    split into ``n_devices`` contiguous ranges of u_loc = ceil(U / D)
+    users; ragged arrays padded to the longest (histories with zeros,
+    valid-user and event lists by cycling their real entries). Returns
+    (data, meta): data holds int32 numpy arrays hist_items [D, Lh],
+    indptr [D, u_loc + 1], counts [D, u_loc], valid_users [D, Lv],
+    valid_count [D], ev_user [D, Le] (device-local user ids), ev_item
+    [D, Le], ev_count [D]; meta num_items, num_users, u_loc, e_loc,
+    num_events, num_neg_trials and search_depth."""
+    csr = feedback.by_user
+    counts_g = csr.counts()
+    U, I = feedback.num_users, feedback.num_items
+    U_loc = max(-(-U // n_devices), 1)
+    users_g = np.asarray(feedback.users)
+    items_g = np.asarray(feedback.items)
+    order = np.argsort(users_g, kind="stable")
+    users_s, items_s = users_g[order], items_g[order]
+    bounds = np.searchsorted(users_s, np.arange(n_devices + 1) * U_loc)
+    hist, indptrs, cnts, valid, ev_u, ev_i = [], [], [], [], [], []
+    for d in range(n_devices):
+        lo_u, hi_u = d * U_loc, min((d + 1) * U_loc, U)
+        n_u = max(hi_u - lo_u, 0)
+        cnt = np.zeros(U_loc, dtype=np.int32)
+        if n_u > 0:
+            cnt[:n_u] = counts_g[lo_u:hi_u]
+        indptr = np.zeros(U_loc + 1, dtype=np.int32)
+        np.cumsum(cnt, out=indptr[1:])
+        seg = csr.keys[csr.indptr[lo_u]:csr.indptr[hi_u]] if n_u > 0 \
+            else np.zeros(0, dtype=np.int32)
+        hist.append(np.asarray(seg, dtype=np.int32))
+        indptrs.append(indptr)
+        cnts.append(cnt)
+        valid.append(np.nonzero((cnt > 0) & (cnt < I))[0].astype(np.int32))
+        lo_e, hi_e = bounds[d], bounds[d + 1]
+        ev_u.append((users_s[lo_e:hi_e] - lo_u).astype(np.int32))
+        ev_i.append(items_s[lo_e:hi_e].astype(np.int32))
+
+    def stack(arrs, cycle: bool):
+        L = max([1] + [a.size for a in arrs])
+        out = np.zeros((n_devices, L), dtype=np.int32)
+        for d, a in enumerate(arrs):
+            if a.size:
+                out[d] = np.tile(a, -(-L // a.size))[:L] if cycle else \
+                    np.pad(a, (0, L - a.size))
+        return out
+
+    max_count = int(counts_g.max()) if counts_g.size else 1
+    depth = max(int(np.ceil(np.log2(max(max_count, 1) + 1))) + 1, 1)
+    data = dict(
+        hist_items=stack(hist, False), indptr=np.stack(indptrs),
+        counts=np.stack(cnts), valid_users=stack(valid, True),
+        valid_count=np.array([v.size for v in valid], dtype=np.int32),
+        ev_user=stack(ev_u, True), ev_item=stack(ev_i, True),
+        ev_count=np.array([a.size for a in ev_u], dtype=np.int32))
+    meta = dict(num_items=I, num_users=U, u_loc=U_loc,
+                e_loc=int(data["ev_user"].shape[1]), num_events=len(feedback),
+                num_neg_trials=num_neg_trials, search_depth=depth)
+    return data, meta
+
+
+def device_samplers(mesh, data, meta) -> list:
+    """Device d's row of each ``make_sampler_data_sharded`` array as
+    int64 tensors on mesh device d, with the sorted keys u_local *
+    num_items + item of its histories (``pos_keys``, for
+    ``segment_contains``) and its real valid and event counts."""
+    I = meta["num_items"]
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        indptr = data["indptr"][d].astype(np.int64)
+        nnz = int(indptr[-1])
+        users = np.repeat(np.arange(meta["u_loc"], dtype=np.int64),
+                          np.diff(indptr))
+        keys = users * I + data["hist_items"][d][:nnz]
+        t = {k: torch.from_numpy(np.ascontiguousarray(
+            data[k][d], dtype=np.int64)).to(dev) for k in (
+            "hist_items", "indptr", "counts", "valid_users", "ev_user",
+            "ev_item")}
+        t["pos_keys"] = torch.from_numpy(keys).to(dev)
+        t["valid_count"] = int(data["valid_count"][d])
+        t["ev_count"] = int(data["ev_count"][d])
+        out.append(t)
+    return out
+
+
+def sample_triples_sharded(generator, sampler, meta, batch_size: int,
+                           regime: int, perm=None, batch_index: int = 0,
+                           pop_cdf=None):
+    """One batch of (u, i, j, w) triples for one device's users (u
+    device-local), drawn with ``generator`` from its ``device_samplers``
+    entry, as the JAX package's ``device_fn`` draws them: uniform users
+    over the padded valid list, events over the padded event list (or
+    its slice ``perm`` of a permutation of num_batches x batch slots,
+    taken modulo the real events), weight 0 for pad slots and a device
+    without users or events."""
+    device = sampler["hist_items"].device
+    num_items = meta["num_items"]
+
+    def randint(high, n):
+        return torch.randint(0, max(int(high), 1), (n,), generator=generator,
+                             device=device)
+    if regime == UNIFORM_USER:
+        valid, counts = sampler["valid_users"], sampler["counts"]
+        u = valid[randint(valid.numel(), batch_size)]
+        r = randint(2 ** 31 - 1, batch_size)
+        pos_off = r % counts[u].clamp(min=1)
+        hist = sampler["hist_items"]
+        i = hist[(sampler["indptr"][u] + pos_off).clamp(max=hist.numel() - 1)]
+        base = (counts[u] > 0) & (sampler["valid_count"] > 0)
+    elif regime == UNIFORM_PAIR_WOR:
+        raw = perm[batch_index * batch_size:(batch_index + 1) * batch_size]
+        ecount = sampler["ev_count"]
+        eidx = raw % max(ecount, 1)
+        u, i = sampler["ev_user"][eidx], sampler["ev_item"][eidx]
+        base = (raw < ecount) & (ecount > 0)
+    else:
+        eidx = randint(sampler["ev_user"].numel(), batch_size)
+        u, i = sampler["ev_user"][eidx], sampler["ev_item"][eidx]
+        base = torch.full_like(u, sampler["ev_count"] > 0, dtype=torch.bool)
+    cand = negative_candidates(
+        generator, num_items, meta["num_neg_trials"], batch_size, device,
+        pop_cdf if regime == WBPR else None)
+    j, ok = first_negatives(sampler, u, cand, num_items)
+    return u, i, j, (ok & base).to(torch.float32)
+
+
+def _device_update(W, H, bias, u, i, j, w, hp, *, update_j: bool,
+                   soft_margin: bool):
+    """One device's part of a sharded step: its W rows in place, and its
+    item updates as touched-row deltas against the start tables H and
+    bias: (rows, dH [n, f], dbias [n]). The j bias reads the device's
+    bias after its i updates (JAX ``device_fn``)."""
+    dtype = W.dtype
+    w = w.to(dtype)
+    lr = hp["learn_rate"]
+    wu, hi, hj = W[u], H[i], H[j]
+    bi = bias[i]
+    x_uij = bi - bias[j] + (wu * (hi - hj)).sum(dim=-1)
+    if soft_margin:
+        g = (x_uij < 1.0).to(dtype) * w
+    else:
+        g = torch.sigmoid(-x_uij) * w
+    W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
+                             - (w * hp["reg_u"])[:, None] * wu))
+    B = i.numel()
+    rows, inv = torch.unique(torch.cat([i, j]) if update_j else i,
+                             return_inverse=True)
+    dH = torch.zeros((rows.numel(), H.shape[1]), dtype=dtype,
+                     device=H.device)
+    db = torch.zeros(rows.numel(), dtype=dtype, device=H.device)
+    dH.index_add_(0, inv[:B], lr * (g[:, None] * wu
+                                    - (w * hp["reg_i"])[:, None] * hi))
+    db.index_add_(0, inv[:B], lr * (g - hp["bias_reg"] * w * bi))
+    if update_j:
+        bj = bias[j] + db[inv[B:]]
+        dH.index_add_(0, inv[B:], lr * (-g[:, None] * wu
+                                        - (w * hp["reg_j"])[:, None] * hj))
+        db.index_add_(0, inv[B:], lr * (-g - hp["bias_reg"] * w * bj))
+    return rows, dH, db
+
+
+def bpr_step_sharded(mesh, W_shards, H_reps, bias_reps, triples, hp, *,
+                     update_j: bool, soft_margin: bool = False):
+    """One sharded minibatch: ``triples[d]`` = (u, i, j, w) of device d
+    (u local to its shard ``W_shards[d]``, updated in place) read the
+    start tables ``H_reps[d]`` / ``bias_reps[d]`` (``Mesh.replicate``
+    copies); then every device's touched-row deltas are added to each
+    distinct copy (``Mesh.merge_rows``), the JAX package's start +
+    psum(deltas). Returns the merged (H_reps, bias_reps)."""
+    parts = [_device_update(W_shards[d], H_reps[d], bias_reps[d], *t, hp,
+                            update_j=update_j, soft_margin=soft_margin)
+             for d, t in enumerate(triples)]
+    H_reps = mesh.merge_rows(H_reps, [(r, dH) for r, dH, _ in parts])
+    bias_reps = mesh.merge_rows(bias_reps, [(r, db) for r, _, db in parts])
+    return H_reps, bias_reps
+
+
+def sharded_epoch_batches(num_events: int, batch_size: int, D: int):
+    """(batch per device, num_batches) of a sharded epoch: |events|
+    triples over the mesh (JAX ``MultiCoreBPRMF.iterate``)."""
+    events = max(num_events, 1)
+    batch = min(batch_size, max(events // D, 1))
+    return batch, max((events + D * batch - 1) // (D * batch), 1)
+
+
+def bpr_epoch_sharded(mesh, params, samplers, meta, generators, hp,
+                      pop_cdf=None, *, batch_size: int, num_batches: int,
+                      regime: int, update_j: bool, soft_margin: bool = False):
+    """One sharded epoch (JAX ``bpr_epoch_sharded``): num_batches steps,
+    each device drawing ``batch_size`` triples for its own users with its
+    generator (``generators[d]``) and ``samplers[d]``
+    (``device_samplers``); params: user_factors, a list of the devices'
+    row shards [u_loc, f] (updated in place), item_factors and
+    item_bias, tensors updated in place with the merged deltas. The
+    without-replacement regime draws one permutation of the padded slots
+    per device per epoch. ``pop_cdf``: a list, one per device, for
+    WBPR."""
+    mesh.one_process("bpr_epoch_sharded")
+    H_reps = mesh.replicate(params["item_factors"])
+    b_reps = mesh.replicate(params["item_bias"])
+    perms = [None] * mesh.size
+    if regime == UNIFORM_PAIR_WOR:
+        perms = [torch.randperm(num_batches * batch_size, generator=gen,
+                                device=dev)
+                 for gen, dev in zip(generators, mesh.devices)]
+    for b in range(num_batches):
+        triples = [sample_triples_sharded(
+            generators[d], samplers[d], meta, batch_size, regime,
+            perm=perms[d], batch_index=b,
+            pop_cdf=pop_cdf[d] if pop_cdf is not None else None)
+            for d in range(mesh.size)]
+        H_reps, b_reps = bpr_step_sharded(
+            mesh, params["user_factors"], H_reps, b_reps, triples, hp,
+            update_j=update_j, soft_margin=soft_margin)
+    for k, reps in (("item_factors", H_reps), ("item_bias", b_reps)):
+        if reps[0] is not params[k]:
+            params[k].copy_(reps[0].to(params[k].device))
+    return params

@@ -9,8 +9,14 @@ driver reads, and the blocked minibatch epoch (``prepare_blocked_data``,
 ``column_rates``, ``sgd_epoch_blocked``) that the MF family runs with
 frequency regularization and past the tiled schedule's catalog bound.
 The blocked epoch is plain PyTorch (gathers and ``index_add_``): the JAX
-package runs it as an XLA scan, with no Pallas kernel. The flat
-``sgd_epoch`` and the sharded forms are not ported.
+package runs it as an XLA scan, with no Pallas kernel.
+
+``sgd_epoch_blocked_sharded`` is its mesh form (JAX ``ops/sgd.py:
+428-532``): the user groups split over the devices, each device's
+groups in one contiguous range (a process's range of a mesh of several
+processes), the item table merged after every group step as start +
+the sum of the devices' deltas, across the processes too. The flat
+``sgd_epoch`` (and its SPMD form) is not ported: no model calls it.
 """
 
 from __future__ import annotations
@@ -245,42 +251,107 @@ def sgd_epoch_blocked(W_ext, H_ext, data, batch_orders, hp, rates,
     at the current learn rate. freq: ``blocked_freq`` with frequency
     regularization, else None. ``groups`` (default all) runs a subset of
     the groups, in the order given. Computes in the tables' dtype."""
-    G, B = meta["group_users"], meta["batch"]
-    dtype = W_ext.dtype
-    w_lr, w_reg, h_lr, h_reg = (r.to(dtype) for r in rates)
-    global_bias, min_rating, rating_range = hp
+    G = meta["group_users"]
     orders = batch_orders.tolist() if isinstance(batch_orders, torch.Tensor) \
         else [list(o) for o in batch_orders]
     if groups is None:
         groups = range(meta["ngroups"])
     for g in groups:
-        slab = W_ext[g * G:(g + 1) * G]
-        nreal = real_batches(data["count"][g], B)
-        for b in orders[g]:
-            if b >= nreal:
-                continue
-            sl = slice(b * B, (b + 1) * B)
-            u = data["gu"][g, sl]
-            i = data["gi"][g, sl]
-            v = data["gv"][g, sl].to(dtype)
-            w = data["gw"][g, sl].to(dtype)
-            wu = slab.index_select(0, u)
-            hi = H_ext.index_select(0, i)
-            score = (wu * hi).sum(dim=-1)   # includes b_u + b_i
-            if biased:
-                sig = torch.sigmoid(score + global_bias)
-                pred = min_rating + sig * rating_range
-                g_com = gradient_common(loss, v - pred, sig,
-                                        rating_range) * w
-            else:
-                g_com = (v - (score + global_bias)) * w
-            if freq is not None:
-                ru = freq[0].to(dtype)[u.long() + g * G] * w
-                ri = freq[1].to(dtype)[i] * w
-            else:
-                ru = ri = w
-            slab.index_add_(0, u, w_lr * (
-                g_com[:, None] * hi - (w * ru)[:, None] * w_reg * wu))
-            H_ext.index_add_(0, i, h_lr * (
-                g_com[:, None] * wu - (w * ri)[:, None] * h_reg * hi))
+        _blocked_group(W_ext[g * G:(g + 1) * G], H_ext, data, g, orders[g],
+                       hp, rates, None if freq is None else
+                       (freq[0][g * G:(g + 1) * G], freq[1]),
+                       batch=meta["batch"], loss=loss, biased=biased)
     return W_ext, H_ext
+
+
+def _blocked_group(slab, H_ext, data, g: int, order, hp, rates, freq, *,
+                   batch: int, loss: int, biased: bool):
+    """Group g of ``data``: its batches in ``order``, each one minibatch
+    step on the user ``slab`` (its G rows) and ``H_ext``, in place.
+    ``freq``: (the slab's users' rate factors, the items'), or None."""
+    B = batch
+    dtype = slab.dtype
+    w_lr, w_reg, h_lr, h_reg = (r.to(dtype) for r in rates)
+    global_bias, min_rating, rating_range = hp
+    nreal = real_batches(data["count"][g], B)
+    for b in order:
+        if b >= nreal:
+            continue
+        sl = slice(b * B, (b + 1) * B)
+        u = data["gu"][g, sl]
+        i = data["gi"][g, sl]
+        v = data["gv"][g, sl].to(dtype)
+        w = data["gw"][g, sl].to(dtype)
+        wu = slab.index_select(0, u)
+        hi = H_ext.index_select(0, i)
+        score = (wu * hi).sum(dim=-1)   # includes b_u + b_i
+        if biased:
+            sig = torch.sigmoid(score + global_bias)
+            pred = min_rating + sig * rating_range
+            g_com = gradient_common(loss, v - pred, sig, rating_range) * w
+        else:
+            g_com = (v - (score + global_bias)) * w
+        if freq is not None:
+            ru = freq[0].to(dtype)[u.long()] * w
+            ri = freq[1].to(dtype)[i] * w
+        else:
+            ru = ri = w
+        slab.index_add_(0, u, w_lr * (
+            g_com[:, None] * hi - (w * ru)[:, None] * w_reg * wu))
+        H_ext.index_add_(0, i, h_lr * (
+            g_com[:, None] * wu - (w * ri)[:, None] * h_reg * hi))
+
+
+def sgd_epoch_blocked_sharded(mesh, W_ext, H_ext, data, batch_orders, hp,
+                              rates, freq=None, *, meta, loss: int,
+                              biased: bool):
+    """One blocked pass over the mesh (JAX ``sgd_epoch_blocked_sharded``).
+
+    ``data``: this process's groups (``prepare_blocked_data``'s arrays,
+    ``count`` included; all groups in one process), a multiple of its
+    devices; device d runs groups [d * gl, (d + 1) * gl) of them. W_ext:
+    the matching rows [groups * G, f+2], a tensor or the devices' row
+    shards (``Mesh.shard_rows``), updated in place; H_ext [I, f+2] the
+    replicated item table, updated in place. Local step g runs every
+    device's g-th group from the same H on a private copy of it; the
+    copies merge as start + the sum of the deltas over the devices and
+    the processes. ``batch_orders`` [gl, nb]: the batch permutation of
+    each device's g-th group, the same on every device (the JAX package
+    draws it from ``fold_in(key, g)`` with the local g). With frequency
+    regularization a user's factor is read at its global row (the JAX
+    package reads ``inv_cu`` at the slab-relative row, a fault of its
+    own that this port does not copy). Returns (W_ext, H_ext)."""
+    G = meta["group_users"]
+    D = mesh.size
+    groups = data["gu"].shape[0]
+    if groups % D:
+        raise ValueError("the groups must be a multiple of the device "
+                         "count (pad with empty groups)")
+    gl = groups // D
+    shards = W_ext if isinstance(W_ext, (list, tuple)) else \
+        mesh.shard_rows(W_ext)
+    orders = batch_orders.tolist() if isinstance(batch_orders, torch.Tensor) \
+        else [list(o) for o in batch_orders]
+    local = [{k: data[k][d * gl:(d + 1) * gl].to(dev) if k != "count"
+              else data[k][d * gl:(d + 1) * gl] for k in data}
+             for d, dev in enumerate(mesh.devices)]
+    dev_rates = [tuple(r.to(dev) for r in rates) for dev in mesh.devices]
+    home = H_ext
+    reps = mesh.replicate(H_ext)
+    for g in range(gl):
+        private = []
+        for d, dev in enumerate(mesh.devices):
+            H_d = reps[d].clone()
+            f = None
+            if freq is not None:
+                row = ((mesh.first_device + d) * gl + g) * G
+                f = (freq[0][row:row + G].to(dev), freq[1].to(dev))
+            _blocked_group(shards[d][g * G:(g + 1) * G], H_d, local[d], g,
+                           orders[g], hp, dev_rates[d], f,
+                           batch=meta["batch"], loss=loss, biased=biased)
+            private.append(H_d)
+        reps = mesh.merge_deltas(reps[0], private)
+    home.copy_(reps[0].to(home.device))
+    if not isinstance(W_ext, (list, tuple)):
+        W_ext.copy_(mesh.gather_rows(shards, W_ext.device))
+    return W_ext, home

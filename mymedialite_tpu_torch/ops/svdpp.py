@@ -23,6 +23,16 @@ through the edges, from the accumulated c_u = sum err * q_i /
 sqrt(|I_u|). The JAX package pads every group to L; the port keeps each
 group's own ratings and skips the padding slots and the all-padding
 chunks, which changes no number.
+
+``svdpp_epoch_sharded`` is the mesh form (JAX ``ops/svdpp.py:234-420``):
+the groups split into one contiguous range per mesh device, ``ngroups``
+a multiple of the devices (``prepare_groups(pad_groups_multiple=D)``
+adds empty groups). Step g runs group d * groups_local + g on every
+device d from the same item tables; each device's chunks read the
+item_bias, q and y that its own earlier chunks updated, on a private
+copy taken at the start of the step, and the copies merge as start +
+the sum of the devices' deltas (the JAX package's psum). The user
+tables are row-sharded: a device owns its groups' users.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ class SvdppGroups:
     group_users: int
     chunk: int
     length: int             # L: the largest group's rating count
+    first_group: int        # the global index of group 0 (a device's slice)
     r_off: np.ndarray = field(repr=False)
     e_off: np.ndarray = field(repr=False)
     # on the model's device: int64 ids, float32 values
@@ -117,19 +128,38 @@ class SvdppGroups:
         return replace(self, **{k: getattr(self, k).to(device) for k in (
             "r_user", "r_item", "r_value", "e_user", "e_item")})
 
+    def slice(self, g0: int, g1: int, device) -> "SvdppGroups":
+        """Groups [g0, g1) as a layout of their own on ``device``: the same
+        chunk and L (the largest group's count over all groups), offsets
+        rebased, ``first_group`` the global index of g0."""
+        r0, r1 = int(self.r_off[g0]), int(self.r_off[g1])
+        e0, e1 = int(self.e_off[g0]), int(self.e_off[g1])
+        parts = {k: getattr(self, k)[r0:r1].to(device)
+                 for k in ("r_user", "r_item", "r_value")}
+        parts.update({k: getattr(self, k)[e0:e1].to(device)
+                      for k in ("e_user", "e_item")})
+        return replace(self, ngroups=g1 - g0,
+                       first_group=self.first_group + g0,
+                       r_off=self.r_off[g0:g1 + 1] - r0,
+                       e_off=self.e_off[g0:g1 + 1] - e0, **parts)
+
     @property
     def num_chunks(self) -> int:
         return sum(len(self.chunks(g)) for g in range(self.ngroups))
 
 
 def prepare_groups(r_users, r_items, r_values, h_users, h_items,
-                   num_users: int, group_users: int,
-                   device="cpu") -> SvdppGroups:
+                   num_users: int, group_users: int, device="cpu",
+                   pad_groups_multiple: int = 1) -> SvdppGroups:
     """Group the ratings and the history edges by contiguous user-id
     ranges of ``group_users`` users, each stably, in the order of the
-    JAX package's ``prepare_groups``."""
+    JAX package's ``prepare_groups``; ``pad_groups_multiple`` rounds
+    ngroups up with empty groups, so that the groups divide evenly over
+    a mesh."""
     G = group_users
     ngroups = max((num_users + G - 1) // G, 1)
+    m = max(pad_groups_multiple, 1)
+    ngroups = -(-ngroups // m) * m
 
     def grouped(users, *arrays):
         users = np.asarray(users, dtype=np.int64)
@@ -146,7 +176,7 @@ def prepare_groups(r_users, r_items, r_values, h_users, h_items,
     L = max(int(np.diff(r_off).max()), 1)
     return SvdppGroups(
         ngroups=ngroups, group_users=G, chunk=min(GROUP_CHUNK, L), length=L,
-        r_off=r_off, e_off=e_off, r_user=ids(ru), r_item=ids(ri),
+        first_group=0, r_off=r_off, e_off=e_off, r_user=ids(ru), r_item=ids(ri),
         r_value=torch.from_numpy(rv.astype(np.float32)).to(device),
         e_user=ids(eu), e_item=ids(ei))
 
@@ -165,23 +195,14 @@ def svdpp_epoch_grouped(params, groups: SvdppGroups, inv_sqrt, hp, regs, *,
     [A] for gSVD++. ``group_ids`` (default all) runs a subset of the
     groups, in the order given. Computes in the tables' dtype; the
     gSVD++ matmuls in full float32 (no TF32)."""
-    q, y, bias_i = params["item_factors"], params["y"], params["item_bias"]
     bias_u = params["user_bias"]
     p_mat = params.get("p") if use_p else None
-    x = params.get("x") if attr_norm is not None else None
-    dtype = q.dtype
-    U, f = bias_u.shape[0], q.shape[1]
+    dtype = params["item_factors"].dtype
+    U = bias_u.shape[0]
     G = groups.group_users
-    lr = hp["learn_rate"]
-    blr, bias_reg = hp["bias_learn_rate"], hp["bias_reg"]
-    gb, min_rating, rng = hp["global_bias"], hp["min_rating"], \
-        hp["rating_range"]
-    user_reg, item_reg, y_reg = (regs[k].to(dtype)
-                                 for k in ("user_reg", "item_reg", "y_reg"))
+    user_reg = regs["user_reg"].to(dtype)
     inv_sqrt = inv_sqrt.to(dtype)
-    if x is not None:
-        x_reg = regs["x_reg"].to(dtype)
-        attr_norm = attr_norm.to(dtype)
+    item = _item_side(params, regs, dtype, attr_norm)
     if group_ids is None:
         group_ids = range(groups.ngroups)
     with exact_float32():
@@ -190,66 +211,181 @@ def svdpp_epoch_grouped(params, groups: SvdppGroups, inv_sqrt, hp, regs, *,
             rows = min(G, U - u0)
             if rows <= 0:
                 continue
-            e_lo, e_hi = int(groups.e_off[g]), int(groups.e_off[g + 1])
-            e_u = groups.e_user[e_lo:e_hi] - u0
-            e_i = groups.e_item[e_lo:e_hi]
-            # the implicit vectors s of the group's users, fixed for the
-            # group
-            inv = inv_sqrt[u0:u0 + rows]
-            s = torch.zeros((rows, f), dtype=dtype, device=q.device)
-            s.index_add_(0, e_u, y[e_i])
-            s = s * inv[:, None]
-            bu_slab = bias_u[u0:u0 + rows]           # views: in place
-            p_slab = p_mat[u0:u0 + rows] if p_mat is not None else None
-            u_reg_slab = user_reg[u0:u0 + rows]
-            c_acc = torch.zeros((rows, f), dtype=dtype, device=q.device)
-            n_acc = torch.zeros(rows, dtype=dtype, device=q.device)
-            for a, b in groups.chunks(g):
-                ru = groups.r_user[a:b] - u0
-                ri = groups.r_item[a:b]
-                rv = groups.r_value[a:b].to(dtype)
-                su = s[ru] + p_slab[ru] if p_slab is not None else s[ru]
-                qi_raw = q[ri]
-                if x is not None:
-                    # gSVD++ (GSVDPlusPlus.cs:115-128): q_i plus the mean
-                    # of the item's attribute factors
-                    a_rows = attr_norm[ri]
-                    qi = qi_raw + a_rows @ x
-                else:
-                    qi = qi_raw
-                bu, bi = bu_slab[ru], bias_i[ri]
-                score = gb + bu + bi + (su * qi).sum(dim=-1)
-                if sigmoid:
-                    sig = torch.sigmoid(score)
-                    gcom = gradient_common(loss, rv - (min_rating + sig * rng),
-                                           sig, rng)
-                else:
-                    gcom = rv - score
-                u_reg, i_reg = u_reg_slab[ru], item_reg[ri]
-                if update_user:
-                    bu_slab.index_add_(0, ru, blr * lr * (
-                        gcom - bias_reg * u_reg * bu))
-                if update_item:
-                    bias_i.index_add_(0, ri, blr * lr * (
-                        gcom - bias_reg * i_reg * bi))
-                if p_slab is not None and update_user:
-                    d_p = gcom[:, None] * qi - u_reg[:, None] * p_slab[ru]
-                    seg = torch.zeros_like(p_slab).index_add_(0, ru, d_p)
-                    p_slab.add_(lr * seg)
-                if update_item:
-                    # the reg term reads the raw q row (GSVDPlusPlus.cs:159)
-                    d_q = gcom[:, None] * su - i_reg[:, None] * qi_raw
-                    q.index_add_(0, ri, lr * d_q)
-                    if x is not None:
-                        # x update (GSVDPlusPlus.cs:163-174)
-                        d_x = a_rows.T @ (gcom[:, None] * su)
-                        occ = torch.sign(a_rows).sum(dim=0)
-                        d_x = d_x - (occ * x_reg)[:, None] * x
-                        x.add_(lr * d_x)
-                    c_acc.index_add_(0, ru, (gcom * inv[ru])[:, None] * qi)
-                    n_acc.index_add_(0, ru, torch.ones_like(gcom))
-            if update_item:
-                # y moves once per group, through the edges
-                d_y = c_acc[e_u] - (n_acc[e_u] * y_reg[e_i])[:, None] * y[e_i]
-                y.index_add_(0, e_i, lr * d_y)
+            user = dict(bias=bias_u[u0:u0 + rows],            # views
+                        p=p_mat[u0:u0 + rows] if p_mat is not None else None,
+                        reg=user_reg[u0:u0 + rows], inv=inv_sqrt[u0:u0 + rows])
+            _group_step(groups, g, user, item, hp, loss=loss,
+                        sigmoid=sigmoid, update_user=update_user,
+                        update_item=update_item)
+    return params
+
+
+def _item_side(params, regs, dtype, attr_norm=None) -> dict:
+    """The item-side tables a group step reads and updates in place, and
+    their regularization: item_bias, q, y, item_reg, y_reg (and x,
+    attr_norm, x_reg for gSVD++)."""
+    item = dict(bias=params["item_bias"], q=params["item_factors"],
+                y=params["y"], reg=regs["item_reg"].to(dtype),
+                y_reg=regs["y_reg"].to(dtype), x=None)
+    if attr_norm is not None:
+        item.update(x=params["x"], attr=attr_norm.to(dtype),
+                    x_reg=regs["x_reg"].to(dtype))
+    return item
+
+
+def _group_step(groups: SvdppGroups, g: int, user: dict, item: dict, hp, *,
+                loss: int, sigmoid: bool, update_user: bool,
+                update_item: bool):
+    """Group g of ``groups``: its users' implicit vectors s from y, fixed
+    for the group; its ratings in chunks, each one minibatch step on the
+    user slab (``user``: bias, p, reg and inv, views of the group's
+    rows) and on the item tables (``item``, in place); then y once,
+    through the group's edges."""
+    q, y, bias_i, x = item["q"], item["y"], item["bias"], item["x"]
+    item_reg, y_reg = item["reg"], item["y_reg"]
+    bu_slab, p_slab, u_reg_slab, inv = (user[k] for k in
+                                        ("bias", "p", "reg", "inv"))
+    rows, f = bu_slab.shape[0], q.shape[1]
+    dtype = q.dtype
+    u0 = (groups.first_group + g) * groups.group_users
+    lr = hp["learn_rate"]
+    blr, bias_reg = hp["bias_learn_rate"], hp["bias_reg"]
+    gb, min_rating, rng = hp["global_bias"], hp["min_rating"], \
+        hp["rating_range"]
+    e_lo, e_hi = int(groups.e_off[g]), int(groups.e_off[g + 1])
+    e_u = groups.e_user[e_lo:e_hi] - u0
+    e_i = groups.e_item[e_lo:e_hi]
+    # the implicit vectors s of the group's users, fixed for the group
+    s = torch.zeros((rows, f), dtype=dtype, device=q.device)
+    s.index_add_(0, e_u, y[e_i])
+    s = s * inv[:, None]
+    c_acc = torch.zeros((rows, f), dtype=dtype, device=q.device)
+    n_acc = torch.zeros(rows, dtype=dtype, device=q.device)
+    for a, b in groups.chunks(g):
+        ru = groups.r_user[a:b] - u0
+        ri = groups.r_item[a:b]
+        rv = groups.r_value[a:b].to(dtype)
+        su = s[ru] + p_slab[ru] if p_slab is not None else s[ru]
+        qi_raw = q[ri]
+        if x is not None:
+            # gSVD++ (GSVDPlusPlus.cs:115-128): q_i plus the mean of the
+            # item's attribute factors
+            a_rows = item["attr"][ri]
+            qi = qi_raw + a_rows @ x
+        else:
+            qi = qi_raw
+        bu, bi = bu_slab[ru], bias_i[ri]
+        score = gb + bu + bi + (su * qi).sum(dim=-1)
+        if sigmoid:
+            sig = torch.sigmoid(score)
+            gcom = gradient_common(loss, rv - (min_rating + sig * rng),
+                                   sig, rng)
+        else:
+            gcom = rv - score
+        u_reg, i_reg = u_reg_slab[ru], item_reg[ri]
+        if update_user:
+            bu_slab.index_add_(0, ru, blr * lr * (
+                gcom - bias_reg * u_reg * bu))
+        if update_item:
+            bias_i.index_add_(0, ri, blr * lr * (
+                gcom - bias_reg * i_reg * bi))
+        if p_slab is not None and update_user:
+            d_p = gcom[:, None] * qi - u_reg[:, None] * p_slab[ru]
+            seg = torch.zeros_like(p_slab).index_add_(0, ru, d_p)
+            p_slab.add_(lr * seg)
+        if update_item:
+            # the reg term reads the raw q row (GSVDPlusPlus.cs:159)
+            d_q = gcom[:, None] * su - i_reg[:, None] * qi_raw
+            q.index_add_(0, ri, lr * d_q)
+            if x is not None:
+                # x update (GSVDPlusPlus.cs:163-174)
+                d_x = a_rows.T @ (gcom[:, None] * su)
+                occ = torch.sign(a_rows).sum(dim=0)
+                d_x = d_x - (occ * item["x_reg"])[:, None] * x
+                x.add_(lr * d_x)
+            c_acc.index_add_(0, ru, (gcom * inv[ru])[:, None] * qi)
+            n_acc.index_add_(0, ru, torch.ones_like(gcom))
+    if update_item:
+        # y moves once per group, through the edges
+        d_y = c_acc[e_u] - (n_acc[e_u] * y_reg[e_i])[:, None] * y[e_i]
+        y.index_add_(0, e_i, lr * d_y)
+
+
+def shard_groups(mesh, groups: SvdppGroups) -> list:
+    """Each mesh device's contiguous range of groups, as a layout on that
+    device (``SvdppGroups.slice``)."""
+    D = mesh.size
+    if groups.ngroups % D:
+        raise ValueError("ngroups must be a multiple of the mesh devices "
+                         "(prepare_groups(pad_groups_multiple=D))")
+    gl = groups.ngroups // D
+    return [groups.slice(d * gl, (d + 1) * gl, dev)
+            for d, dev in enumerate(mesh.devices)]
+
+
+def svdpp_epoch_sharded(mesh, params, groups, inv_sqrt, hp, regs, *,
+                        loss: int, sigmoid: bool, use_p: bool,
+                        update_user: bool = True, update_item: bool = True):
+    """One pass over the user groups on the mesh, in place on ``params``
+    (the tables of ``svdpp_epoch_grouped``, without gSVD++; JAX:
+    ``svdpp_epoch_sharded``). ``groups``: a layout whose ngroups the
+    mesh devices divide, or ``shard_groups``' list. Device d owns groups
+    [d * groups_local, (d + 1) * groups_local) and their users' rows;
+    step g runs group d * groups_local + g on every device d from the
+    same item tables, each device on private copies of item_bias, q and
+    y, which merge as start + the sum of the devices' deltas at the end
+    of the step."""
+    mesh.one_process("svdpp_epoch_sharded")
+    shards = groups if isinstance(groups, list) else \
+        shard_groups(mesh, groups)
+    gl = shards[0].ngroups
+    G = shards[0].group_users
+    D = mesh.size
+    dtype = params["item_factors"].dtype
+    U = params["user_bias"].shape[0]
+    rows = D * gl * G
+
+    def user_shards(t):
+        t = t.to(dtype)
+        pad = rows - t.shape[0]
+        if pad > 0:
+            t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+        return mesh.shard_rows(t[:rows])
+    keys = ("user_bias", "p") if use_p else ("user_bias",)
+    u_sh = {k: user_shards(params[k]) for k in keys}
+    reg_sh = user_shards(regs["user_reg"])
+    inv_sh = user_shards(inv_sqrt)
+    start = {k: params[k] for k in ("item_bias", "item_factors", "y")}
+    reps = {k: mesh.replicate(v) for k, v in start.items()}
+    item_regs = {k: mesh.replicate(regs[k].to(dtype))
+                 for k in ("item_reg", "y_reg")}
+    with exact_float32():
+        for g in range(gl):
+            private = []
+            for d in range(D):
+                lg = shards[d]
+                if lg.r_off[g + 1] == lg.r_off[g] and \
+                        lg.e_off[g + 1] == lg.e_off[g]:
+                    private.append(None)
+                    continue
+                sl = slice(g * G, (g + 1) * G)
+                user = dict(bias=u_sh["user_bias"][d][sl],
+                            p=u_sh["p"][d][sl] if use_p else None,
+                            reg=reg_sh[d][sl], inv=inv_sh[d][sl])
+                mine = {k: reps[k][d].clone() for k in reps}
+                item = dict(bias=mine["item_bias"], q=mine["item_factors"],
+                            y=mine["y"], reg=item_regs["item_reg"][d],
+                            y_reg=item_regs["y_reg"][d], x=None)
+                _group_step(lg, g, user, item, hp, loss=loss,
+                            sigmoid=sigmoid, update_user=update_user,
+                            update_item=update_item)
+                private.append(mine)
+            if update_item and any(p is not None for p in private):
+                for k in reps:
+                    reps[k] = mesh.merge_deltas(
+                        reps[k][0], [p[k] for p in private if p is not None])
+    for k in reps:
+        params[k].copy_(reps[k][0].to(params[k].device))
+    for k in keys:
+        params[k].copy_(mesh.gather_rows(u_sh[k], params[k].device)[:U])
     return params

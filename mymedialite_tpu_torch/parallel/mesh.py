@@ -16,13 +16,30 @@ distinct cards. A list may name one device more than once: ``["cpu"] *
 
 Each device holds a contiguous block of rows of a row-sharded table
 (``shard_rows``); ``gather_rows`` puts the blocks back together on one
-device. The multi-host functions of the JAX module (``:69-127``) are not
-ported yet (ROADMAP A9b).
+device. A replicated table that every device updates within a step is
+merged as the JAX package's ``start + psum(table - start)``:
+``merge_deltas`` sums whole-table deltas, ``merge_rows`` the touched
+rows only (``index_add_``), so that a large table is never differenced
+whole per minibatch. A device never updates its replica in place
+(``replicate`` shares one copy among the entries of a repeated device):
+it works on a private copy or on deltas against the start.
+
+The multi-host functions (JAX ``:69-143``) run on ``torch.distributed``:
+``initialize_distributed`` reads the same ``JAX_COORDINATOR``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` variables, and a mesh of
+several processes (``make_global_mesh``) holds each process's local
+devices; its merges sum over the local devices first, then across the
+processes with ``all_reduce``. By default a process drives its share of
+its host's cards (``local_devices``: the cards split by ``LOCAL_RANK``),
+so that no two ranks drive one card, and the backend is NCCL where that
+share is not empty, gloo otherwise (NCCL refuses two ranks on one card;
+gloo reduces CUDA tensors but gathers only on the host).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -33,17 +50,80 @@ log = logging.getLogger("mymedialite_tpu_torch")
 class Mesh:
     """An ordered list of devices; position d is mesh device d."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, process_index: int = 0,
+                 process_count: int = 1):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.process_index = process_index
+        self.process_count = process_count
 
     @property
     def size(self) -> int:
+        """The devices of this process."""
         return len(self.devices)
 
+    @property
+    def global_size(self) -> int:
+        """The devices of every process (each holds ``size``)."""
+        return self.size * self.process_count
+
+    @property
+    def first_device(self) -> int:
+        """The global index of this process's first device."""
+        return self.process_index * self.size
+
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]})"
+        procs = (f", process {self.process_index} of {self.process_count}"
+                 if self.process_count > 1 else "")
+        return f"Mesh({[str(d) for d in self.devices]}{procs})"
+
+    def one_process(self, what: str):
+        """Raise unless the mesh is one process's: ``what`` runs across
+        processes not yet (ROADMAP A9b)."""
+        if self.process_count > 1:
+            raise NotImplementedError(
+                f"{what} runs on one process's mesh; across processes only "
+                "the blocked MF epoch does (ops/sgd.py "
+                "sgd_epoch_blocked_sharded)")
+
+    def sum_over_processes(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the processes, in place (``all_reduce``); a
+        CUDA tensor goes through the host under gloo."""
+        if self.process_count > 1:
+            import torch.distributed as dist
+            if t.device.type == "cuda" and dist.get_backend() != "nccl":
+                host = t.cpu()
+                dist.all_reduce(host)
+                t.copy_(host)
+            else:
+                dist.all_reduce(t)
+        return t
+
+    def merge_deltas(self, start: torch.Tensor, tables) -> list:
+        """The JAX package's ``start + psum(table - start)`` over the
+        devices' ``tables`` (each a private copy updated from ``start``),
+        replicated on every mesh device."""
+        home = start.device
+        total = torch.zeros_like(start)
+        for t in tables:
+            total += t.to(home) - start
+        return self.replicate(start + self.sum_over_processes(total))
+
+    def merge_rows(self, replicas, parts) -> list:
+        """Add every device's touched-row deltas ``parts`` (a list of
+        (rows, deltas) pairs) to each distinct copy of ``replicas``, in
+        device order, so that the copies stay equal; returns them."""
+        self.one_process("merge_rows")
+        seen = set()
+        for copy in replicas:
+            if id(copy) in seen:
+                continue
+            seen.add(id(copy))
+            for rows, delta in parts:
+                copy.index_add_(0, rows.to(copy.device),
+                                delta.to(copy.device, copy.dtype))
+        return list(replicas)
 
     def replicate(self, t) -> list:
         """One copy of ``t`` on each mesh device (``t`` itself where it
@@ -125,6 +205,142 @@ def make_mesh(num_devices: int = None, devices=None) -> Mesh:
     return Mesh([f"cuda:{i}" for i in range(n)])
 
 
+# ---------------------------------------------------------------------------
+# multi-host: torch.distributed
+# ---------------------------------------------------------------------------
+#
+# Every process runs the same program and calls initialize_distributed()
+# first; a global mesh then spans the processes, each driving its local
+# devices. A process loads only its slice of the input (host_local_rows)
+# and shards it over its devices (shard_host_local). One process is the
+# fallback: initialize_distributed() returns False and the global mesh
+# is make_mesh()'s.
+
+def initialize_distributed(coordinator_address=None, num_processes=None,
+                           process_id=None, backend=None) -> bool:
+    """Join the process group (``torch.distributed.init_process_group``
+    over ``tcp://coordinator_address``). The arguments default to
+    ``JAX_COORDINATOR`` (``host:port``), ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``, as in the JAX package. Returns False, and
+    initializes nothing, where the configuration says one process.
+    ``backend`` defaults to NCCL where each process of this host gets
+    cards of its own from ``local_devices``, else gloo; pass "gloo"
+    where ranks are given devices that repeat a card."""
+    coordinator_address = coordinator_address or \
+        os.environ.get("JAX_COORDINATOR")
+    if num_processes is None:
+        num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
+    if process_id is None:
+        process_id = int(os.environ.get("JAX_PROCESS_ID", "0"))
+    if num_processes <= 1 or coordinator_address is None:
+        return False
+    import torch.distributed as dist
+    if backend is None:
+        backend = default_backend(process_id, num_processes)
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id)
+    return True
+
+
+def _processes():
+    """(this process's index, the process count)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _local_processes(rank: int, world: int):
+    """(this process's index on its host, the processes on its host):
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` (torchrun's variables), else
+    every process taken to be on this host."""
+    return (int(os.environ.get("LOCAL_RANK", rank)),
+            int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+
+
+def local_devices(rank: int = None, world: int = None) -> list:
+    """This process's cards: the visible cards in equal contiguous
+    blocks, one for each process of the host, block ``LOCAL_RANK``
+    (``_local_processes``; rank and world default to the process
+    group's). One process gets every card. Raises where the host has
+    fewer cards than processes: pass the devices then."""
+    r, w = _processes()
+    lr, lw = _local_processes(r if rank is None else rank,
+                              w if world is None else world)
+    count = torch.cuda.device_count()
+    per = count // max(lw, 1)
+    if per < 1:
+        raise ValueError(
+            f"{count} CUDA devices for {lw} processes on this host: pass "
+            "each process its devices (make_global_mesh(devices=...))")
+    return [f"cuda:{i}" for i in range(lr * per, (lr + 1) * per)]
+
+
+def default_backend(process_id: int, num_processes: int) -> str:
+    """NCCL where CUDA is there and ``local_devices`` gives each process
+    of the host a card of its own, else gloo."""
+    _, lw = _local_processes(process_id, num_processes)
+    return ("nccl" if torch.cuda.is_available()
+            and torch.cuda.device_count() >= lw else "gloo")
+
+
+def make_global_mesh(devices=None) -> Mesh:
+    """The mesh over every process's devices: this process drives
+    ``devices`` (default ``local_devices()``, its share of the host's
+    cards); identical to ``make_mesh`` in one process."""
+    if devices is None:
+        devices = local_devices()
+    rank, world = _processes()
+    return Mesh(devices, process_index=rank, process_count=world)
+
+
+def host_local_rows(num_rows: int, process_id: int = None,
+                    num_processes: int = None):
+    """[start, stop) of the rows this process loads: the group axis split
+    contiguously over the processes (JAX ``host_local_rows``)."""
+    rank, world = _processes()
+    pid = rank if process_id is None else process_id
+    n = world if num_processes is None else num_processes
+    per = (num_rows + n - 1) // n
+    return pid * per, min((pid + 1) * per, num_rows)
+
+
+def shard_host_local(mesh: Mesh, host_rows) -> list:
+    """This process's rows (``host_local_rows`` of the global array; in
+    one process the whole array) in row blocks over its devices."""
+    return mesh.shard_rows(torch.as_tensor(np.asarray(host_rows)))
+
+
+def gather_global_rows(mesh: Mesh, shards) -> torch.Tensor:
+    """Every process's row blocks, in global order, on the host (gloo
+    gathers only host tensors)."""
+    local = mesh.gather_rows(shards, "cpu")
+    if mesh.process_count == 1:
+        return local
+    import torch.distributed as dist
+    parts = [torch.empty_like(local) for _ in range(mesh.process_count)]
+    if dist.get_backend() == "nccl":
+        dev = mesh.devices[0]
+        cuda_parts = [p.to(dev) for p in parts]
+        dist.all_gather(cuda_parts, local.to(dev))
+        parts = [p.cpu() for p in cuda_parts]
+    else:
+        dist.all_gather(parts, local)
+    return torch.cat(parts)
+
+
+def shard_mf_params(params: dict, mesh: Mesh) -> dict:
+    """Row shards of every table and vector of an MF-family params dict
+    (padded to a multiple of the devices), replicas of every scalar
+    (JAX ``shard_mf_params``)."""
+    out = {}
+    for name, value in params.items():
+        t = torch.as_tensor(np.asarray(value) if not isinstance(
+            value, torch.Tensor) else value)
+        out[name] = mesh.shard_rows(t) if t.dim() >= 1 else mesh.replicate(t)
+    return out
+
+
 def model_mesh(model) -> Mesh | None:
     """The mesh a model trains on: its ``mesh`` attribute where that
     spans more than one device, else None (one device). A model trains
@@ -137,10 +353,12 @@ def model_mesh(model) -> Mesh | None:
 
 def one_device_route(model, route: str, mesh: Mesh):
     """Log that ``model`` takes its one-device ``route`` on a mesh: the
-    route's sharded form is not ported (ROADMAP A9b)."""
-    log.warning("%s: the %s route has no sharded form in the port; it runs "
-             "on one device, not on the %d-device mesh",
-             type(model).__name__, route, mesh.size)
+    route has no sharded form, as in the JAX package (GSVDPlusPlus,
+    frequency-regularized MF, BPR models other than MultiCoreBPRMF past
+    the sharded-tiled bound)."""
+    log.warning("%s: the %s route has no sharded form; it runs on one "
+                "device, not on the %d-device mesh",
+                type(model).__name__, route, mesh.size)
 
 
 def pad_rows_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:

@@ -12,6 +12,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 
@@ -832,3 +834,89 @@ def test_mesh_phase_is_in_main_and_the_line_keeps_six_kernels():
         "phase_mesh_big_catalog(")]
     assert order == sorted(order)
     assert "24." in smoke.__doc__ and "phase 24" in smoke.__doc__
+
+
+def test_plain_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 25 end to end on CPU tensors at small sizes, the rig a mesh
+    of ``["cpu"] * 4``, with the card's clock stood in for and the launch
+    counts not held: (a) each plain mesh op on the rig against the CPU
+    mesh's, WRMF's sharded solves against one device's, the dry run;
+    (d) the two driver processes on gloo against the one-process run;
+    (b) SVDPlusPlus and WRMF with ``model.mesh``, the user side against
+    one device's solves, serving and the data-parallel eval; (c) the
+    sharded minibatch BPR epoch with its window against the CPU."""
+    import contextlib
+    from collections import defaultdict
+
+    import torch
+
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    from mymedialite_tpu_torch.ops import topk as ttopk
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    @contextlib.contextmanager
+    def uncounted(expected):
+        yield defaultdict(int, expected)
+    monkeypatch.setattr(smoke, "counted_path", uncounted)
+    monkeypatch.setattr(smoke, "MESH_CHECK_SHAPE", dict(
+        num_users=300, num_items=400, num_ratings=6000, seed=3))
+    monkeypatch.setattr(smoke, "EVAL_USERS", 100)
+    monkeypatch.setattr(smoke, "AUC_USERS", 100)
+    monkeypatch.setattr(ttopk, "takes_topk_kernel", lambda *a, **k: True)
+    monkeypatch.chdir(REPO)
+    dev = torch.device("cpu")
+    assert smoke.phase_plain_mesh_check(dev) > 0
+
+    train, test = split_ratings(synthetic_ratings(1200, 300, 30_000, seed=1),
+                                0.2, seed=2)
+    svdpp = create_rating_predictor("SVDPlusPlus", "num_factors=20 "
+                                    "num_iter=1 device=cpu")
+    svdpp.ratings = train
+    svdpp.train()
+    smoke.phase_plain_mesh_netflix(dev, train, test, svdpp,
+                                   posonly_from_ratings(train),
+                                   posonly_from_ratings(test))
+    train, test = split_ratings(synthetic_ratings(400, 5000, 16_000, seed=7),
+                                0.2, seed=2)
+    smoke.phase_plain_mesh_big_catalog(
+        dev, posonly_from_ratings(train), posonly_from_ratings(test),
+        {"auc": 0.5, "epoch_ms": 1.0})
+    out = capsys.readouterr().out
+    for text in ("sharded SVD++ epoch (", "WRMF sharded solves (",
+                 "sharded BPR steps (", "sharded blocked MF epoch (",
+                 "data-parallel ranking eval on the rig",
+                 "dryrun paths ok: 1 sharded-blocked-SGD",
+                 "two processes on gloo, each a mesh of [cpu] x 2: ranks "
+                 "equal bit for bit True",
+                 "mesh SVDPlusPlus Netflix-shaped on the rig (sharded "
+                 "grouped epoch)", "mesh WRMF user side (",
+                 "mesh WRMF serving: top-10 of 1024 users",
+                 "mesh WRMF data-parallel ranking eval of 100 users",
+                 "big-catalog sharded BPR: the first 8 steps",
+                 "big-catalog sharded minibatch BPR on the rig",
+                 "phase 25 (a), (d)", "phase 25 (b)", "phase 25 (c)"):
+        assert text in out, text
+
+
+def test_plain_mesh_phase_is_in_main():
+    """Phase 25's parts run from ``main``: (a) and (d) after phase 24 (a),
+    (b) after the WRMF serving pass, (c) after phase 24 (c); its seconds
+    are logged."""
+    import inspect
+    smoke = _smoke_module()
+    main = inspect.getsource(smoke.main)
+    order = [main.index(name) for name in (
+        "phase_mesh_kernel_check(", "phase_plain_mesh_check(",
+        "phase_wrmf_path(", "phase_plain_mesh_netflix(",
+        "phase_mesh_big_catalog(", "phase_plain_mesh_big_catalog(")]
+    assert order == sorted(order)
+    assert "phase 25 (the plain mesh routes)" in main
+    assert "25." in smoke.__doc__

@@ -1,7 +1,7 @@
 """The port's device mesh (``parallel/mesh.py``) on the CPU: the mesh of
 a repeated device, row shards and their gather, replicas, the diagonal
 schedule's ring direction, a mesh only where one is set, and the models
-whose mesh route is not ported (they train on one device and say so)."""
+whose route has no sharded form (they train on one device and say so)."""
 
 import logging
 
@@ -119,9 +119,13 @@ def small_ratings():
                              seed=3)
 
 
-@pytest.mark.parametrize("name", ["SVDPlusPlus", "WRMF"])
+@pytest.mark.parametrize("name", ["SVDPlusPlus", "WRMF", "GSVDPlusPlus"])
 def test_unsharded_models_log_their_one_device_route(name, small_ratings,
                                                      caplog):
+    """Only a route without a sharded form logs that it runs on one
+    device: GSVDPlusPlus does; SVDPlusPlus and WRMF have their sharded
+    routes and log nothing."""
+    from mymedialite_tpu_torch.data.arrays import InteractionData
     from mymedialite_tpu_torch.models.registry import (
         create_item_recommender, create_rating_predictor,
     )
@@ -131,9 +135,12 @@ def test_unsharded_models_log_their_one_device_route(name, small_ratings,
     else:
         m = create_rating_predictor(name)
         m.ratings = small_ratings
+        m.item_attributes = InteractionData(
+            np.arange(50, dtype=np.int32), np.arange(50, dtype=np.int32) % 4)
     configure(m, "num_factors=4 num_iter=1 device=cpu")
     m.mesh = make_mesh(devices=["cpu"] * 2)
     with caplog.at_level(logging.WARNING, logger="mymedialite_tpu_torch"):
         m.train()
-    assert any("no sharded form" in r.message and name in r.message
-               for r in caplog.records)
+    logged = any("no sharded form" in r.message and name in r.message
+                 for r in caplog.records)
+    assert logged is (name == "GSVDPlusPlus")

@@ -15,7 +15,9 @@ BiasedMatrixFactorization with frequency regularization, BPRMF on its
 minibatch epoch, ``--search-hp`` and GSVDPlusPlus; then the last eight
 names trained, the KDD Cup reader, and the rating CLI under
 ``--profile``; BiasedMatrixFactorization and BPRMF trained on a mesh of
-four CPU devices) from the port's own synthetic data, and must exit 0."""
+four CPU devices; the dry run's mesh paths, WRMF's sharded solves and the
+data-parallel ranking eval on four CPU devices, and the multi-process
+module ``parallel/driver.py``) from the port's own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -213,6 +215,20 @@ SCRIPT = textwrap.dedent("""
     assert rating_prediction.main(
         base + ["--profile", f"{d}/trace"]) == 0
     assert any(n.endswith(".pt.trace.json") for n in os.listdir(f"{d}/trace"))
+    # the plain mesh routes: the dry run's paths, WRMF's sharded solves
+    # and the data-parallel eval on four CPU devices, parallel/driver.py
+    from mymedialite_tpu_torch import dryrun
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.parallel import driver  # noqa: F401
+    plan.RESIDENT_ITEM_TABLE_BYTES = 64 << 20
+    dryrun.dryrun_multichip(4, ["cpu"] * 4)
+    model = create_item_recommender("WRMF", "num_factors=6 num_iter=2 "
+                                    "device=cpu")
+    model.mesh = make_mesh(devices=["cpu"] * 4)
+    model.feedback = fb
+    model.train()
+    print("\\nmesh eval", evaluate_items(model, fb, fb,
+                                         repeated_events=True))
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -228,11 +244,13 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count("SVDPlusPlus num_factors=6") == 5
     assert proc.stdout.count("SigmoidSVDPlusPlus num_factors=6") == 1
     assert proc.stdout.count("GSVDPlusPlus num_factors=6") == 2
-    assert proc.stdout.count("AUC") == 23
+    assert proc.stdout.count("AUC") == 24
     assert proc.stdout.count("fold-in RMSE") == 3
     assert proc.stdout.count("\ntrained ") == 8
-    assert proc.stdout.count("\nmesh ") == 2
+    assert proc.stdout.count("\nmesh ") == 3
     assert proc.stdout.count(" sharded [") == 2
+    assert proc.stdout.count("dryrun paths ok: 1 sharded-blocked-SGD") == 1
+    assert proc.stdout.count("\nmesh eval AUC") == 1
     assert "frequency_regularization=True" in proc.stdout
     assert proc.stdout.count("\nUserItemBaseline reg_u=") == 4
     # UserItemBaseline: trained, loaded, then its --search-hp line
