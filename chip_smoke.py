@@ -225,8 +225,18 @@ Phases (any failure raises and the script exits non-zero):
     against one device's within 1e-6, then the dry run
     (``mymedialite_tpu_torch/dryrun.py``) on the rig; (d) meanwhile two
     processes of the multi-process driver (``parallel/driver.py``, gloo,
-    each a mesh of the card named twice) run one sharded blocked MF step:
-    bit for bit equal, within 1e-6 of the one-process 4-device run; (b)
+    each a mesh of the card named twice, one global mesh of 4) run every
+    route of the port's mesh at phase 3's shape beside the driver's
+    one-process run on the 4-device rig: the blocked MF epoch, kernels
+    1-4's sharded epochs (each rank launching its own cells, the
+    partitions passed between the processes), BiasedMF and BPRMF trained
+    on the sharded route, SVDPlusPlus sharded, WRMF, the sharded
+    minibatch BPR epoch, the data-parallel ranking eval and the flat
+    epoch; each route's ranks equal bit for bit, within 1e-5 of the
+    one-process run (1e-6 for the blocked epoch and WRMF), and each
+    rank's kernel cells within 1e-4 of its plain cells over the same ring
+    with identical negatives; each rank's cells launched and ms per
+    route logged; (b)
     after phase 11a, on phase 6's data: SVDPlusPlus (k=20, 2 epochs,
     transductive, groups of 128 users: 4 of them one device's default
     group) with ``model.mesh`` on the sharded grouped epoch (ms an
@@ -893,13 +903,20 @@ def phase_bpr_kernel_check(dev):
     return worst
 
 
+def draw_device():
+    """Where the big data draws search and de-duplicate
+    (``synthetic_ratings(device=...)``, the same data): the card, else
+    the CPU."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
 def shaped_ratings(name, **shape):
     """Synthetic ratings of the given shape, split 80/20."""
     from mymedialite_tpu_torch.data.synthetic import (
         split_ratings, synthetic_ratings,
     )
     t0 = time.perf_counter()
-    data = synthetic_ratings(**shape)
+    data = synthetic_ratings(**shape, device=draw_device())
     train, test = split_ratings(data, 0.2, seed=2)
     log(f"{name} data: {data.num_users} users x {data.num_items} items, "
         f"{len(data)} pairs, {len(train)} train / {len(test)} test, "
@@ -3349,7 +3366,7 @@ def phase_time_aware(dev):
 
     t0 = time.perf_counter()
     data = synthetic_ratings(**TIME_AWARE_SHAPE, with_times=True,
-                             time_drift=1.0)
+                             time_drift=1.0, device=draw_device())
     train, test = chronological_split_ratio(data, 0.2)
     del data
     baseline = global_average_rmse(train, test)
@@ -3433,8 +3450,8 @@ def phase_social_mf(dev):
 
     for label, (shape, iters) in SOCIAL_SHAPES.items():
         t0 = time.perf_counter()
-        data, (P, _q, _bu, _bi) = synthetic_ratings(**shape,
-                                                    return_factors=True)
+        data, (P, _q, _bu, _bi) = synthetic_ratings(
+            **shape, return_factors=True, device=draw_device())
         train, test = split_ratings(data, 0.1, seed=shape["seed"] + 1)
         u, v = planted_trust(P, TRUST_K, dev)
         U = shape["num_users"]
@@ -3743,7 +3760,7 @@ def phase_last_clis(dev, tmp, files, item_files):
     t0 = time.perf_counter()
     on = f"device={dev.type}"
     data = synthetic_ratings(**TIMED_CLI_SHAPE, with_times=True,
-                             time_drift=1.0)
+                             time_drift=1.0, device=draw_device())
     train, test = split_ratings(data, 0.1, seed=TIMED_CLI_SHAPE["seed"] + 1)
     timed = []
     for name, part in (("timed_train", train), ("timed_test", test)):
@@ -4590,53 +4607,97 @@ def plain_check(err, what, tol=PLAIN_MESH_TOL):
         raise AssertionError(f"{what}: {err} past {tol}")
 
 
+# the driver's data: phase 3's shape (``parallel/driver.py SHAPES``)
+DRIVER_SHAPE = "check"
+# the two ranks against the one-process rig run, route by route: kernels
+# 1-4's float atomics fix no order of a sum; the plain routes keep the
+# tolerances of (a) (WRMF's solves and the blocked epoch, 1e-6)
+DRIVER_TOL = dict(blocked=1e-6, wrmf=WRMF_MESH_TOL)
+KERNEL_CELL_TOL = 1e-4     # a rank's kernel cells against its plain cells
+
+
 def start_driver_pair(device: str):
     """The two ranks of the multi-process driver (``parallel/driver.py``
-    dist), started in the background: (processes, port, output paths)."""
+    dist, every route) and its one-process 4-device run (``single``),
+    started together in the background: (processes, port, output
+    paths), the ranks' first."""
     import socket
     s = socket.socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
     s.close()
     tmp = tempfile.mkdtemp(prefix="mml-driver-")
-    outs = [os.path.join(tmp, f"p{i}.npy") for i in range(2)]
+    outs = [os.path.join(tmp, f"{n}.npz") for n in ("p0", "p1", "ref")]
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    modes = [("dist", 0), ("dist", 1), ("single", 0)]
     procs = [subprocess.Popen(
         [sys.executable, "-m", "mymedialite_tpu_torch.parallel.driver",
-         "dist", str(port), str(i), outs[i], "--device", device],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
-        for i in range(2)]
+         mode, str(port), str(pid), out, "--device", device, "--shape",
+         DRIVER_SHAPE], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env) for (mode, pid), out in zip(modes, outs)]
     return procs, port, outs
 
 
 def finish_driver_pair(procs, port, outs, device: str):
-    """(d) Wait for the two ranks (gloo, 2 devices each), then run the
-    one-process 4-device run on the same data here; the ranks agree bit
-    for bit and agree with it to 1e-6."""
-    from mymedialite_tpu_torch.parallel.driver import run
+    """(d) Wait for the two ranks (gloo, 2 devices each) and the
+    one-process run on 4; every route three ways: the ranks equal bit for
+    bit, the ranks against the one-process run (``DRIVER_TOL``, else 1e-5),
+    each rank's kernel cells against its plain cells over the same ring
+    (``KERNEL_CELL_TOL``; the negatives identical, checked in the rank).
+    Logs each rank's cells launched and ms per route."""
+    from mymedialite_tpu_torch.parallel.driver import (
+        KERNEL_ROUTES, ROUTES, compare,
+    )
     try:
-        texts = [p.communicate(timeout=300)[0].decode() for p in procs]
+        texts = [p.communicate(timeout=600)[0].decode() for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for i, (p, text) in enumerate(zip(procs, texts)):
-        if p.returncode != 0 or f"driver-ok dist {i}" not in text:
-            raise AssertionError(f"driver rank {i} failed:\n{text[-3000:]}")
-    ref = os.path.join(os.path.dirname(outs[0]), "ref.npy")
-    with contextlib.redirect_stdout(io.StringIO()):
-        run("single", port, 0, ref, device)
-    a, b, r = (np.load(x) for x in outs + [ref])
-    shutil.rmtree(os.path.dirname(ref), ignore_errors=True)
-    gap = float(np.abs(a - r).max())
-    log(f"two processes on gloo, each a mesh of [{device}] x 2: ranks "
-        f"equal bit for bit {np.array_equal(a, b)}; against the one-process "
-        f"4-device run: max_abs_err {gap:.3e} (tol 1e-6)")
-    if not np.array_equal(a, b):
-        raise AssertionError("the two ranks disagree")
-    if not gap <= 1e-6:
-        raise AssertionError(f"two processes vs one: {gap} > 1e-6")
+    for p, text, who in zip(procs, texts, ("rank 0", "rank 1", "single")):
+        if p.returncode != 0 or "driver-ok" not in text:
+            raise AssertionError(f"driver {who} failed:\n{text[-3000:]}")
+    a, b, r = (np.load(x) for x in outs)
+    shutil.rmtree(os.path.dirname(outs[0]), ignore_errors=True)
+    card = card_line() if device.startswith("cuda") else device
+    result = compare([a, b], r)
+    if sorted(result) != sorted(ROUTES):
+        raise AssertionError(f"driver routes {sorted(result)}")
+    for route in ROUTES:
+        equal, gap = result[route]
+        tol = DRIVER_TOL.get(route, PLAIN_MESH_TOL)
+        parts = [f"ranks equal bit for bit {equal}",
+                 f"against the one-process 4-device run {gap:.3e} (tol "
+                 f"{tol})"]
+        for i, rank in enumerate((a, b)):
+            part = f"rank {i} {float(rank[f'ms/{route}']):.1f} ms"
+            if route in KERNEL_ROUTES:
+                part += (f", {int(rank[f'launches/{route}'])} cells of "
+                         f"{KERNEL_ROUTES[route]}")
+            if f"plain_err/{route}" in rank.files:
+                err = float(rank[f"plain_err/{route}"])
+                part += f", cells vs plain {err:.3e} (tol {KERNEL_CELL_TOL})"
+                if not err <= KERNEL_CELL_TOL:
+                    raise AssertionError(f"driver {route} rank {i}: cells "
+                                         f"vs plain {err}")
+            parts.append(part)
+        parts.append(f"one process {float(r[f'ms/{route}']):.1f} ms")
+        log(f"two gloo processes, each a mesh of [{device}] x 2 ({card}), "
+            f"route {route}: " + "; ".join(parts))
+        if not equal:
+            raise AssertionError(f"driver {route}: the two ranks disagree")
+        if not gap <= tol:
+            raise AssertionError(f"driver {route}: two processes vs one: "
+                                 f"{gap} > {tol}")
+    if device.startswith("cuda"):
+        for route, kernel in KERNEL_ROUTES.items():
+            if not all(int(x[f"launches/{route}"]) > 0 for x in (a, b)):
+                raise AssertionError(f"driver {route}: a rank launched no "
+                                     f"cell of {kernel}")
+    log(f"two processes on gloo, each a mesh of [{device}] x 2: every "
+        f"route's ranks equal bit for bit and within tolerance of one "
+        f"process ({len(ROUTES)} routes)")
 
 
 def phase_plain_mesh_check(dev):
@@ -4645,7 +4706,8 @@ def phase_plain_mesh_check(dev):
     sharded SVD++ epoch, the sharded BPR steps on fixed triples, the
     sharded blocked MF epoch, the data-parallel ranking eval; the WRMF
     sharded solves against one device's on the card (1e-6); the dry run
-    on the rig; two driver processes on gloo. Returns the seconds."""
+    on the rig; the driver's two processes on gloo, every route. Returns
+    the seconds."""
     from mymedialite_tpu_torch import dryrun
     from mymedialite_tpu_torch.data.synthetic import (
         posonly_from_ratings, split_ratings, synthetic_ratings,

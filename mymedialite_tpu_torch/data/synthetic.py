@@ -4,8 +4,10 @@ The same generator, with the same seeds giving the same ratings, as
 ``mymedialite_tpu/data/synthetic.py`` ``synthetic_ratings`` and
 ``split_ratings`` (``tests/test_torch_data.py`` holds the two equal):
 Zipf-like item popularity, log-normal user activity, a low-rank plus
-biases score on a half-star 1..5 scale. Numpy only; the ratings are
-``RatingData``, the dataset type the port's models and CLI take.
+biases score on a half-star 1..5 scale. Numpy draws the random numbers;
+the rating draws' searches and de-duplication run in torch on ``device``
+(the CPU by default); the ratings are ``RatingData``, the dataset type
+the port's models and CLI take.
 
 ``synthetic_ratings`` also draws timestamps (``with_times``) with a
 per-item linear drift (``time_drift``), the planted factors
@@ -21,15 +23,38 @@ does, with the same seeds.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mymedialite_tpu_torch.data.arrays import PosOnlyData, RatingData
+
+
+def _choice(rng, n: int, size: int, p, device):
+    """``rng.choice(n, size=size, p=p)``, its search of the cumulative
+    distribution run with ``torch.searchsorted`` on ``device``: numpy's
+    algorithm (``cumsum``, normalised by the last entry, ``random``, a
+    right-sided search), the same draws."""
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    u = torch.from_numpy(rng.random(size)).to(device)
+    return torch.searchsorted(torch.from_numpy(cdf).to(device), u,
+                              right=True)
+
+
+def _first_occurrences(users, items, num_items: int):
+    """The indices of each distinct (user, item)'s first draw, ascending:
+    ``np.sort(np.unique(keys, return_index=True)[1])``, by a stable sort
+    where the draws lie."""
+    sorted_keys, perm = torch.sort(users * num_items + items, stable=True)
+    head = torch.ones_like(sorted_keys, dtype=torch.bool)
+    head[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return torch.sort(perm[head]).values
 
 
 def synthetic_ratings(num_users: int = 943, num_items: int = 1682,
                       num_ratings: int = 100_000, rank: int = 8,
                       noise: float = 0.6, seed: int = 42,
                       with_times: bool = False, time_drift: float = 0.0,
-                      return_factors: bool = False):
+                      return_factors: bool = False, device="cpu"):
     """``num_ratings`` draws of (user, item), de-duplicated (first
     occurrence kept), rated by a planted rank-``rank`` model plus biases
     and Gaussian noise of std ``noise``.
@@ -39,18 +64,20 @@ def synthetic_ratings(num_users: int = 943, num_items: int = 1682,
     draw without times; ``time_drift`` > 0 then adds a per-item linear
     drift of that size over the time span (the time-aware baselines'
     signal). ``return_factors`` returns (data, (P, Q, b_u, b_i)), the
-    planted model (e.g. for a trust graph that agrees with it)."""
+    planted model (e.g. for a trust graph that agrees with it).
+    ``device`` (a torch device) runs the draws' searches and the
+    de-duplication, with the same result anywhere: at tens of millions of
+    draws they are most of the host's time, so the card may take them."""
     rng = np.random.default_rng(seed)
     item_p = 1.0 / np.arange(1, num_items + 1) ** 0.8
     item_p /= item_p.sum()
     user_p = rng.lognormal(0.0, 1.0, num_users)
     user_p /= user_p.sum()
-    users = rng.choice(num_users, size=num_ratings, p=user_p).astype(np.int32)
-    items = rng.choice(num_items, size=num_ratings, p=item_p).astype(np.int32)
-    _, first = np.unique(users.astype(np.int64) * num_items + items,
-                         return_index=True)
-    first = np.sort(first)
-    users, items = users[first], items[first]
+    users = _choice(rng, num_users, num_ratings, user_p, device)
+    items = _choice(rng, num_items, num_ratings, item_p, device)
+    first = _first_occurrences(users, items, num_items)
+    users, items = (t[first].cpu().numpy().astype(np.int32)
+                    for t in (users, items))
     n = users.size
 
     P = rng.normal(0, 1.0 / np.sqrt(rank), (num_users, rank))

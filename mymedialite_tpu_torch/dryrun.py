@@ -11,14 +11,15 @@ package's), on the port's one-controller mesh (``parallel/mesh.py``):
   first n visible cards, or ``devices``, e.g. ``["cpu"] * 8`` or a rig of
   one card named n times) and one step of each path the JAX dry run
   runs, each asserting what JAX's asserts: 1 the sharded blocked MF
-  epoch, 3 the sharded minibatch BPR epoch, 4 the sharded ALS solves, 5
+  epoch, 2 the flat epoch data-parallel over the mesh
+  (``sgd_epoch_sharded_flat``, the JAX dry run's flat epoch under XLA's
+  SPMD partitioner, which no model calls), 3 the sharded minibatch BPR
+  epoch, 4 the sharded ALS solves, 5
   SVDPlusPlus on the sharded grouped epoch through ``train()``, 6
   cross-validation folds on the mesh, 7 the multi-host functions in one
   process, 8 the sharded DSGD epoch of kernel 1, 9-10 BiasedMF and BPRMF
   on their sharded kernel routes through ``train()``, 11-12 on the
-  sharded-tiled ones. Path 2 of the JAX dry run (the flat epoch under
-  XLA's SPMD partitioner, which no model calls) is not ported. Prints
-  one summary line.
+  sharded-tiled ones. Prints one summary line.
 
     python -m mymedialite_tpu_torch.dryrun [N] [--cpu]
 
@@ -127,6 +128,28 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     sgd.sgd_epoch_blocked_sharded(mesh, W1, H1, data, orders, hp, rates,
                                   meta=meta, loss=sgd.LOSS_RMSE, biased=True)
     assert _moved(before, W1), "sharded blocked step produced no update"
+
+    # --- path 2: the flat epoch, data-parallel: each batch split over the
+    # devices, the parts' deltas merged before the next batch
+    params = dict(
+        global_bias=0.0,
+        user_factors=torch.from_numpy((0.1 * rng.standard_normal(
+            (U, f))).astype(np.float32)).to(dev),
+        item_factors=torch.from_numpy((0.1 * rng.standard_normal(
+            (I, f))).astype(np.float32)).to(dev),
+        user_bias=torch.zeros(U, device=dev),
+        item_bias=torch.zeros(I, device=dev))
+    batch = 16 * n_devices
+    flat = sgd.prepare_epoch_data(users, items, values, batch, device=dev)
+    before2 = params["user_factors"].clone()
+    hp2 = dict(learn_rate=0.01, reg_u=0.015, reg_i=0.015, bias_reg=0.01,
+               bias_learn_rate=1.0, min_rating=1.0, rating_range=4.0)
+    sgd.sgd_epoch_sharded_flat(
+        mesh, params, flat, rng.permutation(flat["users"].shape[0] // batch),
+        hp2, batch_size=batch, loss=sgd.LOSS_RMSE, biased=True,
+        update_user=True, update_item=True, frequency_regularization=False)
+    assert _moved(before2, params["user_factors"]), \
+        "flat sharded step produced no update"
 
     # --- path 3: the sharded minibatch BPR epoch: users per device, item
     # deltas merged per minibatch
@@ -247,12 +270,11 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         assert isinstance(bprmf()._plan, mxu.MxuShardedTiledPlan), \
             "model layer did not select the sharded-tiled BPR epoch"
 
-    print("dryrun paths ok: 1 sharded-blocked-SGD, 3 sharded-BPR-minibatch, "
-          "4 sharded-ALS, 5 sharded-SVD++, 6 CV-on-the-mesh, "
-          "7 multi-host-scaffold, 8 sharded-DSGD-SGD, "
+    print("dryrun paths ok: 1 sharded-blocked-SGD, 2 flat-SPMD-SGD, "
+          "3 sharded-BPR-minibatch, 4 sharded-ALS, 5 sharded-SVD++, "
+          "6 CV-on-the-mesh, 7 multi-host-scaffold, 8 sharded-DSGD-SGD, "
           "9 model-sharded-SGD, 10 model-sharded-BPR, "
-          "11 model-sharded-tiled-SGD, 12 model-sharded-tiled-BPR "
-          f"(path 2, the flat SPMD epoch, not ported) on {mesh}",
+          f"11 model-sharded-tiled-SGD, 12 model-sharded-tiled-BPR on {mesh}",
           flush=True)
 
 
@@ -267,7 +289,7 @@ def main(argv=None) -> int:
     if not cpu and torch.cuda.device_count() < n:
         devices = ["cuda:0"] * n     # a rig of one card named n times
     dryrun_multichip(n, devices)
-    print(f"dryrun_multichip({n}) ok: 11 paths")
+    print(f"dryrun_multichip({n}) ok: 12 paths")
     return 0
 
 

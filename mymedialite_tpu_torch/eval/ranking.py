@@ -182,18 +182,20 @@ def rank_correct_items(scores, cand_mask, ignore_rows, correct_rows,
 
 def _ranks_on_mesh(mesh, scorers, masks, batch, ignore_rows, correct_rows,
                    num_items: int) -> np.ndarray:
-    """The batch's rank rows, its users split into one equal part per mesh
-    device, each part scored and ranked there; gathered on the host."""
-    part = batch.size // mesh.size
+    """The batch's rank rows, its users split into one equal part per
+    global mesh device, each of this process's parts scored and ranked on
+    its device; every process's rows gathered on the host."""
+    part = batch.size // mesh.global_size
     out = []
     for d, dev in enumerate(mesh.devices):
-        sl = slice(d * part, (d + 1) * part)
+        g = mesh.first_device + d
+        sl = slice(g * part, (g + 1) * part)
         scores = scorers[d](torch.from_numpy(batch[sl].astype(np.int64))
                             .to(dev))
         out.append(rank_correct_items(
             scores, masks[d], torch.from_numpy(ignore_rows[sl]).to(dev),
             torch.from_numpy(correct_rows[sl]).to(dev), num_items))
-    return torch.cat([r.cpu() for r in out]).numpy()
+    return mesh.gather_rows(out, "cpu").numpy()
 
 
 def evaluate_items(recommender, test, training,
@@ -222,7 +224,7 @@ def evaluate_items(recommender, test, training,
     cand_mask_dev = torch.from_numpy(cand_mask).to(dev)
     mesh = model_mesh(recommender) if scorer is not None else None
     if mesh is not None:
-        D = mesh.size
+        D = mesh.global_size
         batch_size = max(-(-batch_size // D), 1) * D
         scorers = [recommender.catalog_scorer(d) for d in mesh.devices]
         masks = mesh.replicate(cand_mask_dev)

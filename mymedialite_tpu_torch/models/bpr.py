@@ -104,10 +104,20 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
 
     @property
     def params(self):
+        """The std tables, written back from the kernel layout at first
+        read; local only: across processes ``iterate`` has gathered
+        already."""
         if self._mxu_tables is not None:
-            self._params = self._materialize_params(self._mxu_tables)
-            self._mxu_tables = None
+            self._gather_tables()
         return self._params
+
+    def _gather_tables(self):
+        """The kernel-layout tables written back to ``params``. On a mesh
+        of several processes a collective (``Mesh.gather_rows``), so every
+        sharded ``iterate`` calls it at its end there, and no attribute
+        access runs one."""
+        self._params = self._materialize_params(self._mxu_tables)
+        self._mxu_tables = None
 
     @params.setter
     def params(self, value):
@@ -381,11 +391,12 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         generator a device seeded from ``random_seed`` and the device, and
         the popularity CDF on each device (WBPR)."""
         data, meta = bpr_ops.make_sampler_data_sharded(
-            self.feedback, mesh.size, self.num_neg_trials)
+            self.feedback, mesh.global_size, self.num_neg_trials)
         gens = []
         for d, dev in enumerate(mesh.devices):
             gen = torch.Generator(device=dev)
-            gen.manual_seed((self.random_seed * 1_000_003 + d) & 0x7FFFFFFF)
+            g = mesh.first_device + d
+            gen.manual_seed((self.random_seed * 1_000_003 + g) & 0x7FFFFFFF)
             gens.append(gen)
         self._sharded = (mesh, bpr_ops.device_samplers(mesh, data, meta),
                          meta, gens, mesh.replicate(pop) if pop is not None
@@ -418,7 +429,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         bound the minibatch epoch runs on one device."""
         mesh = model_mesh(self)
         route = select_schedule(self.feedback.num_items, self.num_factors,
-                                mesh.size if mesh else 1)
+                                mesh.global_size if mesh else 1)
         if mesh is not None and not route.startswith("sharded") and not (
                 route == "minibatch" and self.SHARDED_MINIBATCH):
             one_device_route(self, route, mesh)
@@ -446,7 +457,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
                 prepare = bpr_plan.prepare_bpr_mxu_sharded_tiled
                 kw = dict(slab_blocks=half_slab)
             self._plan, self._neg_state, self._neg_meta = prepare(
-                f, self._mesh.size, uniform_user=uniform_user,
+                f, self._mesh.global_size, uniform_user=uniform_user,
                 shuffle_seed=self.random_seed,
                 num_neg_trials=self.num_neg_trials, device=dev, **kw)
             self._new_of_old = torch.from_numpy(
@@ -525,12 +536,12 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         mesh, samplers, meta, gens, pop = self._sharded
         p = self.params
         U = p["user_factors"].shape[0]
-        rows = meta["u_loc"] * mesh.size
+        rows = meta["u_loc"] * mesh.global_size
         W = p["user_factors"]
         if rows > U:
             W = torch.cat([W, W.new_zeros((rows - U, W.shape[1]))])
         batch, num_batches = bpr_ops.sharded_epoch_batches(
-            meta["num_events"], self.batch_size, mesh.size)
+            meta["num_events"], self.batch_size, mesh.global_size)
         shards = mesh.shard_rows(W[:rows])
         with torch.no_grad():
             bpr_ops.bpr_epoch_sharded(
@@ -576,6 +587,10 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         if mesh is not None:
             self._iterate_sharded(We, He, seed, trials, rates, block_mass)
             self._mxu_tables = (We, He)
+            if mesh.process_count > 1:
+                # every process holds the whole tables after each epoch,
+                # so that each can predict, save and serve alone
+                self._gather_tables()
             return
         bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
         if self._tiled is not None:
@@ -605,19 +620,20 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._mxu_tables = (We, He)
 
     def _cell_bits(self, seed: int, trials: int) -> list:
-        """[d][k] int32 random bits [n, trials, C] of each cell's n chunks
-        on mesh device d, from one ``torch.Generator`` a device seeded
-        with a hash of ``seed`` and d."""
+        """[g][k] int32 random bits [n, trials, C] of each cell's n chunks
+        on global device g, for this process's devices (None for the
+        others'), from one ``torch.Generator`` a device seeded with a
+        hash of ``seed`` and g."""
         plan, mesh = self._plan, self._mesh
-        out = []
-        for d, (dev, counts) in enumerate(zip(mesh.devices,
-                                              plan.cell_counts)):
+        out = [None] * mesh.global_size
+        for d, dev in enumerate(mesh.devices):
+            g = mesh.first_device + d
             gen = torch.Generator(device=dev)
-            gen.manual_seed((seed * 1_000_003 + d) & 0x7FFFFFFF)
-            out.append([torch.randint(0, 2 ** 31, (int(n), trials,
-                                                  plan.chunk),
-                                      dtype=torch.int32, generator=gen,
-                                      device=dev) for n in counts])
+            gen.manual_seed((seed * 1_000_003 + g) & 0x7FFFFFFF)
+            out[g] = [torch.randint(0, 2 ** 31, (int(n), trials, plan.chunk),
+                                    dtype=torch.int32, generator=gen,
+                                    device=dev)
+                      for n in plan.cell_counts[g]]
         return out
 
     def _iterate_sharded(self, W_shards, H_parts, seed, trials, rates,

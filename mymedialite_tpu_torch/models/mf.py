@@ -219,8 +219,16 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         self._mxu_tables = None
 
     def _sync_std_tables(self):
-        if self._mxu_tables is None:
-            return
+        """The lazy write-back that reading ``W_ext`` / ``H_ext`` runs;
+        local only: across processes ``iterate`` has gathered already."""
+        if self._mxu_tables is not None:
+            self._gather_tables()
+
+    def _gather_tables(self):
+        """The kernel-layout tables written back to the std tables. On a
+        mesh of several processes a collective (``Mesh.gather_rows``),
+        so every sharded ``iterate`` calls it at its end there, and no
+        attribute access runs one."""
         We, He = self._mxu_tables
         if isinstance(We, list):
             # the mesh's W shards and item partitions, gathered on the
@@ -316,7 +324,7 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         else:
             route = mxu.select_schedule(self.ratings.num_items,
                                         self.num_factors,
-                                        mesh.size if mesh else 1)
+                                        mesh.global_size if mesh else 1)
         if mesh is not None and not route.startswith("sharded"):
             one_device_route(self, route, mesh)
         return route
@@ -353,14 +361,14 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
             # histogram-optimal chunk as on the tiled route
             self._plan = mxu.prepare_mxu_sharded_tiled(
                 data.users, data.items, data.values, data.num_users,
-                data.num_items, self._mesh.size, user_block=512,
+                data.num_items, self._mesh.global_size, user_block=512,
                 item_block=1024, chunk=None,
                 slab_blocks=mxu.default_slab_blocks(self.num_factors),
                 shuffle_seed=self.random_seed, device=dev)
         elif route == "sharded":
             self._plan = mxu.prepare_mxu_sharded(
                 data.users, data.items, data.values, data.num_users,
-                data.num_items, self._mesh.size, user_block=512,
+                data.num_items, self._mesh.global_size, user_block=512,
                 item_block=1024, chunk=640, shuffle_seed=self.random_seed,
                 device=dev)
         elif route == "tiled":
@@ -508,6 +516,10 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
             sgd_epoch(We, He, plan.packed, plan.epoch_order(seed), hp, rates,
                       **kw)
         self._mxu_tables = (We, He)
+        if mesh is not None and mesh.process_count > 1:
+            # every process holds the whole tables after each epoch, so
+            # that each can predict, save and serve alone
+            self._gather_tables()
         self.update_learn_rate()
 
     def update_learn_rate(self):

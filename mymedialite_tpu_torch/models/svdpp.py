@@ -242,14 +242,15 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         size stays the JAX package's; ``group_users`` sets a smaller
         one."""
         avg, budget = self._y_step_budget(self.num_users_trained)
-        step = mesh.size * group * avg
+        D = mesh.global_size
+        step = D * group * avg
         if step > budget:
             log.warning(
                 "%s: a step of the sharded epoch merges %d groups of %d "
                 "users, about %.0f ratings, past the %.0f that one y step "
                 "is kept under; the tables may diverge: set group_users "
-                "to at most %d", type(self).__name__, mesh.size, group,
-                step, budget, max(int(budget / (avg * mesh.size)), 1))
+                "to at most %d", type(self).__name__, D, group,
+                step, budget, max(int(budget / (avg * D)), 1))
 
     def route(self) -> str:
         """"kernel" (``csrc/svdpp_epoch.cu``), "grouped" (the grouped
@@ -299,7 +300,7 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self._groups = prepare_groups(
             data.users, data.items, data.values, hu, hi, U, group,
             device=dev,
-            pad_groups_multiple=mesh.size if mesh is not None else 1)
+            pad_groups_multiple=mesh.global_size if mesh is not None else 1)
         if mesh is not None:
             self._warn_mesh_step(group, mesh)
             self._shards = (mesh, shard_groups(mesh, self._groups))

@@ -80,10 +80,10 @@ class WRMF(ItemMF):
         length into power-of-two buckets (memory O(2 nnz), not rows x
         Lmax). Returns a list of (row_ids, hist [n, L], lens [n], chunk),
         tensors on the model's device; on a ``mesh`` hist and lens are
-        lists of the devices' row shards, n padded to a multiple of chunk
-        x the devices."""
+        lists of this process's row shards, n padded to a multiple of
+        chunk x the global devices."""
         dev = self.params["user_factors"].device
-        D = mesh.size if mesh is not None else 1
+        D = mesh.global_size if mesh is not None else 1
         counts = csr.counts()[:num_rows]
         bounds = [16]
         while bounds[-1] < max(int(counts.max()) if counts.size else 1, 1):

@@ -107,13 +107,13 @@ def wrmf_solve_row(H, ids, alpha: float, reg: float, HH=None):
 def wrmf_optimize_sharded(mesh, H, hist, lens, alpha: float, reg: float, *,
                           chunk: int, out_device=None):
     """``wrmf_optimize`` over the mesh: ``hist`` [U, L] and ``lens`` [U]
-    (U a multiple of ``chunk`` x the devices, as the JAX package pads
-    them; or lists of the devices' row shards) split into contiguous row
-    shards, shard d solved on mesh device d against its replica of H and
-    its own Gram matrix, ``chunk`` rows at a time. Returns W [U, f], the
+    (U a multiple of ``chunk`` x the global devices, as the JAX package
+    pads them; or lists of this process's row shards) split into
+    contiguous row shards, shard g solved on global device g against its
+    replica of H and its own Gram matrix, ``chunk`` rows at a time, each
+    process solving its own shards. Returns W [U, f], every process's
     shards gathered in row order on ``out_device`` (default H's)."""
-    mesh.one_process("wrmf_optimize_sharded")
-    D = mesh.size
+    D = mesh.global_size
     if not isinstance(hist, (list, tuple)):
         if hist.shape[0] % (chunk * D):
             raise ValueError("rows must be a multiple of chunk x the mesh "

@@ -306,25 +306,28 @@ def make_sampler_data_sharded(feedback, n_devices: int,
 
 
 def device_samplers(mesh, data, meta) -> list:
-    """Device d's row of each ``make_sampler_data_sharded`` array as
-    int64 tensors on mesh device d, with the sorted keys u_local *
-    num_items + item of its histories (``pos_keys``, for
-    ``segment_contains``) and its real valid and event counts."""
+    """Global device g's row of each ``make_sampler_data_sharded`` array
+    (built for ``mesh.global_size`` devices) as int64 tensors on local
+    device d = g - ``first_device``, for each device of this process,
+    with the sorted keys u_local * num_items + item of its histories
+    (``pos_keys``, for ``segment_contains``) and its real valid and
+    event counts."""
     I = meta["num_items"]
     out = []
     for d, dev in enumerate(mesh.devices):
-        indptr = data["indptr"][d].astype(np.int64)
+        g = mesh.first_device + d
+        indptr = data["indptr"][g].astype(np.int64)
         nnz = int(indptr[-1])
         users = np.repeat(np.arange(meta["u_loc"], dtype=np.int64),
                           np.diff(indptr))
-        keys = users * I + data["hist_items"][d][:nnz]
+        keys = users * I + data["hist_items"][g][:nnz]
         t = {k: torch.from_numpy(np.ascontiguousarray(
-            data[k][d], dtype=np.int64)).to(dev) for k in (
+            data[k][g], dtype=np.int64)).to(dev) for k in (
             "hist_items", "indptr", "counts", "valid_users", "ev_user",
             "ev_item")}
         t["pos_keys"] = torch.from_numpy(keys).to(dev)
-        t["valid_count"] = int(data["valid_count"][d])
-        t["ev_count"] = int(data["ev_count"][d])
+        t["valid_count"] = int(data["valid_count"][g])
+        t["ev_count"] = int(data["ev_count"][g])
         out.append(t)
     return out
 
@@ -407,12 +410,13 @@ def _device_update(W, H, bias, u, i, j, w, hp, *, update_j: bool,
 
 def bpr_step_sharded(mesh, W_shards, H_reps, bias_reps, triples, hp, *,
                      update_j: bool, soft_margin: bool = False):
-    """One sharded minibatch: ``triples[d]`` = (u, i, j, w) of device d
-    (u local to its shard ``W_shards[d]``, updated in place) read the
-    start tables ``H_reps[d]`` / ``bias_reps[d]`` (``Mesh.replicate``
-    copies); then every device's touched-row deltas are added to each
-    distinct copy (``Mesh.merge_rows``), the JAX package's start +
-    psum(deltas). Returns the merged (H_reps, bias_reps)."""
+    """One sharded minibatch: ``triples[d]`` = (u, i, j, w) of local
+    device d (u local to its shard ``W_shards[d]``, updated in place)
+    read the start tables ``H_reps[d]`` / ``bias_reps[d]``
+    (``Mesh.replicate`` copies); then every global device's touched-row
+    deltas are added to each distinct copy in global device order
+    (``Mesh.merge_rows``, across the processes too), the JAX package's
+    start + psum(deltas). Returns the merged (H_reps, bias_reps)."""
     parts = [_device_update(W_shards[d], H_reps[d], bias_reps[d], *t, hp,
                             update_j=update_j, soft_margin=soft_margin)
              for d, t in enumerate(triples)]
@@ -433,15 +437,15 @@ def bpr_epoch_sharded(mesh, params, samplers, meta, generators, hp,
                       pop_cdf=None, *, batch_size: int, num_batches: int,
                       regime: int, update_j: bool, soft_margin: bool = False):
     """One sharded epoch (JAX ``bpr_epoch_sharded``): num_batches steps,
-    each device drawing ``batch_size`` triples for its own users with its
-    generator (``generators[d]``) and ``samplers[d]``
-    (``device_samplers``); params: user_factors, a list of the devices'
-    row shards [u_loc, f] (updated in place), item_factors and
-    item_bias, tensors updated in place with the merged deltas. The
-    without-replacement regime draws one permutation of the padded slots
-    per device per epoch. ``pop_cdf``: a list, one per device, for
-    WBPR."""
-    mesh.one_process("bpr_epoch_sharded")
+    each device of this process drawing ``batch_size`` triples for its
+    own users with its generator (``generators[d]``, one a local device,
+    keyed by the caller by the global device) and ``samplers[d]``
+    (``device_samplers``); params: user_factors, a list of this
+    process's row shards [u_loc, f] (updated in place), item_factors and
+    item_bias, tensors updated in place with the merged deltas of every
+    process. The without-replacement regime draws one permutation of the
+    padded slots per device per epoch. ``pop_cdf``: a list, one per local
+    device, for WBPR."""
     H_reps = mesh.replicate(params["item_factors"])
     b_reps = mesh.replicate(params["item_bias"])
     perms = [None] * mesh.size

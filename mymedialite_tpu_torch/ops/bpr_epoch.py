@@ -15,8 +15,9 @@ absolute negative blocks jb) or raise; on CPU tensors they run
 ``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
 own calls. ``bpr_epoch_sharded`` / ``bpr_epoch_sharded_tiled``
 (``pallas_bpr.py:1519``, ``:1860``) run one epoch over a device mesh: the
-same wrapper once for each non-empty (device, sub-epoch) cell, its
-negatives drawn within the item partition the device holds.
+same wrapper once for each non-empty (device, sub-epoch) cell of this
+process, its negatives drawn within the item partition the device holds
+(across processes too: ``parallel/mesh.py diagonal_epoch``).
 
 Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
@@ -305,24 +306,26 @@ def bpr_epoch_tiled(W, H, packed, keys_tbl, cdf_tbl, bits, order, rates, *,
 def _sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl, bits,
              order, counts, rates, run_cell, *, part_blocks, bitmask_tbl,
              return_negatives):
-    """The diagonal epoch over the BPR cells: ``run_cell(W, H, packed,
-    keys, cdf, bits, cols, rates, bitmask_tbl)`` on each, with the
-    partition's rows of ``cdf_tbl`` (the cell's negative blocks are
-    relative to the partition). Returns (W_shards, H_parts, negs), negs
-    [d][k] the cells' negatives or None."""
+    """The diagonal epoch over this process's BPR cells: ``run_cell(W, H,
+    packed, keys, cdf, bits, cols, rates, bitmask_tbl)`` on each, with
+    the rows of ``cdf_tbl`` of the partition that its global device g
+    holds (the cell's negative blocks are relative to the partition) and
+    the bits ``bits[g][k]``. Returns (W_shards, H_parts, negs), negs
+    [d][k] the negatives of local device d's cells, or None."""
     from mymedialite_tpu_torch.parallel.mesh import diagonal_epoch
-    D = mesh.size
+    L, D, g0 = mesh.size, mesh.global_size, mesh.first_device
     packed, keys, cdf, rates = (mesh.replicate(t) for t in (
         packed, keys_tbl, cdf_tbl, rates))
     masks = (mesh.replicate(bitmask_tbl) if bitmask_tbl is not None
-             else [None] * D)
-    negs = [[None] * D for _ in range(D)]
+             else [None] * L)
+    negs = [[None] * D for _ in range(L)]
 
     def cell(d, k, H, cols):
         dev = W_shards[d].device
-        lo = ((d + k) % D) * part_blocks
+        g = g0 + d
+        lo = ((g + k) % D) * part_blocks
         part_cdf = cdf[d][lo:lo + part_blocks]
-        cell_bits = bits[d][k][:cols[0].numel()].to(dev)
+        cell_bits = bits[g][k][:cols[0].numel()].to(dev)
         negs[d][k] = run_cell(W_shards[d], H, packed[d], keys[d], part_cdf,
                               cell_bits, cols, rates[d], masks[d])[2]
 
@@ -338,24 +341,28 @@ def bpr_epoch_sharded(mesh, W_shards, H_parts, packed, keys_tbl, cdf_tbl,
                       plain: bool = False):
     """One BPR epoch of the sharded schedule (``pallas_bpr.py:1519
     bpr_epoch_mxu_sharded``) over the mesh: ``bpr_epoch`` once for each
-    non-empty cell (device d, sub-epoch k) on W shard d and the
-    partition that device d holds, over the order (ub, ib, jb, jbg, nval,
+    non-empty cell (global device g, sub-epoch k) of this process, on
+    its W shard and the partition that device g holds, over the order (ub, ib, jb, jbg, nval,
     bkt, row) of ``bpr_plan.bpr_sharded_epoch_order`` (``counts`` its
     cells' chunks): blocks ub, ib and the negative block jb relative to
     the shard and the partition, so that the kernel reads H and the
     partition's rows of ``cdf_tbl`` at jb; the membership buckets bkt
     index the global ``keys_tbl`` / ``bitmask_tbl``, which every device
-    reads whole (jbg is not read: the JAX kernel's CDF row). ``bits[d][k]``
-    holds at least the cell's [n, T, C] random bits. ``packed`` and the
+    reads whole (jbg is not read: the JAX kernel's CDF row). ``order``
+    and ``counts`` hold every global device's rows; ``bits[g][k]`` holds
+    at least the cell's [n, T, C] random bits (None, or absent rows,
+    for another process's devices). ``packed`` and the
     tables may each be one tensor or its copies on the mesh devices
     (``Mesh.replicate``), which a caller keeps across epochs. The partitions
     ring-shift between sub-epochs (``parallel/mesh.py diagonal_epoch``).
-    W shards update in place and ``H_parts`` is refilled. ``plain``
+    This process's W shards update in place and its ``H_parts`` are
+    refilled. ``plain``
     selects the reference: each cell runs ``bpr_epoch_reference``, on any
     device, over the same cells, ring and CDF rows (what ``chip_smoke.py``
     and the tests hold the kernel to; no model sets it). Returns
-    (W_shards, H_parts, negs), negs[d][k] the cell's [n, 2, C] negatives
-    with ``return_negatives`` (None for an empty cell), else None."""
+    (W_shards, H_parts, negs), negs[d][k] local device d's cell's [n, 2,
+    C] negatives with ``return_negatives`` (None for an empty cell), else
+    None."""
     epoch = bpr_epoch_reference if plain else bpr_epoch
 
     def run_cell(W, H, pk, keys, cdf, cell_bits, cols, rt, mask):

@@ -15,8 +15,17 @@ package runs it as an XLA scan, with no Pallas kernel.
 428-532``): the user groups split over the devices, each device's
 groups in one contiguous range (a process's range of a mesh of several
 processes), the item table merged after every group step as start +
-the sum of the devices' deltas, across the processes too. The flat
-``sgd_epoch`` (and its SPMD form) is not ported: no model calls it.
+the sum of the devices' deltas, across the processes too.
+
+The flat epoch (JAX ``ops/sgd.py:48-200``: ``prepare_epoch_data``, its
+per-batch dedup structures, ``sgd_epoch``) is a pass over the ratings
+shuffled once, in minibatches visited in a given order; each minibatch
+segment-sums its per-example updates by row and adds them once per
+distinct row. ``sgd_epoch_sharded_flat`` is its data-parallel mesh form
+(the JAX dry run's flat epoch under XLA's SPMD partitioner): each batch
+split into one equal part a global device, the parts' deltas merged in
+global device order before the next batch. No model calls either, as in
+the JAX package (its MF models read only the layout, for the objective).
 """
 
 from __future__ import annotations
@@ -311,7 +320,7 @@ def sgd_epoch_blocked_sharded(mesh, W_ext, H_ext, data, batch_orders, hp,
     ``count`` included; all groups in one process), a multiple of its
     devices; device d runs groups [d * gl, (d + 1) * gl) of them. W_ext:
     the matching rows [groups * G, f+2], a tensor or the devices' row
-    shards (``Mesh.shard_rows``), updated in place; H_ext [I, f+2] the
+    shards (``Mesh.split_local``), updated in place; H_ext [I, f+2] the
     replicated item table, updated in place. Local step g runs every
     device's g-th group from the same H on a private copy of it; the
     copies merge as start + the sum of the deltas over the devices and
@@ -329,7 +338,7 @@ def sgd_epoch_blocked_sharded(mesh, W_ext, H_ext, data, batch_orders, hp,
                          "count (pad with empty groups)")
     gl = groups // D
     shards = W_ext if isinstance(W_ext, (list, tuple)) else \
-        mesh.shard_rows(W_ext)
+        mesh.split_local(W_ext)
     orders = batch_orders.tolist() if isinstance(batch_orders, torch.Tensor) \
         else [list(o) for o in batch_orders]
     local = [{k: data[k][d * gl:(d + 1) * gl].to(dev) if k != "count"
@@ -353,5 +362,200 @@ def sgd_epoch_blocked_sharded(mesh, W_ext, H_ext, data, batch_orders, hp,
         reps = mesh.merge_deltas(reps[0], private)
     home.copy_(reps[0].to(home.device))
     if not isinstance(W_ext, (list, tuple)):
-        W_ext.copy_(mesh.gather_rows(shards, W_ext.device))
+        W_ext.copy_(torch.cat([s.to(W_ext.device) for s in shards]))
     return W_ext, home
+
+
+# ---------------------------------------------------------------------------
+# the flat epoch (JAX: ``prepare_epoch_data`` / ``sgd_epoch``)
+# ---------------------------------------------------------------------------
+
+
+def _dedup_per_batch(ids: np.ndarray, batch_size: int, num_rows: int):
+    """Per batch: the sorted unique target rows, padded with
+    out-of-range sentinels (num_rows, num_rows + 1, ...; dropped by the
+    scatter), and each example's slot among them (JAX
+    ``_dedup_per_batch``)."""
+    n = ids.shape[0]
+    slots = np.empty(n, dtype=np.int32)
+    unique_ids = np.empty(n, dtype=np.int32)
+    for b in range(n // batch_size):
+        s = slice(b * batch_size, (b + 1) * batch_size)
+        uniq, inv = np.unique(ids[s], return_inverse=True)
+        k = uniq.shape[0]
+        slots[s] = inv
+        unique_ids[s][:k] = uniq
+        unique_ids[s][k:] = num_rows + np.arange(batch_size - k)
+    return slots, unique_ids
+
+
+def prepare_epoch_data(users, items, values, batch_size: int,
+                       shuffle_seed=0, num_users=None, num_items=None,
+                       device="cpu") -> dict:
+    """The flat layout (JAX ``prepare_epoch_data``): the ratings shuffled
+    once with ``numpy.random.default_rng(shuffle_seed)``, padded with
+    weight-0 entries to a multiple of the batch, and each batch's dedup
+    structures. Returns int32 / float32 tensors on ``device``: users,
+    items, values, weights, user_slot, user_uniq, item_slot, item_uniq."""
+    n = len(users)
+    users = np.asarray(users, dtype=np.int32)
+    items = np.asarray(items, dtype=np.int32)
+    values = np.asarray(values, dtype=np.float32)
+    if shuffle_seed is not None and n > 1:
+        perm = np.random.default_rng(shuffle_seed).permutation(n)
+        users, items, values = users[perm], items[perm], values[perm]
+    pad = pad_to_batches(n, batch_size) - n
+    users = np.concatenate([users, np.zeros(pad, np.int32)])
+    items = np.concatenate([items, np.zeros(pad, np.int32)])
+    values = np.concatenate([values, np.zeros(pad, np.float32)])
+    weights = np.concatenate([np.ones(n, np.float32),
+                              np.zeros(pad, np.float32)])
+    U = num_users if num_users is not None else int(users.max()) + 1
+    I = num_items if num_items is not None else int(items.max()) + 1
+    u_slot, u_uniq = _dedup_per_batch(users, batch_size, U)
+    i_slot, i_uniq = _dedup_per_batch(items, batch_size, I)
+    arrays = dict(users=users, items=items, values=values, weights=weights,
+                  user_slot=u_slot, user_uniq=u_uniq, item_slot=i_slot,
+                  item_uniq=i_uniq)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _flat_deltas(W, H, u, i, v, w, hp, inv_u, inv_i, *, loss: int,
+                 biased: bool):
+    """The per-example updates of one minibatch (JAX ``sgd_epoch``'s
+    ``batch_step``) from the user rows W [U, f(+1)] and item rows H [I,
+    f(+1)], the bias in the last column where ``biased``: (dW, dH), each
+    [B, f(+1)], the learn rate applied."""
+    lr = hp["learn_rate"]
+    wu, hi = W[u], H[i]
+    f = wu.shape[1] - 1 if biased else wu.shape[1]
+    dot = (wu[:, :f] * hi[:, :f]).sum(dim=-1)
+    if biased:
+        bu, bi = wu[:, f], hi[:, f]
+        sig = torch.sigmoid(hp["global_bias"] + bu + bi + dot)
+        pred = hp["min_rating"] + sig * hp["rating_range"]
+        g = gradient_common(loss, v - pred, sig, hp["rating_range"]) * w
+    else:
+        g = (v - (hp["global_bias"] + dot)) * w
+    reg_u = hp["reg_u"] * inv_u[u] if inv_u is not None else \
+        torch.full_like(g, hp["reg_u"])
+    reg_i = hp["reg_i"] * inv_i[i] if inv_i is not None else \
+        torch.full_like(g, hp["reg_i"])
+    dW = lr * (g[:, None] * hi[:, :f] - (w * reg_u)[:, None] * wu[:, :f])
+    dH = lr * (g[:, None] * wu[:, :f] - (w * reg_i)[:, None] * hi[:, :f])
+    if biased:
+        blr = hp["bias_learn_rate"] * lr
+        dW = torch.cat([dW, (blr * (g - hp["bias_reg"] * reg_u * w * bu))
+                        [:, None]], 1)
+        dH = torch.cat([dH, (blr * (g - hp["bias_reg"] * reg_i * w * bi))
+                        [:, None]], 1)
+    return dW, dH
+
+
+def _fused(params: dict, biased: bool):
+    """(W, H): the factor tables with the biases as a last column."""
+    if not biased:
+        return params["user_factors"].clone(), params["item_factors"].clone()
+    return (torch.cat([params["user_factors"],
+                       params["user_bias"][:, None]], 1),
+            torch.cat([params["item_factors"],
+                       params["item_bias"][:, None]], 1))
+
+
+def _unfuse(params: dict, W, H, biased: bool):
+    """Write the fused tables back into ``params``, in place."""
+    f = params["user_factors"].shape[1]
+    params["user_factors"].copy_(W[:, :f])
+    params["item_factors"].copy_(H[:, :f])
+    if biased:
+        params["user_bias"].copy_(W[:, f])
+        params["item_bias"].copy_(H[:, f])
+    return params
+
+
+def sgd_epoch(params, data, batch_order, hp, *, batch_size: int, loss: int,
+              biased: bool, update_user: bool, update_item: bool,
+              frequency_regularization: bool):
+    """One pass over the pre-shuffled ratings, in place on ``params``
+    (JAX ``sgd_epoch``): user_factors [U, f], item_factors [I, f],
+    global_bias, and where ``biased`` user_bias [U] and item_bias [I].
+    ``data``: ``prepare_epoch_data``'s, plus inv_sqrt_count_user [U] and
+    inv_sqrt_count_item [I] with frequency regularization. ``hp``:
+    learn_rate, reg_u, reg_i, bias_reg, bias_learn_rate, min_rating,
+    rating_range (floats). ``batch_order``: the batch-visit permutation
+    (the JAX package draws ``jax.random.permutation(key, num_batches)``).
+    Each batch's updates are segment-summed by the dedup slots and added
+    once a distinct row; the sentinel rows drop. Returns params."""
+    hp = dict(hp, global_bias=params["global_bias"])
+    W, H = _fused(params, biased)
+    inv_u = data["inv_sqrt_count_user"] if frequency_regularization else None
+    inv_i = data["inv_sqrt_count_item"] if frequency_regularization else None
+    B = batch_size
+    for b in [int(x) for x in batch_order]:
+        sl = slice(b * B, (b + 1) * B)
+        u, i = data["users"][sl].long(), data["items"][sl].long()
+        dW, dH = _flat_deltas(W, H, u, i, data["values"][sl],
+                              data["weights"][sl], hp, inv_u, inv_i,
+                              loss=loss, biased=biased)
+        for on, table, delta, side in ((update_user, W, dW, "user"),
+                                       (update_item, H, dH, "item")):
+            if not on:
+                continue
+            seg = delta.new_zeros(delta.shape).index_add_(
+                0, data[f"{side}_slot"][sl].long(), delta)
+            uniq = data[f"{side}_uniq"][sl].long()
+            keep = uniq < table.shape[0]
+            table.index_add_(0, uniq[keep], seg[keep])
+    return _unfuse(params, W, H, biased)
+
+
+def sgd_epoch_sharded_flat(mesh, params, data, batch_order, hp, *,
+                           batch_size: int, loss: int, biased: bool,
+                           update_user: bool, update_item: bool,
+                           frequency_regularization: bool):
+    """``sgd_epoch`` over the mesh, data-parallel (the JAX dry run's flat
+    epoch under XLA's SPMD partitioner): each batch of ``batch_size`` (a
+    multiple of the global devices) splits into one equal part a global
+    device; each device of this process computes its part's per-example
+    deltas against its replica of the current tables, sums them by row
+    (``torch.unique``), and the parts merge into every replica in global
+    device order (``Mesh.merge_rows``, across the processes too) before
+    the next batch. The same arguments as ``sgd_epoch`` (the dedup
+    structures unread); every process passes the whole ``data`` and
+    reads its devices' parts. Equal to ``sgd_epoch`` to float rounding.
+    Returns params, updated in place on every process."""
+    D, g0 = mesh.global_size, mesh.first_device
+    if batch_size % D:
+        raise ValueError(f"the batch ({batch_size}) must be a multiple of "
+                         f"the global devices ({D})")
+    part = batch_size // D
+    nb = data["users"].shape[0] // batch_size
+    hp = dict(hp, global_bias=params["global_bias"])
+    W, H = _fused(params, biased)
+    W_reps, H_reps = mesh.replicate(W), mesh.replicate(H)
+    keys = ("users", "items", "values", "weights")
+    local = [{k: data[k].reshape(nb, D, part)[:, g0 + d].to(dev)
+              for k in keys} for d, dev in enumerate(mesh.devices)]
+    inv = [(mesh.replicate(data["inv_sqrt_count_user"])[d],
+            mesh.replicate(data["inv_sqrt_count_item"])[d])
+           if frequency_regularization else (None, None)
+           for d in range(mesh.size)]
+    for b in [int(x) for x in batch_order]:
+        parts_w, parts_h = [], []
+        for d in range(mesh.size):
+            x = {k: v[b] for k, v in local[d].items()}
+            u, i = x["users"].long(), x["items"].long()
+            dW, dH = _flat_deltas(W_reps[d], H_reps[d], u, i, x["values"],
+                                  x["weights"], hp, *inv[d], loss=loss,
+                                  biased=biased)
+            for ids, delta, out in ((u, dW, parts_w), (i, dH, parts_h)):
+                rows, slot = torch.unique(ids, return_inverse=True)
+                out.append((rows, delta.new_zeros(
+                    (rows.numel(),) + tuple(delta.shape[1:])).index_add_(
+                        0, slot, delta)))
+        if update_user:
+            W_reps = mesh.merge_rows(W_reps, parts_w)
+        if update_item:
+            H_reps = mesh.merge_rows(H_reps, parts_h)
+    return _unfuse(params, W_reps[0].to(W.device), H_reps[0].to(H.device),
+                   biased)

@@ -16,9 +16,10 @@ CPU tensors they run ``sgd_epoch_reference`` /
 ``sgd_epoch_tiled_reference``. Each counts its own launches.
 ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` (``pallas_sgd.py
 :1126``, ``:1354``) run one epoch over a device mesh: the same wrapper
-once for each non-empty (device, sub-epoch) cell, on that device's W
-shard and the item partition it holds (``parallel/mesh.py
-diagonal_epoch``); each cell's launch counts once.
+once for each non-empty (device, sub-epoch) cell of this process, on
+that device's W shard and the item partition it holds, the partitions
+passed between processes too (``parallel/mesh.py diagonal_epoch``);
+each cell's launch counts once, in the process that runs it.
 
 Arguments shared by both:
 
@@ -186,8 +187,9 @@ def sgd_epoch_tiled(W, H, packed, order, hp, rates, *, slab_blocks: int,
 
 def _sharded(mesh, W_shards, H_parts, packed, order, counts, hp, rates,
              run, **kw):
-    """The diagonal epoch with ``run`` on each cell: the cell's W shard
-    and partition, the chunks of ``packed`` on its device, its order."""
+    """The diagonal epoch with ``run`` on each of this process's cells:
+    the cell's W shard and partition, the chunks of ``packed`` on its
+    device, its order."""
     from mymedialite_tpu_torch.parallel.mesh import diagonal_epoch
     packed, rates = mesh.replicate(packed), mesh.replicate(rates)
 
@@ -203,15 +205,17 @@ def sgd_epoch_sharded(mesh, W_shards, H_parts, packed, order, counts, hp,
                       biased: bool, plain: bool = False):
     """One epoch of the sharded schedule (``pallas_sgd.py:1126
     sgd_epoch_mxu_sharded``) over the mesh: ``sgd_epoch`` once for each
-    non-empty cell (device d, sub-epoch k), on W shard d [u_pad_dev, fe]
-    and the partition [part_rows, fe] that device d holds, the order
+    non-empty cell (global device g, sub-epoch k) of this process, on
+    its W shard [u_pad_dev, fe] (``W_shards[d]``, g = ``first_device`` +
+    d) and the partition [part_rows, fe] that device g holds, the order
     (ub, ib, row) of ``MxuShardedPlan.epoch_order`` relative to both
-    (``counts`` its cells' chunks); the partitions ring-shift between
-    sub-epochs (``parallel/mesh.py diagonal_epoch``). ``packed`` is the
+    (every global device's rows; ``counts`` its cells' chunks); the
+    partitions ring-shift between sub-epochs, across processes too
+    (``parallel/mesh.py diagonal_epoch``). ``packed`` is the
     plan's chunks, or their copies on the mesh devices
     (``Mesh.replicate``), which a caller keeps across epochs. W shards
-    update in place; ``H_parts`` (partition p on mesh device p) is
-    refilled with the partitions after the epoch. ``plain`` selects the
+    update in place; ``H_parts`` (partition g on global device g, this
+    process's) is refilled with the partitions after the epoch. ``plain`` selects the
     reference: every cell runs ``sgd_epoch_reference`` instead, on any
     device, over the same cells and ring (what ``chip_smoke.py`` and the
     tests hold the kernel to; no model sets it). Returns (W_shards,

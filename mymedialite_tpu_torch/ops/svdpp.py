@@ -312,14 +312,15 @@ def _group_step(groups: SvdppGroups, g: int, user: dict, item: dict, hp, *,
 
 
 def shard_groups(mesh, groups: SvdppGroups) -> list:
-    """Each mesh device's contiguous range of groups, as a layout on that
-    device (``SvdppGroups.slice``)."""
-    D = mesh.size
+    """Each of this process's devices' contiguous range of groups, the
+    range of its global device, as a layout on that device
+    (``SvdppGroups.slice``)."""
+    D, g0 = mesh.global_size, mesh.first_device
     if groups.ngroups % D:
         raise ValueError("ngroups must be a multiple of the mesh devices "
                          "(prepare_groups(pad_groups_multiple=D))")
     gl = groups.ngroups // D
-    return [groups.slice(d * gl, (d + 1) * gl, dev)
+    return [groups.slice((g0 + d) * gl, (g0 + d + 1) * gl, dev)
             for d, dev in enumerate(mesh.devices)]
 
 
@@ -329,18 +330,21 @@ def svdpp_epoch_sharded(mesh, params, groups, inv_sqrt, hp, regs, *,
     """One pass over the user groups on the mesh, in place on ``params``
     (the tables of ``svdpp_epoch_grouped``, without gSVD++; JAX:
     ``svdpp_epoch_sharded``). ``groups``: a layout whose ngroups the
-    mesh devices divide, or ``shard_groups``' list. Device d owns groups
-    [d * groups_local, (d + 1) * groups_local) and their users' rows;
-    step g runs group d * groups_local + g on every device d from the
-    same item tables, each device on private copies of item_bias, q and
-    y, which merge as start + the sum of the devices' deltas at the end
-    of the step."""
-    mesh.one_process("svdpp_epoch_sharded")
+    global devices divide, or ``shard_groups``' list (this process's).
+    Global device d owns groups [d * groups_local, (d + 1) *
+    groups_local) and their users' rows; step g runs group d *
+    groups_local + g on every device d from the same item tables, each
+    device on private copies of item_bias, q and y, which merge as start
+    + the sum of the devices' deltas at the end of the step, across the
+    processes too: there every step merges, with a zero delta where a
+    process's groups are empty, so that every process calls the
+    collective. The user rows are gathered from every process at the
+    end."""
     shards = groups if isinstance(groups, list) else \
         shard_groups(mesh, groups)
     gl = shards[0].ngroups
     G = shards[0].group_users
-    D = mesh.size
+    D = mesh.global_size
     dtype = params["item_factors"].dtype
     U = params["user_bias"].shape[0]
     rows = D * gl * G
@@ -362,7 +366,7 @@ def svdpp_epoch_sharded(mesh, params, groups, inv_sqrt, hp, regs, *,
     with exact_float32():
         for g in range(gl):
             private = []
-            for d in range(D):
+            for d in range(mesh.size):
                 lg = shards[d]
                 if lg.r_off[g + 1] == lg.r_off[g] and \
                         lg.e_off[g + 1] == lg.e_off[g]:
@@ -380,7 +384,8 @@ def svdpp_epoch_sharded(mesh, params, groups, inv_sqrt, hp, regs, *,
                             sigmoid=sigmoid, update_user=update_user,
                             update_item=update_item)
                 private.append(mine)
-            if update_item and any(p is not None for p in private):
+            if update_item and (mesh.process_count > 1 or any(
+                    p is not None for p in private)):
                 for k in reps:
                     reps[k] = mesh.merge_deltas(
                         reps[k][0], [p[k] for p in private if p is not None])

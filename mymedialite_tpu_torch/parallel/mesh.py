@@ -27,13 +27,25 @@ it works on a private copy or on deltas against the start.
 The multi-host functions (JAX ``:69-143``) run on ``torch.distributed``:
 ``initialize_distributed`` reads the same ``JAX_COORDINATOR``,
 ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` variables, and a mesh of
-several processes (``make_global_mesh``) holds each process's local
-devices; its merges sum over the local devices first, then across the
-processes with ``all_reduce``. By default a process drives its share of
-its host's cards (``local_devices``: the cards split by ``LOCAL_RANK``),
-so that no two ranks drive one card, and the backend is NCCL where that
-share is not empty, gloo otherwise (NCCL refuses two ranks on one card;
-gloo reduces CUDA tensors but gathers only on the host).
+several processes (``make_global_mesh``) is one global mesh of
+``global_size`` devices, this process driving ``size`` of them, global
+devices [``first_device``, ``first_device + size``). Plans, orders,
+random bits and CDF rows are indexed by the global device; ``size`` is
+only the bound of a process's loop over its devices. Every route runs
+across the processes as the JAX package's ``shard_map`` routes run
+across hosts: ``shard_rows`` keeps this process's blocks of a whole
+table and ``gather_rows`` gathers every process's (JAX
+``process_allgather``); ``merge_deltas`` sums over the local devices,
+then across the processes (``all_reduce``); ``merge_rows`` all-gathers
+the touched rows and adds them in global device order; the diagonal's
+ring (``diagonal_epoch``) passes a partition to the previous process
+with ``isend`` / ``irecv``. Every process calls every collective in the
+same order, also where it has no work. By default a process drives its
+share of its host's cards (``local_devices``: the cards split by
+``LOCAL_RANK``), so that no two ranks drive one card, and the backend is
+NCCL where that share is not empty, gloo otherwise (NCCL refuses two
+ranks on one card; gloo moves only host tensors, so a CUDA tensor goes
+through the host).
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        """The devices of this process."""
+        """This process's devices: the bound of its loop over them
+        (``global_size`` sizes plans)."""
         return len(self.devices)
 
     @property
@@ -70,7 +83,8 @@ class Mesh:
 
     @property
     def first_device(self) -> int:
-        """The global index of this process's first device."""
+        """The global index of this process's first device: local device
+        d is global device ``first_device + d``."""
         return self.process_index * self.size
 
     def __repr__(self):
@@ -78,43 +92,96 @@ class Mesh:
                  if self.process_count > 1 else "")
         return f"Mesh({[str(d) for d in self.devices]}{procs})"
 
-    def one_process(self, what: str):
-        """Raise unless the mesh is one process's: ``what`` runs across
-        processes not yet (ROADMAP A9b)."""
-        if self.process_count > 1:
-            raise NotImplementedError(
-                f"{what} runs on one process's mesh; across processes only "
-                "the blocked MF epoch does (ops/sgd.py "
-                "sgd_epoch_blocked_sharded)")
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the process group carries it: a host tensor under
+        gloo (which moves only host tensors), a CUDA tensor under NCCL."""
+        import torch.distributed as dist
+        if dist.get_backend() == "nccl":
+            if t.device.type != "cuda":
+                t = t.to(self.devices[0])
+        else:
+            t = t.cpu()
+        return t.contiguous()
+
+    def _all_gather(self, t: torch.Tensor) -> list:
+        """``t`` of every process, in process order (the shapes equal);
+        on the host under gloo, on a card under NCCL."""
+        if self.process_count == 1:
+            return [t]
+        import torch.distributed as dist
+        t = self._wire(t)
+        parts = [torch.empty_like(t) for _ in range(self.process_count)]
+        dist.all_gather(parts, t)
+        return parts
 
     def sum_over_processes(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the processes, in place (``all_reduce``); a
-        CUDA tensor goes through the host under gloo."""
+        """``t`` summed over the processes, in place (``all_reduce``),
+        through the host under gloo."""
         if self.process_count > 1:
             import torch.distributed as dist
-            if t.device.type == "cuda" and dist.get_backend() != "nccl":
-                host = t.cpu()
-                dist.all_reduce(host)
-                t.copy_(host)
-            else:
-                dist.all_reduce(t)
+            wire = self._wire(t)
+            dist.all_reduce(wire)
+            if wire.data_ptr() != t.data_ptr():
+                t.copy_(wire)
         return t
+
+    def shift_from_next(self, t: torch.Tensor, device) -> torch.Tensor:
+        """The ring's step across processes: ``t`` (this process's first
+        local partition) goes to process p - 1 while the tensor of
+        process p + 1 comes in, both posted at once (a blocking send
+        before the receive would deadlock at two processes); returned on
+        ``device``."""
+        import torch.distributed as dist
+        P, p = self.process_count, self.process_index
+        out = self._wire(t)
+        into = torch.empty_like(out)
+        reqs = [dist.isend(out, (p - 1) % P), dist.irecv(into, (p + 1) % P)]
+        for r in reqs:
+            r.wait()
+        return into.to(device)
 
     def merge_deltas(self, start: torch.Tensor, tables) -> list:
         """The JAX package's ``start + psum(table - start)`` over the
-        devices' ``tables`` (each a private copy updated from ``start``),
-        replicated on every mesh device."""
+        devices' ``tables`` (each a private copy updated from ``start``;
+        none where this process's devices had no work), replicated on
+        every mesh device."""
         home = start.device
         total = torch.zeros_like(start)
         for t in tables:
             total += t.to(home) - start
         return self.replicate(start + self.sum_over_processes(total))
 
+    def _all_parts(self, parts) -> list:
+        """Every global device's touched-row deltas, in global device
+        order, from this process's ``parts`` (one (rows, deltas) pair a
+        local device): the counts all-gathered first, then the rows and
+        deltas padded to the largest count (on the host under gloo)."""
+        if self.process_count == 1:
+            return list(parts)
+        L = self.size
+        counts = torch.tensor([int(r.numel()) for r, _ in parts])
+        all_counts = torch.stack(self._all_gather(counts)).cpu()
+        m = int(all_counts.max())
+        delta = parts[0][1]
+        rows = torch.zeros((L, m), dtype=torch.int64, device=delta.device)
+        deltas = delta.new_zeros((L, m) + tuple(delta.shape[1:]))
+        for d, (r, dl) in enumerate(parts):
+            rows[d, :r.numel()] = r.to(rows.device)
+            deltas[d, :r.numel()] = dl.to(deltas.device, deltas.dtype)
+        if m == 0:
+            return [(rows[0], deltas[0])] * self.global_size
+        all_rows, all_deltas = self._all_gather(rows), self._all_gather(deltas)
+        return [(all_rows[p][d, :int(all_counts[p, d])],
+                 all_deltas[p][d, :int(all_counts[p, d])])
+                for p in range(self.process_count) for d in range(L)]
+
     def merge_rows(self, replicas, parts) -> list:
-        """Add every device's touched-row deltas ``parts`` (a list of
-        (rows, deltas) pairs) to each distinct copy of ``replicas``, in
-        device order, so that the copies stay equal; returns them."""
-        self.one_process("merge_rows")
+        """Add every global device's touched-row deltas (``parts``: this
+        process's (rows, deltas) pairs, one a local device, zero rows
+        where a device touched none) to each distinct copy of
+        ``replicas``, in global device order, so that the copies stay
+        equal on every process; returns them."""
+        parts = self._all_parts(parts)
         seen = set()
         for copy in replicas:
             if id(copy) in seen:
@@ -126,10 +193,10 @@ class Mesh:
         return list(replicas)
 
     def replicate(self, t) -> list:
-        """One copy of ``t`` on each mesh device (``t`` itself where it
-        already lies there); a device listed twice shares one copy. A
-        list of copies (an earlier call's result) is returned as it is,
-        so that callers can keep the copies across epochs."""
+        """One copy of ``t`` on each of this process's devices (``t``
+        itself where it already lies there); a device listed twice shares
+        one copy. A list of copies (an earlier call's result) is returned
+        as it is, so that callers can keep the copies across epochs."""
         if isinstance(t, (list, tuple)):
             return list(t)
         copies = {}
@@ -138,54 +205,84 @@ class Mesh:
                 copies[d] = t.to(d)
         return [copies[d] for d in self.devices]
 
+    def split_local(self, t: torch.Tensor) -> list:
+        """Rows of ``t`` (this process's) in ``size`` contiguous blocks,
+        block d on local device d, padded with zero rows to a multiple of
+        ``size`` (``pad_rows_to_multiple``)."""
+        L = self.size
+        if t.shape[0] % L:
+            t = torch.from_numpy(pad_rows_to_multiple(
+                t.detach().cpu().numpy(), L)).to(t.device)
+        n = t.shape[0] // L
+        return [t[d * n:(d + 1) * n].to(dev)
+                for d, dev in enumerate(self.devices)]
+
     def shard_rows(self, t: torch.Tensor) -> list:
-        """Rows of ``t`` in D contiguous blocks, block d on mesh device d
-        (``shard_mf_params``): a view of ``t`` where the device is t's own
-        and D divides its rows, else of ``t`` padded with zero rows to a
-        multiple of D (``pad_rows_to_multiple``; the plans pad their
-        tables to whole shards themselves)."""
-        D = self.size
+        """Rows of the whole table ``t`` in ``global_size`` contiguous
+        blocks, block g on global device g, of which this process keeps
+        its own, block ``first_device + d`` on local device d
+        (``shard_mf_params``; the JAX package's ``device_put`` of a
+        global array): a view of ``t`` where the device is t's own and
+        the blocks divide its rows, else of ``t`` padded with zero rows
+        to a multiple of ``global_size`` (``pad_rows_to_multiple``; the
+        plans pad their tables to whole shards themselves)."""
+        D, g0 = self.global_size, self.first_device
         if t.shape[0] % D:
             t = torch.from_numpy(pad_rows_to_multiple(
                 t.detach().cpu().numpy(), D)).to(t.device)
         n = t.shape[0] // D
-        return [t[d * n:(d + 1) * n].to(dev)
+        return [t[(g0 + d) * n:(g0 + d + 1) * n].to(dev)
                 for d, dev in enumerate(self.devices)]
 
     def gather_rows(self, shards, device=None) -> torch.Tensor:
-        """The row blocks ``shards`` concatenated in mesh order on
-        ``device`` (the first mesh device by default)."""
+        """Every global device's row block in global order on ``device``
+        (the first mesh device by default) from this process's
+        ``shards``: concatenated here, then all-gathered across the
+        processes (a collective there)."""
         device = self.devices[0] if device is None else torch.device(device)
-        return torch.cat([s.to(device) for s in shards])
+        local = torch.cat([s.to(device) for s in shards])
+        return torch.cat([p.to(device) for p in self._all_gather(local)])
 
 
 def diagonal_epoch(mesh: Mesh, H_parts, order, counts, run_cell) -> list:
     """One epoch of Gemulla's DSGD diagonal over the mesh (the loop of
-    ``pallas_sgd.sgd_epoch_mxu_sharded``'s ``shard_map``): D sub-epochs;
-    at sub-epoch k mesh device d calls ``run_cell(d, k, H, cols)`` on
-    the item partition H = (d + k) % D that it holds, then every
-    partition moves one step around the ring, device d receiving device
-    d + 1's (the JAX package's ppermute pairs ((i + 1) % D, i)), so that
-    after D sub-epochs each is home again. Within a sub-epoch the cells
-    touch disjoint user rows and disjoint partitions, so on distinct
-    cards they run at once, each on its device's current stream.
+    ``pallas_sgd.sgd_epoch_mxu_sharded``'s ``shard_map``): D =
+    ``global_size`` sub-epochs; at sub-epoch k global device g works on
+    the item partition (g + k) % D that it holds, this process calling
+    ``run_cell(d, k, H, cols)`` for its local device d = g -
+    ``first_device``; then every partition moves one step around the
+    ring, device g receiving device g + 1's (the JAX package's ppermute
+    pairs ((i + 1) % D, i)): within a process by ``tensor.to``, at the
+    process boundary by ``Mesh.shift_from_next`` (the first local
+    partition to process p - 1, the last local device's from process p +
+    1), so that after D sub-epochs each is home again. Within a
+    sub-epoch the cells touch disjoint user rows and disjoint
+    partitions, so on distinct cards they run at once, each on its
+    device's current stream.
 
-    ``H_parts[p]`` is partition p on mesh device p; ``order`` the
-    [D, D, nc_pad] columns of the epoch order (numpy or tensors) and
-    ``counts`` [D, D] the real chunks of each cell. Each device's rows
-    of ``order`` go to it once, before any cell runs, and ``cols`` holds
-    views of the cell's real entries there. A cell without chunks is
-    skipped. Returns the partitions, home again, in partition order."""
-    D = mesh.size
-    cols = [tuple(torch.as_tensor(np.ascontiguousarray(a[d])).to(dev)
+    ``H_parts[d]`` is partition ``first_device + d`` on local device d;
+    ``order`` the [D, D, nc_pad] columns of the epoch order (numpy or
+    tensors; every global device's rows, of which a process reads its
+    own) and ``counts`` [D, D] the real chunks of each cell. Each
+    device's rows of ``order`` go to it once, before any cell runs, and
+    ``cols`` holds views of the cell's real entries there. A cell
+    without chunks is skipped; the ring's step is not. Returns this
+    process's partitions, home again."""
+    L, D, g0 = mesh.size, mesh.global_size, mesh.first_device
+    cols = [tuple(torch.as_tensor(np.ascontiguousarray(a[g0 + d])).to(dev)
                   for a in order) for d, dev in enumerate(mesh.devices)]
     held = list(H_parts)
     for k in range(D):
-        for d in range(D):
-            n = int(counts[d][k])
+        for d in range(L):
+            n = int(counts[g0 + d][k])
             if n:
                 run_cell(d, k, held[d], tuple(c[k, :n] for c in cols[d]))
-        held = [held[(d + 1) % D].to(dev) for d, dev in enumerate(mesh.devices)]
+        if mesh.process_count == 1:
+            last = held[0].to(mesh.devices[-1])
+        else:
+            last = mesh.shift_from_next(held[0], mesh.devices[-1])
+        held = [held[d + 1].to(mesh.devices[d]) for d in range(L - 1)] + \
+            [last]
     return held
 
 
@@ -217,7 +314,8 @@ def make_mesh(num_devices: int = None, devices=None) -> Mesh:
 # is make_mesh()'s.
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None, backend=None) -> bool:
+                           process_id=None, backend=None,
+                           timeout=None) -> bool:
     """Join the process group (``torch.distributed.init_process_group``
     over ``tcp://coordinator_address``). The arguments default to
     ``JAX_COORDINATOR`` (``host:port``), ``JAX_NUM_PROCESSES`` and
@@ -225,7 +323,9 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     initializes nothing, where the configuration says one process.
     ``backend`` defaults to NCCL where each process of this host gets
     cards of its own from ``local_devices``, else gloo; pass "gloo"
-    where ranks are given devices that repeat a card."""
+    where ranks are given devices that repeat a card. ``timeout`` (a
+    ``timedelta``) bounds each collective's wait, so that a process
+    whose peer failed raises instead of hanging."""
     coordinator_address = coordinator_address or \
         os.environ.get("JAX_COORDINATOR")
     if num_processes is None:
@@ -237,8 +337,9 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     import torch.distributed as dist
     if backend is None:
         backend = default_backend(process_id, num_processes)
+    kw = {} if timeout is None else dict(timeout=timeout)
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kw)
     return True
 
 
@@ -308,25 +409,13 @@ def host_local_rows(num_rows: int, process_id: int = None,
 def shard_host_local(mesh: Mesh, host_rows) -> list:
     """This process's rows (``host_local_rows`` of the global array; in
     one process the whole array) in row blocks over its devices."""
-    return mesh.shard_rows(torch.as_tensor(np.asarray(host_rows)))
+    return mesh.split_local(torch.as_tensor(np.asarray(host_rows)))
 
 
 def gather_global_rows(mesh: Mesh, shards) -> torch.Tensor:
-    """Every process's row blocks, in global order, on the host (gloo
-    gathers only host tensors)."""
-    local = mesh.gather_rows(shards, "cpu")
-    if mesh.process_count == 1:
-        return local
-    import torch.distributed as dist
-    parts = [torch.empty_like(local) for _ in range(mesh.process_count)]
-    if dist.get_backend() == "nccl":
-        dev = mesh.devices[0]
-        cuda_parts = [p.to(dev) for p in parts]
-        dist.all_gather(cuda_parts, local.to(dev))
-        parts = [p.cpu() for p in cuda_parts]
-    else:
-        dist.all_gather(parts, local)
-    return torch.cat(parts)
+    """Every process's row blocks, in global order, on the host (JAX
+    ``process_allgather``)."""
+    return mesh.gather_rows(shards, "cpu")
 
 
 def shard_mf_params(params: dict, mesh: Mesh) -> dict:
@@ -348,7 +437,7 @@ def model_mesh(model) -> Mesh | None:
     every visible card): the JAX package's default of all devices waits
     for a run across distinct cards (ROADMAP A9b)."""
     mesh = getattr(model, "mesh", None)
-    return mesh if mesh is not None and mesh.size > 1 else None
+    return mesh if mesh is not None and mesh.global_size > 1 else None
 
 
 def one_device_route(model, route: str, mesh: Mesh):
@@ -358,7 +447,7 @@ def one_device_route(model, route: str, mesh: Mesh):
     the sharded-tiled bound)."""
     log.warning("%s: the %s route has no sharded form; it runs on one "
                 "device, not on the %d-device mesh",
-                type(model).__name__, route, mesh.size)
+                type(model).__name__, route, mesh.global_size)
 
 
 def pad_rows_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:

@@ -841,7 +841,8 @@ def test_plain_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     of ``["cpu"] * 4``, with the card's clock stood in for and the launch
     counts not held: (a) each plain mesh op on the rig against the CPU
     mesh's, WRMF's sharded solves against one device's, the dry run;
-    (d) the two driver processes on gloo against the one-process run;
+    (d) the two driver processes on gloo, every route with plain cells
+    at the driver's small shape, against the one-process run;
     (b) SVDPlusPlus and WRMF with ``model.mesh``, the user side against
     one device's solves, serving and the data-parallel eval; (c) the
     sharded minibatch BPR epoch with its window against the CPU."""
@@ -855,6 +856,7 @@ def test_plain_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     )
     from mymedialite_tpu_torch.models.registry import create_rating_predictor
     from mymedialite_tpu_torch.ops import topk as ttopk
+    from mymedialite_tpu_torch.parallel import driver
     smoke = _smoke_module()
     for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
                      ("empty_cache", lambda: None),
@@ -870,6 +872,7 @@ def test_plain_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
         num_users=300, num_items=400, num_ratings=6000, seed=3))
     monkeypatch.setattr(smoke, "EVAL_USERS", 100)
     monkeypatch.setattr(smoke, "AUC_USERS", 100)
+    monkeypatch.setattr(smoke, "DRIVER_SHAPE", "small")
     monkeypatch.setattr(ttopk, "takes_topk_kernel", lambda *a, **k: True)
     monkeypatch.chdir(REPO)
     dev = torch.device("cpu")
@@ -894,8 +897,10 @@ def test_plain_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
                  "sharded BPR steps (", "sharded blocked MF epoch (",
                  "data-parallel ranking eval on the rig",
                  "dryrun paths ok: 1 sharded-blocked-SGD",
-                 "two processes on gloo, each a mesh of [cpu] x 2: ranks "
-                 "equal bit for bit True",
+                 "two processes on gloo, each a mesh of [cpu] x 2: every "
+                 "route's ranks equal bit for bit",
+                 *(f"each a mesh of [cpu] x 2 (cpu), route {r}: ranks equal "
+                   "bit for bit True" for r in driver.ROUTES),
                  "mesh SVDPlusPlus Netflix-shaped on the rig (sharded "
                  "grouped epoch)", "mesh WRMF user side (",
                  "mesh WRMF serving: top-10 of 1024 users",

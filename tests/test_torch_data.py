@@ -15,12 +15,25 @@ from mymedialite_tpu_torch.models.registry import create_rating_predictor
     dict(num_users=50, num_items=70, num_ratings=900, seed=3),
     dict(num_users=300, num_items=200, num_ratings=6000, rank=4,
          noise=0.3, seed=11),
+    dict(num_users=3000, num_items=2000, num_ratings=200_000, rank=4,
+         seed=11),
+    dict(num_users=400, num_items=300, num_ratings=9000, seed=1,
+         with_times=True, time_drift=1.0),
+    dict(num_users=60, num_items=40, num_ratings=700, seed=5,
+         with_times=True),
 ])
 def test_synthetic_ratings_match_jax(shape):
+    """The draws' searches and de-duplication run in torch (here on the
+    CPU) and give the JAX package's numpy data."""
     a, b = tsyn.synthetic_ratings(**shape), jsyn.synthetic_ratings(**shape)
     assert (a.num_users, a.num_items) == (b.num_users, b.num_items)
-    for name in ("users", "items", "values"):
-        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert a.users.dtype == b.users.dtype == np.int32
+    for name in ("users", "items", "values", "times"):
+        x, y = getattr(a, name), getattr(b, name)
+        if y is None:
+            assert x is None
+        else:
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("fraction,seed", [(0.2, 1), (0.1, 5)])

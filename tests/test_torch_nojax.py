@@ -16,8 +16,9 @@ minibatch epoch, ``--search-hp`` and GSVDPlusPlus; then the last eight
 names trained, the KDD Cup reader, and the rating CLI under
 ``--profile``; BiasedMatrixFactorization and BPRMF trained on a mesh of
 four CPU devices; the dry run's mesh paths, WRMF's sharded solves and the
-data-parallel ranking eval on four CPU devices, and the multi-process
-module ``parallel/driver.py``) from the port's own synthetic data, and must exit 0."""
+data-parallel ranking eval on four CPU devices, and every route of the
+multi-process module ``parallel/driver.py`` in its one-process run) from
+the port's own synthetic data, and must exit 0."""
 
 import os
 import subprocess
@@ -219,9 +220,11 @@ SCRIPT = textwrap.dedent("""
     # and the data-parallel eval on four CPU devices, parallel/driver.py
     from mymedialite_tpu_torch import dryrun
     from mymedialite_tpu_torch.eval.ranking import evaluate_items
-    from mymedialite_tpu_torch.parallel import driver  # noqa: F401
+    from mymedialite_tpu_torch.parallel import driver
     plan.RESIDENT_ITEM_TABLE_BYTES = 64 << 20
     dryrun.dryrun_multichip(4, ["cpu"] * 4)
+    # every route of the multi-process driver, its one-process run
+    driver.run("single", 0, 0, f"{d}/routes.npz", "cpu", "small")
     model = create_item_recommender("WRMF", "num_factors=6 num_iter=2 "
                                     "device=cpu")
     model.mesh = make_mesh(devices=["cpu"] * 4)
@@ -249,7 +252,10 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count("\ntrained ") == 8
     assert proc.stdout.count("\nmesh ") == 3
     assert proc.stdout.count(" sharded [") == 2
-    assert proc.stdout.count("dryrun paths ok: 1 sharded-blocked-SGD") == 1
+    assert proc.stdout.count("dryrun paths ok: 1 sharded-blocked-SGD, "
+                             "2 flat-SPMD-SGD") == 1
+    assert proc.stdout.count("\nroute ") == 12
+    assert proc.stdout.count("driver-ok single 0") == 1
     assert proc.stdout.count("\nmesh eval AUC") == 1
     assert "frequency_regularization=True" in proc.stdout
     assert proc.stdout.count("\nUserItemBaseline reg_u=") == 4
