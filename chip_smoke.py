@@ -248,7 +248,33 @@ Phases (any failure raises and the script exits non-zero):
     after phase 24 (c), on the big catalog's pairs: one sharded minibatch
     BPR epoch (``ops/bpr.py bpr_epoch_sharded``) from seeded tables, its
     first 8 steps held to the CPU's on the same per-device triples, its
-    ms beside phase 20's one-device epoch, AUC of 1,024 users.
+    ms beside phase 20's one-device epoch, AUC of 1,024 users;
+26. the default mesh (``parallel/mesh.py default_mesh``: a model left at
+    ``mesh = DEFAULT_MESH`` trains, and the ranking eval runs, on every
+    visible card), after phase 25 (a), at phase 3's shape: (a) the
+    resolver as it stands: on one card it gives None, and BiasedMF,
+    BPRMF and MultiCoreBPRMF take the resident route (their kernel once
+    an epoch), SVDPlusPlus kernel 5, WRMF and BPRMF's ranking eval one
+    device, as in phases 3-11 (with several cards it checks that the
+    default spans them all); (b) the default pointed at the rig of phase
+    24 (``default_devices``): BiasedMF, BPRMF and MultiCoreBPRMF on
+    "sharded" (kernels 1 and 3 once per non-empty cell), BiasedMF and
+    BPRMF on "sharded-tiled" at 200,000 items, past the per-device
+    resident bound (kernels 2 and 4), each beside a model on an explicit
+    mesh of the same devices (the same plan chunk for chunk, the tables
+    within 1e-5: the kernels' float atomics fix no order of a sum, so
+    two runs of one schedule may part in the last bits; the gap logged)
+    and its kernel held to its plain version across its cells;
+    SVDPlusPlus on its sharded grouped epoch (groups of a quarter of one
+    device's automatic group) and WRMF on its sharded solves against the
+    explicit mesh's (1e-5 and 1e-6); BPRMF's ranking eval split over the
+    rig, its line equal bit for bit to the explicit mesh's and to one
+    device's.
+
+Phases 1-25 run with the default mesh pointed at the one card
+(``default_devices`` in ``main``), and the child process of phase 23 (f)
+sees that card alone, so that on a host of several cards they mean what
+they mean on one.
 
 Before each main path (phase 24's models included) every kernel's launch
 count is set to 0, and after
@@ -3711,6 +3737,19 @@ def trace_kernels(trace_dir):
     return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
 
 
+def one_card_env() -> dict:
+    """This process's environment with only its current card visible: a
+    child then means on a host of several cards what it means on one, as
+    the phases do in process (``default_devices`` in ``main``)."""
+    env = dict(os.environ)
+    if torch.cuda.is_available():
+        card = torch.cuda.current_device()
+        visible = env.get("CUDA_VISIBLE_DEVICES")
+        env["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[card] if visible
+                                       else str(card))
+    return env
+
+
 def counted_clis(runs):
     """Run CLIs of the port in one process of its own, this script with
     ``--counted-cli``: ``runs`` is a list of (expected launches, module
@@ -3721,7 +3760,8 @@ def counted_clis(runs):
     then its process's first profiler session, as a user's run is."""
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--counted-cli",
-         json.dumps(runs)], capture_output=True, text=True, timeout=600)
+         json.dumps(runs)], capture_output=True, text=True, timeout=600,
+        env=one_card_env())
     sys.stderr.write(proc.stderr)
     log(proc.stdout.rstrip())
     if proc.returncode != 0:
@@ -4255,11 +4295,11 @@ def imbalance(cell_ms, cells_per_epoch: int) -> float:
 
 
 def mesh_model(dev, kind, data, *, iters: int, label: str, route: str,
-               tables=None, name=None):
+               tables=None, name=None, mesh=None):
     """A model of ``kind`` ("mf" or "bpr") trained through the registry on
-    the rig mesh for ``iters`` epochs on ``route``: its kernel, and only
-    it, launches once per non-empty cell per epoch. Returns (model, epoch
-    ms, cell ms)."""
+    the rig mesh (or on ``mesh``, which may be ``DEFAULT_MESH``) for
+    ``iters`` epochs on ``route``: its kernel, and only it, launches once
+    per non-empty cell per epoch. Returns (model, epoch ms, cell ms)."""
     from mymedialite_tpu_torch.models import bpr as bpr_module
     from mymedialite_tpu_torch.models import mf as mf_module
     from mymedialite_tpu_torch.models.registry import (
@@ -4285,7 +4325,7 @@ def mesh_model(dev, kind, data, *, iters: int, label: str, route: str,
                    else "prepare_bpr_mxu_sharded")
         epoch = (bpr_module, "bpr_epoch_sharded_tiled" if tiled
                  else "bpr_epoch_sharded")
-    model.mesh = rig_mesh()
+    model.mesh = rig_mesh() if mesh is None else mesh
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     expected = {}
@@ -5128,6 +5168,312 @@ KERNELS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the default mesh (parallel/mesh.py default_mesh)
+# ---------------------------------------------------------------------------
+
+# (b)'s catalog past the per-device resident bound: at k=40 on 4 devices,
+# 196 item blocks, 49 a partition where 40 fit, streamed in slabs of 16
+DEFAULT_BIG_ITEMS = 200_000
+DEFAULT_EPOCHS = 2
+# (b)'s default against the explicit mesh, kernels 1-4: one schedule run
+# twice, whose float atomics fix no order of a sum (phase 25 (d)'s limit)
+DEFAULT_GAP_TOL = PLAIN_MESH_TOL
+
+
+@contextlib.contextmanager
+def eval_parts():
+    """The mesh sizes of the data-parallel rank steps of the ranking
+    evals inside the block (``eval/ranking.py _ranks_on_mesh``)."""
+    from mymedialite_tpu_torch.eval import ranking
+    real = ranking._ranks_on_mesh
+    sizes = []
+
+    def counted(mesh, *a):
+        sizes.append(mesh.size)
+        return real(mesh, *a)
+    ranking._ranks_on_mesh = counted
+    try:
+        yield sizes
+    finally:
+        ranking._ranks_on_mesh = real
+
+
+def std_tables(model, kind: str) -> dict:
+    """The standard tables a model predicts from: MF's W and H (trained
+    rows), the BPR and WRMF params."""
+    if kind == "mf":
+        return {"W": model.W_ext[:model.num_users_trained], "H": model.H_ext}
+    return dict(model.params)
+
+
+def default_svdpp(dev, train, test, mesh):
+    """SVDPlusPlus (k=20, learn rate 0.003, transductive) trained with
+    ``mesh``; groups as phase 25 (b) sizes them: 4 make one device's
+    automatic group."""
+    from mymedialite_tpu_torch.models.registry import create_rating_predictor
+    opts = f"num_factors=20 learn_rate=0.003 device={dev.type}"
+    probe = create_rating_predictor("SVDPlusPlus", opts)
+    probe.ratings = train
+    group = max(probe._auto_group_users(train.num_users) // MESH_DEVICES, 1)
+    model = create_rating_predictor(
+        "SVDPlusPlus", f"{opts} num_iter={DEFAULT_EPOCHS} "
+        f"group_users={group}")
+    model.mesh = mesh
+    model.additional_feedback = (test.users, test.items)
+    model.ratings = train
+    with counted_path({}):
+        _, ms = timed(model.train)
+    return model, ms
+
+
+def default_wrmf(dev, feedback, mesh):
+    from mymedialite_tpu_torch.models.registry import create_item_recommender
+    model = create_item_recommender(
+        "WRMF", f"num_factors=40 regularization=100 num_iter="
+        f"{DEFAULT_EPOCHS} device={dev.type}")
+    model.mesh = mesh
+    model.feedback = feedback
+    with counted_path({}):
+        _, ms = timed(model.train)
+    return model, ms
+
+
+def kind_of(name: str) -> str:
+    return "mf" if name == "BiasedMatrixFactorization" else "bpr"
+
+
+def phase_default_one_card(dev, train, test):
+    """(a) The resolver as it stands: with one card (or none) it returns
+    None, and with the mesh left at its default BiasedMF, BPRMF,
+    MultiCoreBPRMF and SVD++ take phases 3-11's routes (one epoch: one
+    launch of their kernel), WRMF solves on one device and the ranking
+    eval ranks on one device. With several cards it spans them all."""
+    from mymedialite_tpu_torch.data.synthetic import posonly_from_ratings
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.models.registry import (
+        create_item_recommender, create_rating_predictor,
+    )
+    from mymedialite_tpu_torch.parallel.mesh import (
+        default_devices, default_mesh,
+    )
+    with default_devices(None):
+        count = torch.cuda.device_count()
+        mesh = default_mesh(dev)
+        if count > 1:
+            if mesh is None or mesh.size != count:
+                raise AssertionError(f"{count} cards: the default is {mesh}")
+            log(f"default mesh (a): {count} cards, the default spans them "
+                f"all ({mesh}); the one-card routes are not checked here")
+            return
+        if mesh is not None:
+            raise AssertionError(f"one card: the default is {mesh}, not None")
+        opts = f"num_factors=40 num_iter=1 device={dev.type}"
+        fb, test_items = posonly_from_ratings(train), \
+            posonly_from_ratings(test)
+        routes, models = [], {}
+        for name, create, data, kernel, route in (
+                ("BiasedMatrixFactorization", create_rating_predictor, train,
+                 "sgd_epoch", "resident"),
+                ("BPRMF", create_item_recommender, fb, "bpr_epoch",
+                 "resident"),
+                ("MultiCoreBPRMF", create_item_recommender, fb, "bpr_epoch",
+                 "resident")):
+            model = create(name, opts)
+            setattr(model, "ratings" if kind_of(name) == "mf" else
+                    "feedback", data)
+            with counted_path({kernel: 1}):
+                model.train()
+            if model._route() != route or model._mesh is not None:
+                raise AssertionError(f"{name} on one card took "
+                                     f"{model._route()} on {model._mesh}")
+            routes.append(f"{name} {route} ({kernel} once)")
+            models[name] = model
+        svdpp = create_rating_predictor("SVDPlusPlus", "num_factors=20 "
+                                        f"num_iter=1 device={dev.type}")
+        svdpp.ratings = train
+        with counted_path({"svdpp_epoch": 1}):
+            svdpp.train()
+        if svdpp.route() != "kernel":
+            raise AssertionError(f"SVDPlusPlus on one card: {svdpp.route()}")
+        routes.append("SVDPlusPlus kernel (svdpp_epoch once)")
+        wrmf = create_item_recommender("WRMF", f"num_factors=40 num_iter=1 "
+                                       f"device={dev.type}")
+        wrmf.feedback = fb
+        with counted_path({}):
+            wrmf.train()
+        if wrmf._hist_mesh is not None:
+            raise AssertionError(f"WRMF on one card: {wrmf._hist_mesh}")
+        routes.append("WRMF one device")
+        with eval_parts() as parts, counted_path({}):
+            evaluate_items(models["BPRMF"], test_items, fb)
+        if parts:
+            raise AssertionError(f"one card: the eval split over {parts}")
+        routes.append("BPRMF's ranking eval one device")
+    log(f"default mesh (a), one card: the resolver gives None; "
+        f"{'; '.join(routes)}")
+
+
+def default_vs_explicit(dev, name, data, route, resolved, explicit, what):
+    """One model of ``name`` trained on the default (resolved to
+    ``resolved``) and one on the ``explicit`` mesh of the same devices,
+    ``DEFAULT_EPOCHS`` epochs each through ``mesh_model``: the same plan
+    chunk for chunk, the same launches (one a non-empty cell an epoch),
+    the tables within ``DEFAULT_GAP_TOL`` (the kernels' float atomics fix
+    no order of a sum, so two runs of one schedule can part in the last
+    bits; the gap is logged); the default model's kernel then held to
+    its plain version across its cells. Returns (its error, the default
+    model)."""
+    from mymedialite_tpu_torch.parallel.mesh import DEFAULT_MESH
+    kind = kind_of(name)
+    label = f"default {name} {what}"
+    runs = []
+    for mesh in (DEFAULT_MESH, explicit):
+        model, epoch_ms, _ = mesh_model(
+            dev, kind, data, iters=DEFAULT_EPOCHS, label=f"{label} ("
+            f"{'default' if mesh is DEFAULT_MESH else 'explicit'} mesh)",
+            route=route, name=name, mesh=mesh)
+        runs.append((model, epoch_ms))
+    (m_def, ms_def), (m_exp, ms_exp) = runs
+    if m_def._mesh is not resolved:
+        raise AssertionError(f"{label}: trained on {m_def._mesh}, not on "
+                             f"the resolved {resolved}")
+    p_def, p_exp = m_def._plan, m_exp._plan
+    if not (np.array_equal(p_def.cell_counts, p_exp.cell_counts)
+            and torch.equal(p_def.packed, p_exp.packed)):
+        raise AssertionError(f"{label}: the plans differ")
+    # the check reads the kernel-layout tables, which a read of the
+    # standard ones folds back
+    err = mesh_model_check(m_def, kind, label)
+    mesh_layout_check(m_def, kind, label)
+    gap = table_gap(std_tables(m_def, kind), std_tables(m_exp, kind))
+    log(f"{label}: the default resolves to {resolved}; the plan equals the "
+        f"explicit mesh's chunk for chunk ({cells_line(p_def)}); tables "
+        f"against the explicit mesh's {gap:.3e} ("
+        f"{'bit for bit' if gap == 0 else f'tol {DEFAULT_GAP_TOL}'}); "
+        f"epoch {ms_def:.2f} ms default, {ms_exp:.2f} ms explicit ("
+        f"{card_line() if dev.type == 'cuda' else dev})")
+    if not gap <= DEFAULT_GAP_TOL:
+        raise AssertionError(f"{label}: default vs explicit {gap} past "
+                             f"{DEFAULT_GAP_TOL}")
+    del m_exp
+    return err, m_def
+
+
+def phase_default_rig(dev, train, test):
+    """(b) The default pointed at the one-card rig (``default_devices``,
+    ``MESH_DEVICES`` entries), at phase 3's shape: BiasedMF, BPRMF and
+    MultiCoreBPRMF on "sharded" (kernels 1 and 3 once per non-empty cell),
+    BiasedMF and BPRMF on "sharded-tiled" at a catalog of
+    ``DEFAULT_BIG_ITEMS`` (kernels 2 and 4), each against an explicit
+    mesh of the same devices and its kernel against its plain version;
+    SVDPlusPlus on its sharded grouped epoch and WRMF on its sharded
+    solves against the explicit mesh's; the ranking eval of the default
+    BPRMF split over the rig, its line equal to the explicit mesh's and
+    to one device's. Returns the largest error of each kernel."""
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.eval.ranking import evaluate_items
+    from mymedialite_tpu_torch.parallel.mesh import (
+        DEFAULT_MESH, default_devices, default_mesh, make_mesh,
+    )
+    rig = rig_mesh()
+    worst = {}
+    fb, test_items = posonly_from_ratings(train), posonly_from_ratings(test)
+    big = synthetic_ratings(**dict(MESH_CHECK_SHAPE,
+                                   num_items=DEFAULT_BIG_ITEMS))
+    big_fb = posonly_from_ratings(big)
+    with default_devices(rig.devices):
+        resolved = default_mesh(dev)
+        if resolved is None or resolved.devices != rig.devices or \
+                default_mesh(dev) is not resolved:
+            raise AssertionError(f"the default on the rig: {resolved}")
+        explicit = make_mesh(devices=rig.devices)
+        bpr_model = None
+        for name, data, route, what, kernel in (
+                ("BiasedMatrixFactorization", train, "sharded",
+                 "phase 3's shape", "sgd_epoch"),
+                ("BPRMF", fb, "sharded", "phase 3's shape", "bpr_epoch"),
+                ("MultiCoreBPRMF", fb, "sharded", "phase 3's shape",
+                 "bpr_epoch"),
+                ("BiasedMatrixFactorization", big, "sharded-tiled",
+                 f"{DEFAULT_BIG_ITEMS:,} items", "sgd_epoch_tiled"),
+                ("BPRMF", big_fb, "sharded-tiled",
+                 f"{DEFAULT_BIG_ITEMS:,} items", "bpr_epoch_tiled")):
+            err, model = default_vs_explicit(dev, name, data, route,
+                                             resolved, explicit, what)
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+            if name == "BPRMF" and route == "sharded":
+                bpr_model = model
+            del model
+            torch.cuda.empty_cache()
+
+        svd, wrmf = [], []
+        for mesh in (DEFAULT_MESH, explicit):
+            svd.append(default_svdpp(dev, train, test, mesh))
+            wrmf.append(default_wrmf(dev, fb, mesh))
+        (s_def, s_ms), (s_exp, _) = svd
+        if s_def.route() != "sharded" or s_def._shards[0] is not resolved:
+            raise AssertionError(f"default SVDPlusPlus: {s_def.route()}")
+        gap = table_gap(s_def.params, s_exp.params)
+        log(f"default SVDPlusPlus (sharded grouped epoch, "
+            f"{s_def._groups.ngroups} groups of {s_def.group_users} on "
+            f"{rig.size} devices, k=20): {s_ms:.1f} ms for "
+            f"{DEFAULT_EPOCHS} epochs; tables against the explicit mesh's "
+            f"{gap:.3e} ({'bit for bit' if gap == 0 else 'tol '}"
+            f"{'' if gap == 0 else PLAIN_MESH_TOL})")
+        plain_check(gap, "default SVDPlusPlus vs the explicit mesh")
+        (w_def, w_ms), (w_exp, _) = wrmf
+        if w_def._hist_mesh is not resolved:
+            raise AssertionError(f"default WRMF: {w_def._hist_mesh}")
+        gap = table_gap(w_def.params, w_exp.params)
+        log(f"default WRMF (sharded solves on {rig.size} devices, k=40): "
+            f"{w_ms:.1f} ms for {DEFAULT_EPOCHS} alternations; tables "
+            f"against the explicit mesh's {gap:.3e} "
+            f"({'bit for bit' if gap == 0 else f'tol {WRMF_MESH_TOL}'})")
+        plain_check(gap, "default WRMF vs the explicit mesh", WRMF_MESH_TOL)
+        del svd, wrmf, s_def, s_exp, w_def, w_exp
+
+        lines = {}
+        for label, mesh in (("default", DEFAULT_MESH),
+                            ("explicit", explicit), ("one device", None)):
+            bpr_model.mesh = mesh
+            with eval_parts() as parts, counted_path({}):
+                res, ms = timed(lambda: evaluate_items(bpr_model, test_items,
+                                                       fb))
+            if parts != ([] if mesh is None else [rig.size] * len(parts)) \
+                    or (mesh is not None and not parts):
+                raise AssertionError(f"the {label} eval split over {parts}")
+            lines[label] = (res, ms)
+        if len({str(res) for res, _ in lines.values()}) != 1:
+            raise AssertionError(f"the eval lines differ: {lines}")
+        res = lines["default"][0]
+        log(f"default ranking eval of the default BPRMF, {res['num_users']} "
+            f"users split over {rig.size} devices: {res}; equal bit for bit "
+            f"to the explicit mesh's and to one device's ("
+            + ", ".join(f"{k} {ms:.1f} ms" for k, (_, ms) in lines.items())
+            + ")")
+    return worst
+
+
+def phase_default_mesh(dev):
+    """Phase 26 at phase 3's shape: (a) the resolver on this machine, (b)
+    pointed at the rig. Returns (the largest error of each of kernels
+    1-4, the seconds)."""
+    from mymedialite_tpu_torch.data.synthetic import (
+        split_ratings, synthetic_ratings,
+    )
+    t0 = time.perf_counter()
+    train, test = split_ratings(synthetic_ratings(**MESH_CHECK_SHAPE), 0.2,
+                                seed=2)
+    phase_default_one_card(dev, train, test)
+    worst = phase_default_rig(dev, train, test)
+    seconds = time.perf_counter() - t0
+    log(f"phase 26 (the default mesh): {seconds:.1f} s")
+    return worst, seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5155,113 +5501,126 @@ def main() -> int:
         f"{'built' if text_lib is not None else 'unavailable, the Python path'}"
         f" ({time.perf_counter() - t0:.1f} s)")
 
-    t_start = time.perf_counter()
-    sgd_worst = phase_kernel_check(dev)
-    bpr_worst = phase_bpr_kernel_check(dev)
-    worst = {"sgd_epoch": sgd_worst["resident"],
-             "sgd_epoch_tiled": sgd_worst["tiled"],
-             "bpr_epoch": bpr_worst["resident"],
-             "bpr_epoch_tiled": bpr_worst["tiled"],
-             "catalog_topk": phase_topk_kernel_check(dev)}
-    for name, err in phase_mesh_kernel_check(dev).items():
-        worst[name] = max(worst[name], err)
-    phase25_s = phase_plain_mesh_check(dev)
-    log(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
-    runs = {}
-    train, test = shaped_ratings("Netflix-shaped", num_users=480_000,
-                                 num_items=17_770,
-                                 num_ratings=20_000_000, seed=1)
-    runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
-    runs["bpr_epoch"], bpr_model, bpr_feedback = phase_bpr_path(
-        dev, train, test, tiled=False)
-    for name, err in phase_mesh_netflix(dev, train, test, runs["sgd_epoch"],
-                                        runs["bpr_epoch"],
-                                        bpr_feedback).items():
-        worst[name] = max(worst[name], err)
-    torch.cuda.empty_cache()
-    runs["catalog_topk"] = phase_serving(dev, bpr_model, bpr_feedback,
-                                         "Netflix-shaped")
-    worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
-    runs["svdpp_epoch"], svdpp_model = phase_svdpp_path(dev, train, test)
-    torch.cuda.empty_cache()
-    phase_mf_blocked(dev, train, test, "Netflix-shaped, frequency "
-                     "regularization", "frequency_regularization=true")
-    torch.cuda.empty_cache()
-    log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
-    model, feedback, test_items = phase_wrmf_path(dev, train, test)
-    wrmf_serving = phase_serving(dev, model, feedback, "WRMF Netflix-shaped")
-    worst["catalog_topk"] = max(worst["catalog_topk"],
-                                wrmf_serving["max_abs_err"])
-    # kernel 6 on the Netflix main path: the BPRMF pass and the WRMF pass
-    bpr_serving = runs["catalog_topk"]
-    runs["catalog_topk"] = dict(
-        {key: bpr_serving[key] + wrmf_serving[key] for key in
-         ("launches", "ms", "plain_ms", "bound_ms", "library_ms")},
-        max_abs_err=max(bpr_serving["max_abs_err"],
-                        wrmf_serving["max_abs_err"]),
-        bound_by=bpr_serving["bound_by"])
-    torch.cuda.empty_cache()
-    phase25_s += phase_plain_mesh_netflix(dev, train, test, svdpp_model,
-                                          feedback, test_items)
-    phase_knn_path(dev, feedback, test_items)
-    phase_rating_knn_path(dev, train, test)
-    torch.cuda.empty_cache()
-    log(f"WRMF and KNN paths: {time.perf_counter() - t_start:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_incremental(dev, train, test,
-                          (bpr_model, bpr_feedback, test_items),
-                          (model, feedback, test_items), svdpp_model, tmp)
-        del model, svdpp_model
+    # phases 1-25 with the default mesh pointed at this card alone, so
+    # that on a host of several cards they mean what they mean on one
+    # (their child processes see one card); phase 26 looks at the
+    # default itself
+    from mymedialite_tpu_torch.parallel.mesh import default_devices
+    with default_devices([f"cuda:{torch.cuda.current_device()}"]):
+        t_start = time.perf_counter()
+        sgd_worst = phase_kernel_check(dev)
+        bpr_worst = phase_bpr_kernel_check(dev)
+        worst = {"sgd_epoch": sgd_worst["resident"],
+                 "sgd_epoch_tiled": sgd_worst["tiled"],
+                 "bpr_epoch": bpr_worst["resident"],
+                 "bpr_epoch_tiled": bpr_worst["tiled"],
+                 "catalog_topk": phase_topk_kernel_check(dev)}
+        for name, err in phase_mesh_kernel_check(dev).items():
+            worst[name] = max(worst[name], err)
+        phase25_s = phase_plain_mesh_check(dev)
+        default_worst, phase26_s = phase_default_mesh(dev)
+        for name, err in default_worst.items():
+            worst[name] = max(worst[name], err)
+        log(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
+        runs = {}
+        train, test = shaped_ratings("Netflix-shaped", num_users=480_000,
+                                     num_items=17_770,
+                                     num_ratings=20_000_000, seed=1)
+        runs["sgd_epoch"] = phase_mf_path(dev, train, test, tiled=False)
+        runs["bpr_epoch"], bpr_model, bpr_feedback = phase_bpr_path(
+            dev, train, test, tiled=False)
+        for name, err in phase_mesh_netflix(
+                dev, train, test, runs["sgd_epoch"], runs["bpr_epoch"],
+                bpr_feedback).items():
+            worst[name] = max(worst[name], err)
         torch.cuda.empty_cache()
-        phase23_s = phase_last_models(dev, train, test, runs["sgd_epoch"],
-                                      (bpr_model, bpr_feedback), feedback,
-                                      test_items, tmp)
-    del feedback, test_items, bpr_model, bpr_feedback
-    del train, test
-    torch.cuda.empty_cache()
-    # the published ml-25m catalog (GroupLens' README): 162,541 users,
-    # 62,423 movies, 25,000,095 ratings
-    train, test = shaped_ratings("MovieLens-25M-shaped", num_users=162_541,
-                                 num_items=62_423, num_ratings=25_000_095,
-                                 seed=25)
-    runs["sgd_epoch_tiled"] = phase_mf_path(dev, train, test, tiled=True)
-    runs["bpr_epoch_tiled"], model, feedback = phase_bpr_path(
-        dev, train, test, tiled=True)
-    ml25m = phase_serving(dev, model, feedback, "MovieLens-25M-shaped")
-    worst["catalog_topk"] = max(worst["catalog_topk"], ml25m["max_abs_err"])
-    del model, feedback
-    torch.cuda.empty_cache()
-    log(f"tiled paths: {time.perf_counter() - t_start:.1f} s")
-    phase_svdpp_grouped(dev, train, test)
-    del train, test
-    torch.cuda.empty_cache()
-    # a retail-sized catalog past the tiled schedule's 128 slabs at k=40:
-    # 2,149 item blocks in 135 slabs
-    train, test = shaped_ratings("big-catalog", num_users=500_000,
-                                 num_items=2_200_000, num_ratings=10_000_000,
-                                 seed=7)
-    mf_blocked = phase_mf_blocked(dev, train, test, "big-catalog")
-    bpr_minibatch = phase_bpr_minibatch(dev, train, test, "big-catalog")
-    torch.cuda.empty_cache()
-    for name, err in phase_mesh_big_catalog(dev, train, test, mf_blocked,
-                                            bpr_minibatch).items():
-        worst[name] = max(worst[name], err)
-    phase25_s += phase_plain_mesh_big_catalog(
-        dev, posonly_from_ratings(train), posonly_from_ratings(test),
-        bpr_minibatch)
-    del train, test
-    torch.cuda.empty_cache()
-    log(f"XLA-route paths: {time.perf_counter() - t_start:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:
-        files = phase_cli(dev, tmp)
-        item_files = phase_item_cli(dev, tmp)
-        phase_ranking_cli(dev, tmp, files)
-        phase_knn_cli(dev, tmp, files, item_files)
-        phase_cv_cli(dev, tmp, files, item_files)
-        phase23_s += phase_last_clis(dev, tmp, files, item_files)
-    log(f"phase 23 (the last eight names): {phase23_s:.1f} s")
-    log(f"phase 25 (the plain mesh routes): {phase25_s:.1f} s")
-    log(f"all phases: {time.perf_counter() - t_start:.1f} s after the build")
+        runs["catalog_topk"] = phase_serving(dev, bpr_model, bpr_feedback,
+                                             "Netflix-shaped")
+        worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
+        runs["svdpp_epoch"], svdpp_model = phase_svdpp_path(dev, train, test)
+        torch.cuda.empty_cache()
+        phase_mf_blocked(dev, train, test, "Netflix-shaped, frequency "
+                         "regularization", "frequency_regularization=true")
+        torch.cuda.empty_cache()
+        log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
+        model, feedback, test_items = phase_wrmf_path(dev, train, test)
+        wrmf_serving = phase_serving(dev, model, feedback,
+                                     "WRMF Netflix-shaped")
+        worst["catalog_topk"] = max(worst["catalog_topk"],
+                                    wrmf_serving["max_abs_err"])
+        # kernel 6 on the Netflix main path: the BPRMF pass and the WRMF pass
+        bpr_serving = runs["catalog_topk"]
+        runs["catalog_topk"] = dict(
+            {key: bpr_serving[key] + wrmf_serving[key] for key in
+             ("launches", "ms", "plain_ms", "bound_ms", "library_ms")},
+            max_abs_err=max(bpr_serving["max_abs_err"],
+                            wrmf_serving["max_abs_err"]),
+            bound_by=bpr_serving["bound_by"])
+        torch.cuda.empty_cache()
+        phase25_s += phase_plain_mesh_netflix(dev, train, test, svdpp_model,
+                                              feedback, test_items)
+        phase_knn_path(dev, feedback, test_items)
+        phase_rating_knn_path(dev, train, test)
+        torch.cuda.empty_cache()
+        log(f"WRMF and KNN paths: {time.perf_counter() - t_start:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_incremental(dev, train, test,
+                              (bpr_model, bpr_feedback, test_items),
+                              (model, feedback, test_items), svdpp_model, tmp)
+            del model, svdpp_model
+            torch.cuda.empty_cache()
+            phase23_s = phase_last_models(dev, train, test, runs["sgd_epoch"],
+                                          (bpr_model, bpr_feedback), feedback,
+                                          test_items, tmp)
+        del feedback, test_items, bpr_model, bpr_feedback
+        del train, test
+        torch.cuda.empty_cache()
+        # the published ml-25m catalog (GroupLens' README): 162,541 users,
+        # 62,423 movies, 25,000,095 ratings
+        train, test = shaped_ratings("MovieLens-25M-shaped",
+                                     num_users=162_541, num_items=62_423,
+                                     num_ratings=25_000_095, seed=25)
+        runs["sgd_epoch_tiled"] = phase_mf_path(dev, train, test, tiled=True)
+        runs["bpr_epoch_tiled"], model, feedback = phase_bpr_path(
+            dev, train, test, tiled=True)
+        ml25m = phase_serving(dev, model, feedback, "MovieLens-25M-shaped")
+        worst["catalog_topk"] = max(worst["catalog_topk"],
+                                    ml25m["max_abs_err"])
+        del model, feedback
+        torch.cuda.empty_cache()
+        log(f"tiled paths: {time.perf_counter() - t_start:.1f} s")
+        phase_svdpp_grouped(dev, train, test)
+        del train, test
+        torch.cuda.empty_cache()
+        # a retail-sized catalog past the tiled schedule's 128 slabs at k=40:
+        # 2,149 item blocks in 135 slabs
+        train, test = shaped_ratings("big-catalog", num_users=500_000,
+                                     num_items=2_200_000,
+                                     num_ratings=10_000_000, seed=7)
+        mf_blocked = phase_mf_blocked(dev, train, test, "big-catalog")
+        bpr_minibatch = phase_bpr_minibatch(dev, train, test, "big-catalog")
+        torch.cuda.empty_cache()
+        for name, err in phase_mesh_big_catalog(dev, train, test, mf_blocked,
+                                                bpr_minibatch).items():
+            worst[name] = max(worst[name], err)
+        phase25_s += phase_plain_mesh_big_catalog(
+            dev, posonly_from_ratings(train), posonly_from_ratings(test),
+            bpr_minibatch)
+        del train, test
+        torch.cuda.empty_cache()
+        log(f"XLA-route paths: {time.perf_counter() - t_start:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            files = phase_cli(dev, tmp)
+            item_files = phase_item_cli(dev, tmp)
+            phase_ranking_cli(dev, tmp, files)
+            phase_knn_cli(dev, tmp, files, item_files)
+            phase_cv_cli(dev, tmp, files, item_files)
+            phase23_s += phase_last_clis(dev, tmp, files, item_files)
+        log(f"phase 23 (the last eight names): {phase23_s:.1f} s")
+        log(f"phase 25 (the plain mesh routes): {phase25_s:.1f} s")
+        log(f"phase 26 (the default mesh): {phase26_s:.1f} s")
+        log(f"all phases: {time.perf_counter() - t_start:.1f} s after the "
+            "build")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -23,7 +23,13 @@ the ragged tail padded with its last user as the JAX package pads it;
 each device scores and ranks its part against its replica of the
 scoring tables (``catalog_scorer(device)``) and the candidate mask, and the
 measure sums are taken on the host over the batch's real users: the
-numbers of one device.
+numbers of one device. The models whose JAX counterparts have a
+``catalog_scorer`` -- the MF family (SocialMF included), the BPR family
+and WRMF, SLIM and the SVD++ family -- take the default mesh of every
+visible card, as the JAX eval shards over ``jax.devices()``; their
+``mesh = None`` keeps one device. KNN, the baselines, the time-aware
+models and the externals, which the JAX package scores on the host, have
+no ``mesh``: they rank on one device unless one is set by hand.
 """
 
 from __future__ import annotations

@@ -63,7 +63,9 @@ from mymedialite_tpu_torch.ops.bpr_epoch import (
 from mymedialite_tpu_torch.ops.plan import (
     MxuShardedTiledPlan, default_slab_blocks, fused_width, select_schedule,
 )
-from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
+from mymedialite_tpu_torch.parallel.mesh import (
+    DEFAULT_MESH, model_mesh, one_device_route,
+)
 
 # unknown users and items score float.MinValue (reference MF.Predict)
 _UNKNOWN = -np.float32(3.4e38)
@@ -92,8 +94,9 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
         self.mxu_dtype = "bf16"
         self.random_seed = 42
         self.device = "cuda"
-        # the device mesh (parallel/mesh.py); None: one device
-        self.mesh = None
+        # the device mesh (parallel/mesh.py): every visible card by
+        # default (model_mesh resolves it), None: one device
+        self.mesh = DEFAULT_MESH
         self._params = None
         # resident kernel-layout (W, H); on a mesh (W shards, partitions)
         self._mxu_tables = None

@@ -68,7 +68,9 @@ from mymedialite_tpu_torch.ops import sgd
 from mymedialite_tpu_torch.ops.sgd_epoch import (
     sgd_epoch, sgd_epoch_sharded, sgd_epoch_sharded_tiled, sgd_epoch_tiled,
 )
-from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
+from mymedialite_tpu_torch.parallel.mesh import (
+    DEFAULT_MESH, model_mesh, one_device_route,
+)
 
 # the fresh rows of the online updates come from a generator seeded
 # with random_seed + _ROW_SEED_OFFSET (not the init draws' stream)
@@ -178,8 +180,9 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         self.random_seed = 42
         self.device = "cuda"
 
-        # the device mesh (parallel/mesh.py); None: one device
-        self.mesh = None
+        # the device mesh (parallel/mesh.py): every visible card by
+        # default (model_mesh resolves it), None: one device
+        self.mesh = DEFAULT_MESH
         self.register_buffer("_W_ext", None)   # [U_pad, f+2] std layout
         self.register_buffer("_H_ext", None)   # [I, f+2]
         # resident kernel-layout (W, H); on a mesh (W shards, partitions)

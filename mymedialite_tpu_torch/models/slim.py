@@ -42,6 +42,7 @@ from mymedialite_tpu_torch.models.base import (
 )
 from mymedialite_tpu_torch.ops import bpr as bpr_ops
 from mymedialite_tpu_torch.ops import correlation as corr_ops
+from mymedialite_tpu_torch.parallel.mesh import DEFAULT_MESH
 
 # rows of C per int8 product
 _GRAM_ROWS = 4096
@@ -180,6 +181,10 @@ class _SLIM(IncrementalItemRecommender, IterativeModel):
         self.init_stdev = 0.1
         self.random_seed = 42
         self.device = "cuda"
+        # the mesh the ranking eval splits its users over (every visible
+        # card by default, None: one device); training stays on one
+        # device, as in the JAX package
+        self.mesh = DEFAULT_MESH
         self.W = None           # [I, I] item weights, zero diagonal
         self._gen = None
         self._score_hist = None

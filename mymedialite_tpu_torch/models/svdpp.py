@@ -47,12 +47,15 @@ from mymedialite_tpu_torch.models.base import (
 )
 from mymedialite_tpu_torch.models.mf import _LOSS_ID, OptimizationTarget
 from mymedialite_tpu_torch.ops import svdpp_plan as sp
+from mymedialite_tpu_torch.ops.plan import xla_epochs_forced
 from mymedialite_tpu_torch.ops.svdpp import (
     history_edges, inv_sqrt_counts, precompute_user_factors, prepare_groups,
     shard_groups, svdpp_epoch_grouped, svdpp_epoch_sharded,
 )
 from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
-from mymedialite_tpu_torch.parallel.mesh import model_mesh, one_device_route
+from mymedialite_tpu_torch.parallel.mesh import (
+    DEFAULT_MESH, model_mesh, one_device_route,
+)
 
 log = logging.getLogger("mymedialite_tpu_torch")
 
@@ -133,9 +136,10 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self.random_seed = 42
         self.loss = OptimizationTarget.RMSE
         self.device = "cuda"
-        # the device mesh (parallel/mesh.py): on a mesh the model trains
-        # on the sharded grouped epoch (GSVD++ on one device)
-        self.mesh = None
+        # the device mesh (parallel/mesh.py), every visible card by
+        # default, None: one device; on a mesh the model trains on the
+        # sharded grouped epoch (GSVD++ on one device)
+        self.mesh = DEFAULT_MESH
         # IncrementalRatingPredictor's switches (update both sides)
         self.update_users = True
         self.update_items = True
@@ -268,8 +272,9 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
 
     def _prepare_epoch(self):
         """The kernel route's chunk plan where Q and Y fit, the
-        regularization is uniform and every user block fits a pass; else
-        the grouped epoch's layout (JAX: ``_prepare``)."""
+        regularization is uniform, every user block fits a pass and
+        ``MML_MXU`` is not 0; else the grouped epoch's layout (JAX:
+        ``_prepare``, ``_svdpp_mxu_mode``)."""
         data = self.ratings
         hu, hi = self._hist
         dev = resolve_device(self.device)
@@ -279,6 +284,7 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
             one_device_route(self, "grouped", mesh)
             mesh = None
         if (mesh is None and self.KERNEL_ELIGIBLE
+                and not xla_epochs_forced()
                 and not self.frequency_regularization
                 and sp.svdpp_mxu_supported(self._num_items(),
                                            self.num_factors)):

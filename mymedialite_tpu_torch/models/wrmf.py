@@ -20,7 +20,8 @@ the JAX package's 256). An online update (``add_feedback``) grows the
 tables with zero rows and re-solves only the touched rows
 (``wrmf_solve_row``); every other row stays bit-unchanged.
 
-With a ``mesh`` (``model.mesh = make_mesh(...)``) each bucket's rows
+On a mesh (every visible card by default, or ``model.mesh =
+make_mesh(...)``; ``model.mesh = None`` keeps one device) each bucket's rows
 split into one contiguous shard per mesh device, padded with empty rows
 to a multiple of chunk x the devices (JAX ``models/wrmf.py:79-80``; on
 the mesh a bucket's chunk is at most its rows over the devices, so that

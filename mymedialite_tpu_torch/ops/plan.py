@@ -40,6 +40,7 @@ included, and the port visits only each cell's real chunks.
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -283,6 +284,15 @@ def mxu_sharded_tiled_supported(num_items: int, num_factors: int,
     return part_blocks // slab_blocks <= MAX_SLABS
 
 
+def xla_epochs_forced() -> bool:
+    """``MML_MXU=0``: the XLA epochs everywhere, as in the JAX package
+    (``ops/kernel_select.py``, ``models/svdpp.py``): "minibatch" for the
+    MF and BPR families, the grouped epoch for SVD++. The JAX variable's
+    other values (``interpret`` and its sharded forms) run Pallas kernels
+    in interpret mode, a TPU idiom the port does not read."""
+    return os.environ.get("MML_MXU") == "0"
+
+
 def select_schedule(num_items: int, num_factors: int,
                     num_devices: int = 1) -> str:
     """The epoch schedule of the MF and BPR families
@@ -293,7 +303,10 @@ def select_schedule(num_items: int, num_factors: int,
     epochs (``ops/sgd.py sgd_epoch_blocked``, ``ops/bpr.py bpr_epoch``).
     On a mesh of ``num_devices`` > 1: "sharded" while each device's item
     partition fits the resident bound, "sharded-tiled" while it fits
-    ``MAX_SLABS`` slabs, else a logged warning and "minibatch"."""
+    ``MAX_SLABS`` slabs, else a logged warning and "minibatch".
+    ``MML_MXU=0`` gives "minibatch" everywhere (``xla_epochs_forced``)."""
+    if xla_epochs_forced():
+        return "minibatch"
     if num_devices > 1:
         if mxu_sharded_supported(num_items, num_factors, num_devices):
             return "sharded"

@@ -22,6 +22,9 @@ its shards and the routes' collectives joining them:
 - ``mf_train`` / ``bpr_train``: BiasedMatrixFactorization and BPRMF
   ``train()`` on the "sharded" route, one more ``iterate()``, and their
   predictions on fixed pairs, read first by process 0 alone;
+- ``mf_default``: ``mf_train`` with the model's mesh left at its
+  default, which resolves to the global mesh (``default_mesh``, pointed
+  at the process's devices): the same tables;
 - ``svdpp``: SVDPlusPlus on the sharded grouped epoch;
 - ``wrmf``: WRMF on the sharded solves;
 - ``bpr_minibatch``: the sharded minibatch BPR epoch;
@@ -61,13 +64,14 @@ SHAPES = {"small": dict(num_users=2000, num_items=3000, num_ratings=20_000,
           "check": dict(num_users=2000, num_items=3000, num_ratings=100_000,
                         k=40, batch=1024)}
 ROUTES = ("blocked", "sgd_epoch", "sgd_epoch_tiled", "bpr_epoch",
-          "bpr_epoch_tiled", "mf_train", "bpr_train", "svdpp", "wrmf",
-          "bpr_minibatch", "ranking", "flat")
+          "bpr_epoch_tiled", "mf_train", "mf_default", "bpr_train", "svdpp",
+          "wrmf", "bpr_minibatch", "ranking", "flat")
 # the kernel routes: their wrapper (whose launches count) per route
 KERNEL_ROUTES = {"sgd_epoch": "sgd_epoch", "sgd_epoch_tiled":
                  "sgd_epoch_tiled", "bpr_epoch": "bpr_epoch",
                  "bpr_epoch_tiled": "bpr_epoch_tiled", "mf_train":
-                 "sgd_epoch", "bpr_train": "bpr_epoch"}
+                 "sgd_epoch", "mf_default": "sgd_epoch",
+                 "bpr_train": "bpr_epoch"}
 # a collective that waits longer fails the run instead of hanging it
 COLLECTIVE_TIMEOUT_S = 240
 
@@ -302,17 +306,33 @@ class Routes:
         assert lone is None or np.array_equal(lone, pred)
         return pred
 
-    def mf_train(self):
+    def mf_train(self, default: bool = False):
         from mymedialite_tpu_torch.models.mf import BiasedMatrixFactorization
         m = BiasedMatrixFactorization()
         m.num_factors, m.num_iter = self.s["k"], 2
-        m.device, m.mesh = str(self.dev), self.mesh
+        m.device = str(self.dev)
+        if not default:
+            m.mesh = self.mesh
         m.ratings = self.data
         m.train()
         assert m._route() == "sharded", m._route()
         pred = self._lone_read(m)
         return dict(W=m.W_ext[:m.num_users_trained].cpu().numpy(),
                     H=m.H_ext.cpu().numpy(), predictions=pred)
+
+    def mf_default(self):
+        """``mf_train`` on the default mesh: across the processes the
+        global mesh, in one process the 4 devices."""
+        from mymedialite_tpu_torch.parallel.mesh import (
+            default_devices, default_mesh,
+        )
+        with default_devices(self.mesh.devices):
+            mesh = default_mesh(self.dev)
+            assert (mesh.global_size, mesh.process_index,
+                    mesh.process_count) == (
+                self.mesh.global_size, self.mesh.process_index,
+                self.mesh.process_count), mesh
+            return self.mf_train(default=True)
 
     def bpr_train(self):
         from mymedialite_tpu_torch.models.bpr import BPRMF

@@ -46,10 +46,17 @@ share of its host's cards (``local_devices``: the cards split by
 NCCL where that share is not empty, gloo otherwise (NCCL refuses two
 ranks on one card; gloo moves only host tensors, so a CUDA tensor goes
 through the host).
+
+A model's ``mesh`` starts at ``DEFAULT_MESH``, the JAX package's default
+of all devices: ``model_mesh`` resolves it through ``default_mesh`` each
+time the model plans, to the global mesh across processes, else to every
+visible card, else to None (one device). ``default_devices`` points the
+default at other devices for a block (tests, the one-card rig).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -430,13 +437,103 @@ def shard_mf_params(params: dict, mesh: Mesh) -> dict:
     return out
 
 
+class _DefaultMesh:
+    """The type of ``DEFAULT_MESH``: one object, which a copy or a pickle
+    of a model keeps (``__reduce__`` names the module's global)."""
+
+    def __repr__(self):
+        return "DEFAULT_MESH"
+
+    def __reduce__(self):
+        return "DEFAULT_MESH"
+
+
+# A model's ``mesh`` before one is set: the mesh ``default_mesh`` resolves
+# when the model plans its epochs (JAX: ``make_mesh()`` wherever
+# ``len(jax.devices()) > 1``). ``None`` is one device.
+DEFAULT_MESH = _DefaultMesh()
+
+# The devices the default mesh spans; None: every visible CUDA card (this
+# process's share of the host's, ``local_devices``, across processes).
+# ``default_devices`` points it elsewhere for a block (a test's ["cpu"] *
+# 8, the one-card rig ["cuda:0"] * 4).
+_DEFAULT_DEVICES = None
+_DEFAULT_MESHES = {}
+
+
+@contextlib.contextmanager
+def default_devices(devices):
+    """Inside the block the default mesh spans ``devices`` (a list of one
+    device: no mesh); the visible cards again after it."""
+    global _DEFAULT_DEVICES
+    saved = _DEFAULT_DEVICES
+    _DEFAULT_DEVICES = None if devices is None else \
+        tuple(torch.device(d) for d in devices)
+    try:
+        yield
+    finally:
+        _DEFAULT_DEVICES = saved
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with the current card's index where it names none."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def default_mesh(device) -> Mesh | None:
+    """The JAX package's default mesh of all devices for a model on
+    ``device``. Where ``torch.distributed`` holds more than one process
+    (JAX: ``jax.devices()`` is global after ``initialize_distributed()``),
+    the global mesh over this process's devices: its share of the host's
+    cards (``local_devices``) for a model on a card, its one device for a
+    model on the CPU; a model that is not on the first of them raises,
+    since on one device each process would train its own copy. In one
+    process, ``make_mesh()`` over every visible card where ``device`` is
+    the first of them (``"cuda"``, the current card, or ``"cuda:0"``) and
+    there are several; else None. ``default_devices`` overrides the
+    devices in both. The only place that reads the card count. The same
+    arguments give the same ``Mesh`` object, so that a model that
+    compares its plan's mesh with this one by identity keeps its plan."""
+    rank, world = _processes()
+    dev = torch.device(device)
+    if world > 1:
+        if _DEFAULT_DEVICES is not None:
+            devices = _DEFAULT_DEVICES
+        elif dev.type == "cuda":
+            devices = tuple(torch.device(d)
+                            for d in local_devices(rank, world))
+        else:
+            devices = (dev,)
+        if _indexed(dev) != devices[0]:
+            raise ValueError(
+                f"process {rank} of {world}: a model on {dev}, whose mesh "
+                f"devices start at {devices[0]}: set the model's device to "
+                "it, or its mesh")
+    else:
+        devices = _DEFAULT_DEVICES or tuple(
+            torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+        if len(devices) < 2 or _indexed(dev) != devices[0]:
+            return None
+    key = (rank, world, devices)
+    if key not in _DEFAULT_MESHES:
+        _DEFAULT_MESHES[key] = make_global_mesh(devices)
+    return _DEFAULT_MESHES[key]
+
+
 def model_mesh(model) -> Mesh | None:
-    """The mesh a model trains on: its ``mesh`` attribute where that
-    spans more than one device, else None (one device). A model trains
-    on a mesh only where one is set (``model.mesh = make_mesh()`` for
-    every visible card): the JAX package's default of all devices waits
-    for a run across distinct cards (ROADMAP A9b)."""
+    """The mesh a model trains on: its ``mesh`` attribute, resolved by
+    ``default_mesh`` on the model's device where it is left at
+    ``DEFAULT_MESH`` (the default of the MF, BPR, WRMF, SVD++ and SLIM
+    families: every visible card, as the JAX package's default of all
+    devices), None where it spans one device. ``mesh = None`` keeps one
+    device; a model without the attribute has none. Resolved each time
+    a model plans, so that a model built before
+    ``initialize_distributed()`` sees the global mesh."""
     mesh = getattr(model, "mesh", None)
+    if mesh is DEFAULT_MESH:
+        mesh = default_mesh(getattr(model, "device", "cuda"))
     return mesh if mesh is not None and mesh.global_size > 1 else None
 
 

@@ -925,3 +925,85 @@ def test_plain_mesh_phase_is_in_main():
     assert order == sorted(order)
     assert "phase 25 (the plain mesh routes)" in main
     assert "25." in smoke.__doc__
+
+
+def test_default_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 26 end to end on CPU tensors at small sizes, with the card's
+    clock stood in for and the launch counts not held: (a) with no card
+    the resolver gives None and every site keeps its one-device route;
+    (b) the default pointed at a rig of ``["cpu"] * 4``: BiasedMF, BPRMF
+    and MultiCoreBPRMF on "sharded", BiasedMF and BPRMF on
+    "sharded-tiled" (the bounds lowered so that a 13,000-item catalog
+    takes it), each beside the explicit mesh and held to its plain
+    version, SVDPlusPlus and WRMF beside the explicit mesh, the eval's
+    line equal on the default, the explicit mesh and one device."""
+    import contextlib
+    from collections import defaultdict
+
+    import torch
+
+    from mymedialite_tpu_torch.ops import plan as tplan
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    @contextlib.contextmanager
+    def uncounted(expected):
+        yield defaultdict(int, expected)
+    monkeypatch.setattr(smoke, "counted_path", uncounted)
+    monkeypatch.setattr(smoke, "MESH_CHECK_SHAPE", dict(
+        num_users=300, num_items=3000, num_ratings=6000, seed=3))
+    # three item blocks resident: phase 3's 3,000 items stay resident on
+    # one device; 13,000 items make partitions of four blocks on 4
+    # devices, streamed in one-block slabs
+    monkeypatch.setattr(smoke, "DEFAULT_BIG_ITEMS", 13_000)
+    monkeypatch.setattr(tplan, "RESIDENT_ITEM_TABLE_BYTES", 3 * 256 * 1024)
+    monkeypatch.setattr(tplan, "TILED_SLAB_BYTES", 256 * 1024)
+    worst, seconds = smoke.phase_default_mesh(torch.device("cpu"))
+    assert set(worst) == {"sgd_epoch", "sgd_epoch_tiled", "bpr_epoch",
+                          "bpr_epoch_tiled"}
+    assert all(0 <= e <= 1e-6 for e in worst.values()), worst
+    assert seconds > 0
+    out = capsys.readouterr().out
+    for text in ("default mesh (a), one card: the resolver gives None; "
+                 "BiasedMatrixFactorization resident (sgd_epoch once); "
+                 "BPRMF resident (bpr_epoch once); MultiCoreBPRMF resident "
+                 "(bpr_epoch once); SVDPlusPlus kernel (svdpp_epoch once); "
+                 "WRMF one device; BPRMF's ranking eval one device",
+                 *(f"default {name} {what}: the default resolves to Mesh("
+                   for name, what in (
+                       ("BiasedMatrixFactorization", "phase 3's shape"),
+                       ("BPRMF", "phase 3's shape"),
+                       ("MultiCoreBPRMF", "phase 3's shape"),
+                       ("BiasedMatrixFactorization", "13,000 items"),
+                       ("BPRMF", "13,000 items"))),
+                 "(default mesh) on the rig (sharded)",
+                 "(explicit mesh) on the rig (sharded-tiled)",
+                 "default SVDPlusPlus (sharded grouped epoch",
+                 "default WRMF (sharded solves on 4 devices",
+                 "split over 4 devices", "equal bit for bit to the explicit "
+                 "mesh's and to one device's", "phase 26 (the default mesh)"):
+        assert text in out, text
+    assert out.count("chunks drawn across its cells (") == 5
+
+
+def test_default_mesh_phase_is_in_main():
+    """Phase 26 runs from ``main`` after phase 25 (a); the phases before it
+    run with the default pointed at the one card; its seconds are
+    logged; the script imports nothing of the JAX package."""
+    import inspect
+    smoke = _smoke_module()
+    main = inspect.getsource(smoke.main)
+    order = [main.index(name) for name in (
+        "default_devices([", "phase_kernel_check(", "phase_plain_mesh_check(",
+        "phase_default_mesh(", "phase_mf_path(")]
+    assert order == sorted(order)
+    assert "phase 26 (the default mesh)" in main
+    assert "26." in smoke.__doc__
+    assert "CUDA_VISIBLE_DEVICES" in inspect.getsource(smoke.one_card_env)
+    bad = [m for m in _imported_modules(SMOKE)
+           if m.split(".")[0] in ("jax", "jaxlib", "mymedialite_tpu")]
+    assert not bad, bad

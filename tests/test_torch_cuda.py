@@ -1701,3 +1701,64 @@ def test_sharded_epoch_on_every_card(cuda):
                               m.gather_rows(Hs, cuda)]))
     torch.cuda.synchronize()
     assert (out[0] - out[1]).abs().max().item() <= 1e-4
+
+
+def test_models_train_on_every_card_by_default(cuda):
+    """With several cards, BiasedMF, BPRMF and WRMF left at their default
+    mesh train on all of them (kernels 1 and 3 once per non-empty cell),
+    and the eval splits its users over them; the tables equal those of an
+    explicit rig of one card named as often (1e-4: the cells' atomics),
+    and with one card it is skipped."""
+    from mymedialite_tpu_torch.data.synthetic import split_posonly
+    from mymedialite_tpu_torch.eval import ranking
+    from mymedialite_tpu_torch.parallel.mesh import (
+        DEFAULT_MESH, default_mesh,
+    )
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    D = torch.cuda.device_count()
+    assert default_mesh("cuda").size == D
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=8)
+    fb, test = split_posonly(posonly_from_ratings(data), seed=2)
+    tables, lines = [], []
+    for mesh in (DEFAULT_MESH, _rig(cuda, D)):
+        mf = create_rating_predictor("BiasedMatrixFactorization",
+                                     "num_factors=16 num_iter=2")
+        mf.mesh = mesh
+        mf.ratings = data
+        before = sgd_epoch.launches
+        mf.train()
+        assert mf._route() == "sharded" and mf._mesh.size == D
+        assert sgd_epoch.launches - before == 2 * int(
+            (mf._plan.cell_counts > 0).sum())
+        bpr = create_item_recommender("BPRMF", "num_factors=16 num_iter=2")
+        bpr.mesh = mesh
+        bpr.feedback = fb
+        before = bpr_epoch.launches
+        bpr.train()
+        assert bpr._route() == "sharded" and bpr._mesh.size == D
+        assert bpr_epoch.launches - before == 2 * int(
+            (bpr._plan.cell_counts > 0).sum())
+        wrmf = create_item_recommender("WRMF", "num_factors=16 num_iter=2")
+        wrmf.mesh = mesh
+        wrmf.feedback = fb
+        wrmf.train()
+        assert wrmf._hist_mesh.size == D
+        calls = []
+        real = ranking._ranks_on_mesh
+        ranking._ranks_on_mesh = lambda m, *a: calls.append(m.size) or \
+            real(m, *a)
+        try:
+            lines.append(ranking.evaluate_items(bpr, test, fb))
+        finally:
+            ranking._ranks_on_mesh = real
+        assert calls and set(calls) == {D}
+        tables.append([mf.W_ext, mf.H_ext] + [
+            m.params[k] for m in (bpr, wrmf)
+            for k in ("user_factors", "item_factors")])
+    torch.cuda.synchronize()
+    for a, b in zip(*tables):
+        assert (a - b.to(a.device)).abs().max().item() <= 1e-4
+    assert lines[0]["num_users"] == lines[1]["num_users"] > 0
+    assert abs(lines[0]["AUC"] - lines[1]["AUC"]) <= 1e-3

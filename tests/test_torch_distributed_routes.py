@@ -9,7 +9,9 @@ sharded epochs (plain cells on the CPU, the partitions passed between
 the processes), BiasedMatrixFactorization and BPRMF through ``train()``
 on their sharded routes (the repair of the local-only diagonal: before
 it each process planned a 2-device diagonal over its own devices and
-trained its own copy, silently), SVDPlusPlus sharded, WRMF, the sharded
+trained its own copy, silently), BiasedMatrixFactorization on the default
+mesh, which resolves to the global mesh and gives the explicit global
+mesh's tables bit for bit, SVDPlusPlus sharded, WRMF, the sharded
 minibatch BPR epoch, the data-parallel ranking eval and the flat
 epoch. The existing ``test_torch_mesh_*.py`` / ``test_torch_sharded*.py``
 hold the one-process run to the JAX package.
@@ -105,3 +107,14 @@ def test_ranking_result_on_every_process(runs):
         assert vals["num_users"] == dict(zip(
             names, single["ranking/values"]))["num_users"]
         assert 0.5 < vals["AUC"] <= 1.0
+
+
+def test_default_is_the_global_mesh(runs):
+    """On each process BiasedMatrixFactorization left at the default mesh
+    (resolved to the global mesh, asserted in the route) gives the
+    explicit global mesh's tables and predictions bit for bit."""
+    ranks, single, _ = runs
+    for r in ranks + [single]:
+        for key in ("W", "H", "predictions"):
+            np.testing.assert_array_equal(r[f"mf_default/{key}"],
+                                          r[f"mf_train/{key}"])

@@ -50,7 +50,7 @@ from mymedialite_tpu_torch.models.registry import (
 )
 from mymedialite_tpu_torch.ops import als as tals
 from mymedialite_tpu_torch.ops import sgd as tsgd
-from mymedialite_tpu_torch.parallel.mesh import make_mesh
+from mymedialite_tpu_torch.parallel.mesh import DEFAULT_MESH, make_mesh
 from torch_threads import one_torch_thread  # noqa: F401
 
 G, F, B = 16, 5, 64
@@ -360,6 +360,8 @@ def test_clone_keeps_the_mesh(rating_data):
     c = clone_recommender(m)
     assert c.mesh is m.mesh
     w = create_item_recommender("WRMF", "device=cpu")
+    assert clone_recommender(w).mesh is DEFAULT_MESH
+    w.mesh = None
     assert clone_recommender(w).mesh is None
 
 

@@ -254,7 +254,7 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.stdout.count(" sharded [") == 2
     assert proc.stdout.count("dryrun paths ok: 1 sharded-blocked-SGD, "
                              "2 flat-SPMD-SGD") == 1
-    assert proc.stdout.count("\nroute ") == 12
+    assert proc.stdout.count("\nroute ") == 13   # the driver's routes
     assert proc.stdout.count("driver-ok single 0") == 1
     assert proc.stdout.count("\nmesh eval AUC") == 1
     assert "frequency_regularization=True" in proc.stdout
