@@ -125,7 +125,10 @@ Phases (any failure raises and the script exits non-zero):
     first groups of epoch 1 from the init tables at a batch of 16,384 (at
     the default 131,072 float32 rounding alone parts from float64:
     ``exp_torch_blocked_prefix.py``); RMSE under the global average, AUC
-    above 0.5;
+    above 0.5; the Netflix-shaped blocked MF trained a second time from
+    the same seed (on the same host layout), its tables and RMSE equal
+    bit for bit (the epoch's scatter, ``ops/sgd.py exact_add``, sums in
+    int64 fixed point);
 21. the protocols through the CLIs at phase 16's size: the rating CLI with
     --cross-validation=5 (BiasedMatrixFactorization: kernel 1 once per
     epoch per fold), --cross-validation=3 --find-iter=1 --max-iter=3,
@@ -269,7 +272,18 @@ Phases (any failure raises and the script exits non-zero):
     device's automatic group) and WRMF on its sharded solves against the
     explicit mesh's (1e-5 and 1e-6); BPRMF's ranking eval split over the
     rig, its line equal bit for bit to the explicit mesh's and to one
-    device's.
+    device's;
+27. the quality driver (``mymedialite_tpu_torch/quality.py``) at
+    ``--small``, one seed, in this process: its 22 rows and JSON records,
+    each finite, on its route, the kernel rows launching their kernel
+    once an epoch (kernels 1, 3 and 5) and no other row any; each rating
+    row's RMSE under GlobalAverage's (the time-aware rows under the timed
+    data's global average), each item row's AUC over Random's
+    (LeastSquareSLIM's, under it at this size in both packages, logged).
+    Phases 8 and 14 time the ranking evaluation's CSR views by
+    ``build_csr``'s counting sort and by the lexsort it replaced, held
+    equal; a closing line sets what that saved beside phase 27 and the
+    repeated blocked training.
 
 Phases 1-25 run with the default mesh pointed at the one card
 (``default_devices`` in ``main``), and the child process of phase 23 (f)
@@ -1089,6 +1103,39 @@ def bpr_call_split(plan, state, tl, W, H, order, bits, neg_plan, rates):
     return device_ms(run, ("bpr_sample_kernel", "bpr_walk_kernel"))
 
 
+def lexsort_csr(primary, secondary, num_keys: int):
+    """(indptr, order, keys): the CSR view as ``data/arrays.py
+    build_csr`` built it before its counting sort, by ``np.lexsort``."""
+    order = np.lexsort((secondary, primary)).astype(np.int32)
+    indptr = np.zeros(num_keys + 1, dtype=np.int64)
+    indptr[1:] = np.bincount(primary, minlength=num_keys)
+    np.cumsum(indptr, out=indptr)
+    return indptr, order, secondary[order]
+
+
+def csr_builds(*datasets):
+    """The datasets' per-user CSR views (the ranking evaluation's host
+    index), built by ``build_csr``'s counting sort and kept; then the same
+    views by the lexsort it replaced, held equal array for array. Returns
+    (counting-sort s, lexsort s)."""
+    t0 = time.perf_counter()
+    views = [d.by_user for d in datasets]
+    counting_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = [lexsort_csr(d.users, d.items, d.num_users) for d in datasets]
+    lexsort_s = time.perf_counter() - t0
+    for view, ref in zip(views, refs):
+        for got, want in zip((view.indptr, view.order, view.keys), ref):
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError("the counting-sort CSR differs from "
+                                     "the lexsort's")
+    log(f"ranking eval set-up (host CSR of train and test, "
+        f"{sum(len(d) for d in datasets)} events): counting sort "
+        f"{counting_s:.2f} s, the lexsort it replaced {lexsort_s:.2f} s, "
+        f"equal arrays")
+    return counting_s, lexsort_s
+
+
 def phase_bpr_path(dev, train, test, *, tiled: bool):
     """BPRMF at k=40 for 3 epochs through the registry on the same pairs
     as positive-only feedback; the epoch kernel against its plain version
@@ -1188,10 +1235,7 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         f"run on copies): {split_line(call_split)}")
     check(err, f"{name} at full shape")
 
-    t0 = time.perf_counter()
-    train.by_user, test.by_user   # the host CSR indexes both evaluations read
-    log(f"ranking eval set-up (host CSR of train and test): "
-        f"{time.perf_counter() - t0:.2f} s")
+    csr = csr_builds(train, test)   # the host CSR both evaluations read
     popular = create_item_recommender("MostPopular")
     popular.feedback = train
     popular.train()
@@ -1201,7 +1245,7 @@ def phase_bpr_path(dev, train, test, *, tiled: bool):
         raise AssertionError(f"BPRMF AUC {auc} <= 0.6")
     return dict(launches=counted[name], max_abs_err=err, ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                epoch_ms=epoch_ms, auc=auc, test=test), model, train
+                epoch_ms=epoch_ms, auc=auc, test=test, csr=csr), model, train
 
 
 def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
@@ -2560,15 +2604,18 @@ def phase_svdpp_grouped(dev, train, test):
     return dict(epoch_ms=epoch_ms, busy_share=busy / epoch_ms)
 
 
-def phase_mf_blocked(dev, train, test, label, opts=""):
+def phase_mf_blocked(dev, train, test, label, opts="", repeat=False):
     """BiasedMatrixFactorization at k=40 for 3 epochs (``opts`` added)
     through the registry where it takes the blocked epoch (ops/sgd.py):
     frequency regularization, or a catalog past the tiled schedule's
-    slabs. No kernel may launch. RMSE against the global average. The
-    same cell at a batch of ``PREFIX_BATCH`` (see there): the first
-    ``GROUP_PREFIX`` user groups of its epoch 1 from its init tables on
-    the card, held to the CPU's float64 run from the same tables and
-    batch orders (``prefix_check``)."""
+    slabs. No kernel may launch. RMSE against the global average. With
+    ``repeat`` a second model of the same seed trains on the same layout
+    (``prepare_blocked_data``'s host arrays, computed once) and must give
+    the same tables and RMSE bit for bit (the epoch's scatter sums in a
+    fixed order). The same cell at a batch of ``PREFIX_BATCH`` (see
+    there): the first ``GROUP_PREFIX`` user groups of its epoch 1 from
+    its init tables on the card, held to the CPU's float64 run from the
+    same tables and batch orders (``prefix_check``)."""
     from mymedialite_tpu_torch.eval.rating import evaluate_ratings
     from mymedialite_tpu_torch.models.registry import create_rating_predictor
     from mymedialite_tpu_torch.ops import sgd
@@ -2607,6 +2654,34 @@ def phase_mf_blocked(dev, train, test, label, opts=""):
     if not (math.isfinite(res["RMSE"]) and res["RMSE"] < baseline):
         raise AssertionError(f"{label}: blocked MF RMSE does not beat the "
                              "global average")
+    repeat_s = 0.0
+    if repeat:
+        t0 = time.perf_counter()
+        twin = create_rating_predictor(
+            "BiasedMatrixFactorization",
+            f"num_factors=40 num_iter=3 {opts} device={dev.type}")
+        twin.ratings = train
+        layout = model._blocked[:2]
+        real = sgd.prepare_blocked_data
+        sgd.prepare_blocked_data = lambda *a, **kw: layout
+        try:
+            with counted_path({}):
+                twin.train()
+        finally:
+            sgd.prepare_blocked_data = real
+        again = evaluate_ratings(twin, test, train)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+        same = (torch.equal(twin._W_ext, model._W_ext)
+                and torch.equal(twin._H_ext, model._H_ext)
+                and twin.global_bias == model.global_bias)
+        log(f"mf blocked {label}, the same seed again: {again}; tables "
+            f"{'equal' if same else 'DIFFERENT'} bit for bit; "
+            f"{repeat_s:.2f} s")
+        if not same or dict(again) != dict(res):
+            raise AssertionError(f"{label}: two blocked MF runs of one seed "
+                                 "differ")
+        del twin
 
     del model
     model = create_rating_predictor(
@@ -2641,7 +2716,7 @@ def phase_mf_blocked(dev, train, test, label, opts=""):
         + f"; largest entries |W| "
         f"{card['W'].abs().max().item():.4g}, |H| "
         f"{card['H'].abs().max().item():.4g}")
-    return dict(epoch_ms=epoch_ms, rmse=rmse)
+    return dict(epoch_ms=epoch_ms, rmse=rmse, repeat_s=repeat_s)
 
 
 def phase_bpr_minibatch(dev, train, test, label):
@@ -5474,6 +5549,103 @@ def phase_default_mesh(dev):
     return worst, seconds
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the quality driver (mymedialite_tpu_torch/quality.py)
+# ---------------------------------------------------------------------------
+
+# the kernel each kernel-route row of the driver launches, once an epoch
+QUALITY_KERNELS = {
+    "BiasedMatrixFactorization": ("resident", "sgd_epoch"),
+    "MatrixFactorization": ("resident", "sgd_epoch"),
+    "SVDPlusPlus": ("kernel", "svdpp_epoch"),
+    "SigmoidSVDPlusPlus": ("kernel", "svdpp_epoch"),
+    "SigmoidItemAsymmetricFactorModel": ("kernel", "svdpp_epoch"),
+    "BPRMF": ("resident", "bpr_epoch"),
+    "WeightedBPRMF": ("resident", "bpr_epoch"),
+    "SoftMarginRankingMF": ("resident", "bpr_epoch"),
+}
+# rows that miss their floor at --small on the CPU as well (reported, not
+# held): LeastSquareSLIM's AUC lies under Random's there (PERF.md)
+QUALITY_REPORTED = {("item", "LeastSquareSLIM")}
+
+
+def quality_expected(configs) -> dict:
+    """{(name, options): (route, {kernel: launches})} of the driver's rows
+    at --small: the kernel rows launch their kernel once an epoch, the
+    rest take a plain route and launch none."""
+    out = {}
+    for name, opts in configs:
+        route, kernel = QUALITY_KERNELS.get(name, ("plain", None))
+        epochs = int(re.search(r"num_iter=(\d+)", opts).group(1)) \
+            if kernel else 0
+        out[(name, opts)] = (route, {kernel: epochs} if kernel else {})
+    return out
+
+
+def phase_quality(dev, tmp):
+    """Phase 27: the quality driver at --small, one seed, on the card, in
+    this process, its JSON records written and read back. Every row
+    finite, its route and launches as ``quality_expected`` says; each
+    rating row's RMSE under GlobalAverage's (the time-aware rows under
+    the timed data's global average), each item row's AUC over Random's
+    (``QUALITY_REPORTED`` rows logged, not held). Returns the seconds."""
+    from mymedialite_tpu_torch import quality
+
+    configs = quality.RATING_CONFIGS + quality.TIME_AWARE_CONFIGS + \
+        quality.ITEM_CONFIGS
+    expected = quality_expected(configs)
+    total = {}
+    for config in configs:
+        for k, n in expected[config][1].items():
+            total[k] = total.get(k, 0) + n
+    path = os.path.join(tmp, "quality.jsonl")
+    t0 = time.perf_counter()
+    with counted_path(total):
+        records = quality.main(["--small", "--device", str(dev), "--json",
+                                path])
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        lines = [json.loads(ln) for ln in f]
+    if lines != json.loads(json.dumps(records)) or \
+            len(lines) != len(configs):
+        raise AssertionError("the driver's JSON records do not match its "
+                             "rows")
+    timed_ga = global_average_rmse(*quality.timed_data(0.05))
+    floors = {"rating": next(r["metrics"]["RMSE"] for r in lines if
+                             r["name"] == "GlobalAverage"),
+              "time": timed_ga,
+              "item": next(r["metrics"]["AUC"] for r in lines if
+                           r["section"] == "item" and r["name"] == "Random")}
+    reported = []
+    for r in lines:
+        what = f"quality {r['section']} {r['name']} ({r['options']})"
+        if r["device"] != str(dev) or not all(
+                math.isfinite(v) for v in r["metrics"].values()):
+            raise AssertionError(f"{what}: not finite or not on the card")
+        if (r["route"], r["kernels"]) != expected[(r["name"], r["options"])]:
+            raise AssertionError(f"{what}: route {r['route']}, launches "
+                                 f"{r['kernels']}; expected "
+                                 f"{expected[(r['name'], r['options'])]}")
+        if r["name"] in ("GlobalAverage", "Random"):
+            continue
+        metric = "AUC" if r["section"] == "item" else "RMSE"
+        value, floor = r["metrics"][metric], floors[r["section"]]
+        ok = value > floor if metric == "AUC" else value < floor
+        if (r["section"], r["name"]) in QUALITY_REPORTED:
+            reported.append(f"{r['name']} {metric} {value:.5f} (floor "
+                            f"{floor:.5f}, {'met' if ok else 'missed'})")
+        elif not ok:
+            raise AssertionError(f"{what}: {metric} {value} against "
+                                 f"{floor}")
+    log(f"phase 27 (the quality driver, --small, one seed): {len(lines)} "
+        f"rows, each finite and on its route; kernel launches {total}; "
+        f"RMSE under GlobalAverage's {floors['rating']:.5f} (time-aware: "
+        f"the timed data's global average {timed_ga:.5f}), AUC over "
+        f"Random's {floors['item']:.5f}; reported, not held: "
+        f"{'; '.join(reported)}; {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5539,8 +5711,9 @@ def main() -> int:
         worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
         runs["svdpp_epoch"], svdpp_model = phase_svdpp_path(dev, train, test)
         torch.cuda.empty_cache()
-        phase_mf_blocked(dev, train, test, "Netflix-shaped, frequency "
-                         "regularization", "frequency_regularization=true")
+        repeat_s = phase_mf_blocked(
+            dev, train, test, "Netflix-shaped, frequency regularization",
+            "frequency_regularization=true", repeat=True)["repeat_s"]
         torch.cuda.empty_cache()
         log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
         model, feedback, test_items = phase_wrmf_path(dev, train, test)
@@ -5616,9 +5789,21 @@ def main() -> int:
             phase_knn_cli(dev, tmp, files, item_files)
             phase_cv_cli(dev, tmp, files, item_files)
             phase23_s += phase_last_clis(dev, tmp, files, item_files)
+            phase27_s = phase_quality(dev, tmp)
         log(f"phase 23 (the last eight names): {phase23_s:.1f} s")
         log(f"phase 25 (the plain mesh routes): {phase25_s:.1f} s")
         log(f"phase 26 (the default mesh): {phase26_s:.1f} s")
+        counting_s = runs["bpr_epoch"]["csr"][0] + \
+            runs["bpr_epoch_tiled"]["csr"][0]
+        lexsort_s = runs["bpr_epoch"]["csr"][1] + \
+            runs["bpr_epoch_tiled"]["csr"][1]
+        saved = lexsort_s - counting_s
+        cost = phase27_s + repeat_s
+        log(f"the ranking evals' CSR builds (phases 8 and 14): counting sort "
+            f"{counting_s:.2f} s, lexsort {lexsort_s:.2f} s, saved "
+            f"{saved:.2f} s; phase 27 {phase27_s:.2f} s + the repeated "
+            f"blocked training {repeat_s:.2f} s = {cost:.2f} s, "
+            f"{'within' if cost <= saved else 'PAST'} the saving")
         log(f"all phases: {time.perf_counter() - t_start:.1f} s after the "
             "build")
 

@@ -70,6 +70,14 @@ class Csr:
 
 
 def build_csr(primary: np.ndarray, secondary: np.ndarray, num_keys: int) -> Csr:
+    """The CSR view of events keyed (``primary``, ``secondary``), ties in
+    event order: the native two-pass counting sort (``native.csr_order``),
+    else ``np.lexsort``; both give the same arrays."""
+    from mymedialite_tpu_torch import native
+    counted = native.csr_order(primary, secondary, num_keys)
+    if counted is not None:
+        indptr, order = counted
+        return Csr(indptr=indptr, order=order, keys=secondary[order])
     order = np.lexsort((secondary, primary)).astype(np.int32)
     indptr = np.zeros(num_keys + 1, dtype=np.int64)
     indptr[1:] = np.bincount(primary, minlength=num_keys)

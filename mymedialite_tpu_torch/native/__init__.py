@@ -1,13 +1,15 @@
 """Native (C++) host helpers, loaded via ctypes: the numeric rating-file
-parser, the threaded item count and the chunk plan's counting sort; and,
-from ``model_text.cpp`` (a library of its own), the model files' text
-sections formatted and parsed (``format_values``, ``parse_values``).
+parser, the threaded item count, the chunk plan's counting sort and the
+CSR views' (``csr_order``); and, from ``model_text.cpp`` (a library of
+its own), the model files' text sections formatted and parsed
+(``format_values``, ``parse_values``).
 
 The port's own copy of ``mymedialite_tpu/native`` (``fast_parser.cpp``
-verbatim, the same loader functions). The library is compiled with the
-host C++ compiler at first use into ``mymedialite_tpu_torch/build/``
-(not committed), under a file name that carries a hash of the source
-and the flags, so an edited source is never served by a stale binary.
+verbatim but for ``mml_csr_order``, the same loader functions). The
+library is compiled with the host C++ compiler at first use into
+``mymedialite_tpu_torch/build/`` (not committed), under a file name
+that carries a hash of the source and the flags, so an edited source is
+never served by a stale binary.
 Everything degrades to the pure-Python paths when no compiler is
 available.
 """
@@ -96,6 +98,11 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
+        lib.mml_csr_order.restype = None
+        lib.mml_csr_order.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -148,6 +155,32 @@ def mxu_bucketize(users, items, values, perm, new_of_old,
         _c(perm) if perm is not None else None, n, _c(new_of_old),
         UB, IB, n_ib, _c(cursor), chunk, _c(packed))
     return packed, bcount, pcount, chunk
+
+
+def csr_order(primary, secondary, num_keys: int):
+    """(indptr int64 [num_keys + 1], order int32 [n]): the CSR view of
+    ``data/arrays.py build_csr`` by the native two-pass counting sort,
+    ``order`` equal to ``np.lexsort((secondary, primary))``. None where
+    the library is unavailable or a key lies outside what it sorts
+    (negative, past int32, a primary key at or past ``num_keys``)."""
+    lib = get_lib()
+    n = len(primary)
+    if lib is None or n != len(secondary) or n >= 2**31 or not (
+            np.issubdtype(primary.dtype, np.integer)
+            and np.issubdtype(secondary.dtype, np.integer)):
+        return None
+    if n and (min(primary.min(), secondary.min()) < 0
+              or primary.max() >= num_keys or secondary.max() >= 2**31 - 1):
+        return None
+    primary = np.ascontiguousarray(primary, dtype=np.int32)
+    secondary = np.ascontiguousarray(secondary, dtype=np.int32)
+    num_secondary = int(secondary.max()) + 1 if n else 0
+    indptr = np.zeros(num_keys + 1, np.int64)
+    order = np.empty(n, np.int32)
+    tmp = np.empty(n, np.int32)
+    lib.mml_csr_order(_c(primary), _c(secondary), n, num_keys,
+                      num_secondary, _c(tmp), _c(indptr), _c(order))
+    return indptr, order
 
 
 def parse_numeric_file(path: str, min_columns: int,

@@ -298,4 +298,27 @@ void mml_bucket_fill_packed(const int32_t* users, const int32_t* items,
     }
 }
 
+// CSR order (data/arrays.py build_csr): the event indices sorted by
+// (primary, secondary), ties in index order, as np.lexsort((secondary,
+// primary)) gives them, by a stable two-pass counting sort: pass 1
+// orders the events by the secondary key into ``tmp``, pass 2 stably by
+// the primary key into ``order``. ``indptr`` [num_primary + 1] comes in
+// zeroed and goes out as the primary keys' offsets. Every key lies in
+// [0, num_primary) and [0, num_secondary) (the caller checks).
+void mml_csr_order(const int32_t* primary, const int32_t* secondary,
+                   int64_t n, int64_t num_primary, int64_t num_secondary,
+                   int32_t* tmp, int64_t* indptr, int32_t* order) {
+    std::vector<int64_t> pos(num_secondary + 1, 0);
+    for (int64_t k = 0; k < n; ++k) ++pos[secondary[k] + 1];
+    for (int64_t s = 0; s < num_secondary; ++s) pos[s + 1] += pos[s];
+    for (int64_t k = 0; k < n; ++k) tmp[pos[secondary[k]]++] = (int32_t)k;
+    for (int64_t k = 0; k < n; ++k) ++indptr[primary[k] + 1];
+    for (int64_t p = 0; p < num_primary; ++p) indptr[p + 1] += indptr[p];
+    std::vector<int64_t> cursor(indptr, indptr + num_primary);
+    for (int64_t k = 0; k < n; ++k) {
+        int32_t e = tmp[k];
+        order[cursor[primary[e]]++] = e;
+    }
+}
+
 }  // extern "C"

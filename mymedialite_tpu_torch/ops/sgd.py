@@ -8,8 +8,9 @@ ComputeObjective, BiasedMatrixFactorization.cs:515-552), which the bold
 driver reads, and the blocked minibatch epoch (``prepare_blocked_data``,
 ``column_rates``, ``sgd_epoch_blocked``) that the MF family runs with
 frequency regularization and past the tiled schedule's catalog bound.
-The blocked epoch is plain PyTorch (gathers and ``index_add_``): the JAX
-package runs it as an XLA scan, with no Pallas kernel.
+The blocked epoch is plain PyTorch (gathers and ``add_rows``, a
+scatter-add whose sums do not depend on their order): the JAX package
+runs it as an XLA scan, with no Pallas kernel.
 
 ``sgd_epoch_blocked_sharded`` is its mesh form (JAX ``ops/sgd.py:
 428-532``): the user groups split over the devices, each device's
@@ -155,7 +156,43 @@ def mf_objective(params: dict, data: dict, hp: dict, counts: dict, *,
 # once within the groups; an epoch walks the groups in order and each
 # group's minibatches in a per-epoch permuted order. A minibatch gathers
 # its user and item rows, computes the loss gradient and scatter-adds into
-# both tables (index_add_: duplicate ids within a batch sum).
+# both tables (``add_rows``: duplicate ids within a batch sum).
+
+
+def add_rows(table, ids, delta):
+    """``table.index_add_(0, ids, delta)`` with a result that does not
+    depend on the order of the sum, so that two runs of one seed give the
+    same bits: on the CPU ``index_add_`` itself (it adds the batch in
+    order), elsewhere ``exact_add``, where CUDA's float ``index_add_``
+    adds by atomics in whatever order its threads run. Duplicate ids sum.
+    In place; returns ``table``."""
+    if table.device.type == "cpu":
+        return table.index_add_(0, ids, delta)
+    return exact_add(table, ids, delta)
+
+
+def exact_add(table, ids, delta):
+    """The scatter-add of ``add_rows`` as an exact sum: the deltas scaled
+    by 2**e into int64 fixed point (rounded to a multiple of 2**-e, e the
+    largest integer, at most 100, that keeps the batch's largest |delta|
+    times its slots under 2**61), summed per distinct row by integer
+    additions, which give the same bits in any order, and rounded once
+    back to the table's dtype. Non-finite deltas make every row the batch
+    touches non-finite. In place; returns ``table``."""
+    if delta.numel() == 0:
+        return table
+    rows, inv = torch.unique(ids.long(), return_inverse=True)
+    top = delta.abs().max().double()
+    e = torch.clamp(torch.floor(61.0 - torch.log2(top * ids.numel())),
+                    max=100.0)
+    scale = torch.exp2(e).to(delta.dtype)
+    fixed = torch.round(delta * scale).to(torch.int64)
+    sums = torch.zeros((rows.numel(),) + tuple(delta.shape[1:]),
+                       dtype=torch.int64, device=delta.device)
+    sums.index_add_(0, inv, fixed)
+    back = sums.to(delta.dtype) / scale
+    back = torch.where(torch.isfinite(top), back, top.to(delta.dtype))
+    return table.index_add_(0, rows, back)
 
 
 def pad_to_batches(n: int, batch_size: int) -> int:
@@ -305,9 +342,9 @@ def _blocked_group(slab, H_ext, data, g: int, order, hp, rates, freq, *,
             ri = freq[1].to(dtype)[i] * w
         else:
             ru = ri = w
-        slab.index_add_(0, u, w_lr * (
+        add_rows(slab, u, w_lr * (
             g_com[:, None] * hi - (w * ru)[:, None] * w_reg * wu))
-        H_ext.index_add_(0, i, h_lr * (
+        add_rows(H_ext, i, h_lr * (
             g_com[:, None] * wu - (w * ri)[:, None] * h_reg * hi))
 
 
@@ -501,11 +538,11 @@ def sgd_epoch(params, data, batch_order, hp, *, batch_size: int, loss: int,
                                        (update_item, H, dH, "item")):
             if not on:
                 continue
-            seg = delta.new_zeros(delta.shape).index_add_(
-                0, data[f"{side}_slot"][sl].long(), delta)
+            seg = add_rows(delta.new_zeros(delta.shape),
+                           data[f"{side}_slot"][sl].long(), delta)
             uniq = data[f"{side}_uniq"][sl].long()
             keep = uniq < table.shape[0]
-            table.index_add_(0, uniq[keep], seg[keep])
+            table.index_add_(0, uniq[keep], seg[keep])  # distinct rows
     return _unfuse(params, W, H, biased)
 
 
@@ -550,9 +587,8 @@ def sgd_epoch_sharded_flat(mesh, params, data, batch_order, hp, *,
                                   biased=biased)
             for ids, delta, out in ((u, dW, parts_w), (i, dH, parts_h)):
                 rows, slot = torch.unique(ids, return_inverse=True)
-                out.append((rows, delta.new_zeros(
-                    (rows.numel(),) + tuple(delta.shape[1:])).index_add_(
-                        0, slot, delta)))
+                out.append((rows, add_rows(delta.new_zeros(
+                    (rows.numel(),) + tuple(delta.shape[1:])), slot, delta)))
         if update_user:
             W_reps = mesh.merge_rows(W_reps, parts_w)
         if update_item:

@@ -1007,3 +1007,61 @@ def test_default_mesh_phase_is_in_main():
     bad = [m for m in _imported_modules(SMOKE)
            if m.split(".")[0] in ("jax", "jaxlib", "mymedialite_tpu")]
     assert not bad, bad
+
+
+def test_quality_phase_and_blocked_repeat_rehearse_on_the_cpu(
+        monkeypatch, tmp_path, capsys):
+    """Phase 27 (the quality driver at --small, a few of its rows, the
+    card's launches not held: on the CPU the wrappers count none), the
+    blocked MF phase with its repeated run of one seed (tables equal bit
+    for bit), and the CSR builds held to the lexsort, on CPU tensors
+    with the card's clock and synchronisation stood in for."""
+    import contextlib
+
+    import torch
+
+    from mymedialite_tpu_torch import quality
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, split_ratings, synthetic_ratings,
+    )
+    smoke = _smoke_module()
+    for name, fn in (("Event", _HostEvent), ("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(smoke, "GROUP_PREFIX", 2)
+    monkeypatch.setattr(smoke, "PREFIX_BATCH", 256)
+    dev = torch.device("cpu")
+    train, test = split_ratings(synthetic_ratings(3000, 300, 60_000, seed=1),
+                                0.2, seed=2)
+    out = smoke.phase_mf_blocked(
+        dev, train, test, "frequency regularization",
+        "frequency_regularization=true batch_size=1024", repeat=True)
+    assert out["repeat_s"] > 0
+    counting_s, lexsort_s = smoke.csr_builds(posonly_from_ratings(train),
+                                             posonly_from_ratings(test))
+    assert counting_s >= 0 and lexsort_s > 0
+
+    monkeypatch.setattr(smoke, "counted_path",
+                        lambda expected: contextlib.nullcontext({}))
+    monkeypatch.setattr(smoke, "QUALITY_KERNELS", {
+        name: (route, None) for name, (route, _)
+        in smoke.QUALITY_KERNELS.items()})
+    monkeypatch.setattr(quality, "RATING_CONFIGS", [
+        ("GlobalAverage", ""),
+        ("BiasedMatrixFactorization", "num_factors=8 num_iter=10"),
+        ("SVDPlusPlus", "num_factors=8 num_iter=10 learn_rate=0.01"),
+        ("ItemKNN", "k=40")])
+    monkeypatch.setattr(quality, "TIME_AWARE_CONFIGS", [
+        ("UserItemBaseline", ""), ("TimeAwareBaseline", "num_iter=5")])
+    monkeypatch.setattr(quality, "ITEM_CONFIGS", [
+        ("Random", ""), ("MostPopular", ""),
+        ("BPRMF", "num_factors=8 num_iter=10"),
+        ("LeastSquareSLIM", "num_iter=10 reg_l1=0.0001 k=100")])
+    assert smoke.phase_quality(dev, str(tmp_path)) > 0
+    log = capsys.readouterr().out
+    assert "the same seed again" in log and "equal bit for bit" in log
+    assert "the lexsort it replaced" in log and "equal arrays" in log
+    assert "phase 27 (the quality driver, --small, one seed): 10 rows" in log
+    assert "reported, not held: LeastSquareSLIM AUC" in log

@@ -1762,3 +1762,82 @@ def test_models_train_on_every_card_by_default(cuda):
         assert (a - b.to(a.device)).abs().max().item() <= 1e-4
     assert lines[0]["num_users"] == lines[1]["num_users"] > 0
     assert abs(lines[0]["AUC"] - lines[1]["AUC"]) <= 1e-3
+
+
+# --- the blocked MF epoch's exact scatter (ops/sgd.py add_rows): two runs
+# of one seed give the same tables on the card
+
+
+def _blocked_twice(cuda, sharded, freq):
+    data = synthetic_ratings(num_users=2048, num_items=3000,
+                             num_ratings=100_000, seed=3)
+    bd, meta = S.prepare_blocked_data(data.users, data.items, data.values,
+                                      2048, 4096, 512, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    We, He = S.extend_tables(0.1 * torch.randn((2048, 40), generator=gen),
+                             0.1 * torch.randn((3000, 40), generator=gen),
+                             group_users=512)
+    nb = meta["l_pad"] // meta["batch"]
+    orders = torch.stack([torch.randperm(nb, generator=gen)
+                          for _ in range(meta["ngroups"])])
+    rates = S.column_rates(40, 0.01, 0.015, 0.015, 1.0, 0.01, True, True,
+                           True, device=cuda)
+    f = S.blocked_freq(data.count_by_user, data.count_by_item, 2048,
+                       cuda) if freq else None
+    runs = []
+    for _ in range(2):
+        W, H = We.to(cuda), He.to(cuda)
+        if sharded:
+            S.sgd_epoch_blocked_sharded(_rig(cuda), W, H, bd, orders[:1],
+                                        (0.2, 1.0, 4.0), rates, f, meta=meta,
+                                        loss=0, biased=True)
+        else:
+            S.sgd_epoch_blocked(W, H, bd, orders, (0.2, 1.0, 4.0), rates, f,
+                                meta=meta, loss=0, biased=True)
+        runs.append((W.cpu(), H.cpu()))
+    return runs, He
+
+
+@pytest.mark.parametrize("sharded", [False, True],
+                         ids=["one-device", "rig"])
+@pytest.mark.parametrize("freq", [False, True])
+def test_blocked_epoch_repeats_bit_for_bit(cuda, sharded, freq):
+    """Two blocked epochs (4 groups of 512 users, batches of 4,096: about
+    1,400 ratings a batch on 3,000 items, so duplicates in every batch)
+    from the same tables and batch orders give equal tables on the card,
+    on one device and on the rig of one card named 4 times."""
+    (a, b), He = _blocked_twice(cuda, sharded, freq)
+    assert not torch.equal(a[1], He)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_exact_add_repeats_where_index_add_may_not(cuda):
+    """``add_rows`` on a batch of 131,072 slots on 64 rows gives the same
+    bits ten times, within an ulp of the float64 sum; ``index_add_``'s
+    spread over the same ten runs and both calls' times are printed."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(0, 64, (131_072,), device=cuda, generator=gen)
+    delta = torch.randn((131_072, 42), device=cuda, generator=gen)
+    table = torch.randn((64, 42), device=cuda, generator=gen)
+    exact = [S.add_rows(table.clone(), ids, delta) for _ in range(10)]
+    assert all(torch.equal(exact[0], t) for t in exact[1:])
+    ref = table.double().index_add_(0, ids, delta.double())
+    ulp = torch.finfo(torch.float32).eps * ref.abs().max().item()
+    assert (exact[0].double() - ref).abs().max().item() <= ulp
+    atomics = [table.clone().index_add_(0, ids, delta) for _ in range(10)]
+    spread = max((t - atomics[0]).abs().max().item() for t in atomics)
+    times = []
+    for fn in (lambda t: S.add_rows(t, ids, delta),
+               lambda t: t.index_add_(0, ids, delta)):
+        t = table.clone()
+        fn(t)
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(20):
+            fn(t)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / 20)
+    print(f"index_add_ spread over 10 runs: {spread:.3e}; add_rows "
+          f"{times[0]:.3f} ms, index_add_ {times[1]:.3f} ms a call")

@@ -18,7 +18,9 @@ names trained, the KDD Cup reader, and the rating CLI under
 four CPU devices; the dry run's mesh paths, WRMF's sharded solves and the
 data-parallel ranking eval on four CPU devices, and every route of the
 multi-process module ``parallel/driver.py`` in its one-process run) from
-the port's own synthetic data, and must exit 0."""
+the port's own synthetic data, and must exit 0; the quality driver
+(``quality.py``) imported there, and a few of its rows run in a second
+such interpreter."""
 
 import os
 import subprocess
@@ -232,6 +234,23 @@ SCRIPT = textwrap.dedent("""
     model.train()
     print("\\nmesh eval", evaluate_items(model, fb, fb,
                                          repeated_events=True))
+    from mymedialite_tpu_torch import quality  # noqa: F401
+    bad = [m for m in sys.modules if blocked(m)]
+    assert not bad, bad
+""")
+
+# the quality driver (python -m mymedialite_tpu_torch.quality) at --small
+# on the CPU, a few of its rows, with both names blocked
+QUALITY_SCRIPT = SCRIPT[:SCRIPT.index("\nimport os\n") + 1] + \
+    textwrap.dedent("""
+    from mymedialite_tpu_torch import quality
+    quality.RATING_CONFIGS = [("GlobalAverage", ""), (
+        "BiasedMatrixFactorization", "num_factors=4 num_iter=2")]
+    quality.TIME_AWARE_CONFIGS = [("TimeAwareBaseline", "num_iter=2")]
+    quality.ITEM_CONFIGS = [("MostPopular", ""),
+                            ("BPRMF", "num_factors=4 num_iter=2")]
+    records = quality.main(["--small", "--device", "cpu"])
+    assert len(records) == 5, records
     bad = [m for m in sys.modules if blocked(m)]
     assert not bad, bad
 """)
@@ -263,3 +282,13 @@ def test_port_runs_without_jax(tmp_path):
     for name in ("ItemKNNRating", "UserAttributeKNNRating",
                  "WRMF", "UserKNN", "ItemAttributeKNN"):
         assert proc.stdout.count(f"\n{name} ") == 2, name
+
+
+def test_quality_driver_runs_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", QUALITY_SCRIPT],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("RMSE") == 3
+    assert proc.stdout.count("AUC") == 2
