@@ -13,16 +13,22 @@ Phases (any failure raises and the script exits non-zero):
    tables and order, for every loss x biased combination, on the resident
    schedule and on the slab-tiled one (one-block slabs, so three slabs);
    the MAE rows under two witnesses instead (the MAE gradient is a sign,
-   which the atomics' order can flip): every chunk stepped alone from the
-   float64 plain trajectory's state, and the whole epoch no farther from
-   float64 than 4x the farthest plain run;
+   which the plain version's atomics on the card can flip): every chunk
+   stepped alone from the float64 plain trajectory's state, and the
+   whole epoch no farther from float64 than 4x the farthest plain run;
+   every combination also launched twice from the same inputs, its
+   tables equal bit for bit (each row's deltas summed in slot order,
+   ``csrc/owner_scatter.cuh``);
 4. the BPR-epoch kernel against its plain PyTorch version on the card
    at the same shape (the rated pairs as positive-only feedback), one
    epoch from the same tables, order, negative plan and bits: on the
    resident schedule for every (hinge, WBPR) variant and both membership
    tables, on the tiled schedule (three slabs) for every (hinge, WBPR)
    variant with the sub-bucketed keys; identical sampled negatives,
-   tables within the tolerance;
+   tables within the tolerance; two launches from the same inputs give
+   equal tables, negatives and segment tables, the latter equal to the
+   plain builder's (``ops/segments.py bpr_segments_reference``) on the
+   sampled negatives;
 5. the fused top-k kernel against its plain version on the cases of
    tests/test_pallas_topk.py and at the serving shape (1,024 users x
    62,423 items, f=41, k=64); k=65 refused;
@@ -128,7 +134,12 @@ Phases (any failure raises and the script exits non-zero):
     above 0.5; the Netflix-shaped blocked MF trained a second time from
     the same seed (on the same host layout), its tables and RMSE equal
     bit for bit (the epoch's scatter, ``ops/sgd.py exact_add``, sums in
-    int64 fixed point);
+    int64 fixed point); the blocked and minibatch paths launch
+    ``exact_add``'s kernel (``csrc/exact_add.cu``), which is then held
+    bit for bit to its plain version (the torch composition) on the
+    calls those paths gave it, on 131,072 slots on 64 rows and on
+    batches with an inf and a NaN delta, and timed beside the
+    composition and ``index_add_``;
 21. the protocols through the CLIs at phase 16's size: the rating CLI with
     --cross-validation=5 (BiasedMatrixFactorization: kernel 1 once per
     epoch per fold), --cross-validation=3 --find-iter=1 --max-iter=3,
@@ -265,18 +276,18 @@ Phases (any failure raises and the script exits non-zero):
     BPRMF on "sharded-tiled" at 200,000 items, past the per-device
     resident bound (kernels 2 and 4), each beside a model on an explicit
     mesh of the same devices (the same plan chunk for chunk, the tables
-    within 1e-5: the kernels' float atomics fix no order of a sum, so
-    two runs of one schedule may part in the last bits; the gap logged)
-    and its kernel held to its plain version across its cells;
+    equal bit for bit: the kernels sum each row in a fixed order) and
+    its kernel held to its plain version across its cells;
     SVDPlusPlus on its sharded grouped epoch (groups of a quarter of one
     device's automatic group) and WRMF on its sharded solves against the
     explicit mesh's (1e-5 and 1e-6); BPRMF's ranking eval split over the
     rig, its line equal bit for bit to the explicit mesh's and to one
     device's;
 27. the quality driver (``mymedialite_tpu_torch/quality.py``) at
-    ``--small``, one seed, in this process: its 22 rows and JSON records,
-    each finite, on its route, the kernel rows launching their kernel
-    once an epoch (kernels 1, 3 and 5) and no other row any; each rating
+    ``--small``, one seed, two runs (``--runs 2``), in this process: its
+    22 rows and JSON records, each finite, on its route, the kernel rows
+    launching their kernel once an epoch (kernels 1, 3 and 5) and no
+    other row any, each row's two runs equal in every metric; each rating
     row's RMSE under GlobalAverage's (the time-aware rows under the timed
     data's global average), each item row's AUC over Random's
     (LeastSquareSLIM's, under it at this size in both packages, logged).
@@ -294,13 +305,17 @@ Before each main path (phase 24's models included) every kernel's launch
 count is set to 0, and after
 it the path's kernels must have run as often as it needs (an epoch
 kernel once per epoch, the top-k kernel once per block of users, and no
-kernel in WRMF's training, the KNN builds or the XLA routes, which are
-library products, solves and plain PyTorch epochs; a
-count is one wrapper call, which may launch more than one CUDA kernel:
-the BPR epoch's sampler and walk, kernel 6's split and merge) and
-every other kernel never. The line before the last is one JSON object
-describing the kernels (kernel 6's numbers sum the Netflix-shaped BPRMF
-and WRMF serving passes); the last line is ``{"ok": true, "device":
+epoch or top-k kernel in WRMF's training, the KNN builds or the XLA
+routes, which are library products, solves and plain PyTorch epochs
+(whose scatters launch ``exact_add``'s kernel, held where a path names
+it: the blocked and minibatch epochs of phase 20); a count is one
+wrapper call, which may launch more than one CUDA kernel: the BPR
+epoch's sampler and walk, kernel 6's split and merge, exact_add's four
+passes) and every other kernel never. The line before the last is one
+JSON object describing the kernels (kernel 6's numbers sum the
+Netflix-shaped BPRMF and WRMF serving passes; exact_add's are its
+largest call on the Netflix-shaped blocked MF path, its launches that
+path's); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of jax and nothing of the JAX package: only the
 port, numpy and torch.
 """
@@ -323,7 +338,9 @@ import time
 import numpy as np
 import torch
 
-KERNEL_TOL = 1e-4   # atomics add in a run-dependent order
+# the kernels sum each row in slot order, the plain versions on the card by
+# index_add_'s atomics, in a run-dependent order
+KERNEL_TOL = 1e-4
 # the main paths hold an epoch kernel to its plain version over this many
 # chunks of an epoch's order (the plain version is host-bound: a whole
 # Netflix-shaped epoch took 8-26 s of it)
@@ -352,19 +369,28 @@ def card_line() -> str:
 def kernel_functions():
     from mymedialite_tpu_torch.ops.bpr_epoch import bpr_epoch, bpr_epoch_tiled
     from mymedialite_tpu_torch.ops.catalog_topk import catalog_topk
+    from mymedialite_tpu_torch.ops.sgd import exact_add
     from mymedialite_tpu_torch.ops.sgd_epoch import sgd_epoch, sgd_epoch_tiled
     from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
     return dict(sgd_epoch=sgd_epoch, sgd_epoch_tiled=sgd_epoch_tiled,
                 bpr_epoch=bpr_epoch, bpr_epoch_tiled=bpr_epoch_tiled,
-                svdpp_epoch=svdpp_epoch, catalog_topk=catalog_topk)
+                svdpp_epoch=svdpp_epoch, catalog_topk=catalog_topk,
+                exact_add=exact_add)
+
+
+# a count in counted_path's ``expected``: at least one launch (on the
+# card; on the CPU, where the wrappers run their plain versions, none)
+SOME = "at least 1"
 
 
 @contextlib.contextmanager
 def counted_path(expected: dict):
     """Set every kernel's launch count to 0, drive the path inside the
-    block, then require the ``expected`` launches ({kernel: count}) and
-    none of any other kernel. Yields a dict that holds every kernel's
-    launches afterwards."""
+    block, then require the ``expected`` launches ({kernel: count, or
+    SOME for at least one}) and none of any other epoch or top-k kernel;
+    ``exact_add``, the plain routes' scatter (``ops/sgd.py add_rows``),
+    is held only where ``expected`` names it. Yields a dict that holds
+    every kernel's launches afterwards."""
     fns = kernel_functions()
     for fn in fns.values():
         fn.launches = 0
@@ -372,7 +398,11 @@ def counted_path(expected: dict):
     yield out
     out.update({name: fn.launches for name, fn in fns.items()})
     want = {name: expected.get(name, 0) for name in fns}
-    if out != want:
+    if "exact_add" not in expected:
+        want["exact_add"] = out["exact_add"]
+    met = all((out[k] >= 1 or not torch.cuda.is_available()) if w == SOME
+              else out[k] == w for k, w in want.items())
+    if not met:
         raise AssertionError(f"kernel launches {out}, expected {want}")
 
 
@@ -576,6 +606,18 @@ def table_error(kernel_tables, plain_tables) -> float:
                for k, p in zip(kernel_tables, plain_tables))
 
 
+def repeat_check(run, what):
+    """Launch ``run()`` twice (each from fresh copies of its inputs) and
+    require every table it returns equal bit for bit: the kernels sum each
+    row in a fixed order, so one set of inputs gives one set of tables."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{what}: two launches from the same inputs "
+                             "differ")
+    return first
+
+
 def check(err, what):
     if not err <= KERNEL_TOL:
         raise AssertionError(f"{what}: kernel disagrees with the plain "
@@ -640,6 +682,25 @@ def kernel_vs_plain(plan, W, H, order, hp, rates, *, loss, biased):
         lambda: kernel(Wk, Hk, plan.packed, order, hp, rates, **kw),
         lambda: plain(Wr, Hr, plan.packed, order, hp, rates, **kw))
     return table_error((Wk, Hk), (Wr, Hr)), kernel_ms, plain_ms
+
+
+def sgd_repeats(plan, W, H, order, hp, rates, *, loss, biased):
+    """Two launches of the plan's SGD kernel from the same tables and
+    order: equal tables (``repeat_check``)."""
+    from mymedialite_tpu_torch.ops import plan as mxu
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=loss, biased=biased)
+    kernel = se.sgd_epoch
+    if isinstance(plan, mxu.MxuTiledPlan):
+        kernel = se.sgd_epoch_tiled
+        kw["slab_blocks"] = plan.slab_blocks
+
+    def run():
+        Wk, Hk = W.clone(), H.clone()
+        kernel(Wk, Hk, plan.packed, order, hp, rates, **kw)
+        return Wk, Hk
+    repeat_check(run, f"sgd {type(plan).__name__} loss={loss}")
 
 
 def table_distance(a, b) -> float:
@@ -791,7 +852,11 @@ def phase_kernel_check(dev):
                         f"{p_ms:.1f} ms ({plan.num_chunks} chunks of "
                         f"{plan.chunk})")
                     check(err, what)
+                sgd_repeats(plan, W, H, order, hp, rates, loss=loss,
+                            biased=biased)
                 worst[schedule] = max(worst.get(schedule, 0.0), err)
+    log("sgd kernel checks: every (schedule, loss, biased) launched twice "
+        "from the same inputs gives equal tables bit for bit")
     return worst
 
 
@@ -802,7 +867,7 @@ def bpr_kernel_vs_plain(plan, state, W, H, order, neg_plan, bits, rates, *,
     kernel ms, plain ms, the kernel's negatives); raises unless the
     sampled negatives are identical."""
     from mymedialite_tpu_torch.ops.bpr_epoch import (
-        bpr_epoch, bpr_epoch_reference,
+        bpr_epoch, bpr_epoch_reference, sampler_tables,
     )
     args = (plan.packed, state["keys_tbl"], state["cdf_tbl"], bits, order,
             *neg_plan, rates)
@@ -817,14 +882,42 @@ def bpr_kernel_vs_plain(plan, state, W, H, order, neg_plan, bits, rates, *,
     if not torch.equal(neg_k, neg_r):
         bad = (neg_k != neg_r).sum().item()
         raise AssertionError(f"sampled negatives differ in {bad} entries")
+    bpr_repeats(plan, lambda W_, H_: bpr_epoch(W_, H_, *args, **kw),
+                lambda: sampler_tables(
+                    plan.packed, args[1], args[2], bits, (*order, *neg_plan),
+                    user_block=plan.user_block, item_block=plan.item_block,
+                    wbpr=wbpr, bitmask_tbl=kw["bitmask_tbl"]),
+                W, H, order[1], neg_plan[0], order[2])
     return table_error((Wk, Hk), (Wr, Hr)), kernel_ms, plain_ms, neg_k
+
+
+def bpr_repeats(plan, epoch, sample, W, H, ib, jb, row):
+    """Two launches of a BPR kernel (``epoch(W, H)`` returning its
+    negatives) from the same inputs: equal tables and negatives. Then the
+    sampling kernel alone on the same inputs (``sample()``,
+    ``ops/bpr_epoch.py sampler_tables``): the same negatives, and segment
+    tables equal to the plain builder's (``ops/segments.py
+    bpr_segments_reference``) on them."""
+    from mymedialite_tpu_torch.ops.segments import bpr_segments_reference
+
+    def run():
+        Wk, Hk = W.clone(), H.clone()
+        _, _, neg = epoch(Wk, Hk)
+        return Wk, Hk, neg
+    _, _, neg = repeat_check(run, "bpr")
+    neg_s, segs = sample()
+    want = bpr_segments_reference(plan.packed[row.long()], neg, ib, jb,
+                                  item_block=plan.item_block)
+    if not torch.equal(neg_s, neg) or not torch.equal(segs, want):
+        raise AssertionError("bpr: the sampler's segment tables differ from "
+                             "the plain builder's")
 
 
 def bpr_tiled_kernel_vs_plain(plan, state, tl, W, H, order, bits, rates, *,
                               soft_margin, wbpr):
     """bpr_kernel_vs_plain for the tiled schedule, sub-bucketed keys."""
     from mymedialite_tpu_torch.ops.bpr_epoch import (
-        bpr_epoch_tiled, bpr_epoch_tiled_reference,
+        bpr_epoch_tiled, bpr_epoch_tiled_reference, sampler_tables, tiled_cols,
     )
     args = (plan.packed, state["subkeys_tbl"], state["cdf_tbl"], bits, order,
             rates)
@@ -838,6 +931,14 @@ def bpr_tiled_kernel_vs_plain(plan, state, tl, W, H, order, bits, rates, *,
     if not torch.equal(neg_k, neg_r):
         bad = (neg_k != neg_r).sum().item()
         raise AssertionError(f"sampled negatives differ in {bad} entries")
+    bpr_repeats(plan, lambda W_, H_: bpr_epoch_tiled(W_, H_, *args, **kw),
+                lambda: sampler_tables(
+                    plan.packed, args[1], args[2], bits,
+                    tiled_cols(order, tl["slab_blocks"]),
+                    user_block=plan.user_block, item_block=plan.item_block,
+                    wbpr=wbpr, subkeys=True),
+                W, H, order[2] * tl["slab_blocks"] + order[1], order[3],
+                order[8])
     return table_error((Wk, Hk), (Wr, Hr)), kernel_ms, plain_ms, neg_k
 
 
@@ -1267,6 +1368,18 @@ def svdpp_kernel_vs_plain(plan, tables, schedule, hp, rates, *,
     return table_error(k_tabs, r_tabs), kernel_ms, plain_ms
 
 
+def svdpp_repeats(plan, tables, schedule, hp, rates, **kw):
+    """Two launches of the SVD++ kernel from the same tables and schedule:
+    equal tables (``repeat_check``)."""
+    from mymedialite_tpu_torch.ops.svdpp_epoch import svdpp_epoch
+
+    def run():
+        tabs = tuple(t.clone() for t in tables)
+        svdpp_epoch(*tabs, plan.packed, schedule, hp, rates, **kw)
+        return tabs
+    repeat_check(run, "svdpp")
+
+
 def phase_schedules(schedule):
     """The S, R and Y steps of an S/R/Y ``schedule`` (ph, ub, ib, row),
     each as a schedule of its own, in order."""
@@ -1424,7 +1537,12 @@ def phase_svdpp_kernel_check(dev):
                 f"{KERNEL_TOL}) kernel {k_ms:.2f} ms plain {p_ms:.1f} ms "
                 f"({shape})")
             check(err, f"svdpp {label}")
+        svdpp_repeats(plan, tables, plan.schedule, hp, rates,
+                      user_block=plan.user_block, item_block=plan.item_block,
+                      num_factors=f, loss=loss, sigmoid=sigmoid)
         worst = max(worst, err)
+    log("svdpp kernel checks: every variant launched twice from the same "
+        "inputs gives equal tables bit for bit")
     return worst
 
 
@@ -2628,7 +2746,8 @@ def phase_mf_blocked(dev, train, test, label, opts="", repeat=False):
     torch.cuda.reset_peak_memory_stats()
     with timed_training((sgd, "prepare_blocked_data"),
                         (sgd, "sgd_epoch_blocked")) as timings, \
-            counted_path({}):
+            counted_path({"exact_add": SOME}) as counted, \
+            recorded_exact_add() as calls:
         t0 = time.perf_counter()
         model.train()
         torch.cuda.synchronize()
@@ -2641,7 +2760,8 @@ def phase_mf_blocked(dev, train, test, label, opts="", repeat=False):
     log(f"mf blocked {label} train: {train_s:.2f} s; layout "
         f"{timings['plan_s'][0]:.2f} s ({meta['ngroups']} groups of "
         f"{meta['group_users']} users, {batches} batches of up to "
-        f"{meta['batch']}); no kernel launched; epochs "
+        f"{meta['batch']}); exact_add {counted['exact_add']} launches, no "
+        f"epoch kernel; epochs "
         f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
         f"{len(train) / (epoch_ms / 1e3):.4g} rating updates/s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2665,7 +2785,7 @@ def phase_mf_blocked(dev, train, test, label, opts="", repeat=False):
         real = sgd.prepare_blocked_data
         sgd.prepare_blocked_data = lambda *a, **kw: layout
         try:
-            with counted_path({}):
+            with counted_path({"exact_add": SOME}):
                 twin.train()
         finally:
             sgd.prepare_blocked_data = real
@@ -2716,7 +2836,8 @@ def phase_mf_blocked(dev, train, test, label, opts="", repeat=False):
         + f"; largest entries |W| "
         f"{card['W'].abs().max().item():.4g}, |H| "
         f"{card['H'].abs().max().item():.4g}")
-    return dict(epoch_ms=epoch_ms, rmse=rmse, repeat_s=repeat_s)
+    return dict(epoch_ms=epoch_ms, rmse=rmse, repeat_s=repeat_s,
+                exact_add_launches=counted["exact_add"], exact_add_calls=calls)
 
 
 def phase_bpr_minibatch(dev, train, test, label):
@@ -2739,7 +2860,8 @@ def phase_bpr_minibatch(dev, train, test, label):
     torch.cuda.reset_peak_memory_stats()
     with timed_training((bpr_ops, "make_sampler_data"),
                         (bpr_ops, "bpr_epoch")) as timings, \
-            counted_path({}):
+            counted_path({"exact_add": SOME}) as counted, \
+            recorded_exact_add() as calls:
         t0 = time.perf_counter()
         model.train()
         torch.cuda.synchronize()
@@ -2752,7 +2874,7 @@ def phase_bpr_minibatch(dev, train, test, label):
     epoch_ms = float(np.mean(timings["epoch_ms"]))
     log(f"bpr minibatch {label} train: {train_s:.2f} s; sampler "
         f"{timings['plan_s'][0]:.2f} s ({nb} batches of {batch} triples); "
-        f"no kernel launched; epochs "
+        f"exact_add {counted['exact_add']} launches, no epoch kernel; epochs "
         f"{', '.join(f'{t:.1f}' for t in timings['epoch_ms'])} ms; "
         f"{meta['num_events'] / (epoch_ms / 1e3):.4g} triples/s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2780,7 +2902,123 @@ def phase_bpr_minibatch(dev, train, test, label):
         f"({time.perf_counter() - t0:.2f} s)")
     if not (math.isfinite(res["AUC"]) and res["AUC"] > 0.5):
         raise AssertionError(f"{label}: BPRMF AUC {res['AUC']} <= 0.5")
+    if calls:                            # none on the CPU
+        exact_add_checks(f"bpr minibatch {label}", calls)
     return dict(epoch_ms=epoch_ms, auc=res["AUC"])
+
+
+# ---------------------------------------------------------------------------
+# exact_add (csrc/exact_add.cu), the plain routes' scatter
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_exact_add(limit: int = 2):
+    """Copies of the inputs (table, ids, delta) of the first exact_add
+    kernel call of each of up to ``limit`` table shapes inside the block,
+    as the path gives them."""
+    from mymedialite_tpu_torch.ops import sgd
+    real = sgd._launch_exact_add
+    calls = {}
+
+    def record(table, ids, delta):
+        key = tuple(table.shape)
+        if key not in calls and len(calls) < limit:
+            calls[key] = (table.clone(), ids.clone(), delta.clone())
+        return real(table, ids, delta)
+    sgd._launch_exact_add = record
+    try:
+        yield calls
+    finally:
+        sgd._launch_exact_add = real
+
+
+def exact_add_vs_plain(table, ids, delta, reps: int = 20):
+    """exact_add's kernel against its plain version (the torch
+    composition, ``exact_add_reference``) on the same inputs, bit for bit
+    (raises where they differ); then the kernel's, the composition's and
+    one ``index_add_``'s ms (CUDA events, the mean of ``reps`` calls) and
+    the bound: the ids and the deltas read once, each touched row read
+    and written once."""
+    from mymedialite_tpu_torch.ops import sgd
+    got = sgd.exact_add(table.clone(), ids, delta)
+    want = sgd.exact_add_reference(table.clone(), ids, delta)
+    torch.cuda.synchronize()
+    if not torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32)):
+        raise AssertionError(f"exact_add on {tuple(delta.shape)}: the kernel "
+                             "differs from the composition")
+    times = []
+    for fn in (sgd.exact_add, sgd.exact_add_reference,
+               lambda t, i, d: t.index_add_(0, i, d)):
+        t = table.clone()
+        fn(t, ids, delta)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(t, ids, delta)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    row = table[0].numel() * table.element_size()
+    rows = torch.unique(ids).numel()
+    b_ms, b_by = bound_ms(ids.numel() * ids.element_size()
+                          + delta.numel() * delta.element_size()
+                          + 2 * rows * row, delta.numel())
+    return dict(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, rows=rows)
+
+
+def exact_add_line(what, table, ids, delta, r) -> str:
+    return (f"exact_add {what}: {ids.numel()} slots x {delta[0].numel()} on "
+            f"{r['rows']} rows of {tuple(table.shape)}: kernel equal to the "
+            f"composition bit for bit; kernel {r['ms']:.4f} ms, composition "
+            f"{r['plain_ms']:.4f} ms ("
+            f"{'faster' if r['ms'] < r['plain_ms'] else 'SLOWER'}), "
+            f"index_add_ {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']})")
+
+
+def exact_add_checks(label, calls) -> dict:
+    """``exact_add_vs_plain`` on each recorded main-path call; logs each
+    and returns the result of the call with the most slots."""
+    out = None
+    for table, ids, delta in calls.values():
+        r = exact_add_vs_plain(table, ids, delta)
+        log(exact_add_line(label, table, ids, delta, r))
+        if out is None or ids.numel() > out[0]:
+            out = (ids.numel(), r)
+    if out is None:
+        raise AssertionError(f"{label}: no exact_add call recorded")
+    return out[1]
+
+
+def phase_exact_add_check(dev, blocked):
+    """exact_add's kernel against the composition bit for bit: on the
+    Netflix-shaped blocked MF main path's recorded calls (phase 20; the
+    kernels line's numbers are its largest), on 131,072 slots on 64 rows
+    at width 42 (int32 and int64 ids, the rows 1-D, float64), and on that
+    batch with an inf and with a NaN delta (every touched row non-finite
+    in both)."""
+    main = exact_add_checks("blocked MF main path", blocked["exact_add_calls"])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, 64, (131_072,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    delta = torch.randn((131_072, 42), device=dev, generator=gen)
+    table = torch.randn((64, 42), device=dev, generator=gen)
+    cases = [("131,072 slots on 64 rows", table, ids, delta),
+             ("int64 ids", table, ids.long(), delta),
+             ("1-D rows", table[:, 0].contiguous(), ids,
+              delta[:, 0].contiguous()),
+             ("float64", table.double(), ids, delta.double())]
+    for bad in (math.inf, math.nan):
+        d = delta.clone()
+        d[17, 3] = bad
+        cases.append((f"a {bad} delta", table, ids, d))
+    for what, t, i, d in cases:
+        log(exact_add_line(what, t, i, d, exact_add_vs_plain(t, i, d)))
+    return dict(main, launches=blocked["exact_add_launches"])
 
 
 def finite_lines(text, key, count):
@@ -5240,6 +5478,10 @@ KERNELS = {
                     "mymedialite_tpu/ops/pallas_svdpp.py:308"),
     "catalog_topk": ("mymedialite_tpu_torch/csrc/catalog_topk.cu",
                      "mymedialite_tpu/ops/pallas_topk.py:55"),
+    # replaces no TPU kernel: the JAX blocked epoch's .at[u].add, whose
+    # scatter it stands beside on the plain routes
+    "exact_add": ("mymedialite_tpu_torch/csrc/exact_add.cu",
+                  "mymedialite_tpu/ops/sgd.py:364"),
 }
 
 
@@ -5251,9 +5493,6 @@ KERNELS = {
 # 196 item blocks, 49 a partition where 40 fit, streamed in slabs of 16
 DEFAULT_BIG_ITEMS = 200_000
 DEFAULT_EPOCHS = 2
-# (b)'s default against the explicit mesh, kernels 1-4: one schedule run
-# twice, whose float atomics fix no order of a sum (phase 25 (d)'s limit)
-DEFAULT_GAP_TOL = PLAIN_MESH_TOL
 
 
 @contextlib.contextmanager
@@ -5394,11 +5633,10 @@ def default_vs_explicit(dev, name, data, route, resolved, explicit, what):
     ``resolved``) and one on the ``explicit`` mesh of the same devices,
     ``DEFAULT_EPOCHS`` epochs each through ``mesh_model``: the same plan
     chunk for chunk, the same launches (one a non-empty cell an epoch),
-    the tables within ``DEFAULT_GAP_TOL`` (the kernels' float atomics fix
-    no order of a sum, so two runs of one schedule can part in the last
-    bits; the gap is logged); the default model's kernel then held to
-    its plain version across its cells. Returns (its error, the default
-    model)."""
+    the tables equal bit for bit (the kernels sum each row in a fixed
+    order, so one schedule gives one set of tables); the default model's
+    kernel then held to its plain version across its cells. Returns (its
+    error, the default model)."""
     from mymedialite_tpu_torch.parallel.mesh import DEFAULT_MESH
     kind = kind_of(name)
     label = f"default {name} {what}"
@@ -5425,12 +5663,12 @@ def default_vs_explicit(dev, name, data, route, resolved, explicit, what):
     log(f"{label}: the default resolves to {resolved}; the plan equals the "
         f"explicit mesh's chunk for chunk ({cells_line(p_def)}); tables "
         f"against the explicit mesh's {gap:.3e} ("
-        f"{'bit for bit' if gap == 0 else f'tol {DEFAULT_GAP_TOL}'}); "
+        f"{'equal bit for bit' if gap == 0 else 'NOT EQUAL'}); "
         f"epoch {ms_def:.2f} ms default, {ms_exp:.2f} ms explicit ("
         f"{card_line() if dev.type == 'cuda' else dev})")
-    if not gap <= DEFAULT_GAP_TOL:
-        raise AssertionError(f"{label}: default vs explicit {gap} past "
-                             f"{DEFAULT_GAP_TOL}")
+    if gap != 0:
+        raise AssertionError(f"{label}: default vs explicit {gap}, not "
+                             "equal bit for bit")
     del m_exp
     return err, m_def
 
@@ -5567,6 +5805,8 @@ QUALITY_KERNELS = {
 # rows that miss their floor at --small on the CPU as well (reported, not
 # held): LeastSquareSLIM's AUC lies under Random's there (PERF.md)
 QUALITY_REPORTED = {("item", "LeastSquareSLIM")}
+# phase 27 runs the driver twice a seed: the runs must be equal
+QUALITY_RUNS = 2
 
 
 def quality_expected(configs) -> dict:
@@ -5583,12 +5823,14 @@ def quality_expected(configs) -> dict:
 
 
 def phase_quality(dev, tmp):
-    """Phase 27: the quality driver at --small, one seed, on the card, in
-    this process, its JSON records written and read back. Every row
-    finite, its route and launches as ``quality_expected`` says; each
-    rating row's RMSE under GlobalAverage's (the time-aware rows under
-    the timed data's global average), each item row's AUC over Random's
-    (``QUALITY_REPORTED`` rows logged, not held). Returns the seconds."""
+    """Phase 27: the quality driver at --small, one seed, two runs of it
+    (``--runs 2``), on the card, in this process, its JSON records written
+    and read back. Every row finite, its route and launches as
+    ``quality_expected`` says; each row's two runs equal in every metric
+    (one seed, one model); each rating row's RMSE under GlobalAverage's
+    (the time-aware rows under the timed data's global average), each
+    item row's AUC over Random's (``QUALITY_REPORTED`` rows logged, not
+    held). Returns the seconds."""
     from mymedialite_tpu_torch import quality
 
     configs = quality.RATING_CONFIGS + quality.TIME_AWARE_CONFIGS + \
@@ -5597,19 +5839,27 @@ def phase_quality(dev, tmp):
     total = {}
     for config in configs:
         for k, n in expected[config][1].items():
-            total[k] = total.get(k, 0) + n
+            total[k] = total.get(k, 0) + QUALITY_RUNS * n
     path = os.path.join(tmp, "quality.jsonl")
     t0 = time.perf_counter()
     with counted_path(total):
-        records = quality.main(["--small", "--device", str(dev), "--json",
-                                path])
+        records = quality.main(["--small", "--device", str(dev), "--runs",
+                                str(QUALITY_RUNS), "--json", path])
     seconds = time.perf_counter() - t0
     with open(path) as f:
         lines = [json.loads(ln) for ln in f]
     if lines != json.loads(json.dumps(records)) or \
-            len(lines) != len(configs):
+            len(lines) != QUALITY_RUNS * len(configs):
         raise AssertionError("the driver's JSON records do not match its "
                              "rows")
+    firsts = {(r["section"], r["name"], r["options"], r["seed"]): r
+              for r in lines if r["run"] == 0}
+    gap = max(abs(v - firsts[(r["section"], r["name"], r["options"],
+                              r["seed"])]["metrics"][m])
+              for r in lines for m, v in r["metrics"].items())
+    if gap != 0:
+        raise AssertionError(f"quality: two runs of one seed differ by {gap}")
+    lines = [r for r in lines if r["run"] == 0]
     timed_ga = global_average_rmse(*quality.timed_data(0.05))
     floors = {"rating": next(r["metrics"]["RMSE"] for r in lines if
                              r["name"] == "GlobalAverage"),
@@ -5637,8 +5887,10 @@ def phase_quality(dev, tmp):
         elif not ok:
             raise AssertionError(f"{what}: {metric} {value} against "
                                  f"{floor}")
-    log(f"phase 27 (the quality driver, --small, one seed): {len(lines)} "
-        f"rows, each finite and on its route; kernel launches {total}; "
+    log(f"phase 27 (the quality driver, --small, one seed, "
+        f"{QUALITY_RUNS} runs): {len(lines)} rows, each finite and on its "
+        f"route, its runs equal (largest gap {gap}); kernel launches "
+        f"{total}; "
         f"RMSE under GlobalAverage's {floors['rating']:.5f} (time-aware: "
         f"the timed data's global average {timed_ga:.5f}), AUC over "
         f"Random's {floors['item']:.5f}; reported, not held: "
@@ -5711,9 +5963,12 @@ def main() -> int:
         worst["svdpp_epoch"] = phase_svdpp_kernel_check(dev)
         runs["svdpp_epoch"], svdpp_model = phase_svdpp_path(dev, train, test)
         torch.cuda.empty_cache()
-        repeat_s = phase_mf_blocked(
+        blocked = phase_mf_blocked(
             dev, train, test, "Netflix-shaped, frequency regularization",
-            "frequency_regularization=true", repeat=True)["repeat_s"]
+            "frequency_regularization=true", repeat=True)
+        repeat_s = blocked["repeat_s"]
+        runs["exact_add"] = phase_exact_add_check(dev, blocked)
+        del blocked
         torch.cuda.empty_cache()
         log(f"resident paths: {time.perf_counter() - t_start:.1f} s")
         model, feedback, test_items = phase_wrmf_path(dev, train, test)
@@ -5813,11 +6068,12 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=r["launches"],
-            max_abs_err=max(worst[name], r["max_abs_err"]),
+            max_abs_err=max(worst.get(name, 0.0), r["max_abs_err"]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],
             # a sequential epoch of dependent minibatch steps is no single
-            # PyTorch call; the top-k's is torch.matmul + torch.topk
+            # PyTorch call; the top-k's is torch.matmul + torch.topk;
+            # exact_add's index_add_ (the same sums in another order)
             library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,66 +22,56 @@
 // y_reg) of ops/svdpp_plan.py svdpp_mxu_rates, mf being 1 on the F factor
 // columns and 0 elsewhere. n[u] is the TPU kernel's c[u, F], the rating
 // count. The float32 expressions are the plain version's, term by term
-// (ops/svdpp_epoch.py svdpp_epoch_reference), so that only the order of
-// the sums differs.
+// (ops/svdpp_epoch.py svdpp_epoch_reference), and every sum, of s, W, c,
+// n, Q and Y, adds a row's deltas in slot order (owner_scatter.cuh), the
+// order of the plain version's index_add_ on the CPU.
 //
 // The TPU idioms are not carried over: the one-hot matmul gathers and
 // scatters, bf16 operands, the transposed [fe, rows] tables, the VMEM
 // copies of Q and Y with their DMA semaphores, the passes, the pad chunk
-// and the refetch flags. On Hopper a gather is an indexed load and a
-// scatter an atomic add, straight on the row-major tables in device
-// memory, and the kernel reads the schedule (ph, ub, ib, row) itself.
+// and the refetch flags. On Hopper a gather is an indexed load, straight
+// on the row-major tables in device memory, a scatter the owner scatter,
+// and the kernel reads the schedule (ph, ub, ib, row) itself.
 //
 // The walk. Q and Y are shared by every user block and each chunk depends
 // on the one before, so the parallelism is within a chunk (C slots x fe
 // columns), and one thread block walks the whole schedule. A step's time
-// is its chain of dependent round trips to L2 and the atomic throughput of
-// one SM, not HBM bandwidth. So, as in the BPR walk (bpr_epoch.cu):
-// - the next step's (ph, ub, ib) and packed chunk are copied into a
-//   second shared buffer with cp.async while this step runs;
+// is its chain of dependent round trips to L2 and one SM's traffic to L2,
+// not HBM bandwidth. So, as in the BPR walk (bpr_epoch.cu):
+// - the next step's (ph, ub, ib), packed chunk and the runs and codes of
+//   its segment table (users' and items' runs, ops/segments.py, one per
+//   packed chunk) are copied into a second shared buffer with cp.async
+//   while this step runs;
 // - a row is cut into float4s, one per lane (two per lane past 128
 //   columns): at fe <= 32 eight lanes serve a row and a warp four slots
 //   per pass, at fe <= 64 two, and each warp issues the loads of two
 //   passes before it uses any;
-// - s, c and n hold only the columns that are ever read: the F factor
-//   columns of s and c (rows of Fp = F rounded up to 4 floats) and n, one
-//   float per user. They are summed in a global scratch (L2-resident),
-//   zeroed with st.global.cg when the user block changes, S into s and R
-//   into c with float4 atomic adds: a float atomic add to shared memory
-//   is a compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN), and an S step
-//   took 5.19 us summing s in shared memory against 1.98 us in L2
-//   (exp_torch_epoch_split.py, Netflix shape, H100 80GB HBM3). The sums a
-//   phase reads are final when it starts (no R step adds to s, no Y step
-//   to c or n), so where one [UB][Fp] table and n fit beside the rates and
-//   the two chunk buffers in a block's 227 KB of shared memory (F <= 100
-//   at UB = 512, C = 512), the first R step of a run copies s on chip and
-//   the first Y step c and n, and the phase reads them there; past that R
-//   and Y read them through L2. The wrapper picks the variant from the
-//   shape (ops/svdpp_epoch.py accumulator_variant);
-// - the R and Y deltas go to a global scratch [2, C, fe] that the same
-//   lanes read back after the barrier, two passes' loads before their
-//   atomics; a warp would have to hold all its passes' deltas in
-//   registers across the barrier. Keeping them in shared memory where
-//   they fit (128 KB at C = 512, fe = 32) was tried on an H100 and did
-//   not shorten the epoch;
-// - the W, Q and Y scatters are float4 atomic adds
-//   (red.global.add.v4.f32 on sm_90), and a float4 whose learning rates
-//   are all 0 is neither stored nor sent: its deltas are exactly 0 (the
-//   constant and padding columns);
-// - an S step reads only Y and its chunk and writes only s, which no S
-//   step reads, so consecutive S steps need no barrier of their own: the
-//   one barrier per step is the one that makes the cp.async'd chunk
-//   visible to every warp and frees the other buffer for the prefetch. R
-//   and Y add a barrier between their gathers and their atomics;
+// - s, c and n hold only the columns that are ever read: s [UB][Fp], the
+//   F factor columns rounded up to 4 floats, and cn [UB][Fp + 4], c's
+//   columns then n in column Fp. They are summed in a global scratch
+//   (L2-resident), zeroed with st.global.cg when the user block changes.
+//   The sums a phase reads are final when it starts (no R step adds to s,
+//   no Y step to c or n), so where one [UB][Fp + 4] table fits beside the
+//   rates, the two chunk buffers and the owner scatter's stage in a
+//   block's 227 KB of shared memory, the first R step of a run copies s
+//   on chip and the first Y step c and n, and the phase reads them there;
+//   past that R and Y read them through L2. The wrapper picks the variant
+//   from the shape (ops/svdpp_epoch.py accumulator_variant);
+// - each slot's values for the owner scatter (s in S; W, then c and n,
+//   by user and Q by item in R; Y in Y) go to the stage, except a row
+//   alone in its run, which phase 1 writes itself: S and R read the first
+//   entry's s or cn row for it. R and Y keep a barrier between their
+//   gathers and the owners' stores, and S now has one too;
+// - a float4 whose learning rates are all 0 is neither stored nor summed:
+//   its deltas are exactly 0 (the constant and padding columns);
 // - no device-scope fence ends a step. Every reader and writer of the
-//   tables, s and c during the walk is a thread of this one block, and
+//   tables, s, c and n during the walk is a thread of this one block, and
 //   the next step's reads follow a __syncthreads(), which the CUDA C++
 //   Programming Guide defines to make every global and shared memory
 //   access made before it by the block's threads visible to all threads
-//   of the block; the global atomics (red.global) act at L2, and the
-//   gathers read through L2 (ld.global.cg), not through a stale L1 line.
-//   A __threadfence() orders a thread's writes for observers outside the
-//   block, and there are none.
+//   of the block; the stores (st.global.cg) and the gathers (ld.global.cg)
+//   act at L2, not through a stale L1 line. A __threadfence() orders a
+//   thread's writes for observers outside the block, and there are none.
 // Spreading the epoch over the card's SMs needs an order with independent
 // cells (user blocks on disjoint item blocks), which changes the
 // trajectory and is left to a later change.
@@ -89,7 +79,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "owner_scatter.cuh"
+
 namespace {
+
+using mml_owner::put;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
@@ -108,12 +102,6 @@ constexpr int kWLr = 0, kWReg = 1, kQLr = 2, kQReg = 3, kMf = 4, kYLr = 6,
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
 }
 
@@ -138,6 +126,12 @@ __device__ __forceinline__ float4 f4_delta(float4 r, float g, float4 a,
                      r.w * (g * a.w - wt * reg.w * b.w));
 }
 
+// v on the columns first + j < F, 0 past them
+__device__ __forceinline__ float4 f4_first(float4 v, int first, int F) {
+  return make_float4(first < F ? v.x : 0.f, first + 1 < F ? v.y : 0.f,
+                     first + 2 < F ? v.z : 0.f, first + 3 < F ? v.w : 0.f);
+}
+
 // the finished sums: on chip, plain loads; in the global scratch, through
 // L2
 template <bool kShared>
@@ -152,14 +146,32 @@ __device__ __forceinline__ float acc_load(const float* p) {
   else return __ldcg(p);
 }
 
-// p[j] += v_j for the columns first + j < F, one float4 atomic in the
-// global scratch (the components past F add 0)
-__device__ __forceinline__ void acc_add4(float* p, float4 v, int first,
-                                         int F) {
-  atomicAdd(reinterpret_cast<float4*>(p),
-            make_float4(first < F ? v.x : 0.f, first + 1 < F ? v.y : 0.f,
-                        first + 2 < F ? v.z : 0.f, first + 3 < F ? v.w : 0.f));
-}
+// Where piece li of an entry of the owner scatter goes. Table 0 (the user
+// list): in S the s row's Fp / 4 float4s; in R the W row's live float4s,
+// then the cn row's (Fp + 4) / 4. Table 1 (the item list): in R the Q
+// row's live float4s, in Y the Y row's.
+struct SvdppPieces {
+  float* W;
+  float* Q;
+  float* Y;
+  float* s_acc;             // [UB][Fp]
+  float* cn_acc;            // [UB][Fq]
+  const int32_t* sd;        // the step's packed chunk in shared memory
+  const int32_t* live;      // [3][fe4]: the live float4s of W, Q, Y
+  int nlive_w;
+  int64_t wbase, ibase;
+  int phase, C, fe, fe4, Fp, Fq;
+  __device__ float4* dst(int t, int id, int li) const {
+    float* p;
+    if (phase == kPhaseS) p = s_acc + (size_t)sd[id] * Fp + 4 * li;
+    else if (phase != kPhaseR)
+      p = Y + (ibase + sd[C + id]) * fe + 4 * live[2 * fe4 + li];
+    else if (t) p = Q + (ibase + sd[C + id]) * fe + 4 * live[fe4 + li];
+    else if (li < nlive_w) p = W + (wbase + sd[id]) * fe + 4 * live[li];
+    else p = cn_acc + (size_t)sd[id] * Fq + 4 * (li - nlive_w);
+    return reinterpret_cast<float4*>(p);
+  }
+};
 
 // V float4s per lane per row (fe <= 128 V), SPW slots per warp pass (a
 // slot on 32 / SPW lanes), G passes in flight per warp; kShared: R reads
@@ -169,52 +181,77 @@ template <int V, int SPW, int G, bool kShared>
 __global__ void __launch_bounds__(kThreads, 1)
 svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
                    float* __restrict__ Y, const int32_t* __restrict__ packed,
+                   const uint16_t* __restrict__ segs,
                    const int32_t* __restrict__ sched_ph,
                    const int32_t* __restrict__ sched_ub,
                    const int32_t* __restrict__ sched_ib,
                    const int32_t* __restrict__ sched_row,
                    const float* __restrict__ rates,
-                   float* __restrict__ scratch, int n_steps, int C, int UB,
-                   int IB, int fe, int F, float gb, float min_rating,
-                   float rating_range, int loss, int sigmoid) {
+                   float* __restrict__ scratch, int n_steps, int C, int RL,
+                   int UB, int IB, int fe, int F, int stage_f4,
+                   float gb, float min_rating, float rating_range, int loss,
+                   int sigmoid) {
   constexpr int kLanes = 32 / SPW;            // lanes per slot
   constexpr int kStep = kWarps * SPW;         // slots per pass of the block
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_rate = reinterpret_cast<float*>(smem);   // [8][fe], by rate
-  int32_t* s_buf = reinterpret_cast<int32_t*>(s_rate + 8 * fe);  // [2][4C]
+  const int fe4 = fe >> 2;
+  const int Fp = (F + 3) & ~3;                // an s row, in floats
+  const int Fp4 = Fp >> 2;
+  const int Fq = Fp + 4;                      // a cn row: c, then n at Fp
+  const int Fq4 = Fq >> 2;
+  const int Cw = (C + 7) & ~7;
+  const int RK = RL + 2 * Cw;                 // a chunk's table row
+  // [8][fe] rates | [2][4C] packed chunks | [2][RK] runs and codes |
+  // [3][fe4] live float4s and [3][fe4] their pieces (rounded to 16 bytes)
+  // | kShared: the on-chip copy [UB][Fq] | the owner scatter's stage
+  float* s_rate = reinterpret_cast<float*>(smem);
+  int32_t* s_buf = reinterpret_cast<int32_t*>(s_rate + 8 * fe);
+  uint16_t* s_seg = reinterpret_cast<uint16_t*>(s_buf + 8 * C);
+  int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 2 * RK);
+  int32_t* s_li = s_live + 3 * fe4;
+  float* sh_a = reinterpret_cast<float*>(s_live + ((6 * fe4 + 3) & ~3));
+  float4* s_stage =
+      reinterpret_cast<float4*>(sh_a + (kShared ? (size_t)UB * Fq : 0));
   __shared__ int32_t s_meta[2][4];                 // ph, ub, ib per buffer
+  __shared__ int s_nlive[3];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int half = lane / kLanes;             // this lane's slot of a pass
   const int sub = lane % kLanes;              // its float4s: sub + kLanes v
-  const int fe4 = fe >> 2;
-  const int Fp = (F + 3) & ~3;                // an s or c row, in floats
-  const int Fp4 = Fp >> 2;
   for (int t = tid; t < fe * 8; t += kThreads)
     s_rate[(t % 8) * fe + t / 8] = rates[t];
+  __syncthreads();
   const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [8][fe4]
-  float* d1 = scratch;                        // [C][fe]: W or Y deltas
-  float* d2 = scratch + (size_t)C * fe;       // [C][fe]: Q deltas
-  // the sums, in the global scratch: s [UB][Fp], c [UB][Fp], n [UB]
-  float* s_acc = scratch + (size_t)2 * C * fe;
-  float* c_acc = s_acc + (size_t)UB * Fp;
-  float* n_acc = c_acc + (size_t)UB * Fp;
-  const int acc_len = UB * (2 * Fp + 1);
-  // kShared: the on-chip copy, [UB][Fp] (s in R, c in Y) and n [UB]
-  float* sh_a = reinterpret_cast<float*>(s_buf + 8 * C);
-  float* sh_n = sh_a + (size_t)UB * Fp;
+  if (tid < 3) {
+    const int lr = tid == 0 ? kWLr : tid == 1 ? kQLr : kYLr;
+    int n = 0;
+    for (int c4 = 0; c4 < fe4; ++c4) {
+      s_li[tid * fe4 + c4] = n;
+      if (f4_any(r4[lr * fe4 + c4])) s_live[tid * fe4 + n++] = c4;
+    }
+    s_nlive[tid] = n;
+  }
+  // the scratch: the owner scatter's values where they do not fit the
+  // stage ([C][2 fe + Fq] floats), then the sums s [UB][Fp], cn [UB][Fq]
+  float4* fallback = reinterpret_cast<float4*>(scratch);
+  float* s_acc = scratch + (size_t)C * (2 * fe + Fq);
+  float* cn_acc = s_acc + (size_t)UB * Fp;
+  const int acc_len = UB * (Fp + Fq);
   const float* s_read = kShared ? sh_a : s_acc;
-  const float* c_read = kShared ? sh_a : c_acc;
-  const float* n_read = kShared ? sh_n : n_acc;
+  const float* c_read = kShared ? sh_a : cn_acc;
 
-  // step k's (ph, ub, ib) and packed chunk into buffer b
+  // step k's (ph, ub, ib), packed chunk and segment table into buffer b
   auto prefetch = [&](int k, int b) {
-    const int32_t* prow = packed + (int64_t)__ldg(sched_row + k) * 4 * C;
+    const int64_t r = __ldg(sched_row + k);
+    const int32_t* prow = packed + r * 4 * C;
     int32_t* dst = s_buf + b * 4 * C;
     for (int e = tid; e < C; e += kThreads)
-      cp_async16(dst + 4 * e, prow + 4 * e);
+      mml_owner::cp_async16(dst + 4 * e, prow + 4 * e);
+    const uint16_t* srow = segs + r * RK;
+    for (int e = tid; e < RK / 8; e += kThreads)
+      mml_owner::cp_async16(s_seg + b * RK + 8 * e, srow + 8 * e);
     if (tid == 0) {
       cp_async4(&s_meta[b][0], sched_ph + k);
       cp_async4(&s_meta[b][1], sched_ub + k);
@@ -233,6 +270,8 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
     __syncthreads();
     if (k + 1 < n_steps) prefetch(k + 1, b ^ 1);
     const int32_t* sd = s_buf + b * 4 * C;
+    const uint16_t* runs = s_seg + b * RK;
+    const uint16_t* codes = runs + RL;          // [2][Cw]: users, items
     const int phase = s_meta[b][0];
     const int ub = s_meta[b][1];
     const int64_t wbase = (int64_t)ub * UB;
@@ -249,49 +288,63 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
         // the sums R or Y read are final (no step of this phase adds to
         // them): copy them on chip once
         const float4* src = reinterpret_cast<const float4*>(
-            phase == kPhaseR ? s_acc : c_acc);
-        for (int t = tid; t < UB * Fp4; t += kThreads)
+            phase == kPhaseR ? s_acc : cn_acc);
+        const int n4 = UB * (phase == kPhaseR ? Fp4 : Fq4);
+        for (int t = tid; t < n4; t += kThreads)
           reinterpret_cast<float4*>(sh_a)[t] = __ldcg(src + t);
-        if (phase != kPhaseR)
-          for (int t = tid; t < UB; t += kThreads) sh_n[t] = __ldcg(n_acc + t);
         __syncthreads();
       }
     }
     prev_phase = phase;
+    // the owner scatter: S sums s by user, R W, c and n by user and Q by
+    // item, Y Y by item
+    const unsigned sides = phase == kPhaseS ? 1u : phase == kPhaseR ? 3u : 2u;
+    const mml_owner::Stage stg = mml_owner::make_stage(
+        runs, sides,
+        phase == kPhaseS ? Fp4 : phase == kPhaseR ? s_nlive[0] + Fq4 : 0,
+        phase == kPhaseR ? s_nlive[1] : s_nlive[2], s_stage, stage_f4,
+        fallback);
 
     if (phase == kPhaseS) {
       // s[u] += wt * Y[i] on the factor columns
       for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
         const int s0 = p0 + half;
-        float4 y[G][V];
+        float4 y[G][V], sr[G][V];
         float wt[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const int s = s0 + g * kStep;
           wt[g] = s < C ? __int_as_float(sd[3 * C + s]) : 0.f;
+          const bool live = wt[g] != 0.f;
+          // the s row is read where the slot's value starts from it
+          const bool first = live && (codes[s] & mml_owner::kStart);
           const float4* yrow = reinterpret_cast<const float4*>(
-              Y + (wt[g] != 0.f ? ibase + sd[C + s] : 0) * fe);
+              Y + (live ? ibase + sd[C + s] : 0) * fe);
+          const float4* srow = reinterpret_cast<const float4*>(
+              s_acc + (size_t)(first ? sd[s] : 0) * Fp);
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
-            y[g][v] = wt[g] != 0.f && c4 < Fp4
-                          ? __ldcg(yrow + c4)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            y[g][v] = live && c4 < Fp4 ? __ldcg(yrow + c4) : z;
+            sr[g][v] = first && c4 < Fp4 ? __ldcg(srow + c4) : z;
           }
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           if (wt[g] == 0.f) continue;        // padded slot
-          float* srow = s_acc + (size_t)sd[s0 + g * kStep] * Fp;
+          const int s = s0 + g * kStep;
+          const uint16_t code = codes[s];
+          float4* srow = reinterpret_cast<float4*>(s_acc + (size_t)sd[s] * Fp);
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
             const float4 yv = y[g][v];
             if (c4 < Fp4)
-              acc_add4(srow + 4 * c4,
-                       make_float4(yv.x * wt[g], yv.y * wt[g], yv.z * wt[g],
-                                   yv.w * wt[g]),
-                       4 * c4, F);
+              put(code, stg, c4, srow + c4, sr[g][v],
+                  f4_first(make_float4(yv.x * wt[g], yv.y * wt[g],
+                                       yv.z * wt[g], yv.w * wt[g]),
+                           4 * c4, F));
           }
         }
       }
@@ -299,28 +352,35 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
       // gather and gradient; every read sees the pre-chunk rows
       for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
         const int s0 = p0 + half;
-        float4 wu[G][V], qi[G][V], sa[G][V];
+        float4 wu[G][V], qi[G][V], sa[G][V], cr[G][V];
+        float4 nr[G];
         float wt[G], inv[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const int s = s0 + g * kStep;
           wt[g] = s < C ? __int_as_float(sd[3 * C + s]) : 0.f;
           const bool live = wt[g] != 0.f;
+          // the cn row is read where the slot's value starts from it
+          const bool first = live && (codes[s] & mml_owner::kStart);
           const float* wrow = W + (live ? wbase + sd[s] : 0) * fe;
           const float4* qrow = reinterpret_cast<const float4*>(
               Q + (live ? ibase + sd[C + s] : 0) * fe);
           const float* srow = s_read + (size_t)(live ? sd[s] : 0) * Fp;
+          const float4* crow = reinterpret_cast<const float4*>(
+              cn_acc + (size_t)(first ? sd[s] : 0) * Fq);
           inv[g] = live ? __ldcg(wrow + F + 2) : 0.f;
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          nr[g] = first && sub == 0 ? __ldcg(crow + Fp4) : z;
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
             const bool ld = live && c4 < fe4;
-            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
             wu[g][v] = ld ? __ldcg(reinterpret_cast<const float4*>(wrow) + c4)
                           : z;
             qi[g][v] = ld ? __ldcg(qrow + c4) : z;
             sa[g][v] = live && c4 < Fp4 ? acc_load4<kShared>(srow + 4 * c4)
                                         : z;
+            cr[g][v] = first && c4 < Fp4 ? __ldcg(crow + c4) : z;
           }
         }
 #pragma unroll
@@ -365,74 +425,41 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
           }
           gr *= wt[g];
           const float ginv = gr * inv[g];
-          float* crow = c_acc + (size_t)sd[s] * Fp;
+          const uint16_t ucode = codes[s], icode = codes[Cw + s];
+          const int nw = s_nlive[0];
+          float4* wrow = reinterpret_cast<float4*>(W + (wbase + sd[s]) * fe);
+          float4* qrow = reinterpret_cast<float4*>(Q + (ibase + sd[C + s]) * fe);
+          float4* crow = reinterpret_cast<float4*>(cn_acc + (size_t)sd[s] * Fq);
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
             if (c4 >= fe4) continue;
-            const size_t at = (size_t)s * fe + 4 * c4;
             const float4 wl = r4[kWLr * fe4 + c4];
             const float4 ql = r4[kQLr * fe4 + c4];
             if (f4_any(wl))
-              *reinterpret_cast<float4*>(d1 + at) =
+              put(ucode, stg, s_li[c4], wrow + c4, wu[g][v],
                   f4_delta(wl, gr, qi[g][v], wt[g], r4[kWReg * fe4 + c4],
-                           wu[g][v]);
+                           wu[g][v]));
             if (f4_any(ql))
-              *reinterpret_cast<float4*>(d2 + at) =
+              put(icode, stg, s_li[fe4 + c4], qrow + c4, qi[g][v],
                   f4_delta(ql, gr, su[v], wt[g], r4[kQReg * fe4 + c4],
-                           qi[g][v]);
-            // c is not read in the R phase: add straight away
+                           qi[g][v]));
             const float4 mf = r4[kMf * fe4 + c4];
             const float4 q = qi[g][v];
             if (c4 < Fp4)
-              acc_add4(crow + 4 * c4,
-                       make_float4(mf.x * ginv * q.x, mf.y * ginv * q.y,
-                                   mf.z * ginv * q.z, mf.w * ginv * q.w),
-                       4 * c4, F);
+              put(ucode, stg, nw + c4, crow + c4, cr[g][v],
+                  f4_first(make_float4(mf.x * ginv * q.x, mf.y * ginv * q.y,
+                                       mf.z * ginv * q.z, mf.w * ginv * q.w),
+                           4 * c4, F));
           }
-          if (sub == 0) atomicAdd(n_acc + sd[s], wt[g]);
-        }
-      }
-      __syncthreads();  // every gather of the chunk precedes every atomic
-      // scatter-add; float4s whose rate is 0 (constants, padding) stay
-      for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
-        const int s0 = p0 + half;
-        float4 dw[G][V], dq[G][V];
-        bool live[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const int s = s0 + g * kStep;
-          live[g] = s < C && __int_as_float(sd[3 * C + s]) != 0.f;
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c4 = sub + kLanes * v;
-            const size_t at = (size_t)s * fe + 4 * c4;
-            if (live[g] && c4 < fe4) {
-              if (f4_any(r4[kWLr * fe4 + c4]))
-                dw[g][v] = __ldcg(reinterpret_cast<const float4*>(d1 + at));
-              if (f4_any(r4[kQLr * fe4 + c4]))
-                dq[g][v] = __ldcg(reinterpret_cast<const float4*>(d2 + at));
-            }
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (!live[g]) continue;
-          const int s = s0 + g * kStep;
-          float4* wrow = reinterpret_cast<float4*>(W + (wbase + sd[s]) * fe);
-          float4* qrow =
-              reinterpret_cast<float4*>(Q + (ibase + sd[C + s]) * fe);
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c4 = sub + kLanes * v;
-            if (c4 >= fe4) continue;
-            if (f4_any(r4[kWLr * fe4 + c4])) atomicAdd(wrow + c4, dw[g][v]);
-            if (f4_any(r4[kQLr * fe4 + c4])) atomicAdd(qrow + c4, dq[g][v]);
-          }
+          // n, the cn row's float4 at Fp: (n, 0, 0, 0)
+          if (sub == 0)
+            put(ucode, stg, nw + Fp4, crow + Fp4, nr[g],
+                make_float4(wt[g], 0.f, 0.f, 0.f));
         }
       }
     } else {
-      // Y phase: the deltas from the pre-chunk rows, then the scatter
+      // Y phase: the deltas from the pre-chunk rows
       for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
         const int s0 = p0 + half;
         float4 y[G][V], ca[G][V];
@@ -445,8 +472,8 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
           const float4* yrow = reinterpret_cast<const float4*>(
               Y + (live ? ibase + sd[C + s] : 0) * fe);
           const int u = live ? sd[s] : 0;
-          const float* crow = c_read + (size_t)u * Fp;
-          n[g] = live ? acc_load<kShared>(n_read + u) : 0.f;
+          const float* crow = c_read + (size_t)u * Fq;
+          n[g] = live ? acc_load<kShared>(crow + Fp) : 0.f;
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
@@ -460,6 +487,8 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
         for (int g = 0; g < G; ++g) {
           if (wt[g] == 0.f) continue;
           const int s = s0 + g * kStep;
+          const uint16_t code = codes[Cw + s];
+          float4* yrow = reinterpret_cast<float4*>(Y + (ibase + sd[C + s]) * fe);
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const int c4 = sub + kLanes * v;
@@ -470,45 +499,21 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
             const float4 yr = r4[kYReg * fe4 + c4];
             const float4 c = ca[g][v], yv = y[g][v];
             const float w = wt[g], nn = n[g];
-            *reinterpret_cast<float4*>(d1 + (size_t)s * fe + 4 * c4) =
+            put(code, stg, s_li[2 * fe4 + c4], yrow + c4, yv,
                 make_float4(yl.x * w * (mf.x * c.x - nn * yr.x * yv.x),
                             yl.y * w * (mf.y * c.y - nn * yr.y * yv.y),
                             yl.z * w * (mf.z * c.z - nn * yr.z * yv.z),
-                            yl.w * w * (mf.w * c.w - nn * yr.w * yv.w));
-          }
-        }
-      }
-      __syncthreads();  // every gather of the chunk precedes every atomic
-      for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
-        const int s0 = p0 + half;
-        float4 dy[G][V];
-        bool live[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const int s = s0 + g * kStep;
-          live[g] = s < C && __int_as_float(sd[3 * C + s]) != 0.f;
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c4 = sub + kLanes * v;
-            if (live[g] && c4 < fe4 && f4_any(r4[kYLr * fe4 + c4]))
-              dy[g][v] = __ldcg(reinterpret_cast<const float4*>(
-                  d1 + (size_t)s * fe + 4 * c4));
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (!live[g]) continue;
-          float4* yrow = reinterpret_cast<float4*>(
-              Y + (ibase + sd[C + s0 + g * kStep]) * fe);
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const int c4 = sub + kLanes * v;
-            if (c4 < fe4 && f4_any(r4[kYLr * fe4 + c4]))
-              atomicAdd(yrow + c4, dy[g][v]);
+                            yl.w * w * (mf.w * c.w - nn * yr.w * yv.w)));
           }
         }
       }
     }
+
+    // each run of the step's rows summed in slot order: S the user list
+    // (s), R both (W, c and n; Q), Y the item list (Y)
+    const SvdppPieces pc{W, Q, Y, s_acc, cn_acc, sd, s_live, s_nlive[0],
+                         wbase, ibase, phase, C, fe, fe4, Fp, Fq};
+    mml_owner::owner_chain(runs, sides, stg, s_stage, stage_f4, pc);
   }
 }
 
@@ -517,40 +522,49 @@ svdpp_epoch_kernel(float* __restrict__ W, float* __restrict__ Q,
 // C interface (bound with ctypes). Launches on `stream`, does not
 // synchronise, and returns the first CUDA error of the launch. Step k runs
 // phase sched_ph[k] on chunk sched_row[k] of `packed`, touching W rows
-// sched_ub[k] * UB + u_loc and Q/Y rows sched_ib[k] * IB + i_loc.
-// `scratch` holds 2 * C * fe + UB * (2 Fp + 1) floats (Fp = F rounded up
-// to 4): the deltas, then s, c and n. shared_acc: R and Y read the sums
-// from a copy in shared memory. fe is a multiple of 4, at most 256, C a
-// multiple of 4, and the shared memory, 32 fe + 32 C bytes, plus 4 UB
-// (Fp + 1) with shared_acc, at most 227 KB (ops/svdpp_epoch.py checks all
-// three and picks shared_acc).
+// sched_ub[k] * UB + u_loc and Q/Y rows sched_ib[k] * IB + i_loc; `segs`
+// [rows of packed, RL + 2 Cw] holds each chunk's segment table
+// (ops/segments.py): the runs [RL], then the codes [2, Cw], Cw = C
+// rounded up to 8. `scratch` holds (2 fe +
+// Fp + 4) C + UB (2 Fp + 4) floats (Fp = F rounded up to 4): the owner
+// scatter's values where they do not fit the stage, then s and cn.
+// shared_acc: R and Y read the sums from a copy in shared memory. fe is a
+// multiple of 4, at most 256, C a multiple of 4, RL a multiple of 8, and
+// the shared memory `smem` bytes, of which the owner scatter's
+// stage takes what is left past 32 fe + 32 C + 4 (RL + 2 Cw) + 24 (fe /
+// 4) (rounded to 16) bytes, and 4 UB (Fp + 4) more with shared_acc
+// (ops/svdpp_epoch.py checks all, picks shared_acc and sizes smem).
 extern "C" int mml_svdpp_epoch(float* W, float* Q, float* Y,
-                               const int32_t* packed, const int32_t* sched_ph,
+                               const int32_t* packed, const void* segs,
+                               const int32_t* sched_ph,
                                const int32_t* sched_ub,
                                const int32_t* sched_ib,
                                const int32_t* sched_row, const float* rates,
-                               float* scratch, int n_steps, int C, int UB,
-                               int IB, int fe, int F, float gb,
-                               float min_rating, float rating_range, int loss,
-                               int sigmoid, int shared_acc, void* stream) {
+                               float* scratch, int n_steps, int C, int RL,
+                               int UB, int IB, int fe, int F, int smem,
+                               float gb, float min_rating, float rating_range,
+                               int loss, int sigmoid, int shared_acc,
+                               void* stream) {
   if (n_steps == 0) return (int)cudaSuccess;
   const int Fp = (F + 3) & ~3;
-  const size_t smem = (size_t)fe * 8 * sizeof(float) +
-                      (size_t)8 * C * sizeof(int32_t) +
-                      (shared_acc ? (size_t)UB * (Fp + 1) * sizeof(float)
-                                  : 0);
+  const int fe4 = fe / 4;
+  const int RK = RL + 2 * ((C + 7) & ~7);
+  const int fixed = 32 * fe + 32 * C + 4 * RK + 4 * ((6 * fe4 + 3) & ~3) +
+                    (shared_acc ? 4 * UB * (Fp + 4) : 0);
+  const int stage_f4 = (smem - fixed) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint16_t* sg = static_cast<const uint16_t*>(segs);
   cudaError_t err;
 #define MML_LAUNCH(V, SPW, G, SH)                                             \
   do {                                                                        \
     err = cudaFuncSetAttribute(svdpp_epoch_kernel<V, SPW, G, SH>,             \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-                               (int)smem);                                    \
+                               smem);                                         \
     if (err != cudaSuccess) return (int)err;                                  \
     svdpp_epoch_kernel<V, SPW, G, SH><<<1, kThreads, smem, st>>>(             \
-        W, Q, Y, packed, sched_ph, sched_ub, sched_ib, sched_row, rates,      \
-        scratch, n_steps, C, UB, IB, fe, F, gb, min_rating, rating_range,     \
-        loss, sigmoid);                                                       \
+        W, Q, Y, packed, sg, sched_ph, sched_ub, sched_ib, sched_row, rates,  \
+        scratch, n_steps, C, RL, UB, IB, fe, F, stage_f4, gb,                 \
+        min_rating, rating_range, loss, sigmoid);                             \
   } while (0)
 #define MML_LAUNCH_WIDTH(SH)       \
   do {                             \

@@ -18,7 +18,8 @@ float32 table on the model's device, as in the JAX package.
 - BPRSLIM: batches of triples from ``ops/bpr.py sample_triples``; per
   triple the rows W[i, I_u] and W[j, I_u] are gathered over the user's
   padded history (duplicates of an item counted once), and the deltas
-  go back with ``index_add_`` into the flat view of W (the JAX package
+  go back with ``ops/sgd.py add_rows`` (the same bits in any order of
+  its sum) into the flat view of W (the JAX package
   writes the same update as one-hot [B, I] matmuls, a TPU idiom).
   Duplicate (row, column) pairs of a batch sum; k = i is skipped in the
   i-row and k = j in the j-row; every triple reads the batch's starting
@@ -42,6 +43,7 @@ from mymedialite_tpu_torch.models.base import (
 )
 from mymedialite_tpu_torch.ops import bpr as bpr_ops
 from mymedialite_tpu_torch.ops import correlation as corr_ops
+from mymedialite_tpu_torch.ops.sgd import add_rows
 from mymedialite_tpu_torch.parallel.mesh import DEFAULT_MESH
 
 # rows of C per int8 product
@@ -165,9 +167,9 @@ def bpr_slim_step(W, hist, lens, u, i, j, w, lr: float, reg_i: float,
     di = lr * (g[:, None] - reg_i * wi) * fv * (h != i[:, None])
     if update_j:
         dj = lr * (-g[:, None] - reg_j * wj) * fv * (h != j[:, None])
-    Wf.index_add_(0, (i[:, None] * I + h).reshape(-1), di.reshape(-1))
+    add_rows(Wf, (i[:, None] * I + h).reshape(-1), di.reshape(-1))
     if update_j:
-        Wf.index_add_(0, (j[:, None] * I + h).reshape(-1), dj.reshape(-1))
+        add_rows(Wf, (j[:, None] * I + h).reshape(-1), dj.reshape(-1))
 
 
 class _SLIM(IncrementalItemRecommender, IterativeModel):

@@ -6,9 +6,9 @@ BiasedMatrixFactorization's prediction, with a regularizer that pulls
 each user's factors toward the mean factors of the users they trust,
 trained by full-batch gradient descent (reference IterateBatch
 :77-191). The gradient of a step is the rating error's (``err = pred -
-rating``, through ``ops/sgd.py gradient_common``), one ``index_add_`` a
-side, plus L2 on the factor and bias columns (the column of 1s stays
-frozen), plus the social term on the users' factor and bias columns
+rating``, through ``ops/sgd.py gradient_common``), one ``ops/sgd.py
+add_rows`` a side (the same bits in any order of its sum), plus L2 on
+the factor and bias columns (the column of 1s stays frozen), plus the social term on the users' factor and bias columns
 
     social_reg * [D (P - T P) - T^T D (P - T P)]
 
@@ -98,8 +98,8 @@ def social_mf_step(W, H, data, trust, hp, *, num_users: int,
     w_lr = cols(*([lr] * f + [lr * b_lr, 0.0]))
     h_lr = cols(*([lr] * f + [0.0, lr * b_lr]))
 
-    grad_W = torch.zeros_like(W).index_add_(0, u, g[:, None] * hi)
-    grad_H = torch.zeros_like(H).index_add_(0, i, g[:, None] * wu)
+    grad_W = sgd.add_rows(torch.zeros_like(W), u, g[:, None] * hi)
+    grad_H = sgd.add_rows(torch.zeros_like(H), i, g[:, None] * wu)
     grad_W += W * w_l2
     grad_H += H * h_l2
 

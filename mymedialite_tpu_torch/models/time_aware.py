@@ -12,8 +12,9 @@ model's device: the padded ratings in the order of
 data order, reproduced exactly), cut into batches of ``batch_size``,
 taken in a per-epoch batch order. Every update of a batch reads the
 tables as they stood at the batch's start, and duplicate ids sum
-(``index_add_``; the dense [U, days], [I, bins] and [I, freqs] tables
-through their flat views). The JAX package draws the batch order from
+(``ops/sgd.py add_rows``, whose sums do not depend on their order; the
+dense [U, days], [I, bins] and [I, freqs] tables through their flat
+views). The JAX package draws the batch order from
 threefry, which the port cannot reproduce: the port draws it from a
 ``torch.Generator`` seeded with ``random_seed``, and ``iterate(order)``
 takes a given order (the parity tests hand it the JAX orders).
@@ -38,6 +39,7 @@ import torch
 from mymedialite_tpu_torch.device import resolve_device
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.models.base import IterativeModel, RatingPredictor
+from mymedialite_tpu_torch.ops.sgd import add_rows
 
 SECONDS_PER_DAY = 86_400
 
@@ -71,27 +73,27 @@ def time_aware_step(p, batch, hp, *, with_freq: bool):
         pred = pred + biaf
     err = (v - pred) * w
 
-    p["alpha"].index_add_(0, u, hp["alpha_learn_rate"] * (
+    add_rows(p["alpha"], u, hp["alpha_learn_rate"] * (
         err * dev - hp["reg_alpha"] * w * al))
-    p["user_bias"].index_add_(0, u, hp["user_bias_learn_rate"] * (
+    add_rows(p["user_bias"], u, hp["user_bias_learn_rate"] * (
         err - hp["reg_u"] * w * bu))
-    p["user_bias_by_day"].view(-1).index_add_(
-        0, ud, hp["user_bias_by_day_learn_rate"] * (
+    add_rows(
+        p["user_bias_by_day"].view(-1), ud, hp["user_bias_by_day_learn_rate"] * (
             err - hp["reg_user_bias_by_day"] * w * bud))
-    p["item_bias"].index_add_(0, i, hp["item_bias_learn_rate"] * (
+    add_rows(p["item_bias"], i, hp["item_bias_learn_rate"] * (
         err * (cu + cud) - hp["reg_i"] * w * bi))
-    p["item_bias_by_time_bin"].view(-1).index_add_(
-        0, ib, hp["item_bias_by_time_bin_learn_rate"] * (
+    add_rows(
+        p["item_bias_by_time_bin"].view(-1), ib, hp["item_bias_by_time_bin_learn_rate"] * (
             err * (cu + cud) - hp["reg_item_bias_by_time_bin"] * w * bib))
-    p["user_scaling"].index_add_(0, u, hp["user_scaling_learn_rate"] * (
+    add_rows(p["user_scaling"], u, hp["user_scaling_learn_rate"] * (
         err * (bi + bib) - hp["reg_user_scaling"] * w * (cu - 1.0)))
-    p["user_scaling_by_day"].view(-1).index_add_(
-        0, ud, hp["user_scaling_by_day_learn_rate"] * (
+    add_rows(
+        p["user_scaling_by_day"].view(-1), ud, hp["user_scaling_by_day_learn_rate"] * (
             err * (bi + bib) - hp["reg_user_scaling_by_day"] * w * cud))
     if with_freq:
         # the reference's update, kept: err * b_{i,f} - reg * b_{i,f}
-        p["item_bias_at_frequency"].view(-1).index_add_(
-            0, fi, hp["item_bias_at_frequency_learn_rate"] * (
+        add_rows(
+            p["item_bias_at_frequency"].view(-1), fi, hp["item_bias_at_frequency_learn_rate"] * (
                 err * biaf - hp["reg_item_bias_at_frequency"] * w * biaf))
 
 

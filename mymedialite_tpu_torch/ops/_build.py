@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``,
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
+(with the headers ``csrc/*.cuh`` they include),
 one process per file, all started together, and links the objects into
 one shared library with a plain C interface under
 ``mymedialite_tpu_torch/build/`` (not committed); ctypes loads it.
@@ -50,18 +51,26 @@ class KernelLibrary:
         self.lib = ctypes.CDLL(path)
         fn = self.lib.mml_sgd_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn = self.lib.mml_bpr_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p])
+        fn = self.lib.mml_bpr_sample
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn = self.lib.mml_svdpp_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
+        fn = self.lib.mml_exact_add
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn = self.lib.mml_catalog_topk_ctas_per_sm
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int]
@@ -75,8 +84,9 @@ class KernelLibrary:
 def load_library() -> KernelLibrary:
     """Compile (if needed) and load the kernels; cached per process."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -23,8 +23,9 @@ keys); a triple whose candidates all hit positives weighs 0. Sampling is split f
 update step, so a test can feed the JAX package's triples to
 ``bpr_step``. Draws come from a ``torch.Generator``, so the port samples
 other triples than the JAX package's threefry draws from the same seed;
-the regimes are the same. Plain PyTorch: gathers and ``index_add_``
-(duplicate ids within a batch sum).
+the regimes are the same. Plain PyTorch: gathers and ``ops/sgd.py
+add_rows`` (duplicate ids within a batch sum, on the card to the same
+bits in any order, so two runs of one seed give the same tables).
 
 The mesh form (JAX ``ops/bpr.py:246-452``, reference MultiCoreBPRMF):
 ``make_sampler_data_sharded`` splits the users into one contiguous range
@@ -41,6 +42,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mymedialite_tpu_torch.ops.sgd import add_rows
 
 
 def bpr_objective(params, hp, loss_u, loss_i, loss_j) -> torch.Tensor:
@@ -192,16 +195,16 @@ def bpr_step(params, u, i, j, w, hp, *, update_j: bool,
     else:
         g = torch.sigmoid(-x_uij) * w
     if update_u:
-        W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
-                                 - (w * hp["reg_u"])[:, None] * wu))
+        add_rows(W, u, lr * (g[:, None] * (hi - hj)
+                             - (w * hp["reg_u"])[:, None] * wu))
     if update_i:
-        H.index_add_(0, i, lr * (g[:, None] * wu
-                                 - (w * hp["reg_i"])[:, None] * hi))
-        bias.index_add_(0, i, lr * (g - hp["bias_reg"] * w * bi))
+        add_rows(H, i, lr * (g[:, None] * wu
+                             - (w * hp["reg_i"])[:, None] * hi))
+        add_rows(bias, i, lr * (g - hp["bias_reg"] * w * bi))
     if update_j:
-        H.index_add_(0, j, lr * (-g[:, None] * wu
-                                 - (w * hp["reg_j"])[:, None] * hj))
-        bias.index_add_(0, j, lr * (-g - hp["bias_reg"] * w * bias[j]))
+        add_rows(H, j, lr * (-g[:, None] * wu
+                             - (w * hp["reg_j"])[:, None] * hj))
+        add_rows(bias, j, lr * (-g - hp["bias_reg"] * w * bias[j]))
 
 
 def epoch_batches(num_events: int, batch_size: int):
@@ -389,22 +392,22 @@ def _device_update(W, H, bias, u, i, j, w, hp, *, update_j: bool,
         g = (x_uij < 1.0).to(dtype) * w
     else:
         g = torch.sigmoid(-x_uij) * w
-    W.index_add_(0, u, lr * (g[:, None] * (hi - hj)
-                             - (w * hp["reg_u"])[:, None] * wu))
+    add_rows(W, u, lr * (g[:, None] * (hi - hj)
+                         - (w * hp["reg_u"])[:, None] * wu))
     B = i.numel()
     rows, inv = torch.unique(torch.cat([i, j]) if update_j else i,
                              return_inverse=True)
     dH = torch.zeros((rows.numel(), H.shape[1]), dtype=dtype,
                      device=H.device)
     db = torch.zeros(rows.numel(), dtype=dtype, device=H.device)
-    dH.index_add_(0, inv[:B], lr * (g[:, None] * wu
-                                    - (w * hp["reg_i"])[:, None] * hi))
-    db.index_add_(0, inv[:B], lr * (g - hp["bias_reg"] * w * bi))
+    add_rows(dH, inv[:B], lr * (g[:, None] * wu
+                                - (w * hp["reg_i"])[:, None] * hi))
+    add_rows(db, inv[:B], lr * (g - hp["bias_reg"] * w * bi))
     if update_j:
         bj = bias[j] + db[inv[B:]]
-        dH.index_add_(0, inv[B:], lr * (-g[:, None] * wu
-                                        - (w * hp["reg_j"])[:, None] * hj))
-        db.index_add_(0, inv[B:], lr * (-g - hp["bias_reg"] * w * bj))
+        add_rows(dH, inv[B:], lr * (-g[:, None] * wu
+                                    - (w * hp["reg_j"])[:, None] * hj))
+        add_rows(db, inv[B:], lr * (-g - hp["bias_reg"] * w * bj))
     return rows, dH, db
 
 

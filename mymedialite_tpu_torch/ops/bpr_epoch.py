@@ -43,6 +43,16 @@ int32 in visit order: the sampled local negative of every slot and the
 bits of its 0/1 success weight, as the JAX kernels' ``neg_dbg``. On the
 card this is the buffer that the sampling kernel fills and the walk
 reads (about 173 MB at the Netflix and ML-25M shapes), made every epoch.
+
+On the card the sampling kernel also builds each chunk's segment table
+(``ops/segments.py``: the runs and the codes, 2 (RL + 3 Cw) bytes a
+chunk, about 324 MB at the Netflix shape's 33,750 chunks of 640), and
+the walk adds each row's deltas in the plain version's order from it:
+W's in slot order, H's i deltas before its j deltas, each in slot order.
+Two runs from the same tables, order and bits give the same tables bit
+for bit. ``sampler_tables`` runs the sampling kernel alone and returns
+its negatives and tables, which ``chip_smoke.py`` and the card tests
+hold to ``bpr_segments_reference``.
 """
 
 from __future__ import annotations
@@ -50,12 +60,17 @@ from __future__ import annotations
 import torch
 
 from mymedialite_tpu_torch.ops.bpr_plan import SUBKEY_BUCKETS
+from mymedialite_tpu_torch.ops.segments import (
+    round8, runs_length, table_width,
+)
 
 # the walk keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the walk stages the rates and two chunks' rows in shared memory, at
-# most what a block can have on an H100
+# the walk stages the rates, two chunks' rows and segment tables and the
+# owner scatter's values in shared memory, at most what a block can have
+# on an H100 (227 KB), less its static shared memory
 MAX_SHARED_BYTES = 227 * 1024
+DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
 # membership forms of the kernel (csrc/bpr_epoch.cu)
 _KEYS, _BITMASK, _SUBKEYS = 0, 1, 2
 
@@ -143,7 +158,8 @@ def bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb,
                         return_negatives: bool = False):
     """Plain PyTorch epoch of the resident schedule: a Python loop over
     the chunks, the plain sampler per chunk, gathers by indexing and
-    scatter-adds with ``index_add_``. In place on W and H."""
+    scatter-adds with ``index_add_`` (W, then H at i, then H at j, each in
+    slot order on the CPU: the kernel's order). In place on W and H."""
     ub, ib, row = order
     return _reference_loop(
         W, H, packed, keys_tbl, cdf_tbl, bits, ub, ib, row, jb, nval, bkt,
@@ -160,13 +176,20 @@ def bpr_epoch_tiled_reference(W, H, packed, keys_tbl, cdf_tbl, bits, order,
                               return_negatives: bool = False):
     """Plain PyTorch epoch of the slab-tiled schedule: the resident loop
     with the absolute blocks isl * B + ibr and jb = jsl * B + jbr."""
-    ub, ibr, isl, jb, _jbr, _jsl, nval, bkt, row = order
+    ub, ib, row, jb, nval, bkt = tiled_cols(order, slab_blocks)
     return _reference_loop(
-        W, H, packed, keys_tbl, cdf_tbl, bits, ub, isl * slab_blocks + ibr,
-        row, jb, nval, bkt, rates, user_block=user_block,
-        item_block=item_block, soft_margin=soft_margin, wbpr=wbpr,
-        bitmask_tbl=bitmask_tbl, subkeys=subkeys,
-        return_negatives=return_negatives)
+        W, H, packed, keys_tbl, cdf_tbl, bits, ub, ib, row, jb, nval, bkt,
+        rates, user_block=user_block, item_block=item_block,
+        soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
+        subkeys=subkeys, return_negatives=return_negatives)
+
+
+def tiled_cols(order, slab_blocks: int):
+    """The tiled order (ub, ibr, isl, jb, jbr, jsl, nval, bkt, row) as the
+    kernel's visit-order columns (ub, ib, row, jb, nval, bkt), the
+    positive block absolute: isl * slab_blocks + ibr."""
+    ub, ibr, isl, jb, _jbr, _jsl, nval, bkt, row = order
+    return ub, isl * slab_blocks + ibr, row, jb, nval, bkt
 
 
 def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, rates,
@@ -214,45 +237,125 @@ def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, rates,
         raise ValueError("bpr_epoch: cdf_tbl must be [*, IB]")
 
 
+def shared_bytes(fe: int, chunk: int) -> int:
+    """Shared memory of the walk before its stage: the rates [6, fe], two
+    chunks' packed and neg rows [2, 6, C] and the runs and codes of their
+    segment tables [2, RL + 3 Cw], the live float4 lists and their
+    inverse, and one row of the stage (the rest of the block's shared
+    memory is the stage)."""
+    runs_codes = runs_length(3 * chunk) + 3 * round8(chunk)
+    return 24 * fe + 48 * chunk + 4 * runs_codes + 4 * ((fe + 3) // 4 * 4) \
+        + 4 * fe
+
+
+def sample_shared_bytes(chunk: int) -> int:
+    """Shared memory of the sampling kernel: the sort's keys (a power of
+    two >= 3C, 8 bytes each)."""
+    n = 1
+    while n < round8(3 * chunk):
+        n *= 2
+    return 8 * n
+
+
+def _check_launch(packed, user_block, item_block, fe=None):
+    """Raise unless the sampling kernel takes the chunk and the blocks,
+    and the walk (where ``fe`` is given) the width."""
+    C = packed.shape[2]
+    if packed.device.type != "cuda":
+        raise ValueError(f"bpr_epoch: no kernel for device {packed.device}")
+    walk = fe is not None and (fe > MAX_FE or fe % 4 or shared_bytes(fe, C)
+                               > DYNAMIC_SHARED_BYTES)
+    if walk or C % 4 or C > 4096 \
+            or sample_shared_bytes(C) > DYNAMIC_SHARED_BYTES:
+        raise ValueError(f"bpr_epoch: kernel takes fe <= {MAX_FE}, fe and "
+                         f"the chunk multiples of 4, the chunk <= 4096, and "
+                         f"{MAX_SHARED_BYTES} B of shared memory, got fe={fe} "
+                         f"chunk={C}")
+    if 2 * item_block > 1 << 40 or user_block > 1 << 40:
+        raise ValueError("bpr_epoch: blocks past the sort key's 41 bits")
+
+
+def _sampler_args(packed, keys_tbl, cdf_tbl, bits, cols, *, bitmask_tbl,
+                  subkeys, wbpr):
+    """The sampling kernel's outputs, every slot's negative ``neg`` [nc,
+    2, C] and every chunk's segment table, and its table arguments."""
+    nc, C = cols[0].numel(), packed.shape[2]
+    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=packed.device)
+    segs = torch.empty((nc, table_width(C, 3 * C, 3)), dtype=torch.int16,
+                       device=packed.device)
+    if bitmask_tbl is not None:
+        membership, keys = _BITMASK, bits       # keys unread
+    else:
+        membership, keys = (_SUBKEYS if subkeys else _KEYS), keys_tbl
+    tables = (keys.data_ptr(),
+              bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
+              cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr())
+    kcap = keys.shape[1] if membership != _BITMASK else 0
+    return neg, segs, tables, kcap, membership
+
+
 def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
             user_block, item_block, soft_margin, wbpr, bitmask_tbl, subkeys,
             return_negatives):
     """Launch mml_bpr_epoch on W's stream over the visit-order columns
     ``cols`` = (ub, ib, row, jb, nval, bkt), blocks absolute; returns
     ``neg`` or None."""
-    if W.device.type != "cuda":
-        raise ValueError(f"bpr_epoch: no kernel for device {W.device}")
+    _check_launch(packed, user_block, item_block, W.shape[1])
     nc, C = cols[0].numel(), packed.shape[2]
-    fe, trials = W.shape[1], bits.shape[1]
-    smem = 4 * (6 * fe + 12 * C)
-    if fe > MAX_FE or fe % 4 or C % 4 or smem > MAX_SHARED_BYTES:
-        raise ValueError(f"bpr_epoch: kernel takes fe <= {MAX_FE}, fe and "
-                         f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
-                         f"of shared memory, got fe={fe} chunk={C}")
+    fe = W.shape[1]
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_bpr_epoch
     scratch = torch.empty(3 * C * fe, dtype=torch.float32, device=W.device)
-    # every slot's sampled negative: the walk reads it
-    neg = torch.empty((nc, 2, C), dtype=torch.int32, device=W.device)
-    if bitmask_tbl is not None:
-        membership, keys = _BITMASK, bits       # keys unread
-    else:
-        membership, keys = (_SUBKEYS if subkeys else _KEYS), keys_tbl
+    # every slot's sampled negative and every chunk's segment table: the
+    # walk reads them
+    neg, segs, tables, kcap, membership = _sampler_args(
+        packed, keys_tbl, cdf_tbl, bits, cols, bitmask_tbl=bitmask_tbl,
+        subkeys=subkeys, wbpr=wbpr)
     # the kernels launch on the current device: make it W's
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = fn(
             W.data_ptr(), H.data_ptr(), packed.data_ptr(),
-            *(t.data_ptr() for t in cols), keys.data_ptr(),
-            bitmask_tbl.data_ptr() if bitmask_tbl is not None else None,
-            cdf_tbl.data_ptr() if wbpr else None, bits.data_ptr(),
-            rates.data_ptr(), scratch.data_ptr(), neg.data_ptr(), nc, C,
-            user_block, item_block, fe, trials,
-            keys.shape[1] if membership != _BITMASK else 0,
-            int(bool(soft_margin)), int(bool(wbpr)), membership, stream)
+            *(t.data_ptr() for t in cols), *tables, rates.data_ptr(),
+            scratch.data_ptr(), neg.data_ptr(), segs.data_ptr(), nc, C,
+            runs_length(3 * C), user_block, item_block, fe, bits.shape[1],
+            kcap, int(bool(soft_margin)), int(bool(wbpr)), membership,
+            DYNAMIC_SHARED_BYTES, stream)
     if err != 0:
         raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
     return neg if return_negatives else None
+
+
+def sampler_tables(packed, keys_tbl, cdf_tbl, bits, cols, *, user_block: int,
+                   item_block: int, wbpr: bool = False, bitmask_tbl=None,
+                   subkeys: bool = False):
+    """The sampling kernel of an epoch alone, on the card: returns (neg
+    [nc, 2, C], the segment tables [nc, table_width(C, 3C, 3)] int16) in
+    visit order, what the walk of ``bpr_epoch`` / ``bpr_epoch_tiled`` on
+    the same inputs reads. ``cols`` = (ub, ib, row, jb, nval, bkt), blocks
+    absolute: the resident (*order, jb, nval, bkt), or ``tiled_cols``.
+    Its launches are not counted: it is the check of what the walk reads
+    (``ops/segments.py bpr_segments_reference`` is its plain version), not
+    a route."""
+    _check_launch(packed, user_block, item_block)
+    nc, C = cols[0].numel(), packed.shape[2]
+    from mymedialite_tpu_torch.ops._build import load_library
+    fn = load_library().lib.mml_bpr_sample
+    neg, segs, tables, kcap, membership = _sampler_args(
+        packed, keys_tbl, cdf_tbl, bits, cols, bitmask_tbl=bitmask_tbl,
+        subkeys=subkeys, wbpr=wbpr)
+    ub, ib, row, jb, nval, bkt = cols
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = fn(packed.data_ptr(), ib.data_ptr(), row.data_ptr(),
+                 jb.data_ptr(), nval.data_ptr(), bkt.data_ptr(), *tables,
+                 neg.data_ptr(), segs.data_ptr(), nc, C, runs_length(3 * C),
+                 user_block, item_block, bits.shape[1], kcap,
+                 int(bool(wbpr)), membership, stream)
+    if err != 0:
+        raise RuntimeError(f"bpr_epoch: sampling kernel launch failed, CUDA "
+                           f"error {err}")
+    return neg, segs
 
 
 def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
@@ -271,9 +374,8 @@ def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
                                    order, jb, nval, bkt, rates,
                                    user_block=user_block,
                                    item_block=item_block, **kw)
-    ub, ib, row = order
     neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
-                  (ub, ib, row, jb, nval, bkt), rates, user_block=user_block,
+                  (*order, jb, nval, bkt), rates, user_block=user_block,
                   item_block=item_block, **kw)
     bpr_epoch.launches += 1
     return W, H, neg
@@ -295,9 +397,8 @@ def bpr_epoch_tiled(W, H, packed, keys_tbl, cdf_tbl, bits, order, rates, *,
             W, H, packed, keys_tbl, cdf_tbl, bits, order, rates,
             slab_blocks=slab_blocks, user_block=user_block,
             item_block=item_block, **kw)
-    ub, ibr, isl, jb, _jbr, _jsl, nval, bkt, row = order
     neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
-                  (ub, isl * slab_blocks + ibr, row, jb, nval, bkt), rates,
+                  tiled_cols(order, slab_blocks), rates,
                   user_block=user_block, item_block=item_block, **kw)
     bpr_epoch_tiled.launches += 1
     return W, H, neg

@@ -164,7 +164,8 @@ def add_rows(table, ids, delta):
     depend on the order of the sum, so that two runs of one seed give the
     same bits: on the CPU ``index_add_`` itself (it adds the batch in
     order), elsewhere ``exact_add``, where CUDA's float ``index_add_``
-    adds by atomics in whatever order its threads run. Duplicate ids sum.
+    adds by atomics in whatever order its threads run. Every plain
+    training route of the port scatters through it. Duplicate ids sum.
     In place; returns ``table``."""
     if table.device.type == "cpu":
         return table.index_add_(0, ids, delta)
@@ -178,7 +179,24 @@ def exact_add(table, ids, delta):
     times its slots under 2**61), summed per distinct row by integer
     additions, which give the same bits in any order, and rounded once
     back to the table's dtype. Non-finite deltas make every row the batch
-    touches non-finite. In place; returns ``table``."""
+    touches non-finite. In place; returns ``table``.
+
+    On CUDA tensors it launches ``csrc/exact_add.cu`` (float32 or
+    float64 tables, contiguous, int32 or int64 ids, kept int64 in the
+    kernel) or raises; on CPU tensors it runs
+    ``exact_add_reference``, the torch composition the kernel equals bit
+    for bit. It counts its own launches."""
+    if table.device.type == "cpu":
+        return exact_add_reference(table, ids, delta)
+    _launch_exact_add(table, ids, delta)
+    exact_add.launches += 1
+    return table
+
+
+def exact_add_reference(table, ids, delta):
+    """The plain version of ``exact_add``: ``torch.unique``, the scale
+    from the batch's largest |delta|, an int64 ``index_add_`` and one
+    rounding back, on any device."""
     if delta.numel() == 0:
         return table
     rows, inv = torch.unique(ids.long(), return_inverse=True)
@@ -193,6 +211,53 @@ def exact_add(table, ids, delta):
     back = sums.to(delta.dtype) / scale
     back = torch.where(torch.isfinite(top), back, top.to(delta.dtype))
     return table.index_add_(0, rows, back)
+
+
+def _launch_exact_add(table, ids, delta):
+    """Launch mml_exact_add on the table's stream."""
+    if table.device.type != "cuda":
+        raise ValueError(f"exact_add: no kernel for device {table.device}")
+    if table.dtype not in (torch.float32, torch.float64) \
+            or delta.dtype != table.dtype:
+        raise TypeError("exact_add: the kernel takes float32 or float64 "
+                        "tables and deltas of the same type, got "
+                        f"{table.dtype} and {delta.dtype}")
+    if ids.dtype not in (torch.int32, torch.int64) or ids.dim() != 1:
+        raise TypeError("exact_add: ids must be 1-D int32 or int64")
+    if not table.is_contiguous():
+        raise ValueError("exact_add: the table must be contiguous")
+    n = ids.numel()
+    if delta.shape[0] != n or tuple(delta.shape[1:]) != \
+            tuple(table.shape[1:]):
+        raise ValueError(f"exact_add: delta {tuple(delta.shape)} does not "
+                         f"match ids [{n}] and table {tuple(table.shape)}")
+    if delta.device != table.device or ids.device != table.device:
+        raise ValueError("exact_add: table, ids and delta on one device")
+    if n == 0:
+        return
+    d = delta[0].numel()
+    cap = 1 << max(1, (2 * n - 1).bit_length())
+    if cap >= 1 << 31 or n * d >= 1 << 62:
+        raise ValueError(f"exact_add: batch of {n} x {d} past the kernel")
+    ids, delta = ids.contiguous(), delta.contiguous()
+    from mymedialite_tpu_torch.ops._build import load_library
+    fn = load_library().lib.mml_exact_add
+    # meta [2], the sums [n, d], the keys [cap] and rows [n] as int64, then
+    # dense_of [cap] and slot_of [n] as int32
+    work = torch.empty(2 + n * d + cap + n + (cap + n + 1) // 2,
+                       dtype=torch.int64, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), ids.data_ptr(), delta.data_ptr(),
+                 work.data_ptr(), table.shape[0], n, d, cap,
+                 int(ids.dtype == torch.int64),
+                 int(table.dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError(f"exact_add: kernel launch failed, CUDA error "
+                           f"{err}")
+
+
+exact_add.launches = 0
 
 
 def pad_to_batches(n: int, batch_size: int) -> int:

@@ -11,8 +11,12 @@ outputs to their inputs. On CUDA tensors they launch
 ``csrc/sgd_epoch.cu`` (one launch per epoch; the tiled wrapper first
 forms the absolute item blocks) or raise, also where the kernel does not
 take the shape (``check_kernel_shape``: fe and the chunk multiples of 4,
-fe <= 256, two chunks and the rates within 227 KB of shared memory); on
-CPU tensors they run ``sgd_epoch_reference`` /
+fe <= 256, two chunks, their segment tables and the rates within 227 KB
+of shared memory, beside at least one row of the owner scatter's stage).
+The kernel adds each row's deltas in slot order, as ``index_add_`` does
+on the CPU, from the segment tables of ``ops/segments.py`` (built on the
+card once per ``packed``), so two runs give the same tables bit for bit.
+On CPU tensors they run ``sgd_epoch_reference`` /
 ``sgd_epoch_tiled_reference``. Each counts its own launches.
 ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` (``pallas_sgd.py
 :1126``, ``:1354``) run one epoch over a device mesh: the same wrapper
@@ -39,19 +43,29 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops.segments import (
+    round8, runs_length, segments_of,
+)
 from mymedialite_tpu_torch.ops.sgd import gradient_common
 
 # the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the kernel stages the rates and two chunks' rows in shared memory, at
-# most what a block can have on an H100
+# the kernel stages the rates, two chunks' rows and segment tables and the
+# owner scatter's values in shared memory, at most what a block can have
+# on an H100 (227 KB), less its static shared memory
 MAX_SHARED_BYTES = 227 * 1024
+DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
 
 
 def shared_bytes(fe: int, chunk: int) -> int:
-    """Shared memory of the kernel: the rates [4, fe] and two chunks'
-    packed rows [2, 4, C]."""
-    return 4 * (4 * fe + 8 * chunk)
+    """Shared memory of the kernel before its stage: the rates [4, fe],
+    two chunks' packed rows [2, 4, C] and the runs and codes of their
+    segment tables [2, RL + 2 Cw], the live float4 lists and their
+    inverse, and one row of the stage (the rest of the block's shared
+    memory is the stage)."""
+    runs_codes = runs_length(2 * chunk) + 2 * round8(chunk)
+    return 16 * fe + 32 * chunk + 4 * runs_codes + 4 * ((fe + 3) // 4 * 4) \
+        + 4 * fe
 
 
 def check_kernel_shape(fe: int, chunk: int):
@@ -60,7 +74,7 @@ def check_kernel_shape(fe: int, chunk: int):
     chunk), fe <= MAX_FE, and the shared memory within
     MAX_SHARED_BYTES."""
     if fe > MAX_FE or fe % 4 or chunk % 4 \
-            or shared_bytes(fe, chunk) > MAX_SHARED_BYTES:
+            or shared_bytes(fe, chunk) > DYNAMIC_SHARED_BYTES:
         raise ValueError(f"sgd_epoch: kernel takes fe <= {MAX_FE}, fe and "
                          f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
                          f"of shared memory, got fe={fe} chunk={chunk}")
@@ -69,7 +83,8 @@ def check_kernel_shape(fe: int, chunk: int):
 def sgd_epoch_reference(W, H, packed, order, hp, rates, *, user_block: int,
                         item_block: int, loss: int, biased: bool):
     """Plain PyTorch epoch: a Python loop over the chunks, gathers by
-    indexing and scatter-adds with ``index_add_``. In place."""
+    indexing and scatter-adds with ``index_add_`` (in slot order on the
+    CPU, the kernel's order). In place."""
     ub, ib, row = (t.tolist() for t in order)
     gb, min_rating, rating_range = (float(x) for x in hp)
     w_lr, w_reg, h_lr, h_reg = rates.unbind(1)
@@ -140,16 +155,18 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
         raise ValueError(f"sgd_epoch: no kernel for device {W.device}")
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_sgd_epoch
+    segs = segments_of(packed)
     scratch = torch.empty(2 * C * fe, dtype=torch.float32, device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
     # the kernel launches on the current device: make it W's
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = fn(W.data_ptr(), H.data_ptr(), packed.data_ptr(),
-                 *(o.data_ptr() for o in order), rates.data_ptr(),
-                 scratch.data_ptr(), order[0].numel(), C, user_block,
-                 item_block, fe, gb, min_rating, rating_range, int(loss),
-                 int(bool(biased)), stream)
+                 segs.data_ptr(), *(o.data_ptr() for o in order),
+                 rates.data_ptr(), scratch.data_ptr(), order[0].numel(), C,
+                 runs_length(2 * C), user_block, item_block, fe,
+                 DYNAMIC_SHARED_BYTES, gb, min_rating, rating_range,
+                 int(loss), int(bool(biased)), stream)
     if err != 0:
         raise RuntimeError(f"sgd_epoch: kernel launch failed, CUDA error {err}")
 

@@ -11,7 +11,8 @@ family trains on where the kernel of ``csrc/svdpp_epoch.cu`` does not
 go: frequency regularization, Q and Y past the kernel's table budget, a
 user block past the pass length, and GSVDPlusPlus. The JAX package runs
 that epoch as an XLA scan; here it is plain PyTorch (gathers,
-``index_add_`` and, for gSVD++, two float32 matmuls).
+``ops/sgd.py add_rows``, a scatter-add whose sums do not depend on their
+order, and for gSVD++ two float32 matmuls).
 
 The grouped epoch walks contiguous user-id groups of ``group_users``
 users. Per group the implicit vectors s_u = |I_u|^-1/2 sum_{j in I_u}
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from mymedialite_tpu_torch.device import exact_float32
-from mymedialite_tpu_torch.ops.sgd import gradient_common
+from mymedialite_tpu_torch.ops.sgd import add_rows, gradient_common
 
 # the most ratings of one chunk of the grouped epoch (JAX: svdpp_epoch)
 GROUP_CHUNK = 4096
@@ -257,7 +258,7 @@ def _group_step(groups: SvdppGroups, g: int, user: dict, item: dict, hp, *,
     e_i = groups.e_item[e_lo:e_hi]
     # the implicit vectors s of the group's users, fixed for the group
     s = torch.zeros((rows, f), dtype=dtype, device=q.device)
-    s.index_add_(0, e_u, y[e_i])
+    add_rows(s, e_u, y[e_i])
     s = s * inv[:, None]
     c_acc = torch.zeros((rows, f), dtype=dtype, device=q.device)
     n_acc = torch.zeros(rows, dtype=dtype, device=q.device)
@@ -284,31 +285,31 @@ def _group_step(groups: SvdppGroups, g: int, user: dict, item: dict, hp, *,
             gcom = rv - score
         u_reg, i_reg = u_reg_slab[ru], item_reg[ri]
         if update_user:
-            bu_slab.index_add_(0, ru, blr * lr * (
+            add_rows(bu_slab, ru, blr * lr * (
                 gcom - bias_reg * u_reg * bu))
         if update_item:
-            bias_i.index_add_(0, ri, blr * lr * (
+            add_rows(bias_i, ri, blr * lr * (
                 gcom - bias_reg * i_reg * bi))
         if p_slab is not None and update_user:
             d_p = gcom[:, None] * qi - u_reg[:, None] * p_slab[ru]
-            seg = torch.zeros_like(p_slab).index_add_(0, ru, d_p)
+            seg = add_rows(torch.zeros_like(p_slab), ru, d_p)
             p_slab.add_(lr * seg)
         if update_item:
             # the reg term reads the raw q row (GSVDPlusPlus.cs:159)
             d_q = gcom[:, None] * su - i_reg[:, None] * qi_raw
-            q.index_add_(0, ri, lr * d_q)
+            add_rows(q, ri, lr * d_q)
             if x is not None:
                 # x update (GSVDPlusPlus.cs:163-174)
                 d_x = a_rows.T @ (gcom[:, None] * su)
                 occ = torch.sign(a_rows).sum(dim=0)
                 d_x = d_x - (occ * item["x_reg"])[:, None] * x
                 x.add_(lr * d_x)
-            c_acc.index_add_(0, ru, (gcom * inv[ru])[:, None] * qi)
-            n_acc.index_add_(0, ru, torch.ones_like(gcom))
+            add_rows(c_acc, ru, (gcom * inv[ru])[:, None] * qi)
+            add_rows(n_acc, ru, torch.ones_like(gcom))
     if update_item:
         # y moves once per group, through the edges
         d_y = c_acc[e_u] - (n_acc[e_u] * y_reg[e_i])[:, None] * y[e_i]
-        y.index_add_(0, e_i, lr * d_y)
+        add_rows(y, e_i, lr * d_y)
 
 
 def shard_groups(mesh, groups: SvdppGroups) -> list:

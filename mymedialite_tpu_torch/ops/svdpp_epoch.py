@@ -8,10 +8,14 @@ kernel-layout tables ``W`` [u_pad, fe], ``Q`` and ``Y`` [i_pad, fe]
 outputs to its inputs. On CUDA tensors it launches
 ``csrc/svdpp_epoch.cu`` (one launch per epoch) or raises, also where the
 kernel does not take the shape (``check_kernel_shape``: fe and the chunk
-multiples of 4, fe <= 256, two chunks and the rates within 227 KB of
-shared memory); the kernel sums s, c and n in a global scratch and, where
-a copy fits in shared memory, reads them from there
-(``accumulator_variant``, from the shape). On CPU tensors it runs
+multiples of 4, fe <= 256, two chunks, their segment tables and the
+rates within 227 KB of shared memory, beside the owner scatter's stage);
+the kernel sums s, c and n in a global scratch and, where a copy fits in
+shared memory, reads them from there (``accumulator_variant``, from the
+shape). Every sum, of s, W, c, n, Q and Y, adds a row's deltas in slot
+order, as ``index_add_`` does on the CPU, from the segment tables of
+``ops/segments.py`` (built on the card once per ``packed``), so two runs
+give the same tables bit for bit. On CPU tensors it runs
 ``svdpp_epoch_reference``. It counts its own launches.
 
 Per user block (the schedule visits each once, its chunks contiguous),
@@ -39,14 +43,22 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops.segments import (
+    round8, runs_length, segments_of,
+)
 from mymedialite_tpu_torch.ops.sgd import gradient_common
 
 # the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the kernel stages the rates and two chunks' rows in shared memory, and
-# a copy of the sums R and Y read where it fits, at most what a block can
-# have on an H100
+# the kernel stages the rates, two chunks' rows and segment tables, a copy
+# of the sums R and Y read where it fits, and the owner scatter's values
+# in shared memory, at most what a block can have on an H100 (227 KB),
+# less its static shared memory
 MAX_SHARED_BYTES = 227 * 1024
+DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
+# the "shared" variant leaves the owner scatter at least this many list
+# positions of its widest step (R: W's float4s and c's and n's) a window
+MIN_STAGE_ENTRIES = 512
 
 
 def _row(num_factors: int) -> int:
@@ -55,13 +67,20 @@ def _row(num_factors: int) -> int:
 
 
 def shared_bytes(fe: int, chunk: int, user_block: int, num_factors: int,
-                 variant: str) -> int:
+                 variant: str, stage_entries: int = 1) -> int:
     """Shared memory of the kernel: the rates [8, fe], two chunks' packed
-    rows [2, 4, C], and in the "shared" variant the on-chip copy of the
-    sums, one [UB, Fp] (s in R, c in Y) and n [UB] (Fp = num_factors
-    rounded up to 4)."""
-    acc = user_block * (_row(num_factors) + 1) if variant == "shared" else 0
-    return 4 * (8 * fe + 8 * chunk + acc)
+    rows [2, 4, C] and the runs and codes of their segment tables [2, RL
+    + 2 Cw], the live float4 lists and their inverse, in the "shared"
+    variant the on-chip copy of the sums, one [UB, Fp + 4] (s in R, c and
+    n in Y; Fp = num_factors rounded up to 4), and ``stage_entries`` rows
+    of the owner scatter's stage at its widest (the rest of the block's
+    shared memory is the stage)."""
+    runs_codes = runs_length(2 * chunk) + 2 * round8(chunk)
+    acc = user_block * (_row(num_factors) + 4) if variant == "shared" else 0
+    widest = fe + _row(num_factors) + 4
+    return 32 * fe + 32 * chunk + 4 * runs_codes \
+        + 4 * ((6 * fe // 4 + 3) // 4 * 4) + 4 * acc \
+        + 4 * widest * stage_entries
 
 
 def accumulator_variant(user_block: int, num_factors: int, chunk: int,
@@ -69,11 +88,12 @@ def accumulator_variant(user_block: int, num_factors: int, chunk: int,
     """Where the kernel's R and Y steps read the per-user-block sums s, c
     and n, which it sums in a global scratch: "shared" (a copy in shared
     memory, made once when the phase starts) where it fits beside the
-    rates and the chunk buffers in MAX_SHARED_BYTES, else "global"
-    (through L2). At UB = 512 and C = 512 that is "shared" up to 100
-    factors, quality.py's k=20 among them."""
-    fits = shared_bytes(fe, chunk, user_block, num_factors, "shared") \
-        <= MAX_SHARED_BYTES
+    rates, the chunk buffers and MIN_STAGE_ENTRIES list positions of the
+    owner scatter's stage in DYNAMIC_SHARED_BYTES, else "global" (through
+    L2). At UB = 512 and C = 512 that is "shared" up to 28 factors,
+    quality.py's k=20 among them."""
+    fits = shared_bytes(fe, chunk, user_block, num_factors, "shared",
+                        MIN_STAGE_ENTRIES) <= DYNAMIC_SHARED_BYTES
     return "shared" if fits else "global"
 
 
@@ -83,7 +103,8 @@ def check_kernel_shape(fe: int, chunk: int):
     chunk), fe <= MAX_FE, and the global variant's shared memory within
     MAX_SHARED_BYTES."""
     if fe > MAX_FE or fe % 4 or chunk % 4 \
-            or shared_bytes(fe, chunk, 0, 0, "global") > MAX_SHARED_BYTES:
+            or shared_bytes(fe, chunk, 0, fe, "global") \
+            > DYNAMIC_SHARED_BYTES:
         raise ValueError(f"svdpp_epoch: kernel takes fe <= {MAX_FE}, fe and "
                          f"the chunk multiples of 4, and {MAX_SHARED_BYTES} B "
                          f"of shared memory, got fe={fe} chunk={chunk}")
@@ -93,7 +114,8 @@ def svdpp_epoch_reference(W, Q, Y, packed, schedule, hp, rates, *,
                           user_block: int, item_block: int, num_factors: int,
                           loss: int, sigmoid: bool):
     """Plain PyTorch epoch: a Python loop over the schedule, gathers by
-    indexing and scatter-adds with ``index_add_``. In place."""
+    indexing and scatter-adds with ``index_add_`` (in slot order on the
+    CPU, the kernel's order). In place."""
     ph, ub, ib, row = (t.tolist() for t in schedule)
     gb, min_rating, rating_range = (float(x) for x in hp)
     f = num_factors
@@ -184,20 +206,25 @@ def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
     variant = accumulator_variant(user_block, num_factors, C, fe)
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_svdpp_epoch
-    # two [C, fe] delta stages, then s and c [UB, Fp] and n [UB]
-    sums = user_block * (2 * _row(num_factors) + 1)
-    scratch = torch.empty(2 * C * fe + sums, dtype=torch.float32,
+    segs = segments_of(packed)
+    # two [C, fe] stages and a [C, Fp + 4] one, then s [UB, Fp] and cn
+    # [UB, Fp + 4]
+    fp = _row(num_factors)
+    scratch = torch.empty((2 * fe + fp + 4) * C
+                          + user_block * (2 * fp + 4), dtype=torch.float32,
                           device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
     # the kernel launches on the current device: make it W's
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = fn(W.data_ptr(), Q.data_ptr(), Y.data_ptr(), packed.data_ptr(),
-                 *(t.data_ptr() for t in schedule), rates.data_ptr(),
-                 scratch.data_ptr(), schedule[0].numel(), C, user_block,
-                 item_block, fe, num_factors, gb, min_rating, rating_range,
-                 int(loss), int(bool(sigmoid)), int(variant == "shared"),
-                 stream)
+                 segs.data_ptr(), *(t.data_ptr() for t in schedule),
+                 rates.data_ptr(), scratch.data_ptr(), schedule[0].numel(),
+                 C, runs_length(2 * C), user_block, item_block, fe,
+                 num_factors,
+                 DYNAMIC_SHARED_BYTES, gb, min_rating,
+                 rating_range, int(loss), int(bool(sigmoid)),
+                 int(variant == "shared"), stream)
     if err != 0:
         raise RuntimeError(f"svdpp_epoch: kernel launch failed, CUDA error "
                            f"{err}")

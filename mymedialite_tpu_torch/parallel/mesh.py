@@ -187,7 +187,11 @@ class Mesh:
         process's (rows, deltas) pairs, one a local device, zero rows
         where a device touched none) to each distinct copy of
         ``replicas``, in global device order, so that the copies stay
-        equal on every process; returns them."""
+        equal on every process; returns them. A part's rows are distinct
+        (each device's touched rows, once), so ``index_add_`` adds one
+        delta per row per part, and the parts add in global device
+        order: the result is the same in every run, with no
+        ``add_rows``."""
         parts = self._all_parts(parts)
         seen = set()
         for copy in replicas:

@@ -37,13 +37,17 @@ def test_smoke_imports_only_the_port():
 
 def test_smoke_reports_every_kernel():
     """Each ``csrc/*.cu`` file is the source of an entry of the kernels
-    line, with the TPU kernels it replaces (resident and slab-tiled), and
+    line, with the TPU kernels it replaces (resident and slab-tiled), or
+    for ``exact_add`` the JAX package's scatter-add it stands beside, and
     every entry carries the keys of the line."""
     text = open(SMOKE).read()
     csrc = os.path.join(REPO, "mymedialite_tpu_torch", "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert sources == ["bpr_epoch.cu", "catalog_topk.cu", "sgd_epoch.cu",
-                       "svdpp_epoch.cu"]
+    assert sources == ["bpr_epoch.cu", "catalog_topk.cu", "exact_add.cu",
+                       "sgd_epoch.cu", "svdpp_epoch.cu"]
+    assert '"mymedialite_tpu/ops/sgd.py:364"' in text
+    with open(os.path.join(REPO, "mymedialite_tpu/ops/sgd.py")) as f:
+        assert ".at[u].add(" in f.read().splitlines()[363]
     for src in sources:
         assert f'"mymedialite_tpu_torch/csrc/{src}"' in text, src
     for replaced in ("mymedialite_tpu/ops/pallas_sgd.py:324",
@@ -209,7 +213,7 @@ def test_svdpp_variant_line():
     smoke = _smoke_module()
     plan, _, _ = _small_svdpp_plan()
     plan.user_block, plan.chunk = 512, 512
-    for f, variant in ((20, "shared"), (100, "shared"), (200, "global")):
+    for f, variant in ((20, "shared"), (28, "shared"), (200, "global")):
         line = smoke.svdpp_variant_line(plan, f, SP.svdpp_fe(f))
         want = se.shared_bytes(SP.svdpp_fe(f), 512, 512, f, variant)
         assert f"variant {variant}:" in line and f"{want} B" in line
@@ -821,12 +825,14 @@ def test_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
 def test_mesh_phase_is_in_main_and_the_line_keeps_six_kernels():
     """Phase 24's three parts run from ``main`` (after phase 4, after
     phase 8 and after phase 20), and the kernels line still names the six
-    kernels, each once: the mesh adds no kernel body."""
+    kernels that replace TPU kernels, each once, then exact_add, the plain
+    routes' scatter: the mesh adds no kernel body."""
     import inspect
     smoke = _smoke_module()
     assert list(smoke.KERNELS) == ["sgd_epoch", "sgd_epoch_tiled",
                                    "bpr_epoch", "bpr_epoch_tiled",
-                                   "svdpp_epoch", "catalog_topk"]
+                                   "svdpp_epoch", "catalog_topk",
+                                   "exact_add"]
     main = inspect.getsource(smoke.main)
     order = [main.index(name) for name in (
         "phase_bpr_kernel_check(", "phase_mesh_kernel_check(",
@@ -1063,5 +1069,6 @@ def test_quality_phase_and_blocked_repeat_rehearse_on_the_cpu(
     log = capsys.readouterr().out
     assert "the same seed again" in log and "equal bit for bit" in log
     assert "the lexsort it replaced" in log and "equal arrays" in log
-    assert "phase 27 (the quality driver, --small, one seed): 10 rows" in log
+    assert "phase 27 (the quality driver, --small, one seed, 2 runs): 10 " \
+        "rows" in log and "its runs equal (largest gap 0" in log
     assert "reported, not held: LeastSquareSLIM AUC" in log

@@ -1,8 +1,9 @@
 """GPU tier of the port: the CUDA kernels (SGD epoch and BPR epoch, each
 on the resident and on the slab-tiled schedule, also once per cell of
-the mesh's sharded epochs; the SVD++ epoch; the fused catalog top-k)
-against
-their plain PyTorch versions on the card. Marked ``cuda``; every test skips without a CUDA
+the mesh's sharded epochs; the SVD++ epoch; the fused catalog top-k;
+exact_add, the plain routes' scatter) against their plain PyTorch
+versions on the card, and the epoch kernels and plain routes launched
+twice from one set of inputs giving equal tables. Marked ``cuda``; every test skips without a CUDA
 device. Run on a GPU machine (the machine need not have jax, so the
 suite's conftest is bypassed; ``-s`` shows the spreads that
 ``test_duplicate_heavy_spread`` measures):
@@ -29,6 +30,7 @@ from mymedialite_tpu_torch.ops import plan as P
 from mymedialite_tpu_torch.ops import sgd as S
 from mymedialite_tpu_torch.ops.bpr_epoch import (
     bpr_epoch, bpr_epoch_reference, bpr_epoch_tiled, bpr_epoch_tiled_reference,
+    sampler_tables, tiled_cols,
 )
 from mymedialite_tpu_torch.eval.rating import evaluate_ratings
 from mymedialite_tpu_torch.ops import svdpp_plan as SVP
@@ -86,9 +88,9 @@ COMBOS += [(S.LOSS_RMSE, True, (True, True), 100),
 
 @pytest.mark.parametrize("loss,biased,sides,num_factors", COMBOS)
 def test_kernel_matches_reference(cuda, loss, biased, sides, num_factors):
-    """Two epochs from the same tables and orders. The atomics add in an
-    order that varies from run to run, so the sums differ in the last
-    bits: atol 1e-4. The MAE gradient is the sign of the error, which
+    """Two epochs from the same tables and orders. The plain version's
+    index_add_ on the card adds by atomics in an order that varies from
+    run to run, so the sums differ in the last bits: atol 1e-4. The MAE gradient is the sign of the error, which
     that order can flip for a rating within rounding of its prediction,
     and two trajectories then part by a step; so the MAE cases are held
     to the witnesses of ``test_duplicate_heavy_spread``: every chunk
@@ -357,8 +359,8 @@ def test_bpr_kernel_matches_reference(cuda, soft_margin, wbpr, bitmask,
                                       num_factors):
     """Two epochs from the same tables, orders, negative plans and bits, on
     _setup's rated pairs as positive-only feedback: the sampled negatives
-    are identical, the tables agree to 1e-4 (atomics add in a
-    run-dependent order)."""
+    are identical, the tables agree to 1e-4 (the plain version's
+    index_add_ adds in a run-dependent order on the card)."""
     fb = posonly_from_ratings(synthetic_ratings(
         num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
     plan, state, meta = BP.prepare_bpr_mxu(fb, uniform_user=not wbpr,
@@ -748,10 +750,10 @@ SVDPP_VARIANTS = [(False, S.LOSS_RMSE, True, 20),
                   (True, S.LOSS_MAE, True, 20), (True, S.LOSS_RMSE, False, 20)]
 SVDPP_IDS = ["plain", "sigmoid-rmse", "sigmoid-mae", "no-p"]
 # where R and Y read s, c and n (UB = C = 512): from a copy in shared
-# memory at k=20 and at k=100 (fe 104, one float4 per lane, the last lanes
-# masked, the widest copy that fits), through L2 at k=200 (fe 208, two
-# float4s per lane)
-SVDPP_ON_CHIP = {20: "shared", 100: "shared", 200: "global"}
+# memory at k=20 (up to k=28 it fits beside the owner scatter's stage),
+# through L2 at k=100 (fe 104, one float4 per lane, the last lanes masked)
+# and at k=200 (fe 208, two float4s per lane)
+SVDPP_ON_CHIP = {20: "shared", 100: "global", 200: "global"}
 # plain float32 runs whose farthest distance from float64 is the witness
 # of the duplicate-heavy SVD++ test
 PLAIN_WITNESS_RUNS = 3
@@ -1841,3 +1843,278 @@ def test_exact_add_repeats_where_index_add_may_not(cuda):
         times.append(s.elapsed_time(e) / 20)
     print(f"index_add_ spread over 10 runs: {spread:.3e}; add_rows "
           f"{times[0]:.3f} ms, index_add_ {times[1]:.3f} ms a call")
+
+
+# --- one seed, one model: the epoch kernels' owner scatter (each row's
+# deltas summed in slot order, csrc/owner_scatter.cuh) and exact_add's
+# kernel give the same tables on every run
+
+
+def _equal_twice(run):
+    """Run ``run()`` twice (each from fresh copies of its inputs); True
+    where every table of the two runs is equal bit for bit."""
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _zipf_ratings(rng, U=700, I=900, n=20000):
+    users = rng.integers(0, U, n).astype(np.int32)
+    items = (rng.zipf(1.3, n) % I).astype(np.int32)
+    values = rng.integers(1, 11, n).astype(np.float32) / 2
+    return users, items, values, U, I
+
+
+@pytest.mark.parametrize("case", ["resident", "tiled", "duplicate-heavy"])
+def test_sgd_kernels_repeat_bit_for_bit(cuda, case):
+    """Two launches of kernel 1 (resident) or 2 (tiled) from the same
+    tables, order and rates give equal tables: on _setup's data, on its
+    tiled plan, and on test_duplicate_heavy_spread's chunks (a Zipf(1.3)
+    catalog, one item in about a quarter of the slots)."""
+    kw = dict(loss=S.LOSS_RMSE, biased=True)
+    if case == "duplicate-heavy":
+        rng = np.random.default_rng(0)
+        users, items, values, U, I = _zipf_ratings(rng)
+        plan = P.prepare_mxu_data(users, items, values, U, I, user_block=512,
+                                  item_block=1024, chunk=640, shuffle_seed=1,
+                                  device=cuda)
+        W, H = P.extend_tables_mxu(plan, 0.1 * rng.standard_normal((U, 40)),
+                                   0.1 * rng.standard_normal((I, 40)))
+    elif case == "tiled":
+        data = synthetic_ratings(num_users=2000, num_items=3000,
+                                 num_ratings=100_000, seed=0)
+        plan = P.prepare_mxu_tiled(data.users, data.items, data.values, 2000,
+                                   3000, user_block=512, item_block=1024,
+                                   chunk=None, slab_blocks=1, shuffle_seed=4,
+                                   device=cuda)
+        rng = np.random.default_rng(0)
+        W, H = P.extend_tables_mxu(plan, 0.1 * rng.standard_normal((2000, 40)),
+                                   0.1 * rng.standard_normal((3000, 40)))
+        kw["slab_blocks"] = plan.slab_blocks
+    else:
+        plan, W, H = _setup(cuda, True)
+    rates = P.mxu_column_rates(40, W.shape[1], 0.05, 0.02, 0.03, 1.0, 0.5,
+                               True, True, True, device=cuda)
+    order = plan.epoch_order(5)
+    epoch = sgd_epoch_tiled if case == "tiled" else sgd_epoch
+
+    def run():
+        Wk, Hk = W.clone(), H.clone()
+        epoch(Wk, Hk, plan.packed, order, (0.3, 1.0, 4.0), rates,
+              user_block=plan.user_block, item_block=plan.item_block, **kw)
+        return Wk, Hk
+    assert _equal_twice(run)
+
+
+@pytest.mark.parametrize("case", ["keys", "bitmask-soft-margin",
+                                  "keys-wbpr", "tiled", "duplicate-heavy"])
+def test_bpr_kernels_repeat_bit_for_bit(cuda, case):
+    """Two launches of kernel 3 (resident: keys, bitmask with the hinge,
+    WBPR) or 4 (tiled, sub-bucketed keys) from the same tables, order and
+    bits give equal tables, and the sampler's per-epoch segment tables
+    equal the plain builder's on the sampled negatives; also on
+    test_bpr_duplicate_heavy_one_chunk_at_a_time's chunks."""
+    from mymedialite_tpu_torch.ops.segments import bpr_segments_reference
+    wbpr = case == "keys-wbpr"
+    if case == "duplicate-heavy":
+        rng = np.random.default_rng(0)
+        U, I, n = 700, 900, 20000
+        fb = PosOnlyData(rng.integers(0, U, n), rng.zipf(1.3, n) % I,
+                         num_users=U, num_items=I)
+    else:
+        fb = posonly_from_ratings(synthetic_ratings(
+            num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    if case == "tiled":
+        plan, state, meta = BP.prepare_bpr_mxu(
+            fb, uniform_user=True, shuffle_seed=4, chunk=None, kcap=128,
+            subkeys=True, ksub_cap=256, bitmask=False, chunk_overhead=256,
+            device=cuda)
+        B, S_, slab_items = BP.bpr_tiled_plan(plan, state["nvalid"],
+                                              slab_blocks=1)
+        order = BP.bpr_tiled_epoch_order(
+            plan, state["nvalid"], slab_items, slab_blocks=B, num_slabs=S_,
+            num_items=meta[3], seed=7)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        bits = torch.randint(0, 2 ** 31, (plan.num_chunks, meta[2],
+                                          plan.chunk), generator=gen,
+                             dtype=torch.int32, device=cuda)
+        args = (plan.packed, state["subkeys_tbl"], state["cdf_tbl"], bits,
+                order)
+        kw = dict(slab_blocks=B, subkeys=True)
+        epoch = bpr_epoch_tiled
+        ib, jb, row = order[2] * B + order[1], order[3], order[8]
+        cols, sample_kw = tiled_cols(order, B), dict(subkeys=True)
+    else:
+        plan, state, meta = BP.prepare_bpr_mxu(
+            fb, uniform_user=not wbpr, shuffle_seed=1, bitmask=True,
+            device=cuda)
+        packed, keys, cdf, bits, order, jb, nval, bkt, _ = _bpr_epoch_args(
+            plan, state, meta, None, 5, wbpr)
+        args = (packed, keys, cdf, bits, order, jb, nval, bkt)
+        kw = dict(bitmask_tbl=state["bitmask_tbl"]
+                  if case.startswith("bitmask") else None)
+        epoch = bpr_epoch
+        ib, row = order[1], order[2]
+        cols, sample_kw = (*order, jb, nval, bkt), dict(
+            bitmask_tbl=kw["bitmask_tbl"])
+    W, H = _bpr_tables(cuda, plan, fb.num_users, fb.num_items, 40, 1)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.01, True, device=cuda)
+    kw.update(user_block=plan.user_block, item_block=plan.item_block,
+              soft_margin=case.endswith("soft-margin"), wbpr=wbpr,
+              return_negatives=True)
+    out = []
+
+    def run():
+        Wk, Hk = W.clone(), H.clone()
+        _, _, neg = epoch(Wk, Hk, *args, rates, **kw)
+        out.append(neg)
+        return Wk, Hk, neg
+    assert _equal_twice(run)
+    neg, segs = sampler_tables(args[0], args[1], args[2], args[3], cols,
+                               user_block=plan.user_block,
+                               item_block=plan.item_block, wbpr=wbpr,
+                               **sample_kw)
+    assert torch.equal(neg, out[0])
+    want = bpr_segments_reference(plan.packed[row.long()], neg, ib, jb,
+                                  item_block=plan.item_block)
+    assert torch.equal(segs, want)
+
+
+@pytest.mark.parametrize("case", ["netflix-shaped", "duplicate-users-items"])
+@pytest.mark.parametrize("f", list(SVDPP_ON_CHIP))
+def test_svdpp_kernel_repeats_bit_for_bit(cuda, case, f):
+    """Two launches of kernel 5 from the same tables and schedule give
+    equal tables, at each width of ``SVDPP_ON_CHIP`` (both accumulator
+    variants), on _setup-like data and on
+    test_svdpp_duplicate_users_and_items_one_step's chunks (Zipf users,
+    an 8-item catalog: runs of hundreds of slots in s, W, c, n, Q, Y)."""
+    if case == "netflix-shaped":
+        data = synthetic_ratings(num_users=2000, num_items=3000,
+                                 num_ratings=100_000, seed=3)
+        inputs = (data.users, data.items, data.values, 2000, 3000)
+    else:
+        rng = np.random.default_rng(8)
+        U, I, n = 1100, 8, 12000
+        inputs = ((rng.zipf(1.2, n) % U).astype(np.int32),
+                  rng.integers(0, I, n).astype(np.int32),
+                  rng.integers(1, 11, n).astype(np.float32) / 2, U, I)
+    plan, tables = _svdpp_setup(cuda, *inputs, f=f)
+    hp, rates, kw = _svdpp_args(plan, cuda, True, S.LOSS_RMSE, True, f=f,
+                                lr=0.05)
+
+    def run():
+        tabs = tables(True)
+        svdpp_epoch(*tabs, plan.packed, plan.schedule, hp, rates, **kw)
+        return tabs
+    assert _equal_twice(run)
+
+
+def test_soft_margin_fits_repeat_bit_for_bit(cuda):
+    """Two fits of SoftMarginRankingMF with one seed give equal tables (its
+    hinge gradient is a step, where an ulp of the sum's order switched a
+    slot's gradient and the runs parted)."""
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=0))
+    fits = []
+    for _ in range(2):
+        model = create_item_recommender(
+            "SoftMarginRankingMF", "num_factors=16 num_iter=10 device=cuda")
+        model.random_seed = 3
+        model.feedback = fb
+        model.train()
+        fits.append({k: v.clone() for k, v in model.params.items()})
+    torch.cuda.synchronize()
+    assert fits[0].keys() == fits[1].keys()
+    assert all(torch.equal(fits[0][k], fits[1][k]) for k in fits[0])
+
+
+def test_plain_routes_repeat_bit_for_bit(cuda):
+    """Two runs of each plain training route (minibatch and sharded BPR,
+    grouped and sharded SVD++, SocialMF, the time-aware step, BPRSLIM)
+    from the same inputs give equal tables: each scatters through
+    ``add_rows``, exact_add's kernel on the card."""
+    from test_torch_scatter_order import ROUTES
+    before = S.exact_add.launches
+    for route in ROUTES:
+        assert _equal_twice(lambda: route(cuda)), route.__name__
+    assert S.exact_add.launches > before
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("ids64", [False, True])
+def test_exact_add_kernel_equals_the_composition(cuda, ids64):
+    """exact_add's kernel against its torch composition
+    (``exact_add_reference``) bit for bit: 131,072 slots on 64 rows at
+    width 42, the same on 1-D rows, a batch on many distinct rows, a
+    batch of zeros, the first batch in float64 (the plain routes'
+    witnesses), and batches with an inf and with a NaN delta (every
+    touched row non-finite). Times of both and of index_add_ are
+    printed."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dt = torch.int64 if ids64 else torch.int32
+    cases = []
+    for rows, n, width in ((64, 131_072, 42), (64, 131_072, 1),
+                           (500_000, 65_536, 42), (7, 3, 5)):
+        ids = torch.randint(0, rows, (n,), device=cuda, generator=gen,
+                            dtype=dt)
+        delta = torch.randn((n, width), device=cuda, generator=gen)
+        table = torch.randn((rows, width), device=cuda, generator=gen)
+        if width == 1:
+            delta, table = delta[:, 0].contiguous(), table[:, 0].contiguous()
+        cases.append((table, ids, delta))
+    table, ids, delta = cases[0]
+    cases.append((table, ids, torch.zeros_like(delta)))
+    cases.append((table.double(), ids, delta.double()))
+    for bad in (math.inf, math.nan):
+        d = delta.clone()
+        d[17, 3] = bad
+        cases.append((table, ids, d))
+    before = S.exact_add.launches
+    for table, ids, delta in cases:
+        got = S.exact_add(table.clone(), ids, delta)
+        want = S.exact_add_reference(table.clone(), ids, delta)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+    assert S.exact_add.launches == before + len(cases)
+    table, ids, delta = cases[0]
+    times = []
+    for fn in (S.exact_add, S.exact_add_reference,
+               lambda t, i, d: t.index_add_(0, i, d)):
+        t = table.clone()
+        fn(t, ids, delta)
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(20):
+            fn(t, ids, delta)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / 20)
+    print(f"\nexact_add 131,072 x 42 on 64 rows: kernel {times[0]:.3f} ms, "
+          f"composition {times[1]:.3f} ms, index_add_ {times[2]:.3f} ms")
+    assert times[0] < times[1]
+
+
+def test_exact_add_takes_ids_past_int32(cuda):
+    """BPRSLIM's flat view of its [I, I] table passes 2^31 entries past
+    46,340 items: exact_add's kernel keeps the ids int64 and equals the
+    composition bit for bit on ids on both sides of 2^31 (8.6 GB a
+    table)."""
+    I = 46_341
+    table = torch.zeros(I * I, device=cuda)
+    assert table.numel() > 2 ** 31
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    high = torch.randint(2 ** 31 - 512, I * I, (4096,), device=cuda,
+                         generator=gen)
+    low = torch.randint(0, 512, (4096,), device=cuda, generator=gen)
+    ids = torch.cat([high, low, high[:1024]])
+    delta = torch.randn(ids.numel(), device=cuda, generator=gen)
+    want = S.exact_add_reference(table.clone(), ids, delta)
+    got = S.exact_add(table, ids, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert (got[high] != 0).all()

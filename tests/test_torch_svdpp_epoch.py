@@ -141,20 +141,26 @@ def test_wrapper_rejects_bad_input(setup):
 
 def test_accumulator_variant_at_model_shapes():
     """R and Y read s, c and n from a copy in shared memory where UB (Fp
-    + 1) floats fit beside the rates and two chunks in 227 KB: at the
-    models' plan (UB 512, C 512) up to 100 factors, quality.py's k=20
-    among them, and through L2 past that; a smaller block keeps the copy
-    on chip longer."""
+    + 4) floats fit beside the rates, two chunks, their segment tables
+    and 512 list positions of the owner scatter's widest stage in 227 KB:
+    at the models' plan (UB 512, C 512) up to 28 factors, quality.py's
+    k=20 among them, and through L2 past that; a smaller block or chunk
+    keeps the copy on chip longer."""
     from mymedialite_tpu_torch.ops import svdpp_epoch as se
     for f in range(1, 254):
-        want = "shared" if f <= 100 else "global"
+        want = "shared" if f <= 28 else "global"
         assert se.accumulator_variant(512, f, 512, SP.svdpp_fe(f)) == want
-    base = 4 * (8 * 32 + 8 * 512)
-    assert se.shared_bytes(32, 512, 512, 20, "global") == base
-    assert se.shared_bytes(32, 512, 512, 20, "shared") == base + 4 * 512 * 21
+    # rates, packed rows, runs and codes [2, 1544 + 2 * 512], the live
+    # float4 lists and their inverse, one row of the widest stage (W 32 +
+    # c 20 + n 4 floats)
+    base = 4 * (8 * 32 + 8 * 512) + 4 * (1544 + 1024) + 4 * 48
+    assert se.shared_bytes(32, 512, 512, 20, "global") == base + 4 * 56
+    assert se.shared_bytes(32, 512, 512, 20, "shared") == \
+        base + 4 * 56 + 4 * 512 * 24
     assert se.accumulator_variant(256, 200, 512, SP.svdpp_fe(200)) == \
-        "shared"
-    assert se.accumulator_variant(512, 20, 2048, SP.svdpp_fe(20)) == "shared"
+        "global"
+    assert se.accumulator_variant(256, 20, 1024, SP.svdpp_fe(20)) == "shared"
+    assert se.accumulator_variant(512, 20, 2048, SP.svdpp_fe(20)) == "global"
 
 
 def test_kernel_shape_contract():
