@@ -18,7 +18,13 @@ Phases (any failure raises and the script exits non-zero):
    whole epoch no farther from float64 than 4x the farthest plain run;
    every combination also launched twice from the same inputs, its
    tables equal bit for bit (each row's deltas summed in slot order,
-   ``csrc/owner_scatter.cuh``);
+   ``csrc/owner_scatter.cuh``); then on both schedules, and on Zipf(1.3)
+   duplicate-heavy ratings (700 x 900 x 20k), the orders that exercise
+   the kernel's cluster walk (consecutive chunks on one cell, on one user
+   block, across user blocks, one chunk, the epoch): each within the
+   tolerance of the plain version (the duplicate-heavy ones under the
+   MAE rows' two witnesses) and equal to a second launch, with its us a
+   chunk;
 4. the BPR-epoch kernel against its plain PyTorch version on the card
    at the same shape (the rated pairs as positive-only feedback), one
    epoch from the same tables, order, negative plan and bits: on the
@@ -857,7 +863,80 @@ def phase_kernel_check(dev):
                 worst[schedule] = max(worst.get(schedule, 0.0), err)
     log("sgd kernel checks: every (schedule, loss, biased) launched twice "
         "from the same inputs gives equal tables bit for bit")
+    from mymedialite_tpu_torch.ops import sgd_epoch as se
+    # the duplicate-heavy shape of tests/test_torch_cuda.py (a Zipf(1.3)
+    # catalog, one item in about a quarter of the slots), its own tables
+    zrng = np.random.default_rng(7)
+    zipf = (zrng.integers(0, 700, 20_000), zrng.zipf(1.3, 20_000) % 900,
+            zrng.integers(1, 11, 20_000) / 2, 700, 900)
+    ztabs = (0.1 * zrng.standard_normal((700, 40)),
+             0.1 * zrng.standard_normal((900, 40)),
+             0.1 * zrng.standard_normal(700), 0.1 * zrng.standard_normal(900))
+    plans["resident zipf"] = mxu.prepare_mxu_data(
+        *zipf, user_block=512, item_block=1024, chunk=640, shuffle_seed=4,
+        device=dev)
+    plans["tiled zipf"] = mxu.prepare_mxu_tiled(
+        *zipf, user_block=512, item_block=1024, chunk=None, slab_blocks=1,
+        shuffle_seed=4, device=dev)
+    hp = (0.6, 1.0, 4.0)
+    kw = dict(loss=sgd.LOSS_RMSE, biased=True)
+    for schedule, plan in plans.items():
+        heavy = schedule.endswith("zipf")
+        W, H = mxu.extend_tables_mxu(plan, *(ztabs if heavy else tabs))
+        rates = mxu.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0,
+                                     0.01, True, True, True, device=dev)
+        for case, order in sgd_order_cases(plan).items():
+            what = f"sgd {schedule} order {case}"
+            err, k_ms, _ = kernel_vs_plain(plan, W, H, order, hp, rates, **kw)
+            if heavy:
+                # a run of a hundred duplicates in a chunk: float32 runs
+                # that sum in another order part, as in phase 3's MAE rows
+                err, k_dist, p_dist = sgd_one_step_witness(
+                    plan, W, H, order, hp, rates, **kw)
+                witness_check(err, k_dist, p_dist, what)
+                how = (f"one step at a time max_abs_err {err:.3e}; whole "
+                       f"order vs float64: kernel {k_dist:.3e}, farthest "
+                       f"plain {p_dist:.3e}")
+            else:
+                check(err, what)
+                how = f"max_abs_err {err:.3e}"
+            sgd_repeats(plan, W, H, order, hp, rates, **kw)
+            nc = order[0].numel()
+            log(f"{what}: {how} (tol {KERNEL_TOL}), {k_ms * 1e3 / nc:.2f} "
+                f"us a chunk over {nc} chunks of {plan.chunk} (a cluster of "
+                f"{se.cluster_size(plan.chunk)}); twice: equal")
+            worst[schedule.split()[0]] = max(worst[schedule.split()[0]], err)
     return worst
+
+
+def sgd_order_cases(plan):
+    """The orders that exercise the SGD kernel's cluster walk, in the
+    wrapper's form ((ub, ib, row), or on a tiled plan of one-block slabs
+    (ub, ibr, sl, row)): consecutive chunks on one (user block, item
+    block) cell, on one user block, across user blocks (chunks sorted by
+    block), one chunk, and an epoch's order."""
+    from mymedialite_tpu_torch.ops import plan as mxu
+    ub, ib = plan.ub_c, plan.ib_c
+    rows = np.arange(ub.size)
+    cells = ub.astype(np.int64) * plan.n_iblocks + ib
+    sel = {"same cell": rows[cells == np.bincount(cells).argmax()],
+           "same user block": rows[ub == ub[0]][
+               np.argsort(ib[ub == ub[0]], kind="stable")],
+           "across user blocks": np.lexsort((ib, ub)),
+           "one chunk": rows[:1],
+           "epoch": plan.epoch_order(6)[-1].cpu().numpy()}
+    dev = plan.packed.device
+    tiled = isinstance(plan, mxu.MxuTiledPlan)
+    if tiled and plan.slab_blocks != 1:
+        raise AssertionError("the order cases want one-block slabs")
+    out = {}
+    for case, s in sel.items():
+        cols = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                for a in (ub[s], ib[s], s)]
+        if tiled:                      # one-block slabs: sl = ib, ibr = 0
+            cols.insert(1, torch.zeros_like(cols[1]))
+        out[case] = tuple(cols)
+    return out
 
 
 def bpr_kernel_vs_plain(plan, state, W, H, order, neg_plan, bits, rates, *,

@@ -11,11 +11,13 @@ the slab-tiled one with one-block slabs): one epoch of kernel 1
 (BiasedMF, k=40), kernel 2 (the same data tiled), kernel 3 (BPRMF, k=40,
 bitmask, plain and hinge) and kernel 5 (SVDPlusPlus, k=20; S, R and Y
 steps apart), in microseconds a chunk or a step (the best of three
-launches after a first). With ``--split`` it also writes under OUT two
-copies of the first ROOT's package whose owner scatter
-(``csrc/owner_scatter.cuh``) returns right after its first barrier
-("no phase 2") or skips its sums ("no sums"), and times those: they give
-wrong tables, and only their times are read. Prints one line ``SPLIT
+launches after a first), with a sha256 of the tables after the last
+launch (each from the same inputs: equal digests for two ROOTs show
+their kernels give the same tables bit for bit). With ``--split`` it
+also writes under OUT two copies of the first ROOT's package whose owner
+scatter (``csrc/owner_scatter.cuh``) returns right after its first
+barrier ("no phase 2") or skips its sums ("no sums"), and times those:
+they give wrong tables, and only their times are read. Prints one line ``SPLIT
 {json}`` a tree. Run on the card: each tree builds its kernels once.
 """
 import json
@@ -25,7 +27,7 @@ import subprocess
 import sys
 
 TIMER = r'''
-import json, sys
+import hashlib, json, sys
 root, label = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 import numpy as np, torch
@@ -43,16 +45,30 @@ out = dict(label=label, card=torch.cuda.get_device_name(0))
 rng = np.random.default_rng(0)
 
 
+def digest(tables):
+    h = hashlib.sha256()
+    for t in tables:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def best_us(fn, n):
+    """(the best us a chunk of three launches after a first, the sha256 of
+    the tables the last launch gave): fn() runs one launch on fresh
+    copies of its tables and returns them."""
     ms = []
     for _ in range(4):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
-        fn()
+        tables = fn()
         e.record()
         e.synchronize()
         ms.append(s.elapsed_time(e))
-    return min(ms[1:]) * 1e3 / n
+    return min(ms[1:]) * 1e3 / n, digest(tables)
+
+
+def clones(*tables):
+    return tuple(t.clone() for t in tables)
 
 
 for sched in ("resident", "tiled"):
@@ -74,11 +90,13 @@ for sched in ("resident", "tiled"):
     rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0, 0.01,
                                True, True, True, device=dev)
     order = plan.epoch_order(3)
-    out["mf_" + sched] = dict(chunks=plan.num_chunks, C=plan.chunk, us=best_us(
-        lambda: fn(W.clone(), H.clone(), plan.packed, order, (0.6, 1.0, 4.0),
+    us, sha = best_us(
+        lambda: fn(*clones(W, H), plan.packed, order, (0.6, 1.0, 4.0),
                    rates, user_block=plan.user_block,
                    item_block=plan.item_block, loss=0, biased=True, **kw),
-        plan.num_chunks))
+        plan.num_chunks)
+    out["mf_" + sched] = dict(chunks=plan.num_chunks, C=plan.chunk, us=us,
+                              sha256=sha)
 plan, state, meta = BP.prepare_bpr_mxu(posonly_from_ratings(d),
                                        uniform_user=True, shuffle_seed=1,
                                        bitmask=True, device=dev)
@@ -96,14 +114,15 @@ gen = torch.Generator(device=dev).manual_seed(3)
 bits = torch.randint(0, 2 ** 31, (plan.num_chunks, meta[2], plan.chunk),
                      dtype=torch.int32, generator=gen, device=dev)
 for sm in (False, True):
+    us, sha = best_us(
+        lambda: BE.bpr_epoch(
+            *clones(W, H), plan.packed, state["keys_tbl"],
+            state["cdf_tbl"], bits, order, *neg_plan, rates,
+            user_block=plan.user_block, item_block=plan.item_block,
+            soft_margin=sm, bitmask_tbl=state["bitmask_tbl"])[:2],
+        plan.num_chunks)
     out["bpr" + ("_hinge" if sm else "")] = dict(
-        chunks=plan.num_chunks, C=plan.chunk, us=best_us(
-            lambda: BE.bpr_epoch(
-                W.clone(), H.clone(), plan.packed, state["keys_tbl"],
-                state["cdf_tbl"], bits, order, *neg_plan, rates,
-                user_block=plan.user_block, item_block=plan.item_block,
-                soft_margin=sm, bitmask_tbl=state["bitmask_tbl"]),
-            plan.num_chunks))
+        chunks=plan.num_chunks, C=plan.chunk, us=us, sha256=sha)
 hu, hi = history_edges(d.users, d.items, I)
 sp = SP.prepare_svdpp_mxu(d.users, d.items, d.values, hu, hi, U, I,
                           shuffle_seed=4, device=dev)
@@ -122,11 +141,12 @@ for name, sel in (("all", None), ("S", 0), ("R", 1), ("Y", 2)):
     sched = sp.schedule if sel is None else \
         tuple(t[ph == sel].contiguous() for t in sp.schedule)
     n = int(sched[0].numel())
-    out["svdpp_" + name] = dict(steps=n, us=best_us(
+    us, sha = best_us(
         lambda: SE.svdpp_epoch(
-            *(t.clone() for t in tabs), sp.packed, sched, (0.6, 1.0, 4.0),
+            *clones(*tabs), sp.packed, sched, (0.6, 1.0, 4.0),
             rates, user_block=sp.user_block, item_block=sp.item_block,
-            num_factors=f, loss=0, sigmoid=True), n))
+            num_factors=f, loss=0, sigmoid=True), n)
+    out["svdpp_" + name] = dict(steps=n, us=us, sha256=sha)
 print("SPLIT " + json.dumps(out), flush=True)
 '''
 

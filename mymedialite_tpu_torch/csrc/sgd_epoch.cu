@@ -23,51 +23,91 @@
 // schedule the transposed tables, the slab and user-block DMAs, the pad
 // chunk, the pass split and the refetch flags) are not carried over: on
 // Hopper the gather is an indexed load, straight on the tables in device
-// memory, and the scatter the owner scatter of owner_scatter.cuh. The
-// tiled schedule is the same walk over another order: chunks sorted by
-// item slab, grouped by user block within a slab, with the absolute item
-// block sl * B + ibr formed by the wrapper (ops/sgd_epoch.py
-// sgd_epoch_tiled). That order keeps one slab (4 MB at k=40) hot in the
-// 50 MB L2, which takes the place of the TPU's slab in VMEM.
+// memory, and the scatter a slot-ordered owner scatter. The tiled schedule
+// is the same walk over another order: chunks sorted by item slab,
+// grouped by user block within a slab, with the absolute item block
+// sl * B + ibr formed by the wrapper (ops/sgd_epoch.py sgd_epoch_tiled).
+// That order keeps one slab (4 MB at k=40) hot in the 50 MB L2, which
+// takes the place of the TPU's slab in VMEM.
 //
-// The walk. The chunk order walks user blocks one after another and
-// consecutive chunks share a user or an item block, so there is almost
-// no parallelism across chunks: the parallelism is within a chunk (C
-// slots x fe columns), and one thread block walks the whole order. A
-// chunk's time is its chain of dependent round trips to L2 and one SM's
-// traffic to L2, not HBM bandwidth. So, as in the BPR walk
-// (bpr_epoch.cu):
-// - the next chunk's packed row, the runs and codes of its segment table
-//   (ops/segments.py, built once per plan) and its (ub, ib) are copied
-//   into a second shared buffer with cp.async while this chunk runs, so a
-//   chunk starts with its indices on chip;
-// - a row is cut into float4s, one per lane (two per lane past 128
-//   columns): at fe <= 64 a warp serves two slots per pass, and each
-//   warp issues the row loads of two passes before it uses any;
-// - the deltas (row + delta for the first slot of a row's run, the new
-//   row itself for a row alone in the chunk) go to the owner scatter's
-//   stage in shared memory, only the runs' entries and only their live
-//   float4s, or to a global scratch [2, C, fe] in a chunk where they do
-//   not fit; phase 2 sums each run in slot order;
-// - a float4 whose learning rates are all 0 is neither stored nor summed:
-//   its deltas are exactly 0 (the zero padding of the tables to fe
-//   columns, and each table's constant column). At k = 40, fe = 64, 11 of
-//   a row's 16 float4s are;
-// - no device-scope fence ends a chunk. Every reader and writer of the
-//   tables during the walk is a thread of this one block, and the next
-//   chunk's gathers follow a __syncthreads(), which the CUDA C++
-//   Programming Guide defines to make every global and shared memory
-//   access made before it by the block's threads visible to all threads
-//   of the block; the stores (st.global.cg) and the gathers
-//   (ld.global.cg) act at L2, not through a stale L1 line. A
-//   __threadfence() orders a thread's writes for observers outside the
-//   block, and there are none. A barrier separates a chunk's gathers from
-//   the owners' stores, and a row alone in its run is read and written by
-//   its one slot.
-// Spreading the epoch over the card's SMs needs a chunk order with
-// independent cells (DSGD diagonals), which changes the trajectory and is
-// left to a later change.
+// What bounds the walk. The chunks run in the JAX order, one after
+// another: consecutive chunks share a user or an item block, so chunk k+1
+// may read what chunk k writes, and the order is kept because it is the
+// trajectory the JAX package trains. A chunk's time is its chain of
+// dependent steps (its gathers' round trips to L2, a barrier, the owner
+// scatter's sums, a barrier) and the L2 traffic of the SMs that run it,
+// not HBM bandwidth. The design shortens that chain and changes no
+// value:
+// - A chunk spreads over a thread-block cluster of N CTAs on neighbouring
+//   SMs (one cluster is the whole grid; N from the shape, ops/sgd_epoch.py
+//   cluster_size): CTA r takes slots [r cs, (r + 1) cs), cs = ceil(C / N),
+//   so a chunk of 640 is one round of row loads on each of 8 SMs where one
+//   block took five. Each CTA holds the chunk's whole packed row and
+//   segment table (phase 2 needs any slot's row).
+// - The indices run two chunks ahead (three buffers, with the next
+//   chunk's packed row), so that no global load but the gathers is on a
+//   chunk's path.
+// What does not pay on this card: copying the next chunk's rows that lie
+// on another block than this chunk's into shared memory while this chunk
+// runs, by cp.async 16 bytes a piece or by the bulk-copy unit a row a
+// copy. An SM holds only so many loads in flight, so the copies take the
+// gathers' place in its load unit, and the bulk copies' latency a row is
+// longer than a gather round (PERF.md section 6).
+// A chunk, in each CTA: wait for its index copies and for the cluster;
+// phase 1 (the gathers, the dot, the gradient, the deltas); arrive, issue
+// chunk k+2's index copies, wait; phase 2 (the sums); arrive. A cluster
+// of one is compiled apart (kOne), so that the cluster's state takes no
+// registers there; its index copies go at the chunk's start and its
+// phase 2 is owner_scatter.cuh's owner_chain, whose barrier ends phase
+// 1: the one-block walk, which measured no slower than the parent's.
+//
+// The stage. As in owner_scatter.cuh, phase 1 writes the value of an
+// entry whose row is in no other slot of the chunk (code kDead) as row + d
+// straight into the table, and the others (row + d for a run's first
+// entry, d for the rest) into a stage by compact index; phase 2 sums each
+// run in list order and stores it once (st.global.cg). Here the stage is
+// the cluster's distributed shared memory: float4 o of the chunk's stage
+// lies in CTA o / S at o % S, S = ceil(total / N), through the generic
+// pointers that cooperative_groups' map_shared_rank gives. CTA r sums the
+// runs whose first value lies in its part, reading the tail of a run
+// that crosses into the next part remotely. Where S exceeds a CTA's stage
+// (a wide table), the values go to the global scratch [2, C, fe] and CTA 0
+// sums them with owner_scatter.cuh's owner_chain, by windows, as the
+// one-block walk did; a cluster of one sums with owner_chain too.
+//
+// Why the tables equal the one-block walk's bit for bit: every slot's dot
+// is the same fmaf chain over its lanes' float4s and the same shuffle tree
+// (the lanes of a slot, SPW, V and G are chosen from fe as before), its
+// gradient and deltas the same expressions; each run's sum is the same
+// left fold in list order (the stage's place of a value changes, not the
+// order); and each value read is the value the one-block walk reads (the
+// barriers below). Nothing is added atomically.
+// (The tests hold the tables to digests of the one-block kernel's:
+// tests/test_torch_cuda.py SGD_ONE_BLOCK_SHA256.)
+//
+// Ordering. barrier.cluster.arrive (release semantics by default) and
+// barrier.cluster.wait (acquire by default), executed by every thread of
+// every CTA, order each thread's prior global and shared-memory accesses,
+// the distributed shared memory included, before every access that
+// follows the wait in any thread of the cluster (PTX ISA, barrier.cluster
+// and the memory consistency model's release and acquire patterns at
+// cluster scope). So the owners' st.global.cg stores of chunk k-1 in one
+// CTA precede chunk k's ld.global.cg gathers and cp.async copies in
+// another, and the stage's remote stores of phase 1 precede phase 2's
+// reads. Both act at L2, not through a stale L1 line. At the end of a
+// chunk a thread arrives once its stores are issued and waits at the
+// start of the next, where it needs the others'. With N = 1 the wait is bar.sync, which orders the
+// block's accesses the same way within the block, the one-block walk's
+// barrier. The kernel ends with a wait, so that no CTA leaves while
+// another reads its stage.
+// A __threadfence() orders writes for observers outside the cluster, and
+// there are none during the walk.
+//
+// A float4 whose learning rates are all 0 is neither stored nor summed:
+// its deltas are exactly 0 (the zero padding of the tables to fe columns,
+// and each table's constant column).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,11 +115,17 @@
 
 namespace {
 
-using mml_owner::put;
+using mml_owner::kDead;
+using mml_owner::kIdMask;
+using mml_owner::kStart;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+// the largest cluster the launcher takes (H100's non-portable limit)
+constexpr int kMaxCluster = 16;
+// what mml_sgd_epoch returns where the card cannot place the cluster
+constexpr int kClusterUnplaced = -2;
 
 constexpr int kLossRmse = 0;
 constexpr int kLossMae = 1;
@@ -98,7 +144,28 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The barrier of the cluster's n CTAs, called by every thread (see the
+// note at the top), in two halves: cluster_arrive after a thread's part
+// (a no-op in a cluster of one), cluster_wait where it needs the others'
+// (bar.sync in a cluster of one); cluster_barrier is both at once.
+__device__ __forceinline__ void cluster_arrive(int n) {
+  if (n > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait(int n) {
+  if (n > 1) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  } else {
+    asm volatile("bar.sync 0;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_barrier(int n) {
+  cluster_arrive(n);
+  cluster_wait(n);
 }
 
 __device__ __forceinline__ bool f4_any(float4 a) {
@@ -155,9 +222,136 @@ struct SgdPieces {
   }
 };
 
+// floor(o / S) for 0 <= o < 2^23 and S >= 1, from rS = 1 / S: the float
+// quotient is off by at most one, and one step each way corrects it
+__device__ __forceinline__ int quot(int o, int S, float rS) {
+  int q = __float2int_rz((float)o * rS);
+  q -= q * S > o;
+  q += (q + 1) * S <= o;
+  return q;
+}
+
+// A chunk's stage over the cluster: the values of the entries in runs of
+// two or more by compact index (table 0's at w0 float4s an entry, then
+// table 1's at w1 from off1), float4 o in CTA o / S at o % S (part[q]:
+// CTA q's stage; `local` this CTA's, rank its own), or in the global
+// scratch at o.
+struct ClusterStage {
+  float4* const* part;
+  float4* local;
+  float4* scratch;
+  int w0, w1, n0, off1, S, rank;
+  float rS;
+  bool on_chip, one;          // one: a cluster of one CTA
+  __device__ int off(int idx) const {
+    return idx < n0 ? idx * w0 : off1 + (idx - n0) * w1;
+  }
+  __device__ float4* at(int o) const {
+    if (!on_chip) return scratch + o;
+    if (one) return local + o;
+    const int q = quot(o, S, rS);
+    return q == rank ? local + (o - q * S) : part[q] + (o - q * S);
+  }
+};
+
+// What phase 1 does with one entry's piece li, by its code (as
+// mml_owner::put): row + d into the table for an entry alone in its run,
+// else row + d (a run's first entry) or d into the stage.
+__device__ __forceinline__ void put(uint16_t code, const ClusterStage& st,
+                                    int li, float4* row, float4 row_val,
+                                    float4 d) {
+  if (code == kDead) {
+    __stcg(row, mml_owner::f4_add(row_val, d));
+    return;
+  }
+  if (code & kStart) d = mml_owner::f4_add(row_val, d);
+  *st.at(st.off(code & 0x7fff) + li) = d;
+}
+
+// A float4 of this CTA's shared memory (ld.shared).
+__device__ __forceinline__ float4 lds4(const float4* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  float4 v;
+  asm("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(a));
+  return v;
+}
+
+// acc + the n values of this CTA's shared memory at at[0], at[w], ... in
+// order, four loads ahead of the adds
+__device__ __forceinline__ float4 fold(float4 acc, const float4* at, int n,
+                                       int w) {
+  using mml_owner::f4_add;
+  int q = 0;
+  for (; q + 4 <= n; q += 4, at += 4 * w) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = lds4(at + i * w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc = f4_add(acc, x[i]);
+  }
+  for (; q < n; ++q, at += w) acc = f4_add(acc, lds4(at));
+  return acc;
+}
+
+// Phase 2 of one CTA with the stage on chip: the runs [k0, k1) of the
+// runs block `runs` (those whose first value lies in this CTA's part),
+// each (run, piece) one thread's sum: the run's first value, plus the
+// others in list order (those in this CTA's part from its shared memory,
+// the tail of a run that crosses into the next part through the
+// cluster's), stored once.
+__device__ __forceinline__ void cluster_sums(const uint16_t* runs,
+                                             const ClusterStage& st, int k0,
+                                             int k1, const SgdPieces& pc) {
+  const int nr0 = runs[0];
+  const uint16_t* run = runs + 4;             // (entry, compact, length)
+  const int n0 = max(0, min(k1, nr0) - k0);
+  const int items = n0 * st.w0 + (k1 - k0 - n0) * st.w1;
+  const int lo = st.rank * st.S, hi = lo + st.S;
+  for (int x = threadIdx.x; x < items; x += kThreads) {
+    int k, li, w;
+    if (x < n0 * st.w0) {
+      k = k0 + x / st.w0;
+      li = x - (k - k0) * st.w0;
+      w = st.w0;
+    } else {
+      const int y = x - n0 * st.w0;
+      k = k0 + n0 + y / st.w1;
+      li = y - (k - k0 - n0) * st.w1;
+      w = st.w1;
+    }
+    const uint16_t e = run[3 * k];
+    const int len = run[3 * k + 2];
+    // the run's first value is in [lo, hi); its piece li and the values
+    // after it may lie past hi, in the next parts
+    const int o = st.off(run[3 * k + 1]) + li;
+    const int nl = o >= hi ? 0
+                   : o + (len - 1) * w < hi ? len : (hi - o + w - 1) / w;
+    auto remote = [&](int c) {
+      const int oc = o + c * w;
+      const int q = quot(oc, st.S, st.rS);
+      return st.part[q][oc - q * st.S];
+    };
+    float4 acc;
+    int c = 1;
+    if (nl > 0) {
+      const float4* at = st.local + (o - lo);
+      acc = fold(lds4(at), at + w, nl - 1, w);
+      c = nl;
+    } else {
+      acc = remote(0);
+    }
+    for (; c < len; ++c) acc = mml_owner::f4_add(acc, remote(c));
+    __stcg(pc.dst(mml_owner::side_of(e), e & kIdMask, li), acc);
+  }
+}
+
 // V float4s per lane per row (fe <= 128 V), SPW slots per warp pass (a
-// slot on 32 / SPW lanes), G passes in flight per warp.
-template <int V, int SPW, int G>
+// slot on 32 / SPW lanes), G passes in flight per warp. One cluster of
+// gridDim.x CTAs; kOne: a cluster of one, compiled apart so that the
+// cluster's state takes no registers there.
+template <int V, int SPW, int G, bool kOne>
 __global__ void __launch_bounds__(kThreads, 1)
 sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
                  const int32_t* __restrict__ packed,
@@ -173,20 +367,30 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
   constexpr int kLanes = 32 / SPW;            // lanes per slot
   constexpr int kStep = kWarps * SPW;         // slots per pass of the block
   extern __shared__ __align__(16) unsigned char smem[];
+  const int ncta = kOne ? 1 : gridDim.x;
+  const int rank = kOne ? 0 : blockIdx.x;
   const int fe4 = fe >> 2;
   const int Cw = (C + 7) & ~7;
   const int RK = RL + 2 * Cw;                 // a chunk's table row
-  // [4][fe] rates | [2][4C] packed rows | [2][RK] runs and codes | [2][fe4]
+  const int cs = (C + ncta - 1) / ncta;       // slots a CTA
+  const int s_lo = min(C, rank * cs);
+  const int ns = min(C, s_lo + cs) - s_lo;    // this CTA's slots
+  // [4][fe] rates | [3][4C] packed rows | [3][RK] runs and codes | [2][fe4]
   // live float4s and [2][fe4] their pieces (rounded to 16 bytes) | the
-  // owner scatter's stage
+  // stage
   float* s_rate = reinterpret_cast<float*>(smem);
   int32_t* s_buf = reinterpret_cast<int32_t*>(s_rate + 4 * fe);
-  uint16_t* s_seg = reinterpret_cast<uint16_t*>(s_buf + 8 * C);
-  int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 2 * RK);
+  uint16_t* s_seg = reinterpret_cast<uint16_t*>(s_buf + 12 * C);
+  int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 3 * RK);
   int32_t* s_li = s_live + 2 * fe4;
   float4* s_stage = reinterpret_cast<float4*>(s_live + ((4 * fe4 + 3) & ~3));
-  __shared__ int32_t s_meta[2][2];                 // ub, ib per buffer
+  // per buffer: the chunk's ub and ib, and the packed row of the chunk
+  // after it
+  __shared__ int32_t s_meta[3][3];
   __shared__ int s_nlive[2];
+  __shared__ int s_runs[2];        // this CTA's runs [k0, k1) of a chunk
+  // each CTA's stage (and past the last, none)
+  __shared__ float4* s_part[kMaxCluster + 1];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -195,22 +399,15 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
   const int sub = lane % kLanes;              // its float4s: sub + kLanes v
   for (int t = tid; t < fe * 4; t += kThreads)
     s_rate[(t % 4) * fe + t / 4] = rates[t];
-  __syncthreads();
-  const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [4][fe4]
-  if (tid < 2) {
-    const int lr = tid ? kHLr : kWLr;
-    int n = 0;
-    for (int c4 = 0; c4 < fe4; ++c4) {
-      s_li[tid * fe4 + c4] = n;
-      if (f4_any(r4[lr * fe4 + c4])) s_live[tid * fe4 + n++] = c4;
-    }
-    s_nlive[tid] = n;
-  }
+  if (tid <= kMaxCluster)
+    s_part[tid] = tid < ncta ? cooperative_groups::this_cluster()
+                                   .map_shared_rank(s_stage, tid)
+                             : nullptr;
 
-  // chunk k's packed row (u_loc, i_loc, v bits, w bits) and the runs and
-  // codes of its segment table into buffer b
-  auto prefetch = [&](int k, int b) {
-    const int64_t r = __ldg(order_row + k);
+  // chunk k's packed row r (u_loc, i_loc, v bits, w bits), the runs and
+  // codes of its segment table, its (ub, ib) and the row of chunk k+1 into
+  // buffer b
+  auto prefetch = [&](int k, int64_t r, int b) {
     const int32_t* prow = packed + r * 4 * C;
     int32_t* dst = s_buf + b * 4 * C;
     for (int e = tid; e < C; e += kThreads)
@@ -221,37 +418,97 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     if (tid == 0) {
       cp_async4(&s_meta[b][0], order_ub + k);
       cp_async4(&s_meta[b][1], order_ib + k);
+      if (k + 1 < nc) cp_async4(&s_meta[b][2], order_row + k + 1);
     }
-    cp_async_commit();
   };
-  if (nc > 0) prefetch(0, 0);
+
+  if (nc > 0) prefetch(0, __ldg(order_row), 0);
+  if (nc > 1) prefetch(1, __ldg(order_row + 1), 1);  // and chunk 2's row
+  cp_async_commit();
+  __syncthreads();
+  if (tid < 2) {
+    const float4* r4 = reinterpret_cast<const float4*>(s_rate);
+    const int lr = tid ? kHLr : kWLr;
+    int n = 0;
+    for (int c4 = 0; c4 < fe4; ++c4) {
+      s_li[tid * fe4 + c4] = n;
+      if (f4_any(r4[lr * fe4 + c4])) s_live[tid * fe4 + n++] = c4;
+    }
+    s_nlive[tid] = n;
+  }
+  // the first chunk's wait: every CTA of the cluster runs (its stage may
+  // be written), and the live lists are set
+  cluster_arrive(ncta);
+  const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [4][fe4]
 
   for (int k = 0; k < nc; ++k) {
-    const int b = k & 1;
+    const int b = k % 3;
     cp_async_wait_all();
-    // chunk k's rows have landed; the previous chunk's stores are
-    // visible to this chunk's gathers (see the comment at the top)
-    __syncthreads();
-    if (k + 1 < nc) prefetch(k + 1, b ^ 1);
+    // chunk k's and k+1's indices have landed; the previous chunk's
+    // stores are visible to this chunk's gathers, and its stage is read
+    // (see the note at the top)
+    cluster_wait(ncta);
+    // chunk k+2's indices into the buffer chunk k-1 used: in one CTA now,
+    // in a cluster while the other CTAs finish phase 1 (each measured
+    // the faster, PERF.md section 6)
+    auto next_indices = [&]() {
+      if (k + 2 < nc) prefetch(k + 2, s_meta[(k + 1) % 3][2], (k + 2) % 3);
+      cp_async_commit();
+    };
+    if (ncta == 1) next_indices();
+    const int ub = s_meta[b][0], ib = s_meta[b][1];
     const int32_t* sd = s_buf + b * 4 * C;
     const uint16_t* runs = s_seg + b * RK;
     const uint16_t* codes = runs + RL;          // [2][Cw]
-    const int64_t wbase = (int64_t)s_meta[b][0] * UB;
-    const int64_t hbase = (int64_t)s_meta[b][1] * IB;
-    const mml_owner::Stage st = mml_owner::make_stage(
-        runs, 3u, s_nlive[0], s_nlive[1], s_stage, stage_f4, scratch);
+    const int64_t wbase = (int64_t)ub * UB;
+    const int64_t hbase = (int64_t)ib * IB;
+    ClusterStage st;
+    st.part = s_part;
+    st.local = s_stage;
+    st.scratch = scratch;
+    st.rank = rank;
+    st.w0 = s_nlive[0];
+    st.w1 = s_nlive[1];
+    st.n0 = runs[2];
+    st.off1 = st.n0 * st.w0;
+    const int total = st.off1 + (int)runs[3] * st.w1;
+    st.one = ncta == 1;
+    st.S = max(1, st.one ? total : (total + ncta - 1) / ncta);
+    st.rS = st.one ? 1.f : 1.f / (float)st.S;
+    st.on_chip = st.S <= stage_f4;
+    // this CTA's runs of phase 2, those whose first value lies in its part
+    // of the stage (all of them in a cluster of one), found by one thread
+    // while its first pass's loads are in flight
+    const int nr = (int)runs[0] + (int)runs[1];
+    const bool searcher = ncta > 1 && st.on_chip && tid == kThreads - 32;
+    bool searched = false;
+    auto find_runs = [&]() {
+      const uint16_t* run = runs + 4;
+      for (int e = 0; e < 2; ++e) {
+        const int at = (rank + e) * st.S;
+        int lo = 0, hi = nr;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (st.off(run[3 * mid + 1]) < at) lo = mid + 1;
+          else hi = mid;
+        }
+        s_runs[e] = lo;
+      }
+      searched = true;
+    };
 
     // phase 1: gather and gradient, G passes' row loads issued before any
     // is used; the pass loop is uniform across the warp (its shuffles
-    // need every lane), slots past C weigh 0
-    for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
-      const int s0 = p0 + half;
+    // need every lane), slots past this CTA's weigh 0
+    for (int p0 = warp * SPW; p0 < ns; p0 += kStep * G) {
+      const int j0 = p0 + half;
       float4 wu[G][V], hi[G][V];
       float wt[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const int s = s0 + g * kStep;
-        wt[g] = s < C ? __int_as_float(sd[3 * C + s]) : 0.f;
+        const int j = j0 + g * kStep;
+        const int s = s_lo + j;
+        wt[g] = j < ns ? __int_as_float(sd[3 * C + s]) : 0.f;
         const bool live = wt[g] != 0.f;      // else rows 0, not read
         const float4* wrow = reinterpret_cast<const float4*>(
             W + (live ? wbase + sd[s] : 0) * fe);
@@ -266,6 +523,7 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
           hi[g][v] = ld ? __ldcg(hrow + c4) : z;
         }
       }
+      if (searcher && !searched) find_runs();
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
@@ -280,7 +538,7 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
         for (int o = kLanes / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(kFull, dot, o);
         if (wt[g] == 0.f) continue;          // padded slot
-        const int s = s0 + g * kStep;
+        const int s = s_lo + j0 + g * kStep;
         const float gr = gradient(dot, __int_as_float(sd[2 * C + s]), wt[g],
                                   gb, min_rating, rating_range, loss, biased);
         const uint16_t wcode = codes[s], hcode = codes[Cw + s];
@@ -304,59 +562,120 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
       }
     }
 
-    // phase 2: each run of a W or H row summed in slot order
+    if (searcher && !searched) find_runs();
+
+    // phase 2: each run of a W or H row summed in slot order. Over the
+    // cluster where the stage is on chip; else in CTA 0 by owner_chain,
+    // whose first barrier ends phase 1 in a cluster of one: the stage in
+    // its shared memory, or the values in the global scratch
     const SgdPieces pc{W, H, sd, s_live, wbase, hbase, C, fe, fe4};
-    mml_owner::owner_chain(runs, 3u, st, s_stage, stage_f4, pc);
+    if (ncta > 1) {
+      cluster_arrive(ncta);                   // this thread's phase 1
+      next_indices();
+      cluster_wait(ncta);
+    }
+    if (ncta > 1 && st.on_chip) {
+      cluster_sums(runs, st, s_runs[0], s_runs[1], pc);
+    } else if (rank == 0) {
+      mml_owner::Stage gs;
+      gs.base = st.on_chip ? s_stage : scratch;
+      gs.w0 = st.w0;
+      gs.w1 = st.w1;
+      gs.n0 = st.n0;
+      gs.off1 = st.off1;
+      gs.smem = st.on_chip;
+      mml_owner::owner_chain(runs, 3u, gs, s_stage, stage_f4, pc);
+    }
+    cluster_arrive(ncta);                     // this thread's phase 2
   }
+  // no CTA leaves while another may read its stage
+  cluster_wait(ncta);
+}
+
+template <int V, int SPW, int G, bool kOne>
+int launch(float* W, float* H, const int32_t* packed, const uint16_t* segs,
+           const int32_t* order_ub, const int32_t* order_ib,
+           const int32_t* order_row, const float* rates, float4* scratch,
+           int nc, int C, int RL, int UB, int IB, int fe, int smem,
+           int cluster, int stage_f4, float gb, float min_rating,
+           float rating_range, int loss, int biased, cudaStream_t st) {
+  auto kern = sgd_epoch_kernel<V, SPW, G, kOne>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int placed = 0;
+  err = cudaOccupancyMaxActiveClusters(&placed, (const void*)kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (placed < 1) return kClusterUnplaced;
+  err = cudaLaunchKernelEx(&cfg, kern, W, H, packed, segs, order_ub,
+                           order_ib, order_row, rates, scratch, nc, C, RL, UB,
+                           IB, fe, stage_f4, gb, min_rating,
+                           rating_range, loss, biased);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface (bound with ctypes). Launches on `stream`, does not
-// synchronise, and returns the first CUDA error of the launch. Chunk k
-// touches W rows order_ub[k] * UB + u_loc and H rows order_ib[k] * IB +
-// i_loc: order_ib holds absolute item blocks on either schedule. `segs`
-// [rows of packed, RL + 2 Cw] holds each chunk's segment table
+// C interface (bound with ctypes). Launches one cluster of `cluster` CTAs
+// (1 to 16) on `stream`, does not synchronise, and returns the first CUDA
+// error of the launch, or -2 where the card cannot place the cluster.
+// Chunk k touches W rows order_ub[k] * UB + u_loc and H rows order_ib[k]
+// * IB + i_loc: order_ib holds absolute item blocks on either schedule.
+// `segs` [rows of packed, RL + 2 Cw] holds each chunk's segment table
 // (ops/segments.py): the runs [RL] and the codes [2, Cw], Cw = C rounded
 // up to 8. `scratch` holds 2 * C * fe floats; fe is a multiple of 4, at
-// most 256, C a multiple of 4, RL a multiple of 8, and the shared memory `smem` bytes, of which
-// the owner scatter's stage takes what is left past 16 fe + 32 C + 4 (RL
-// + 2 Cw) + 16 (fe / 4) (rounded to 16) bytes; ops/sgd_epoch.py checks
-// all and sizes smem.
+// most 256, C a multiple of 4, RL a multiple of 8. Each CTA has `smem`
+// bytes of dynamic shared memory: 16 fe + 48 C + 6 (RL + 2 Cw) + 4 fe
+// bytes of rates, indices and live lists, and the stage in the rest;
+// ops/sgd_epoch.py checks all and sizes smem.
 extern "C" int mml_sgd_epoch(float* W, float* H, const int32_t* packed,
                              const void* segs, const int32_t* order_ub,
                              const int32_t* order_ib,
                              const int32_t* order_row, const float* rates,
                              float* scratch, int nc, int C, int RL, int UB,
-                             int IB, int fe, int smem,
+                             int IB, int fe, int smem, int cluster,
                              float gb, float min_rating, float rating_range,
                              int loss, int biased, void* stream) {
   if (nc == 0) return (int)cudaSuccess;
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   const int fe4 = fe / 4;
   const int RK = RL + 2 * ((C + 7) & ~7);
-  const int fixed = 16 * fe + 32 * C + 4 * RK + 4 * ((4 * fe4 + 3) & ~3);
+  const int fixed = 16 * fe + 48 * C + 6 * RK + 4 * ((4 * fe4 + 3) & ~3);
   const int stage_f4 = (smem - fixed) / 16;
+  if (stage_f4 < fe4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint16_t* sg = static_cast<const uint16_t*>(segs);
-  cudaError_t err;
-#define MML_LAUNCH(V, SPW, G)                                                \
-  do {                                                                       \
-    err = cudaFuncSetAttribute(sgd_epoch_kernel<V, SPW, G>,                  \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
-                               smem);                                        \
-    if (err != cudaSuccess) return (int)err;                                 \
-    sgd_epoch_kernel<V, SPW, G><<<1, kThreads, smem, st>>>(                  \
-        W, H, packed, sg, order_ub, order_ib, order_row, rates,              \
-        reinterpret_cast<float4*>(scratch), nc, C, RL, UB, IB, fe,           \
-        stage_f4, gb, min_rating, rating_range, loss, biased);               \
-  } while (0)
-  if (fe <= 64) {
-    MML_LAUNCH(1, 2, 2);
-  } else if (fe <= 128) {
-    MML_LAUNCH(1, 1, 2);
-  } else {
-    MML_LAUNCH(2, 1, 1);
-  }
+  float4* sc = reinterpret_cast<float4*>(scratch);
+#define MML_LAUNCH(V, SPW, G)                                                 \
+  (cluster == 1                                                               \
+       ? launch<V, SPW, G, true>(W, H, packed, sg, order_ub, order_ib,        \
+                                 order_row, rates, sc, nc, C, RL, UB, IB, fe, \
+                                 smem, cluster, stage_f4, gb, min_rating,     \
+                                 rating_range, loss, biased, st)              \
+       : launch<V, SPW, G, false>(W, H, packed, sg, order_ub, order_ib,       \
+                                  order_row, rates, sc, nc, C, RL, UB, IB,    \
+                                  fe, smem, cluster, stage_f4, gb,            \
+                                  min_rating, rating_range, loss, biased, st))
+  if (fe <= 64) return MML_LAUNCH(1, 2, 2);
+  if (fe <= 128) return MML_LAUNCH(1, 1, 2);
+  return MML_LAUNCH(2, 1, 1);
 #undef MML_LAUNCH
-  return (int)cudaGetLastError();
 }

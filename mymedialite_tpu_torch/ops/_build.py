@@ -51,7 +51,7 @@ class KernelLibrary:
         self.lib = ctypes.CDLL(path)
         fn = self.lib.mml_sgd_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn = self.lib.mml_bpr_epoch

@@ -8,14 +8,17 @@ schedule; ``sgd_epoch_tiled`` replaces ``sgd_epoch_mxu_tiled`` :939
 big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
 and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
 outputs to their inputs. On CUDA tensors they launch
-``csrc/sgd_epoch.cu`` (one launch per epoch; the tiled wrapper first
-forms the absolute item blocks) or raise, also where the kernel does not
-take the shape (``check_kernel_shape``: fe and the chunk multiples of 4,
-fe <= 256, two chunks, their segment tables and the rates within 227 KB
-of shared memory, beside at least one row of the owner scatter's stage).
-The kernel adds each row's deltas in slot order, as ``index_add_`` does
-on the CPU, from the segment tables of ``ops/segments.py`` (built on the
-card once per ``packed``), so two runs give the same tables bit for bit.
+``csrc/sgd_epoch.cu`` (one launch per epoch, of one thread-block
+cluster of ``cluster_size`` CTAs that splits each chunk's slots; the
+tiled wrapper first forms the absolute item blocks) or raise, also where
+the kernel does not take the shape (``check_kernel_shape``: fe and the
+chunk multiples of 4, fe <= 256, three chunks, their segment tables and
+the rates within 227 KB of shared memory, beside at least one row of the
+owner scatter's stage) and where the card cannot place the cluster.
+The kernel adds each row's deltas in slot order, as
+``index_add_`` does on the CPU, from the segment tables of
+``ops/segments.py`` (built on the card once per ``packed``), so two runs
+give the same tables bit for bit, whatever the cluster.
 On CPU tensors they run ``sgd_epoch_reference`` /
 ``sgd_epoch_tiled_reference``. Each counts its own launches.
 ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` (``pallas_sgd.py
@@ -50,22 +53,36 @@ from mymedialite_tpu_torch.ops.sgd import gradient_common
 
 # the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the kernel stages the rates, two chunks' rows and segment tables and the
-# owner scatter's values in shared memory, at most what a block can have
-# on an H100 (227 KB), less its static shared memory
+# the kernel stages the rates, three chunks' rows and segment tables and
+# its part of the owner scatter's values in shared memory, at most what a
+# block can have on an H100 (227 KB), less 1 KB for its static shared
+# memory
 MAX_SHARED_BYTES = 227 * 1024
-DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
+DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 1024
+# what the launcher returns where the card cannot place the cluster
+CLUSTER_UNPLACED = -2
+# the cluster a chunk spreads over: N CTAs for chunks of at least C slots
+# (measured on the card, PERF.md section 6); N <= 8 is the portable size
+CLUSTER_BY_CHUNK = ((256, 8), (0, 1))
+
+
+def cluster_size(chunk: int) -> int:
+    """N, the CTAs of the thread-block cluster that runs each chunk (the
+    kernel's only grid; CTA r takes slots [r cs, (r + 1) cs), cs =
+    ceil(C / N)): the first entry of ``CLUSTER_BY_CHUNK`` whose chunk
+    bound ``chunk`` reaches."""
+    return next(n for c, n in CLUSTER_BY_CHUNK if chunk >= c)
 
 
 def shared_bytes(fe: int, chunk: int) -> int:
-    """Shared memory of the kernel before its stage: the rates [4, fe],
-    two chunks' packed rows [2, 4, C] and the runs and codes of their
-    segment tables [2, RL + 2 Cw], the live float4 lists and their
-    inverse, and one row of the stage (the rest of the block's shared
-    memory is the stage)."""
+    """A CTA's dynamic shared memory before its stage: the rates [4, fe],
+    three chunks' packed rows [3, 4, C] and the runs and codes of their
+    segment tables [3, RL + 2 Cw], the live float4 lists and their
+    inverse, and one row of the stage (the rest of the CTA's shared
+    memory is its part of the stage)."""
     runs_codes = runs_length(2 * chunk) + 2 * round8(chunk)
-    return 16 * fe + 32 * chunk + 4 * runs_codes + 4 * ((fe + 3) // 4 * 4) \
-        + 4 * fe
+    return 16 * fe + 48 * chunk + 6 * runs_codes \
+        + 4 * ((fe + 3) // 4 * 4) + 4 * fe
 
 
 def check_kernel_shape(fe: int, chunk: int):
@@ -155,6 +172,7 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
         raise ValueError(f"sgd_epoch: no kernel for device {W.device}")
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_sgd_epoch
+    cluster = cluster_size(C)
     segs = segments_of(packed)
     scratch = torch.empty(2 * C * fe, dtype=torch.float32, device=W.device)
     gb, min_rating, rating_range = (float(x) for x in hp)
@@ -165,8 +183,12 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
                  segs.data_ptr(), *(o.data_ptr() for o in order),
                  rates.data_ptr(), scratch.data_ptr(), order[0].numel(), C,
                  runs_length(2 * C), user_block, item_block, fe,
-                 DYNAMIC_SHARED_BYTES, gb, min_rating, rating_range,
-                 int(loss), int(bool(biased)), stream)
+                 DYNAMIC_SHARED_BYTES, cluster, gb, min_rating,
+                 rating_range, int(loss), int(bool(biased)), stream)
+    if err == CLUSTER_UNPLACED:
+        raise RuntimeError(f"sgd_epoch: the card cannot place a cluster of "
+                           f"{cluster} blocks of {DYNAMIC_SHARED_BYTES} B of "
+                           "shared memory")
     if err != 0:
         raise RuntimeError(f"sgd_epoch: kernel launch failed, CUDA error {err}")
 

@@ -2118,3 +2118,277 @@ def test_exact_add_takes_ids_past_int32(cuda):
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(want))
     assert (got[high] != 0).all()
+
+
+# --- kernels 1 and 2 over a thread-block cluster with the next chunk's
+# rows copied ahead: the orders of tests/test_torch_sgd_overlap.py held
+# to the plain version and to a second launch, and the tables of every
+# case held to digests of the tables that the one-block kernel (the
+# commit before the cluster walk) gave from the same inputs
+
+SGD_ORDERS = ["same-cell", "same-ub", "ub-boundary", "one-chunk", "epoch",
+              "zipf-epoch"]
+SGD_PREFIX = [(loss, biased) for biased in (True, False)
+              for loss in (S.LOSS_RMSE, S.LOSS_MAE, S.LOSS_LOGISTIC)]
+
+
+def _sgd_order(plan, case):
+    """(ub, ib, row) int32 tensors on the plan's device: consecutive
+    chunks on one cell, on one user block, across user blocks (sorted by
+    block), one chunk, or an epoch's order; absolute item blocks."""
+    ub, ib = plan.ub_c, plan.ib_c
+    rows = np.arange(ub.size)
+    if case == "same-cell":
+        cells = ub.astype(np.int64) * plan.n_iblocks + ib
+        sel = rows[cells == np.bincount(cells).argmax()]
+    elif case == "same-ub":
+        sel = rows[ub == ub[0]]
+        sel = sel[np.argsort(ib[sel], kind="stable")]
+    elif case == "ub-boundary":
+        sel = np.lexsort((ib, ub))
+    elif case == "one-chunk":
+        sel = rows[:1]
+    else:
+        order = plan.epoch_order(7)
+        sel = order[-1].cpu().numpy()
+    dev = plan.packed.device
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                 for a in (ub[sel], ib[sel], sel))
+
+
+def _sgd_case(device, name):
+    """(plan, W, H, order, rates, hp, kw) of a named case:
+    ``order-{case}-{resident|tiled}``, ``prefix-{resident|tiled}-{loss}-
+    {biased|plain}`` (the first 4,096 chunks of an epoch at 48,000 x
+    17,770 x 3M); the order is the wrapper's: (ub, ib, row), or on the
+    tiled plans (one-block slabs) (ub, ibr, sl, row), kw with
+    slab_blocks."""
+    parts = name.split("-")
+    tiled = "tiled" in parts
+    loss, biased = S.LOSS_RMSE, True
+    if parts[0] == "prefix":
+        loss, biased = int(parts[2]), parts[3] == "biased"
+        U, I = 48_000, 17_770
+        data = synthetic_ratings(num_users=U, num_items=I,
+                                 num_ratings=3_000_000, seed=1,
+                                 device=device)
+        users, items, values = data.users, data.items, data.values
+    elif "zipf" in parts:
+        users, items, values, U, I = _zipf_ratings(np.random.default_rng(0))
+    else:
+        U, I = 2000, 3000
+        data = synthetic_ratings(num_users=U, num_items=I,
+                                 num_ratings=100_000, seed=0)
+        users, items, values = data.users, data.items, data.values
+    prep = dict(user_block=512, item_block=1024, shuffle_seed=1,
+                device=device)
+    if tiled:
+        plan = P.prepare_mxu_tiled(users, items, values, U, I, chunk=None,
+                                   slab_blocks=1, **prep)
+    else:
+        plan = P.prepare_mxu_data(users, items, values, U, I, chunk=640,
+                                  **prep)
+    if parts[0] == "prefix":
+        order = tuple(t[:4096].contiguous() for t in plan.epoch_order(5))
+        assert order[0].numel() == 4096
+    else:
+        case = "-".join(parts[1:-1])
+        order = _sgd_order(plan, "epoch" if case == "zipf-epoch" else case)
+        if tiled:                  # one-block slabs: sl = ib, ibr = 0
+            order = (order[0], torch.zeros_like(order[1]), order[1],
+                     order[2])
+    rng = np.random.default_rng(2)
+    W, H = P.extend_tables_mxu(
+        plan, 0.1 * rng.standard_normal((U, 40)),
+        0.1 * rng.standard_normal((I, 40)),
+        0.1 * rng.standard_normal(U) if biased else None,
+        0.1 * rng.standard_normal(I) if biased else None)
+    # BiasedMatrixFactorization's default rates: at the duplicate-heavy
+    # shape's high rates (test_duplicate_heavy_spread) float32 runs that
+    # sum in another order part by more than 1e-4
+    rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0, 0.01,
+                               biased, True, True, device=device)
+    hp = (0.3, 1.0, 4.0) if biased else (3.3, 1.0, 4.0)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=loss, biased=biased)
+    if tiled:
+        assert plan.slab_blocks == 1
+        kw["slab_blocks"] = 1
+    return plan, W, H, order, rates, hp, kw
+
+
+def _sgd_run(case, kernel=True):
+    """The case's tables after one launch of kernel 1 (``sgd_epoch``) or
+    2 (``sgd_epoch_tiled``) on copies of its tables, or of the plain
+    version."""
+    plan, W, H, order, rates, hp, kw = case
+    tiled = "slab_blocks" in kw
+    fn = ((sgd_epoch_tiled if kernel else sgd_epoch_tiled_reference)
+          if tiled else (sgd_epoch if kernel else sgd_epoch_reference))
+    Wk, Hk = W.clone(), H.clone()
+    fn(Wk, Hk, plan.packed, order, hp, rates, **kw)
+    return Wk, Hk
+
+
+def _sgd_mesh_run(device, tiled):
+    """W shards and H partitions after one sharded epoch on a rig of the
+    card named 4 times (test_sgd_sharded_matches_reference's inputs)."""
+    from mymedialite_tpu_torch.ops.sgd_epoch import (
+        sgd_epoch_sharded, sgd_epoch_sharded_tiled,
+    )
+    data = synthetic_ratings(num_users=2000, num_items=3000,
+                             num_ratings=100_000, seed=4)
+    args = (data.users, data.items, data.values, 2000, 3000, 4)
+    plan_kw = dict(chunk=None, slab_blocks=1) if tiled else dict(chunk=640)
+    plan = (P.prepare_mxu_sharded_tiled if tiled else P.prepare_mxu_sharded)(
+        *args, shuffle_seed=2, device=device, **plan_kw)
+    rng = np.random.default_rng(1)
+    W, H = P.extend_tables_mxu(plan, 0.1 * rng.standard_normal((2000, 40)),
+                               0.1 * rng.standard_normal((3000, 40)))
+    mesh = _rig(device)
+    Ws, Hs = mesh.shard_rows(W), mesh.shard_rows(H)
+    rates = P.mxu_column_rates(40, W.shape[1], 0.01, 0.015, 0.015, 1.0, 0.01,
+                               True, True, True, device=device)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              loss=S.LOSS_RMSE, biased=True)
+    order = plan.epoch_order(3)
+    if tiled:
+        sgd_epoch_sharded_tiled(mesh, Ws, Hs, plan.packed, order,
+                                plan.cell_counts, (0.6, 1.0, 4.0), rates,
+                                slab_blocks=plan.slab_blocks, **kw)
+    else:
+        sgd_epoch_sharded(mesh, Ws, Hs, plan.packed, order, plan.cell_counts,
+                          (0.6, 1.0, 4.0), rates, **kw)
+    return mesh.gather_rows(Ws), mesh.gather_rows(Hs)
+
+
+def _digest(tables):
+    import hashlib
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in tables:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sgd_case_names():
+    return ([f"order-{c}-{s}" for c in SGD_ORDERS
+             for s in ("resident", "tiled")]
+            + [f"prefix-{s}-{loss}-{'biased' if b else 'plain'}"
+               for s in ("resident", "tiled") for loss, b in SGD_PREFIX]
+            + ["mesh-resident", "mesh-tiled"])
+
+
+def sgd_case_digest(device, name):
+    if name.startswith("mesh"):
+        return _digest(_sgd_mesh_run(device, name.endswith("tiled")))
+    return _digest(_sgd_run(_sgd_case(device, name)))
+
+
+# sgd_case_digest of each case, recorded on an H100 from `git archive` of
+# the commit before the cluster walk (python3 tests/test_torch_cuda.py
+# --sgd-digests with that tree's root first on PYTHONPATH)
+SGD_ONE_BLOCK_SHA256 = {
+    "order-same-cell-resident":
+        "7d9324cbf5d159d21a3277439994996ce4afb38fee01b40ecda1b8513734b5cb",
+    "order-same-cell-tiled":
+        "5f067eb509e8f4d5c6276aeea11e9e894c8805c20c0c7064ea0a5c1ba0f10d70",
+    "order-same-ub-resident":
+        "2225232d3ab9cf2b92fdb99517d1c97caecfb1a5f7cfa69568582760544f8af7",
+    "order-same-ub-tiled":
+        "4db4ec4703217c423f22e93f909b27672e85e7fa7312b23c1693b1c7c5d81751",
+    "order-ub-boundary-resident":
+        "c9d1a644ba5955e4525b44c90afa67ad438dfa31d5fe18894f0d5c8298b91855",
+    "order-ub-boundary-tiled":
+        "6d73ec807832ba28ffa6663cc30e1f5ddc8784e38dbdb39b769b6c9a5554d92f",
+    "order-one-chunk-resident":
+        "b860d487472126c2953375484334f6b0db9344169841963a4f4a73c1ec4f4c72",
+    "order-one-chunk-tiled":
+        "b36f93c36b32c2e82cd4aeb1f3cd30a1e152dca3c058f2664c9bb5adba5f0929",
+    "order-epoch-resident":
+        "9fb64e21e00ab6cf17caf4bd2eec4734158614acccecc8c4247824f78222e498",
+    "order-epoch-tiled":
+        "e8b9de3ef0a5b3dc795a1da4d0d7767dd324bef728b433b93c0a9cd69812b97c",
+    "order-zipf-epoch-resident":
+        "da26faab08e2434717a3d8fa429039b110be4bc579679a304dc9770c9840cdee",
+    "order-zipf-epoch-tiled":
+        "da26faab08e2434717a3d8fa429039b110be4bc579679a304dc9770c9840cdee",
+    "prefix-resident-0-biased":
+        "e8eb7696c8b5a6a374586f2960d2bc7b12b876376e46a9ed32db9838d1317a1e",
+    "prefix-resident-1-biased":
+        "268d8e37c758f060a7cda19e3f424a343ed0c7d09c7165c766d9b255912e339d",
+    "prefix-resident-2-biased":
+        "a5b567f5e4dd9de317b13b452edb06bc081a063ac2beea29d46ee045251b163d",
+    "prefix-resident-0-plain":
+        "5bdc1e3175b03160ae7591fd94c78b8136537b960744094b897311af6aec5526",
+    "prefix-resident-1-plain":
+        "5bdc1e3175b03160ae7591fd94c78b8136537b960744094b897311af6aec5526",
+    "prefix-resident-2-plain":
+        "5bdc1e3175b03160ae7591fd94c78b8136537b960744094b897311af6aec5526",
+    "prefix-tiled-0-biased":
+        "5c901a4e8cb9507e7c4ce8eee34856f4d3b4732aab3d84a10b89e114101fa42c",
+    "prefix-tiled-1-biased":
+        "44d03716e58b778a18192343c5a6175d513583dfb213fd7e3a674d785324b6f4",
+    "prefix-tiled-2-biased":
+        "d556d9e5616164a3f58c24f57c3a9e0d535d2777889e9bc0e747eaff3d82ccb8",
+    "prefix-tiled-0-plain":
+        "f30337ecd6a869577e5fe0ec34dd2c895243341bf43e52513c3153a40a38a97b",
+    "prefix-tiled-1-plain":
+        "f30337ecd6a869577e5fe0ec34dd2c895243341bf43e52513c3153a40a38a97b",
+    "prefix-tiled-2-plain":
+        "f30337ecd6a869577e5fe0ec34dd2c895243341bf43e52513c3153a40a38a97b",
+    "mesh-resident":
+        "0b3366457e0c545482b5e3896f5822c21f54edf31af67c3922d9b9b06924c52d",
+    "mesh-tiled":
+        "50b553e0e9b6c3df5c450a8324e075e99485d420bbd2a041cf6c9198168d6067",
+}
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("case", SGD_ORDERS)
+def test_sgd_kernels_over_orders(cuda, case, tiled):
+    """Kernels 1 (resident) and 2 (tiled) over orders with consecutive
+    chunks on one cell, on one user block, across user blocks, one chunk
+    alone, an epoch's order and a Zipf(1.3) duplicate-heavy epoch: within
+    1e-4 of the plain version, equal to a second launch bit for bit, and
+    to the one-block kernel's tables."""
+    name = f"order-{case}-{'tiled' if tiled else 'resident'}"
+    inputs = _sgd_case(cuda, name)
+    got = _sgd_run(inputs)
+    again = _sgd_run(inputs)
+    want = _sgd_run(inputs, kernel=False)
+    torch.cuda.synchronize()
+    assert max((a - b).abs().max().item() for a, b in zip(got, want)) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _digest(got) == SGD_ONE_BLOCK_SHA256[name]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+@pytest.mark.parametrize("loss,biased", SGD_PREFIX)
+def test_sgd_prefix_equals_the_one_block_kernel(cuda, loss, biased, tiled):
+    """The first 4,096 chunks of an epoch of kernel 1 (chunks of 640) and
+    2 (chunks of the histogram's size) at 48,000 x 17,770 x 3M, for every
+    loss, biased and plain: the one-block kernel's tables bit for bit."""
+    name = (f"prefix-{'tiled' if tiled else 'resident'}-{loss}-"
+            f"{'biased' if biased else 'plain'}")
+    assert sgd_case_digest(cuda, name) == SGD_ONE_BLOCK_SHA256[name]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["sharded",
+                                                      "sharded-tiled"])
+def test_sgd_mesh_cells_equal_the_one_block_kernel(cuda, tiled):
+    """A sharded epoch on the rig (kernel 1 or 2 once a cell, each cell's
+    order relative to its shard and partition): the one-block kernel's
+    tables bit for bit."""
+    name = f"mesh-{'tiled' if tiled else 'resident'}"
+    assert sgd_case_digest(cuda, name) == SGD_ONE_BLOCK_SHA256[name]
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+    if sys.argv[1:] != ["--sgd-digests"]:
+        sys.exit("usage: python3 tests/test_torch_cuda.py --sgd-digests")
+    dev = torch.device("cuda")
+    print(json.dumps({name: sgd_case_digest(dev, name)
+                      for name in sgd_case_names()}, indent=1))

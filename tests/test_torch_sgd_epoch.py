@@ -114,7 +114,7 @@ def test_wrapper_rejects_bad_input(setup):
 
 def test_kernel_shape_contract():
     """The kernel takes fe and the chunk in multiples of 4 (float4 rows,
-    16-byte pieces of a chunk), fe <= 256, and two chunks, their segment
+    16-byte pieces of a chunk), fe <= 256, and three chunks, their segment
     tables, the rates and one row of the owner scatter's stage within 227
     KB of shared memory: every width ``fused_width`` gives up to 254
     factors at every chunk the plans pick (128-640, the CPU tests' 64)
@@ -123,10 +123,10 @@ def test_kernel_shape_contract():
     for f in range(1, 255):
         for chunk in (64, 128, 256, 384, 512, 640):
             se.check_kernel_shape(P.fused_width(f), chunk)
-    # rates, packed rows, runs and codes [2, 1928 + 2 * 640], the live
-    # float4 lists and their inverse, a stage row
+    # rates, packed rows [3, 4, 640], runs and codes [3, 1928 + 2 * 640],
+    # the live float4 lists and their inverse, a stage row
     assert se.shared_bytes(64, 640) == \
-        4 * (4 * 64 + 8 * 640) + 4 * (1928 + 1280) + 4 * 64 + 4 * 64
+        4 * (4 * 64 + 12 * 640) + 6 * (1928 + 1280) + 4 * 64 + 4 * 64
     for fe, chunk in ((62, 640), (64, 642), (264, 640), (64, 8192)):
         with pytest.raises(ValueError, match="multiples of 4"):
             se.check_kernel_shape(fe, chunk)
