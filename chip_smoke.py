@@ -34,7 +34,11 @@ Phases (any failure raises and the script exits non-zero):
    tables within the tolerance; two launches from the same inputs give
    equal tables, negatives and segment tables, the latter equal to the
    plain builder's (``ops/segments.py bpr_segments_reference``) on the
-   sampled negatives;
+   sampled negatives; then the orders that exercise the walk's cluster
+   (``bpr_cluster_orders``: the orders of phase 3 on the resident
+   schedule, and an epoch of each schedule on a Zipf(1.3)
+   duplicate-heavy catalog), each held the same way, with its us a chunk
+   and the cluster it ran on;
 5. the fused top-k kernel against its plain version on the cases of
    tests/test_pallas_topk.py and at the serving shape (1,024 users x
    62,423 items, f=41, k=64); k=65 refused;
@@ -64,7 +68,11 @@ Phases (any failure raises and the script exits non-zero):
     sigmoid RMSE, sigmoid MAE and without p (the asymmetric factor models);
     the MAE row under phase 3's two witnesses, its R steps run one at a
     time after their block's S steps; where R and Y read s and c (a
-    copy in shared memory or the global scratch) is logged;
+    copy in shared memory or the global scratch) is logged; then the
+    schedules that exercise the walk's cluster (``svdpp_cluster_orders``:
+    Zipf users on an 8-item catalog at k=20 and k=100, and one user
+    filling whole S and R steps), each against the plain version and a
+    second launch, with its us a step, the cluster and the variant;
 11. the SVD++ rating main path on phase 6's data: SVDPlusPlus (k=20, learn
     rate 0.003, 3 epochs) trained through the registry with the test pairs
     as additional feedback (as the CLI sets them), evaluated against the
@@ -1120,7 +1128,79 @@ def phase_bpr_kernel_check(dev):
                 f"({plan.num_chunks} chunks of {plan.chunk}, {S} slabs)")
             check(err, f"bpr tiled soft_margin={soft_margin} wbpr={wbpr}")
             worst["tiled"] = max(worst.get("tiled", 0.0), err)
+    bpr_cluster_orders(dev, rates, worst)
     return worst
+
+
+def bpr_cluster_orders(dev, rates, worst):
+    """The orders that exercise the BPR walk's cluster (``ops/cluster.py``):
+    on phase 3's feedback, consecutive chunks on one cell, on one user
+    block, across user blocks, one chunk and an epoch
+    (``sgd_order_cases``; each chunk's negative block drawn as BPRMF
+    draws it, for its row); on a duplicate-heavy Zipf(1.3) catalog (the
+    card tests'), an epoch of each schedule. Each against the plain
+    version and a second launch (``bpr_kernel_vs_plain`` /
+    ``bpr_tiled_kernel_vs_plain``), with its us a chunk and the cluster
+    it ran on."""
+    from mymedialite_tpu_torch.data.arrays import PosOnlyData
+    from mymedialite_tpu_torch.data.synthetic import (
+        posonly_from_ratings, synthetic_ratings,
+    )
+    from mymedialite_tpu_torch.ops import bpr_plan
+    from mymedialite_tpu_torch.ops.bpr_epoch import cluster_size
+    zrng = np.random.default_rng(7)
+    feeds = {
+        "": posonly_from_ratings(synthetic_ratings(
+            num_users=2000, num_items=3000, num_ratings=100_000, seed=3)),
+        "zipf ": PosOnlyData(zrng.integers(0, 700, 20_000),
+                             zrng.zipf(1.3, 20_000) % 900, num_users=700,
+                             num_items=900)}
+    for label, fb in feeds.items():
+        plan, state, meta = bpr_plan.prepare_bpr_mxu(
+            fb, uniform_user=True, shuffle_seed=4, bitmask=True, device=dev)
+        W, H = bpr_tables(dev, plan, fb.num_users, fb.num_items, 5)
+        cases = sgd_order_cases(plan) if not label else \
+            {"epoch": plan.epoch_order(6)}
+        # every chunk's negative block, by row: a case's chunks take their
+        # rows' (bkt holds the chunk's own user block)
+        by_row = bpr_plan.epoch_negative_plan(plan, state["nvalid"],
+                                              plan.ub_c, meta[3], 7)
+        for case, order in cases.items():
+            nc = order[0].numel()
+            neg_plan = tuple(t[order[2].long()].contiguous() for t in by_row)
+            gen = torch.Generator(device=dev).manual_seed(nc)
+            bits = torch.randint(0, 2 ** 31, (nc, meta[2], plan.chunk),
+                                 dtype=torch.int32, generator=gen,
+                                 device=dev)
+            err, k_ms, _, _ = bpr_kernel_vs_plain(
+                plan, state, W, H, order, neg_plan, bits, rates,
+                soft_margin=False, wbpr=False, bitmask=False)
+            what = f"bpr resident {label}order {case}"
+            check(err, what)
+            log(f"{what}: negatives identical, max_abs_err {err:.3e} (tol "
+                f"{KERNEL_TOL}), {k_ms * 1e3 / nc:.2f} us a chunk over {nc} "
+                f"chunks of {plan.chunk} (a cluster of "
+                f"{cluster_size(plan.chunk)}); twice: equal")
+            worst["resident"] = max(worst["resident"], err)
+    fb = feeds["zipf "]
+    plan, state, meta = bpr_plan.prepare_bpr_mxu(
+        fb, uniform_user=True, shuffle_seed=4, chunk=None, kcap=128,
+        subkeys=True, ksub_cap=256, bitmask=False, chunk_overhead=256,
+        device=dev)
+    B, S, slab_items = bpr_plan.bpr_tiled_plan(plan, state["nvalid"],
+                                               slab_blocks=1)
+    tl = dict(slab_blocks=B, num_slabs=S, slab_items=slab_items)
+    W, H = bpr_tables(dev, plan, fb.num_users, fb.num_items, 5)
+    order, bits = bpr_tiled_epoch_inputs(plan, state, meta, tl, 8)
+    err, k_ms, _, _ = bpr_tiled_kernel_vs_plain(
+        plan, state, tl, W, H, order, bits, rates, soft_margin=False,
+        wbpr=False)
+    check(err, "bpr tiled zipf epoch")
+    log(f"bpr tiled zipf order epoch: negatives identical, max_abs_err "
+        f"{err:.3e} (tol {KERNEL_TOL}), {k_ms * 1e3 / plan.num_chunks:.2f} "
+        f"us a chunk over {plan.num_chunks} chunks of {plan.chunk} (a "
+        f"cluster of {cluster_size(plan.chunk)}); twice: equal")
+    worst["tiled"] = max(worst["tiled"], err)
 
 
 def draw_device():
@@ -1622,6 +1702,64 @@ def phase_svdpp_kernel_check(dev):
         worst = max(worst, err)
     log("svdpp kernel checks: every variant launched twice from the same "
         "inputs gives equal tables bit for bit")
+    return max(worst, svdpp_cluster_orders(dev))
+
+
+def svdpp_cluster_orders(dev):
+    """The schedules that exercise the SVD++ walk's cluster
+    (``ops/cluster.py``): an epoch over Zipf(1.2) users and an 8-item
+    catalog (the card tests' duplicate users and items: runs of hundreds
+    of slots in s, W, c, n, Q and Y), at 20 and 100 factors (the shared
+    and the global variant), and an epoch in which one user alone in its
+    block fills whole S and R steps. Each against the plain version and
+    a second launch, with its us a step, the cluster and the variant.
+    Returns the largest error."""
+    from mymedialite_tpu_torch.ops import svdpp_plan as sp
+    from mymedialite_tpu_torch.ops.svdpp_epoch import cluster_size
+    from mymedialite_tpu_torch.ops.svdpp import history_edges
+    from mymedialite_tpu_torch.ops.svdpp_epoch import accumulator_variant
+    rng = np.random.default_rng(8)
+    n = 12_000
+    zipf = ((rng.zipf(1.2, n) % 1100).astype(np.int32),
+            rng.integers(0, 8, n).astype(np.int32), 1100, 8)
+    heavy = (np.concatenate([np.zeros(1024, np.int32),
+                             rng.integers(512, 600, 500).astype(np.int32)]),
+             np.concatenate([rng.permutation(1024),
+                             rng.integers(0, 1024, 500)]).astype(np.int32),
+             600, 1024)
+    worst = 0.0
+    for label, (users, items, U, I), f in (("zipf", zipf, 20),
+                                           ("zipf", zipf, 100),
+                                           ("heavy user", heavy, 20)):
+        values = rng.integers(1, 11, users.size).astype(np.float32) / 2
+        hu, hi = history_edges(users, items, I)
+        plan = sp.prepare_svdpp_mxu(users, items, values, hu, hi, U, I,
+                                    shuffle_seed=1, device=dev)
+        fe = sp.svdpp_fe(f)
+        tabs = (torch.from_numpy((0.1 * rng.standard_normal(s)).astype(
+            np.float32)).to(dev) for s in ((U, f), (U,), (I, f), (I,), (I, f)))
+        p, bu, q, bi, y = tabs
+        noo = torch.from_numpy(plan.new_of_old.astype(np.int64)).to(dev)
+        tables = sp.svdpp_tables_to_mxu(p, bu, plan.inv_sqrt, q, bi, y, noo,
+                                        u_pad=plan.u_pad, i_pad=plan.i_pad,
+                                        fe=fe)
+        rates = sp.svdpp_mxu_rates(f, fe, 0.003, 0.7, 0.015, 0.33, 0.015,
+                                   use_p=True, update_user=True,
+                                   update_item=True, device=dev)
+        kw = dict(num_factors=f, loss=0, sigmoid=True)
+        err, k_ms, _ = svdpp_kernel_vs_plain(plan, tables, plan.schedule,
+                                             (0.6, 1.0, 4.0), rates, **kw)
+        what = f"svdpp {label} epoch k={f}"
+        check(err, what)
+        svdpp_repeats(plan, tables, plan.schedule, (0.6, 1.0, 4.0), rates,
+                      user_block=plan.user_block, item_block=plan.item_block,
+                      **kw)
+        variant = accumulator_variant(plan.user_block, f, plan.chunk, fe)
+        log(f"{what}: max_abs_err {err:.3e} (tol {KERNEL_TOL}), "
+            f"{k_ms * 1e3 / plan.num_steps:.2f} us a step over "
+            f"{plan.num_steps} steps of {plan.chunk} (a cluster of "
+            f"{cluster_size(plan.chunk)}, variant {variant}); twice: equal")
+        worst = max(worst, err)
     return worst
 
 

@@ -1,7 +1,7 @@
-"""Where the owner scatter's time goes: epoch kernels 1, 2, 3 and 5
-timed on the card for a tree and for copies of it with phase 2 cut.
+"""Where the owner scatter's time goes: epoch kernels 1-5 timed on the
+card for a tree and for copies of it with phase 2 cut.
 
-    python3 exp_torch_scatter_split.py OUT ROOT [ROOT ...]
+    python3 exp_torch_scatter_split.py OUT ROOT [ROOT ...] [--split]
 
 For each ROOT (this checkout, or a parent unpacked beside it) the script
 times, at the Netflix shape scaled to 48,000 users x 17,770 items x 2M
@@ -9,16 +9,19 @@ draws (``synthetic_ratings(48_000, 17_770, 2_000_000, seed=1)``; chunks
 of 640 on the resident schedule, as the full shape's, and about 128 on
 the slab-tiled one with one-block slabs): one epoch of kernel 1
 (BiasedMF, k=40), kernel 2 (the same data tiled), kernel 3 (BPRMF, k=40,
-bitmask, plain and hinge) and kernel 5 (SVDPlusPlus, k=20; S, R and Y
-steps apart), in microseconds a chunk or a step (the best of three
-launches after a first), with a sha256 of the tables after the last
-launch (each from the same inputs: equal digests for two ROOTs show
-their kernels give the same tables bit for bit). With ``--split`` it
-also writes under OUT two copies of the first ROOT's package whose owner
-scatter (``csrc/owner_scatter.cuh``) returns right after its first
-barrier ("no phase 2") or skips its sums ("no sums"), and times those:
-they give wrong tables, and only their times are read. Prints one line ``SPLIT
-{json}`` a tree. Run on the card: each tree builds its kernels once.
+bitmask, plain and hinge), kernel 4 (the same events tiled with
+one-block slabs, sub-bucketed keys, plain and hinge) and kernel 5
+(SVDPlusPlus, k=20; S, R and Y steps apart), in microseconds a chunk or
+a step (the best of three launches after a first), with a sha256 of the
+tables after the last launch (each from the same inputs: equal digests
+for two ROOTs show their kernels give the same tables bit for bit).
+With ``--split`` it also writes under OUT two copies of the first ROOT's
+package whose owner scatter (``csrc/owner_scatter.cuh``) returns right
+after its first barrier ("no phase 2") or skips its sums ("no sums"),
+and whose cluster sums (``csrc/cluster_scatter.cuh``) return at once,
+and times those: they give wrong tables, and only their times are read.
+Prints one line ``SPLIT {json}`` a tree. Run on the card: each tree
+builds its kernels once.
 """
 import json
 import os
@@ -123,6 +126,31 @@ for sm in (False, True):
         plan.num_chunks)
     out["bpr" + ("_hinge" if sm else "")] = dict(
         chunks=plan.num_chunks, C=plan.chunk, us=us, sha256=sha)
+tplan, tstate, tmeta = BP.prepare_bpr_mxu(
+    posonly_from_ratings(d), uniform_user=True, shuffle_seed=1, chunk=None,
+    kcap=128, subkeys=True, ksub_cap=256, bitmask=False, chunk_overhead=256,
+    device=dev)
+B, S_, slab_items = BP.bpr_tiled_plan(tplan, tstate["nvalid"], slab_blocks=1)
+torder = BP.bpr_tiled_epoch_order(tplan, tstate["nvalid"], slab_items,
+                                  slab_blocks=B, num_slabs=S_,
+                                  num_items=tmeta[3], seed=3)
+nof = torch.from_numpy(tplan.new_of_old.astype(np.int64)).to(dev)
+tW, tH = BP.bpr_tables_to_mxu(*(torch.from_numpy(
+    (0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    for s in ((U, 40), (I, 40), (I,))), nof, u_pad=tplan.u_pad,
+    i_pad=tplan.i_pad, fe=P.fused_width(40))
+tbits = torch.randint(0, 2 ** 31, (tplan.num_chunks, tmeta[2], tplan.chunk),
+                      dtype=torch.int32, generator=gen, device=dev)
+for sm in (False, True):
+    us, sha = best_us(
+        lambda: BE.bpr_epoch_tiled(
+            *clones(tW, tH), tplan.packed, tstate["subkeys_tbl"],
+            tstate["cdf_tbl"], tbits, torder, rates, slab_blocks=B,
+            user_block=tplan.user_block, item_block=tplan.item_block,
+            soft_margin=sm, subkeys=True)[:2],
+        tplan.num_chunks)
+    out["bpr_tiled" + ("_hinge" if sm else "")] = dict(
+        chunks=tplan.num_chunks, C=tplan.chunk, us=us, sha256=sha)
 hu, hi = history_edges(d.users, d.items, I)
 sp = SP.prepare_svdpp_mxu(d.users, d.items, d.values, hu, hi, U, I,
                           shuffle_seed=4, device=dev)
@@ -150,31 +178,43 @@ for name, sel in (("all", None), ("S", 0), ("R", 1), ("Y", 2)):
 print("SPLIT " + json.dumps(out), flush=True)
 '''
 
-HEADER = "mymedialite_tpu_torch/csrc/owner_scatter.cuh"
+CSRC = "mymedialite_tpu_torch/csrc"
+# the cluster's phase 2 (cluster_sums) is cut in both copies
+CLUSTER_CUT = ("cluster_scatter.cuh",
+               "                                             int k1, const "
+               "Pieces& pc) {\n",
+               "                                             int k1, const "
+               "Pieces& pc) {\n  return;\n")
 CUTS = {
-    "no phase 2": ("  const int nr0 = runs[0];\n",
-                   "  return;\n  const int nr0 = runs[0];\n"),
-    "no sums": ("  auto sums = [&](int k0, int k1, const float4* base, int from) {\n",
-                "  auto sums = [&](int k0, int k1, const float4* base, int from) {\n"
-                "    return;\n"),
+    "no phase 2": [("owner_scatter.cuh", "  const int nr0 = runs[0];\n",
+                    "  return;\n  const int nr0 = runs[0];\n"),
+                   CLUSTER_CUT],
+    "no sums": [("owner_scatter.cuh",
+                 "  auto sums = [&](int k0, int k1, const float4* base, "
+                 "int from) {\n",
+                 "  auto sums = [&](int k0, int k1, const float4* base, "
+                 "int from) {\n    return;\n"),
+                CLUSTER_CUT],
 }
 
 
-def cut_copy(out, root, name, edit):
-    """A copy of ROOT's package under OUT with one edit of the header."""
+def cut_copy(out, root, name, edits):
+    """A copy of ROOT's package under OUT with the headers edited."""
     dst = os.path.join(out, name.replace(" ", "_"))
     if os.path.exists(dst):
         shutil.rmtree(dst)
     shutil.copytree(os.path.join(root, "mymedialite_tpu_torch"),
                     os.path.join(dst, "mymedialite_tpu_torch"),
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    path = os.path.join(dst, HEADER)
-    with open(path) as f:
-        text = f.read()
-    old, new = edit
-    assert text.count(old) == 1, name
-    with open(path, "w") as f:
-        f.write(text.replace(old, new))
+    for header, old, new in edits:
+        path = os.path.join(dst, CSRC, header)
+        if not os.path.exists(path):       # a tree before the cluster walks
+            continue
+        with open(path) as f:
+            text = f.read()
+        assert text.count(old) == 1, (name, header)
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
     return dst
 
 

@@ -1,6 +1,6 @@
 // One BPR epoch over the chunk plan: a sampling kernel over the whole
-// card, then the serial walk of the chunks in one thread block, both
-// launched by one call.
+// card, then the serial walk of the chunks in one thread-block cluster,
+// both launched by one call.
 //
 // Replaces two TPU kernels of the same epoch, through one entry point:
 // - mymedialite_tpu/ops/pallas_bpr.py:451 _mxu_bpr_kernel, the item table
@@ -62,45 +62,94 @@
 //
 // The walk. As for the rating epoch (sgd_epoch.cu), the visit order
 // groups chunks by user block and consecutive chunks share a user block
-// or an item block, so one thread block walks the whole order, and a
-// chunk's time is its chain of dependent round trips to L2. So:
-// - the next chunk's packed row, its sampled (j, ok) and its segment
-//   table are copied into a second shared buffer with cp.async while this
-//   chunk runs, and a chunk starts with its indices on chip;
+// or an item block, so chunk k+1 may read what chunk k writes, and the
+// order is kept. A chunk's time is its chain of dependent round trips to
+// L2 and the L2 traffic of the SMs that run it, not HBM bandwidth. So:
+// - a chunk spreads over a thread-block cluster of N CTAs on neighbouring SMs
+//   (one cluster is the whole grid; N from the shape, ops/cluster.py
+//   cluster_size): CTA r takes slots [r cs, (r + 1) cs), cs = ceil(C / N),
+//   and gathers their three rows (W, h_i, h_j) (a CTA of 640 threads up to 64
+//   columns, threads_of: its 80 slots of a chunk of 640 fill one round, with
+//   no register spilled). Each CTA holds the chunk's whole buffer (its packed
+//   row, its sampled (j, ok) and its segment table: phase 2 needs any slot's
+//   rows);
+// - the buffers run two chunks ahead (three of them, with the packed row
+//   of the chunk two after), copied with cp.async, so that no global load
+//   but the gathers is on a chunk's path;
 // - a row is cut into float4s, one per lane (two per lane past 128
 //   columns), so at fe <= 64 a warp serves two slots per pass, and each
-//   warp issues the row loads of several passes before it uses any; the
-//   values for the owner scatter go to its stage in shared memory (only
-//   the runs' entries, W's and H's), or to a global scratch [3, C, fe] in
-//   a chunk where they do not fit;
+//   warp issues the row loads of several passes before it uses any;
+// - the values for the owner scatter (only the runs' entries, W's and
+//   H's, H's i entries before its j entries) go to the chunk's stage,
+//   striped over the cluster's shared memory by compact index, and CTA r
+//   sums the runs whose first value lies in its part, reading the tail of
+//   a run that crosses into the next part (between two i entries, two j
+//   entries, or an i entry and a j entry) remotely (cluster_scatter.cuh);
+//   where the stage does not fit, the values go to a global scratch [3,
+//   C, fe] and CTA 0 sums them with owner_scatter.cuh's owner_chain;
 // - a W float4 whose learning rates are all 0 is not summed: its deltas
 //   are exactly 0 (the zero padding of the tables to fe columns, and the
 //   users' constant column); an H float4 is summed where the i or the j
 //   rate is not 0, so that a run that mixes i and j entries adds every
-//   one of them;
-// - no device-scope fence ends a chunk. Every reader and writer of the
-//   tables during the walk is a thread of this one block, and the next
-//   chunk's gathers follow a __syncthreads(), which the CUDA C++
-//   Programming Guide defines to make every global and shared memory
-//   access made before it by the block's threads visible to all threads
-//   of the block; the stores (st.global.cg) and the gathers
-//   (ld.global.cg) act at L2, not through a stale L1 line. A
-//   __threadfence() orders a thread's writes for observers outside the
-//   block, and there are none.
-// The walk is bound by L2 latency (dependent round trips per chunk) and
-// one SM's traffic to L2, not by HBM bandwidth.
+//   one of them.
+// A chunk, in each CTA: wait for the cluster; phase 1; wait for this
+// thread's copies of chunk k+1, arrive, issue chunk k+2's copies, wait;
+// phase 2; arrive. A cluster of
+// one is compiled apart (kOne), so that the cluster's state takes no
+// registers there; its copies go at the chunk's start and its phase 2 is
+// owner_chain, whose barrier ends phase 1: the one-block walk.
+//
+// Why the tables equal the one-block walk's bit for bit: every slot's x
+// is the same fmaf chain over its lanes' float4s of w_u and h_i - h_j and
+// the same shuffle tree (the lanes of a slot, SPW, V and G are chosen
+// from fe as before), its gradient and deltas the same expressions; each
+// run's sum is the same left fold in list order (the stage's place of a
+// value changes, not the order); and each value read is the value the
+// one-block walk reads (the barriers below). Nothing is added atomically.
+// (The tests hold the tables to digests of the one-block kernel's:
+// tests/test_torch_cuda.py BPR_ONE_BLOCK_SHA256.)
+//
+// Ordering (cluster_scatter.cuh). Every thread arrives once its stores
+// of chunk k-1's phase 2 are issued and waits at the start of chunk k:
+// barrier.cluster's release and acquire order the owners' st.global.cg
+// stores in one CTA before the next chunk's ld.global.cg gathers in
+// another, and the arrive and wait between the phases order phase 1's
+// remote stores into the stage before phase 2's reads. Each thread's
+// copies of chunk k+1 (its buffer, and thread 0's ub, ib, jb and the
+// packed row of chunk k+3) complete before its arrive after phase 1 of
+// chunk k (the prologue's for chunks 0 and 1), so the wait that follows
+// makes them visible to every thread: chunk k+1 reads that row to issue
+// chunk k+3's copies. The sampler's
+// outputs (neg, the segment tables) come from a kernel that ends before
+// the walk starts on the same stream. The walk ends with a wait, so that
+// no CTA leaves while another reads its stage. A __threadfence() orders
+// writes for observers outside the cluster, and there are none during
+// the walk.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "owner_scatter.cuh"
+#include "cluster_scatter.cuh"
 
 namespace {
 
-using mml_owner::put;
+using mml_cluster::cluster_arrive;
+using mml_cluster::cluster_wait;
+using mml_cluster::cp_async4;
+using mml_cluster::cp_async_commit;
+using mml_cluster::kMaxCluster;
+using mml_cluster::put;
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+// The walk's threads a CTA: 1024 in a cluster of one (the one-block
+// walk); in a cluster of several, 640 where a warp serves two slots a
+// pass (up to 64 columns): a CTA's 80 slots of a chunk of 640 on 8 CTAs
+// then fill one round of its warps' G passes, and each thread has more
+// than 64 registers, where 1024 threads have 64 and spill. Past 64
+// columns 1024.
+__host__ __device__ constexpr int threads_of(int SPW, bool kOne) {
+  return kOne || SPW == 1 ? 1024 : 640;
+}
 constexpr int kSampleThreads = 512;
 constexpr int kOneBits = 0x3f800000;  // bits of 1.0f
 constexpr unsigned kFull = 0xffffffffu;
@@ -303,20 +352,6 @@ bpr_sample_kernel(const int32_t* __restrict__ packed,
   }
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 __device__ __forceinline__ float4 f4_sub(float4 a, float4 b) {
   return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
 }
@@ -360,9 +395,11 @@ struct BprPieces {
 };
 
 // V float4s per lane per row (fe <= 128 V), SPW slots per warp pass (a
-// slot on 32 / SPW lanes), G passes in flight per warp.
-template <int V, int SPW, int G>
-__global__ void __launch_bounds__(kThreads, 1)
+// slot on 32 / SPW lanes), G passes in flight per warp. One cluster of
+// gridDim.x CTAs; kOne: a cluster of one, compiled apart so that the
+// cluster's state takes no registers there.
+template <int V, int SPW, int G, bool kOne>
+__global__ void __launch_bounds__(threads_of(SPW, kOne), 1)
 bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
                 const int32_t* __restrict__ packed,
                 const int32_t* __restrict__ order_ub,
@@ -375,23 +412,35 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
                 float4* __restrict__ scratch,
                 int nc, int C, int RL, int UB, int IB, int fe,
                 int stage_f4, int soft_margin) {
+  constexpr int kThreads = threads_of(SPW, kOne);
+  constexpr int kWarps = kThreads / 32;
   constexpr int kLanes = 32 / SPW;            // lanes per slot
   constexpr int kStep = kWarps * SPW;         // slots per pass of the block
   extern __shared__ __align__(16) unsigned char smem[];
+  const int ncta = kOne ? 1 : gridDim.x;
+  const int rank = kOne ? 0 : blockIdx.x;
   const int fe4 = fe >> 2;
   const int Cw = (C + 7) & ~7;
   const int RK = RL + 3 * Cw;                 // a chunk's table row
-  // [6][fe] rates | [2][6C] chunk buffers | [2][RK] runs and codes |
+  const int cs = (C + ncta - 1) / ncta;       // slots a CTA
+  const int s_lo = min(C, rank * cs);
+  const int ns = min(C, s_lo + cs) - s_lo;    // this CTA's slots
+  // [6][fe] rates | [3][6C] chunk buffers | [3][RK] runs and codes |
   // [2][fe4] live float4s and [2][fe4] their pieces (rounded to 16 bytes)
-  // | the owner scatter's stage
+  // | the owner scatter's stage (this CTA's part)
   float* s_rate = reinterpret_cast<float*>(smem);
   int32_t* s_buf = reinterpret_cast<int32_t*>(s_rate + 6 * fe);
-  uint16_t* s_seg = reinterpret_cast<uint16_t*>(s_buf + 12 * C);
-  int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 2 * RK);
+  uint16_t* s_seg = reinterpret_cast<uint16_t*>(s_buf + 18 * C);
+  int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 3 * RK);
   int32_t* s_li = s_live + 2 * fe4;
   float4* s_stage = reinterpret_cast<float4*>(s_live + ((4 * fe4 + 3) & ~3));
-  __shared__ int32_t s_meta[2][4];                 // ub, ib, jb per buffer
+  // per buffer: the chunk's ub, ib and jb, and the packed row of the chunk
+  // two after it
+  __shared__ int32_t s_meta[3][4];
   __shared__ int s_nlive[2];
+  __shared__ int s_runs[2];        // this CTA's runs [k0, k1) of a chunk
+  // each CTA's stage (and past the last, none)
+  __shared__ float4* s_part[kMaxCluster + 1];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -400,22 +449,15 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
   const int sub = lane % kLanes;              // its float4s: sub + kLanes v
   for (int t = tid; t < fe * 6; t += kThreads)
     s_rate[(t % 6) * fe + t / 6] = rates[t];
-  __syncthreads();
-  const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [6][fe4]
-  if (tid < 2) {
-    int n = 0;
-    for (int c4 = 0; c4 < fe4; ++c4) {
-      s_li[tid * fe4 + c4] = n;
-      if (tid == 0 ? f4_any(r4[0 * fe4 + c4])
-                   : f4_any(r4[2 * fe4 + c4]) || f4_any(r4[4 * fe4 + c4]))
-        s_live[tid * fe4 + n++] = c4;
-    }
-    s_nlive[tid] = n;
-  }
+  if (tid <= kMaxCluster)
+    s_part[tid] = tid < ncta ? cooperative_groups::this_cluster()
+                                   .map_shared_rank(s_stage, tid)
+                             : nullptr;
 
-  // chunk k's packed, neg and segment rows into buffer b
-  auto prefetch = [&](int k, int b) {
-    const int32_t* prow = packed + (int64_t)__ldg(order_row + k) * 4 * C;
+  // chunk k's packed row r, its neg and segment rows, its (ub, ib, jb)
+  // and the packed row of chunk k+2 into buffer b
+  auto prefetch = [&](int k, int64_t r, int b) {
+    const int32_t* prow = packed + r * 4 * C;
     const int32_t* nrow = neg + (int64_t)k * 2 * C;
     const uint16_t* srow = segs + (int64_t)k * RK;
     int32_t* dst = s_buf + b * 6 * C;
@@ -429,38 +471,75 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
       cp_async4(&s_meta[b][0], order_ub + k);
       cp_async4(&s_meta[b][1], order_ib + k);
       cp_async4(&s_meta[b][2], jb_v + k);
+      if (k + 2 < nc) cp_async4(&s_meta[b][3], order_row + k + 2);
     }
-    cp_async_commit();
   };
-  if (nc > 0) prefetch(0, 0);
+
+  if (nc > 0) prefetch(0, __ldg(order_row), 0);
+  if (nc > 1) prefetch(1, __ldg(order_row + 1), 1);
+  cp_async_commit();
+  __syncthreads();
+  const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [6][fe4]
+  if (tid < 2) {
+    int n = 0;
+    for (int c4 = 0; c4 < fe4; ++c4) {
+      s_li[tid * fe4 + c4] = n;
+      if (tid == 0 ? f4_any(r4[0 * fe4 + c4])
+                   : f4_any(r4[2 * fe4 + c4]) || f4_any(r4[4 * fe4 + c4]))
+        s_live[tid * fe4 + n++] = c4;
+    }
+    s_nlive[tid] = n;
+  }
+  // the first chunk's wait: every CTA of the cluster runs (its stage may
+  // be written), the live lists are set, and the copies of chunks 0 and 1
+  // have landed
+  mml_cluster::arrive_copied(ncta);
 
   for (int k = 0; k < nc; ++k) {
-    const int b = k & 1;
-    cp_async_wait_all();
-    // chunk k's rows have landed; the previous chunk's stores are
-    // visible to this chunk's gathers (see the comment at the top)
-    __syncthreads();
-    if (k + 1 < nc) prefetch(k + 1, b ^ 1);
+    const int b = k % 3;
+    // chunk k's buffer has landed in every thread, with the packed row of
+    // chunk k+2; the previous chunk's stores are visible to this chunk's
+    // gathers, and its stage is read (see the note at the top)
+    cluster_wait(ncta);
+    // chunk k+2's buffer into the one chunk k-1 used: in one CTA now, in
+    // a cluster while the other CTAs finish phase 1
+    auto next_chunk = [&]() {
+      if (k + 2 < nc) prefetch(k + 2, s_meta[b][3], (k + 2) % 3);
+      cp_async_commit();
+    };
+    if (ncta == 1) next_chunk();
     const int32_t* sd = s_buf + b * 6 * C;
     const uint16_t* runs = s_seg + b * RK;
     const uint16_t* codes = runs + RL;          // [3][Cw]: W, i, j
     const int64_t wbase = (int64_t)s_meta[b][0] * UB;
     const int64_t ibase = (int64_t)s_meta[b][1] * IB;
     const int64_t jbase = (int64_t)s_meta[b][2] * IB;
-    const mml_owner::Stage st = mml_owner::make_stage(
-        runs, 3u, s_nlive[0], s_nlive[1], s_stage, stage_f4, scratch);
+    const mml_cluster::ClusterStage st = mml_cluster::cluster_stage(
+        runs, 3u, s_nlive[0], s_nlive[1], ncta, rank, s_part, s_stage,
+        scratch, stage_f4);
+    // this CTA's runs of phase 2, those whose first value lies in its part
+    // of the stage, found by one thread while its first pass's loads are
+    // in flight
+    const int nr = (int)runs[0] + (int)runs[1];
+    const bool searcher = ncta > 1 && st.on_chip && tid == kThreads - 32;
+    bool searched = false;
+    auto find_runs = [&]() {
+      mml_cluster::find_runs(runs, st, 0, nr, s_runs);
+      searched = true;
+    };
 
-    // gather and gradient: G passes' row loads issued before any is used;
-    // the pass loop is uniform across the warp (its shuffles need every
-    // lane), slots past C weigh 0
-    for (int p0 = warp * SPW; p0 < C; p0 += kStep * G) {
-      const int s0 = p0 + half;
+    // phase 1: gather and gradient, G passes' row loads issued before any
+    // is used; the pass loop is uniform across the warp (its shuffles
+    // need every lane), slots past this CTA's weigh 0
+    for (int p0 = warp * SPW; p0 < ns; p0 += kStep * G) {
+      const int j0 = p0 + half;
       float4 wu[G][V], hi[G][V], hj[G][V];
       float wgt[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const int s = s0 + g * kStep;
-        wgt[g] = s < C ? slot_weight(sd, C, s) : 0.f;
+        const int j = j0 + g * kStep;
+        const int s = s_lo + j;
+        wgt[g] = j < ns ? slot_weight(sd, C, s) : 0.f;
         const bool live = wgt[g] != 0.f;    // else rows 0, not read
         const float4* wrow = reinterpret_cast<const float4*>(
             W + (live ? wbase + sd[s] : 0) * fe);
@@ -478,6 +557,7 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
           hj[g][v] = ld ? __ldcg(jrow + c4) : z;
         }
       }
+      if (searcher && !searched) find_runs();
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float x = 0.f;
@@ -492,7 +572,7 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
 #pragma unroll
         for (int o = kLanes / 2; o > 0; o >>= 1)
           x += __shfl_xor_sync(kFull, x, o);
-        const int s = s0 + g * kStep;
+        const int s = s_lo + j0 + g * kStep;
         if (wgt[g] == 0.f) continue;          // padding or no negative
         const float gr = soft_margin ? (x < 1.f ? wgt[g] : 0.f)
                                      : wgt[g] / (1.f + expf(x));
@@ -525,10 +605,47 @@ bpr_walk_kernel(float* __restrict__ W, float* __restrict__ H,
       }
     }
 
-    // each run of a W or H row summed in entry order
+    if (searcher && !searched) find_runs();
+
+    // phase 2: each run of a W or H row summed in entry order. Over the
+    // cluster where the stage is on chip; else in CTA 0 by owner_chain,
+    // whose first barrier ends phase 1 in a cluster of one: the stage in
+    // its shared memory, or the values in the global scratch
     const BprPieces pc{W, H, sd, s_live, wbase, ibase, jbase, C, fe, fe4};
-    mml_owner::owner_chain(runs, 3u, st, s_stage, stage_f4, pc);
+    // this thread's phase 1, and its copies of chunk k+1 (issued a chunk
+    // ago; in one CTA, with those of chunk k+2, issued at this chunk's
+    // start)
+    mml_cluster::arrive_copied(ncta);
+    if (ncta > 1) {
+      next_chunk();
+      cluster_wait(ncta);
+    }
+    if (ncta > 1 && st.on_chip) {
+      mml_cluster::cluster_sums<kThreads>(runs, st, s_runs[0], s_runs[1],
+                                          pc);
+    } else if (rank == 0) {
+      mml_owner::owner_chain(runs, 3u, st.block(), s_stage, stage_f4, pc);
+    }
+    cluster_arrive(ncta);                     // this thread's phase 2
   }
+  // no CTA leaves while another may read its stage
+  cluster_wait(ncta);
+}
+
+template <int V, int SPW, int G, class... Args>
+int launch(int cluster, int smem, cudaStream_t st, Args... args) {
+  return mml_cluster::launch_cluster(
+      cluster == 1 ? &bpr_walk_kernel<V, SPW, G, true>
+                   : &bpr_walk_kernel<V, SPW, G, false>,
+      cluster, threads_of(SPW, cluster == 1), smem, st, args...);
+}
+
+// the lanes of a slot from the width, as the one-block walk chose them
+template <class... Args>
+int launch_width(int fe, Args... args) {
+  if (fe <= 64) return launch<1, 2, 2>(args...);
+  if (fe <= 128) return launch<1, 1, 2>(args...);
+  return launch<2, 1, 1>(args...);
 }
 
 // the sampling kernel over the nc visited chunks
@@ -566,9 +683,11 @@ int launch_sample(const int32_t* packed, const int32_t* order_ib,
 // negative and `seg_out` [nc, RL + 3 Cw] every chunk's segment table (its
 // runs [RL], then the codes [3, Cw], Cw = C rounded up to 8), both read by
 // the walk; `scratch` holds 3 * C * fe floats; fe is a multiple of 4, at
-// most 256, C a multiple of 4 and at most 4096, and the walk's shared
-// memory `smem` bytes, its stage what is left past 24 fe + 48 C + 4 (RL +
-// 3 Cw) + 16 (fe / 4) (rounded to 16) bytes; ops/bpr_epoch.py checks all
+// most 256, C a multiple of 4 and at most 4096. The walk is one cluster
+// of `cluster` CTAs (1 to 16), each with `smem` bytes of dynamic shared
+// memory, its part of the stage what is left past 24 fe + 72 C + 6 (RL +
+// 3 Cw) + 16 (fe / 4) (rounded to 16) bytes, at least one row; -2 back
+// where the card cannot place the cluster. ops/bpr_epoch.py checks all
 // and sizes smem.
 extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
                              const int32_t* order_ub, const int32_t* order_ib,
@@ -580,7 +699,8 @@ extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
                              int32_t* neg_out, void* seg_out, int nc, int C,
                              int RL, int UB, int IB, int fe, int trials,
                              int kcap, int soft_margin, int wbpr,
-                             int membership, int smem, void* stream) {
+                             int membership, int smem, int cluster,
+                             void* stream) {
   if (nc == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint16_t* seg = static_cast<uint16_t*>(seg_out);
@@ -591,29 +711,13 @@ extern "C" int mml_bpr_epoch(float* W, float* H, const int32_t* packed,
 
   const int fe4 = fe / 4;
   const int RK = RL + 3 * ((C + 7) & ~7);
-  const int fixed = 24 * fe + 48 * C + 4 * RK + 4 * ((4 * fe4 + 3) & ~3);
+  const int fixed = 24 * fe + 72 * C + 6 * RK + 4 * ((4 * fe4 + 3) & ~3);
   const int stage_f4 = (smem - fixed) / 16;
-  cudaError_t err;
-#define MML_LAUNCH(V, SPW, G)                                                \
-  do {                                                                       \
-    err = cudaFuncSetAttribute(bpr_walk_kernel<V, SPW, G>,                   \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
-                               smem);                                        \
-    if (err != cudaSuccess) return (int)err;                                 \
-    bpr_walk_kernel<V, SPW, G><<<1, kThreads, smem, st>>>(                   \
-        W, H, packed, order_ub, order_ib, order_row, jb, neg_out, seg,       \
-        rates, reinterpret_cast<float4*>(scratch), nc, C, RL, UB, IB, fe,    \
-        stage_f4, soft_margin);                                              \
-  } while (0)
-  if (fe <= 64) {
-    MML_LAUNCH(1, 2, 2);
-  } else if (fe <= 128) {
-    MML_LAUNCH(1, 1, 2);
-  } else {
-    MML_LAUNCH(2, 1, 1);
-  }
-#undef MML_LAUNCH
-  return (int)cudaGetLastError();
+  if (stage_f4 < fe4) return (int)cudaErrorInvalidValue;
+  float4* sc = reinterpret_cast<float4*>(scratch);
+  return launch_width(fe, cluster, smem, st, W, H, packed, order_ub,
+                      order_ib, order_row, jb, neg_out, seg, rates, sc, nc,
+                      C, RL, UB, IB, fe, stage_f4, soft_margin);
 }
 
 // The sampling kernel of mml_bpr_epoch alone (no walk), into neg_out and

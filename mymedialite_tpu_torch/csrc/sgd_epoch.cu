@@ -44,29 +44,31 @@
 //   so a chunk of 640 is one round of row loads on each of 8 SMs where one
 //   block took five. Each CTA holds the chunk's whole packed row and
 //   segment table (phase 2 needs any slot's row).
-// - The indices run two chunks ahead (three buffers, with the next
-//   chunk's packed row), so that no global load but the gathers is on a
-//   chunk's path.
+// - The indices run two chunks ahead (three buffers, with the packed row
+//   of the chunk two after), so that no global load but the gathers is on
+//   a chunk's path.
 // What does not pay on this card: copying the next chunk's rows that lie
 // on another block than this chunk's into shared memory while this chunk
 // runs, by cp.async 16 bytes a piece or by the bulk-copy unit a row a
 // copy. An SM holds only so many loads in flight, so the copies take the
 // gathers' place in its load unit, and the bulk copies' latency a row is
 // longer than a gather round (PERF.md section 6).
-// A chunk, in each CTA: wait for its index copies and for the cluster;
-// phase 1 (the gathers, the dot, the gradient, the deltas); arrive, issue
-// chunk k+2's index copies, wait; phase 2 (the sums); arrive. A cluster
-// of one is compiled apart (kOne), so that the cluster's state takes no
-// registers there; its index copies go at the chunk's start and its
-// phase 2 is owner_scatter.cuh's owner_chain, whose barrier ends phase
-// 1: the one-block walk, which measured no slower than the parent's.
+// A chunk, in each CTA: wait for the cluster; phase 1 (the gathers, the
+// dot, the gradient, the deltas); wait for this thread's index copies of
+// chunk k+1, arrive, issue chunk k+2's, wait; phase 2 (the sums); arrive.
+// A cluster of one is compiled apart (kOne), so that the cluster's state
+// takes no registers there; its index copies go at the chunk's start and
+// its phase 2 is owner_scatter.cuh's owner_chain, whose barrier ends
+// phase 1: the one-block walk, which measured no slower than the
+// parent's.
 //
 // The stage. As in owner_scatter.cuh, phase 1 writes the value of an
 // entry whose row is in no other slot of the chunk (code kDead) as row + d
 // straight into the table, and the others (row + d for a run's first
 // entry, d for the rest) into a stage by compact index; phase 2 sums each
 // run in list order and stores it once (st.global.cg). Here the stage is
-// the cluster's distributed shared memory: float4 o of the chunk's stage
+// the cluster's distributed shared memory (cluster_scatter.cuh, shared
+// with kernels 3-5): float4 o of the chunk's stage
 // lies in CTA o / S at o % S, S = ceil(total / N), through the generic
 // pointers that cooperative_groups' map_shared_rank gives. CTA r sums the
 // runs whose first value lies in its part, reading the tail of a run
@@ -95,8 +97,13 @@
 // CTA precede chunk k's ld.global.cg gathers and cp.async copies in
 // another, and the stage's remote stores of phase 1 precede phase 2's
 // reads. Both act at L2, not through a stale L1 line. At the end of a
-// chunk a thread arrives once its stores are issued and waits at the
-// start of the next, where it needs the others'. With N = 1 the wait is bar.sync, which orders the
+// chunk a thread arrives once its stores are issued, and waits at the
+// start of the next, where it needs the others'. Its cp.async copies of
+// chunk k+1 (its buffer, and thread 0's ub, ib and the packed row of
+// chunk k+3) complete before its arrive after phase 1 of chunk k (the
+// prologue's for chunks 0 and 1), so the wait that follows makes them
+// visible to every thread: chunk k+1 reads that row to issue chunk k+3's
+// copies. With N = 1 the wait is bar.sync, which orders the
 // block's accesses the same way within the block, the one-block walk's
 // barrier. The kernel ends with a wait, so that no CTA leaves while
 // another reads its stage.
@@ -111,62 +118,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "owner_scatter.cuh"
+#include "cluster_scatter.cuh"
 
 namespace {
 
-using mml_owner::kDead;
-using mml_owner::kIdMask;
-using mml_owner::kStart;
+using mml_cluster::cluster_arrive;
+using mml_cluster::cluster_wait;
+using mml_cluster::cp_async4;
+using mml_cluster::cp_async_commit;
+using mml_cluster::kMaxCluster;
+using mml_cluster::put;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-// the largest cluster the launcher takes (H100's non-portable limit)
-constexpr int kMaxCluster = 16;
-// what mml_sgd_epoch returns where the card cannot place the cluster
-constexpr int kClusterUnplaced = -2;
 
 constexpr int kLossRmse = 0;
 constexpr int kLossMae = 1;
 
 // rate rows of the shared rate table [4][fe]
 constexpr int kWLr = 0, kWReg = 1, kHLr = 2, kHReg = 3;
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The barrier of the cluster's n CTAs, called by every thread (see the
-// note at the top), in two halves: cluster_arrive after a thread's part
-// (a no-op in a cluster of one), cluster_wait where it needs the others'
-// (bar.sync in a cluster of one); cluster_barrier is both at once.
-__device__ __forceinline__ void cluster_arrive(int n) {
-  if (n > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait(int n) {
-  if (n > 1) {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  } else {
-    asm volatile("bar.sync 0;\n" ::: "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_barrier(int n) {
-  cluster_arrive(n);
-  cluster_wait(n);
-}
 
 __device__ __forceinline__ bool f4_any(float4 a) {
   return a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f;
@@ -222,131 +193,6 @@ struct SgdPieces {
   }
 };
 
-// floor(o / S) for 0 <= o < 2^23 and S >= 1, from rS = 1 / S: the float
-// quotient is off by at most one, and one step each way corrects it
-__device__ __forceinline__ int quot(int o, int S, float rS) {
-  int q = __float2int_rz((float)o * rS);
-  q -= q * S > o;
-  q += (q + 1) * S <= o;
-  return q;
-}
-
-// A chunk's stage over the cluster: the values of the entries in runs of
-// two or more by compact index (table 0's at w0 float4s an entry, then
-// table 1's at w1 from off1), float4 o in CTA o / S at o % S (part[q]:
-// CTA q's stage; `local` this CTA's, rank its own), or in the global
-// scratch at o.
-struct ClusterStage {
-  float4* const* part;
-  float4* local;
-  float4* scratch;
-  int w0, w1, n0, off1, S, rank;
-  float rS;
-  bool on_chip, one;          // one: a cluster of one CTA
-  __device__ int off(int idx) const {
-    return idx < n0 ? idx * w0 : off1 + (idx - n0) * w1;
-  }
-  __device__ float4* at(int o) const {
-    if (!on_chip) return scratch + o;
-    if (one) return local + o;
-    const int q = quot(o, S, rS);
-    return q == rank ? local + (o - q * S) : part[q] + (o - q * S);
-  }
-};
-
-// What phase 1 does with one entry's piece li, by its code (as
-// mml_owner::put): row + d into the table for an entry alone in its run,
-// else row + d (a run's first entry) or d into the stage.
-__device__ __forceinline__ void put(uint16_t code, const ClusterStage& st,
-                                    int li, float4* row, float4 row_val,
-                                    float4 d) {
-  if (code == kDead) {
-    __stcg(row, mml_owner::f4_add(row_val, d));
-    return;
-  }
-  if (code & kStart) d = mml_owner::f4_add(row_val, d);
-  *st.at(st.off(code & 0x7fff) + li) = d;
-}
-
-// A float4 of this CTA's shared memory (ld.shared).
-__device__ __forceinline__ float4 lds4(const float4* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  float4 v;
-  asm("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "r"(a));
-  return v;
-}
-
-// acc + the n values of this CTA's shared memory at at[0], at[w], ... in
-// order, four loads ahead of the adds
-__device__ __forceinline__ float4 fold(float4 acc, const float4* at, int n,
-                                       int w) {
-  using mml_owner::f4_add;
-  int q = 0;
-  for (; q + 4 <= n; q += 4, at += 4 * w) {
-    float4 x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = lds4(at + i * w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc = f4_add(acc, x[i]);
-  }
-  for (; q < n; ++q, at += w) acc = f4_add(acc, lds4(at));
-  return acc;
-}
-
-// Phase 2 of one CTA with the stage on chip: the runs [k0, k1) of the
-// runs block `runs` (those whose first value lies in this CTA's part),
-// each (run, piece) one thread's sum: the run's first value, plus the
-// others in list order (those in this CTA's part from its shared memory,
-// the tail of a run that crosses into the next part through the
-// cluster's), stored once.
-__device__ __forceinline__ void cluster_sums(const uint16_t* runs,
-                                             const ClusterStage& st, int k0,
-                                             int k1, const SgdPieces& pc) {
-  const int nr0 = runs[0];
-  const uint16_t* run = runs + 4;             // (entry, compact, length)
-  const int n0 = max(0, min(k1, nr0) - k0);
-  const int items = n0 * st.w0 + (k1 - k0 - n0) * st.w1;
-  const int lo = st.rank * st.S, hi = lo + st.S;
-  for (int x = threadIdx.x; x < items; x += kThreads) {
-    int k, li, w;
-    if (x < n0 * st.w0) {
-      k = k0 + x / st.w0;
-      li = x - (k - k0) * st.w0;
-      w = st.w0;
-    } else {
-      const int y = x - n0 * st.w0;
-      k = k0 + n0 + y / st.w1;
-      li = y - (k - k0 - n0) * st.w1;
-      w = st.w1;
-    }
-    const uint16_t e = run[3 * k];
-    const int len = run[3 * k + 2];
-    // the run's first value is in [lo, hi); its piece li and the values
-    // after it may lie past hi, in the next parts
-    const int o = st.off(run[3 * k + 1]) + li;
-    const int nl = o >= hi ? 0
-                   : o + (len - 1) * w < hi ? len : (hi - o + w - 1) / w;
-    auto remote = [&](int c) {
-      const int oc = o + c * w;
-      const int q = quot(oc, st.S, st.rS);
-      return st.part[q][oc - q * st.S];
-    };
-    float4 acc;
-    int c = 1;
-    if (nl > 0) {
-      const float4* at = st.local + (o - lo);
-      acc = fold(lds4(at), at + w, nl - 1, w);
-      c = nl;
-    } else {
-      acc = remote(0);
-    }
-    for (; c < len; ++c) acc = mml_owner::f4_add(acc, remote(c));
-    __stcg(pc.dst(mml_owner::side_of(e), e & kIdMask, li), acc);
-  }
-}
-
 // V float4s per lane per row (fe <= 128 V), SPW slots per warp pass (a
 // slot on 32 / SPW lanes), G passes in flight per warp. One cluster of
 // gridDim.x CTAs; kOne: a cluster of one, compiled apart so that the
@@ -384,7 +230,7 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
   int32_t* s_live = reinterpret_cast<int32_t*>(s_seg + 3 * RK);
   int32_t* s_li = s_live + 2 * fe4;
   float4* s_stage = reinterpret_cast<float4*>(s_live + ((4 * fe4 + 3) & ~3));
-  // per buffer: the chunk's ub and ib, and the packed row of the chunk
+  // per buffer: the chunk's ub and ib, and the packed row of the chunk two
   // after it
   __shared__ int32_t s_meta[3][3];
   __shared__ int s_nlive[2];
@@ -405,7 +251,7 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
                              : nullptr;
 
   // chunk k's packed row r (u_loc, i_loc, v bits, w bits), the runs and
-  // codes of its segment table, its (ub, ib) and the row of chunk k+1 into
+  // codes of its segment table, its (ub, ib) and the row of chunk k+2 into
   // buffer b
   auto prefetch = [&](int k, int64_t r, int b) {
     const int32_t* prow = packed + r * 4 * C;
@@ -418,12 +264,12 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     if (tid == 0) {
       cp_async4(&s_meta[b][0], order_ub + k);
       cp_async4(&s_meta[b][1], order_ib + k);
-      if (k + 1 < nc) cp_async4(&s_meta[b][2], order_row + k + 1);
+      if (k + 2 < nc) cp_async4(&s_meta[b][2], order_row + k + 2);
     }
   };
 
   if (nc > 0) prefetch(0, __ldg(order_row), 0);
-  if (nc > 1) prefetch(1, __ldg(order_row + 1), 1);  // and chunk 2's row
+  if (nc > 1) prefetch(1, __ldg(order_row + 1), 1);
   cp_async_commit();
   __syncthreads();
   if (tid < 2) {
@@ -437,22 +283,22 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     s_nlive[tid] = n;
   }
   // the first chunk's wait: every CTA of the cluster runs (its stage may
-  // be written), and the live lists are set
-  cluster_arrive(ncta);
+  // be written), the live lists are set, and the copies of chunks 0 and 1
+  // have landed
+  mml_cluster::arrive_copied(ncta);
   const float4* r4 = reinterpret_cast<const float4*>(s_rate);  // [4][fe4]
 
   for (int k = 0; k < nc; ++k) {
     const int b = k % 3;
-    cp_async_wait_all();
-    // chunk k's and k+1's indices have landed; the previous chunk's
-    // stores are visible to this chunk's gathers, and its stage is read
-    // (see the note at the top)
+    // chunk k's indices have landed in every thread, with the packed row
+    // of chunk k+2; the previous chunk's stores are visible to this
+    // chunk's gathers, and its stage is read (see the note at the top)
     cluster_wait(ncta);
     // chunk k+2's indices into the buffer chunk k-1 used: in one CTA now,
     // in a cluster while the other CTAs finish phase 1 (each measured
     // the faster, PERF.md section 6)
     auto next_indices = [&]() {
-      if (k + 2 < nc) prefetch(k + 2, s_meta[(k + 1) % 3][2], (k + 2) % 3);
+      if (k + 2 < nc) prefetch(k + 2, s_meta[b][2], (k + 2) % 3);
       cp_async_commit();
     };
     if (ncta == 1) next_indices();
@@ -462,20 +308,9 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     const uint16_t* codes = runs + RL;          // [2][Cw]
     const int64_t wbase = (int64_t)ub * UB;
     const int64_t hbase = (int64_t)ib * IB;
-    ClusterStage st;
-    st.part = s_part;
-    st.local = s_stage;
-    st.scratch = scratch;
-    st.rank = rank;
-    st.w0 = s_nlive[0];
-    st.w1 = s_nlive[1];
-    st.n0 = runs[2];
-    st.off1 = st.n0 * st.w0;
-    const int total = st.off1 + (int)runs[3] * st.w1;
-    st.one = ncta == 1;
-    st.S = max(1, st.one ? total : (total + ncta - 1) / ncta);
-    st.rS = st.one ? 1.f : 1.f / (float)st.S;
-    st.on_chip = st.S <= stage_f4;
+    const mml_cluster::ClusterStage st = mml_cluster::cluster_stage(
+        runs, 3u, s_nlive[0], s_nlive[1], ncta, rank, s_part, s_stage,
+        scratch, stage_f4);
     // this CTA's runs of phase 2, those whose first value lies in its part
     // of the stage (all of them in a cluster of one), found by one thread
     // while its first pass's loads are in flight
@@ -483,17 +318,7 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     const bool searcher = ncta > 1 && st.on_chip && tid == kThreads - 32;
     bool searched = false;
     auto find_runs = [&]() {
-      const uint16_t* run = runs + 4;
-      for (int e = 0; e < 2; ++e) {
-        const int at = (rank + e) * st.S;
-        int lo = 0, hi = nr;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (st.off(run[3 * mid + 1]) < at) lo = mid + 1;
-          else hi = mid;
-        }
-        s_runs[e] = lo;
-      }
+      mml_cluster::find_runs(runs, st, 0, nr, s_runs);
       searched = true;
     };
 
@@ -569,22 +394,19 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
     // whose first barrier ends phase 1 in a cluster of one: the stage in
     // its shared memory, or the values in the global scratch
     const SgdPieces pc{W, H, sd, s_live, wbase, hbase, C, fe, fe4};
+    // this thread's phase 1, and its copies of chunk k+1 (issued a chunk
+    // ago; in one CTA, with those of chunk k+2, issued at this chunk's
+    // start)
+    mml_cluster::arrive_copied(ncta);
     if (ncta > 1) {
-      cluster_arrive(ncta);                   // this thread's phase 1
       next_indices();
       cluster_wait(ncta);
     }
     if (ncta > 1 && st.on_chip) {
-      cluster_sums(runs, st, s_runs[0], s_runs[1], pc);
+      mml_cluster::cluster_sums<kThreads>(runs, st, s_runs[0], s_runs[1],
+                                          pc);
     } else if (rank == 0) {
-      mml_owner::Stage gs;
-      gs.base = st.on_chip ? s_stage : scratch;
-      gs.w0 = st.w0;
-      gs.w1 = st.w1;
-      gs.n0 = st.n0;
-      gs.off1 = st.off1;
-      gs.smem = st.on_chip;
-      mml_owner::owner_chain(runs, 3u, gs, s_stage, stage_f4, pc);
+      mml_owner::owner_chain(runs, 3u, st.block(), s_stage, stage_f4, pc);
     }
     cluster_arrive(ncta);                     // this thread's phase 2
   }
@@ -592,44 +414,20 @@ sgd_epoch_kernel(float* __restrict__ W, float* __restrict__ H,
   cluster_wait(ncta);
 }
 
-template <int V, int SPW, int G, bool kOne>
-int launch(float* W, float* H, const int32_t* packed, const uint16_t* segs,
-           const int32_t* order_ub, const int32_t* order_ib,
-           const int32_t* order_row, const float* rates, float4* scratch,
-           int nc, int C, int RL, int UB, int IB, int fe, int smem,
-           int cluster, int stage_f4, float gb, float min_rating,
-           float rating_range, int loss, int biased, cudaStream_t st) {
-  auto kern = sgd_epoch_kernel<V, SPW, G, kOne>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (cluster > 8) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int placed = 0;
-  err = cudaOccupancyMaxActiveClusters(&placed, (const void*)kern, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (placed < 1) return kClusterUnplaced;
-  err = cudaLaunchKernelEx(&cfg, kern, W, H, packed, segs, order_ub,
-                           order_ib, order_row, rates, scratch, nc, C, RL, UB,
-                           IB, fe, stage_f4, gb, min_rating,
-                           rating_range, loss, biased);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+template <int V, int SPW, int G, class... Args>
+int launch(int cluster, int smem, cudaStream_t st, Args... args) {
+  return mml_cluster::launch_cluster(
+      cluster == 1 ? &sgd_epoch_kernel<V, SPW, G, true>
+                   : &sgd_epoch_kernel<V, SPW, G, false>,
+      cluster, kThreads, smem, st, args...);
+}
+
+// the lanes of a slot from the width, as the one-block walk chose them
+template <class... Args>
+int launch_width(int fe, Args... args) {
+  if (fe <= 64) return launch<1, 2, 2>(args...);
+  if (fe <= 128) return launch<1, 1, 2>(args...);
+  return launch<2, 1, 1>(args...);
 }
 
 }  // namespace
@@ -655,7 +453,6 @@ extern "C" int mml_sgd_epoch(float* W, float* H, const int32_t* packed,
                              float gb, float min_rating, float rating_range,
                              int loss, int biased, void* stream) {
   if (nc == 0) return (int)cudaSuccess;
-  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   const int fe4 = fe / 4;
   const int RK = RL + 2 * ((C + 7) & ~7);
   const int fixed = 16 * fe + 48 * C + 6 * RK + 4 * ((4 * fe4 + 3) & ~3);
@@ -664,18 +461,7 @@ extern "C" int mml_sgd_epoch(float* W, float* H, const int32_t* packed,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint16_t* sg = static_cast<const uint16_t*>(segs);
   float4* sc = reinterpret_cast<float4*>(scratch);
-#define MML_LAUNCH(V, SPW, G)                                                 \
-  (cluster == 1                                                               \
-       ? launch<V, SPW, G, true>(W, H, packed, sg, order_ub, order_ib,        \
-                                 order_row, rates, sc, nc, C, RL, UB, IB, fe, \
-                                 smem, cluster, stage_f4, gb, min_rating,     \
-                                 rating_range, loss, biased, st)              \
-       : launch<V, SPW, G, false>(W, H, packed, sg, order_ub, order_ib,       \
-                                  order_row, rates, sc, nc, C, RL, UB, IB,    \
-                                  fe, smem, cluster, stage_f4, gb,            \
-                                  min_rating, rating_range, loss, biased, st))
-  if (fe <= 64) return MML_LAUNCH(1, 2, 2);
-  if (fe <= 128) return MML_LAUNCH(1, 1, 2);
-  return MML_LAUNCH(2, 1, 1);
-#undef MML_LAUNCH
+  return launch_width(fe, cluster, smem, st, W, H, packed, sg, order_ub,
+                      order_ib, order_row, rates, sc, nc, C, RL, UB, IB, fe,
+                      stage_f4, gb, min_rating, rating_range, loss, biased);
 }

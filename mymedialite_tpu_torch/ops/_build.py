@@ -56,7 +56,7 @@ class KernelLibrary:
                        + [ctypes.c_void_p])
         fn = self.lib.mml_bpr_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn = self.lib.mml_bpr_sample
         fn.restype = ctypes.c_int
@@ -64,7 +64,7 @@ class KernelLibrary:
                        + [ctypes.c_void_p])
         fn = self.lib.mml_svdpp_epoch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn = self.lib.mml_exact_add

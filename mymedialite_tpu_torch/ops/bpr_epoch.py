@@ -9,9 +9,11 @@ big catalogs. Both update the kernel-layout tables ``W`` [n_ub*UB, fe]
 and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
 outputs to their inputs. On CUDA tensors they call ``csrc/bpr_epoch.cu``
 (one call per epoch: a kernel that samples every slot's negative over
-the whole card, then the walk of the chunks; the tiled wrapper passes
-the absolute positive blocks isl * slab_blocks + ibr and the order's
-absolute negative blocks jb) or raise; on CPU tensors they run
+the whole card, then the walk of the chunks, one thread-block cluster of
+``cluster_size`` CTAs that splits each chunk's slots, ``ops/cluster.py``;
+the tiled wrapper passes the absolute positive blocks isl * slab_blocks
++ ibr and the order's absolute negative blocks jb) or raise, also where
+the card cannot place the cluster; on CPU tensors they run
 ``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
 own calls. ``bpr_epoch_sharded`` / ``bpr_epoch_sharded_tiled``
 (``pallas_bpr.py:1519``, ``:1860``) run one epoch over a device mesh: the
@@ -59,20 +61,28 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops import cluster as _cluster
 from mymedialite_tpu_torch.ops.bpr_plan import SUBKEY_BUCKETS
+from mymedialite_tpu_torch.ops.cluster import (
+    DYNAMIC_SHARED_BYTES, MAX_SHARED_BYTES, check_cluster_launch,
+)
 from mymedialite_tpu_torch.ops.segments import (
     round8, runs_length, table_width,
 )
 
 # the walk keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
-# the walk stages the rates, two chunks' rows and segment tables and the
-# owner scatter's values in shared memory, at most what a block can have
-# on an H100 (227 KB), less its static shared memory
-MAX_SHARED_BYTES = 227 * 1024
-DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
+# the walk stages the rates, three chunks' rows and segment tables and its
+# part of the owner scatter's values in DYNAMIC_SHARED_BYTES of shared
+# memory (ops/cluster.py)
 # membership forms of the kernel (csrc/bpr_epoch.cu)
 _KEYS, _BITMASK, _SUBKEYS = 0, 1, 2
+
+
+def cluster_size(chunk: int) -> int:
+    """N, the CTAs of the cluster that runs a chunk of ``chunk`` slots
+    (kernels 3-4; ``ops/cluster.py``)."""
+    return _cluster.cluster_size(chunk, "bpr")
 
 
 def sample_negatives_reference(bits, jb, nval, bkt, u_loc, *, item_block,
@@ -238,13 +248,13 @@ def _check(W, H, packed, keys_tbl, bitmask_tbl, cdf_tbl, bits, order, rates,
 
 
 def shared_bytes(fe: int, chunk: int) -> int:
-    """Shared memory of the walk before its stage: the rates [6, fe], two
-    chunks' packed and neg rows [2, 6, C] and the runs and codes of their
-    segment tables [2, RL + 3 Cw], the live float4 lists and their
-    inverse, and one row of the stage (the rest of the block's shared
-    memory is the stage)."""
+    """A CTA's shared memory of the walk before its stage: the rates [6,
+    fe], three chunks' packed and neg rows [3, 6, C] and the runs and
+    codes of their segment tables [3, RL + 3 Cw], the live float4 lists
+    and their inverse, and one row of the stage (the rest of the CTA's
+    shared memory is its part of the stage)."""
     runs_codes = runs_length(3 * chunk) + 3 * round8(chunk)
-    return 24 * fe + 48 * chunk + 4 * runs_codes + 4 * ((fe + 3) // 4 * 4) \
+    return 24 * fe + 72 * chunk + 6 * runs_codes + 4 * ((fe + 3) // 4 * 4) \
         + 4 * fe
 
 
@@ -303,6 +313,7 @@ def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
     _check_launch(packed, user_block, item_block, W.shape[1])
     nc, C = cols[0].numel(), packed.shape[2]
     fe = W.shape[1]
+    cluster = cluster_size(C)
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_bpr_epoch
     scratch = torch.empty(3 * C * fe, dtype=torch.float32, device=W.device)
@@ -320,9 +331,8 @@ def _launch(W, H, packed, keys_tbl, cdf_tbl, bits, cols, rates, *,
             scratch.data_ptr(), neg.data_ptr(), segs.data_ptr(), nc, C,
             runs_length(3 * C), user_block, item_block, fe, bits.shape[1],
             kcap, int(bool(soft_margin)), int(bool(wbpr)), membership,
-            DYNAMIC_SHARED_BYTES, stream)
-    if err != 0:
-        raise RuntimeError(f"bpr_epoch: kernel launch failed, CUDA error {err}")
+            DYNAMIC_SHARED_BYTES, cluster, stream)
+    check_cluster_launch("bpr_epoch", err, cluster, DYNAMIC_SHARED_BYTES)
     return neg if return_negatives else None
 
 

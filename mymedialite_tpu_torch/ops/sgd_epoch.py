@@ -10,8 +10,8 @@ and ``H`` [n_ib*IB, fe] in place, where the JAX versions alias their
 outputs to their inputs. On CUDA tensors they launch
 ``csrc/sgd_epoch.cu`` (one launch per epoch, of one thread-block
 cluster of ``cluster_size`` CTAs that splits each chunk's slots; the
-tiled wrapper first forms the absolute item blocks) or raise, also where
-the kernel does not take the shape (``check_kernel_shape``: fe and the
+tiled wrapper first forms the absolute item blocks; ``ops/cluster.py``)
+or raise, also where the kernel does not take the shape (``check_kernel_shape``: fe and the
 chunk multiples of 4, fe <= 256, three chunks, their segment tables and
 the rates within 227 KB of shared memory, beside at least one row of the
 owner scatter's stage) and where the card cannot place the cluster.
@@ -46,6 +46,10 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops import cluster as _cluster
+from mymedialite_tpu_torch.ops.cluster import (
+    DYNAMIC_SHARED_BYTES, MAX_SHARED_BYTES, check_cluster_launch,
+)
 from mymedialite_tpu_torch.ops.segments import (
     round8, runs_length, segments_of,
 )
@@ -54,24 +58,14 @@ from mymedialite_tpu_torch.ops.sgd import gradient_common
 # the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
 # the kernel stages the rates, three chunks' rows and segment tables and
-# its part of the owner scatter's values in shared memory, at most what a
-# block can have on an H100 (227 KB), less 1 KB for its static shared
-# memory
-MAX_SHARED_BYTES = 227 * 1024
-DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 1024
-# what the launcher returns where the card cannot place the cluster
-CLUSTER_UNPLACED = -2
-# the cluster a chunk spreads over: N CTAs for chunks of at least C slots
-# (measured on the card, PERF.md section 6); N <= 8 is the portable size
-CLUSTER_BY_CHUNK = ((256, 8), (0, 1))
+# its part of the owner scatter's values in DYNAMIC_SHARED_BYTES of shared
+# memory (ops/cluster.py)
 
 
 def cluster_size(chunk: int) -> int:
-    """N, the CTAs of the thread-block cluster that runs each chunk (the
-    kernel's only grid; CTA r takes slots [r cs, (r + 1) cs), cs =
-    ceil(C / N)): the first entry of ``CLUSTER_BY_CHUNK`` whose chunk
-    bound ``chunk`` reaches."""
-    return next(n for c, n in CLUSTER_BY_CHUNK if chunk >= c)
+    """N, the CTAs of the cluster that runs a chunk of ``chunk`` slots
+    (kernels 1-2; ``ops/cluster.py``)."""
+    return _cluster.cluster_size(chunk, "sgd")
 
 
 def shared_bytes(fe: int, chunk: int) -> int:
@@ -185,12 +179,7 @@ def _launch(W, H, packed, order, hp, rates, *, user_block: int,
                  runs_length(2 * C), user_block, item_block, fe,
                  DYNAMIC_SHARED_BYTES, cluster, gb, min_rating,
                  rating_range, int(loss), int(bool(biased)), stream)
-    if err == CLUSTER_UNPLACED:
-        raise RuntimeError(f"sgd_epoch: the card cannot place a cluster of "
-                           f"{cluster} blocks of {DYNAMIC_SHARED_BYTES} B of "
-                           "shared memory")
-    if err != 0:
-        raise RuntimeError(f"sgd_epoch: kernel launch failed, CUDA error {err}")
+    check_cluster_launch("sgd_epoch", err, cluster, DYNAMIC_SHARED_BYTES)
 
 
 def sgd_epoch(W, H, packed, order, hp, rates, *, user_block: int,

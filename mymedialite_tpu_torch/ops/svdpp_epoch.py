@@ -6,13 +6,15 @@ svdpp_epoch_mxu`` (kernel body ``_svdpp_kernel`` :308). It updates the
 kernel-layout tables ``W`` [u_pad, fe], ``Q`` and ``Y`` [i_pad, fe]
 (``ops/svdpp_plan.py``) in place, where the JAX version aliases its
 outputs to its inputs. On CUDA tensors it launches
-``csrc/svdpp_epoch.cu`` (one launch per epoch) or raises, also where the
-kernel does not take the shape (``check_kernel_shape``: fe and the chunk
-multiples of 4, fe <= 256, two chunks, their segment tables and the
-rates within 227 KB of shared memory, beside the owner scatter's stage);
-the kernel sums s, c and n in a global scratch and, where a copy fits in
-shared memory, reads them from there (``accumulator_variant``, from the
-shape). Every sum, of s, W, c, n, Q and Y, adds a row's deltas in slot
+``csrc/svdpp_epoch.cu`` (one launch per epoch, of one thread-block
+cluster of ``cluster_size`` CTAs that splits each step's slots,
+``ops/cluster.py``) or raises, also where the kernel does not take the
+shape (``check_kernel_shape``: fe and the chunk multiples of 4, fe <=
+256, two chunks, their segment tables and the rates within 227 KB of
+shared memory, beside the owner scatter's stage) and where the card
+cannot place the cluster; the kernel sums s, c and n in a global scratch
+and, where a copy fits in each CTA's shared memory, reads them from there
+(``accumulator_variant``, from the shape). Every sum, of s, W, c, n, Q and Y, adds a row's deltas in slot
 order, as ``index_add_`` does on the CPU, from the segment tables of
 ``ops/segments.py`` (built on the card once per ``packed``), so two runs
 give the same tables bit for bit. On CPU tensors it runs
@@ -43,6 +45,10 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch.ops import cluster as _cluster
+from mymedialite_tpu_torch.ops.cluster import (
+    DYNAMIC_SHARED_BYTES, MAX_SHARED_BYTES, check_cluster_launch,
+)
 from mymedialite_tpu_torch.ops.segments import (
     round8, runs_length, segments_of,
 )
@@ -51,14 +57,19 @@ from mymedialite_tpu_torch.ops.sgd import gradient_common
 # the kernel keeps up to two float4s of a row per lane in registers
 MAX_FE = 256
 # the kernel stages the rates, two chunks' rows and segment tables, a copy
-# of the sums R and Y read where it fits, and the owner scatter's values
-# in shared memory, at most what a block can have on an H100 (227 KB),
-# less its static shared memory
-MAX_SHARED_BYTES = 227 * 1024
-DYNAMIC_SHARED_BYTES = MAX_SHARED_BYTES - 64
-# the "shared" variant leaves the owner scatter at least this many list
-# positions of its widest step (R: W's float4s and c's and n's) a window
+# of the sums R and Y read where it fits, and its part of the owner
+# scatter's values in DYNAMIC_SHARED_BYTES of shared memory
+# (ops/cluster.py)
+# the "shared" variant leaves the owner scatter at most this many list
+# positions of its widest step (R: W's float4s and c's and n's) a window,
+# what a block kept beside the copy; a cluster needs less (stage_need)
 MIN_STAGE_ENTRIES = 512
+
+
+def cluster_size(chunk: int) -> int:
+    """N, the CTAs of the cluster that runs a step of ``chunk`` slots
+    (kernel 5; ``ops/cluster.py``)."""
+    return _cluster.cluster_size(chunk, "svdpp")
 
 
 def _row(num_factors: int) -> int:
@@ -83,17 +94,30 @@ def shared_bytes(fe: int, chunk: int, user_block: int, num_factors: int,
         + 4 * widest * stage_entries
 
 
+def stage_need(fe: int, chunk: int, num_factors: int, cluster: int) -> int:
+    """Bytes of the owner scatter's stage that the "shared" variant keeps
+    free in each CTA beside the copy: the CTA's part of a step whose every
+    slot's user and item entries lie in runs with every float4 live (C (2
+    fe + Fp + 4) floats over the cluster's N CTAs), at most
+    MIN_STAGE_ENTRIES list positions of the widest step (fe + Fp + 4
+    floats each), what one block kept."""
+    fq = _row(num_factors) + 4
+    worst = -(-chunk * (2 * fe + fq) // cluster)
+    return 4 * min(worst, MIN_STAGE_ENTRIES * (fe + fq))
+
+
 def accumulator_variant(user_block: int, num_factors: int, chunk: int,
                         fe: int) -> str:
     """Where the kernel's R and Y steps read the per-user-block sums s, c
-    and n, which it sums in a global scratch: "shared" (a copy in shared
-    memory, made once when the phase starts) where it fits beside the
-    rates, the chunk buffers and MIN_STAGE_ENTRIES list positions of the
+    and n, which it sums in a global scratch: "shared" (a copy in each
+    CTA's shared memory, made once when the phase starts) where it fits
+    beside the rates, the chunk buffers and ``stage_need`` bytes of the
     owner scatter's stage in DYNAMIC_SHARED_BYTES, else "global" (through
-    L2). At UB = 512 and C = 512 that is "shared" up to 28 factors,
-    quality.py's k=20 among them."""
-    fits = shared_bytes(fe, chunk, user_block, num_factors, "shared",
-                        MIN_STAGE_ENTRIES) <= DYNAMIC_SHARED_BYTES
+    L2). At UB = 512 and C = 512 (a cluster of 8) that is "shared" up to
+    64 factors, quality.py's k=20 among them."""
+    n = cluster_size(chunk)
+    fits = shared_bytes(fe, chunk, user_block, num_factors, "shared", 0) \
+        + stage_need(fe, chunk, num_factors, n) <= DYNAMIC_SHARED_BYTES
     return "shared" if fits else "global"
 
 
@@ -206,6 +230,7 @@ def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
     variant = accumulator_variant(user_block, num_factors, C, fe)
     from mymedialite_tpu_torch.ops._build import load_library
     fn = load_library().lib.mml_svdpp_epoch
+    cluster = cluster_size(C)
     segs = segments_of(packed)
     # two [C, fe] stages and a [C, Fp + 4] one, then s [UB, Fp] and cn
     # [UB, Fp + 4]
@@ -221,13 +246,10 @@ def _launch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,
                  segs.data_ptr(), *(t.data_ptr() for t in schedule),
                  rates.data_ptr(), scratch.data_ptr(), schedule[0].numel(),
                  C, runs_length(2 * C), user_block, item_block, fe,
-                 num_factors,
-                 DYNAMIC_SHARED_BYTES, gb, min_rating,
+                 num_factors, DYNAMIC_SHARED_BYTES, cluster, gb, min_rating,
                  rating_range, int(loss), int(bool(sigmoid)),
                  int(variant == "shared"), stream)
-    if err != 0:
-        raise RuntimeError(f"svdpp_epoch: kernel launch failed, CUDA error "
-                           f"{err}")
+    check_cluster_launch("svdpp_epoch", err, cluster, DYNAMIC_SHARED_BYTES)
 
 
 def svdpp_epoch(W, Q, Y, packed, schedule, hp, rates, *, user_block: int,

@@ -2384,11 +2384,362 @@ def test_sgd_mesh_cells_equal_the_one_block_kernel(cuda, tiled):
     assert sgd_case_digest(cuda, name) == SGD_ONE_BLOCK_SHA256[name]
 
 
+# --- kernels 3-5 over a thread-block cluster: the tables of every case
+# held to digests of the tables that the one-block kernels (the commit
+# before their cluster walks) gave from the same inputs. The random bits
+# are numpy's, from a seed.
+
+BPR_PREFIX = [(sm, wbpr, form) for sm in (False, True)
+              for wbpr in (False, True) for form in ("keys", "bitmask")]
+BPR_TILED_PREFIX = [(sm, wbpr) for sm in (False, True)
+                    for wbpr in (False, True)]
+
+
+def _np_bits(nc, trials, C, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 2 ** 31, (nc, trials, C),
+                                         dtype=np.int32))
+
+
+def _bpr_case(device, name):
+    """(epoch, W, H, args, kw) of a named case: ``zipf-epoch-{resident|
+    tiled}`` (test_bpr_kernels_repeat_bit_for_bit's duplicate-heavy
+    chunks, one epoch), ``prefix-resident-{logistic|hinge}-{uniform|wbpr}-
+    {keys|bitmask}`` and ``prefix-tiled-{logistic|hinge}-{uniform|wbpr}-
+    subkeys`` (the first 4,096 chunks of an epoch at 48,000 x 17,770 x
+    3M, the tiled plan's one-block slabs); bits from numpy."""
+    parts = name.split("-")
+    tiled = parts[2 if parts[0] == "zipf" else 1] == "tiled"
+    if parts[0] == "zipf":
+        rng = np.random.default_rng(0)
+        U, I, n = 700, 900, 20000
+        fb = PosOnlyData(rng.integers(0, U, n), rng.zipf(1.3, n) % I,
+                         num_users=U, num_items=I)
+        sm, wbpr, form = False, False, "subkeys" if tiled else "keys"
+    else:
+        fb = posonly_from_ratings(synthetic_ratings(
+            num_users=48_000, num_items=17_770, num_ratings=3_000_000,
+            seed=1))
+        sm, wbpr, form = parts[2] == "hinge", parts[3] == "wbpr", parts[4]
+    if tiled:
+        plan, state, meta = BP.prepare_bpr_mxu(
+            fb, uniform_user=not wbpr, shuffle_seed=4, chunk=None, kcap=128,
+            subkeys=True, ksub_cap=256, bitmask=False, chunk_overhead=256,
+            device=device)
+        B, S_, slab_items = BP.bpr_tiled_plan(plan, state["nvalid"],
+                                              slab_blocks=1)
+        order = BP.bpr_tiled_epoch_order(
+            plan, state["nvalid"], slab_items, slab_blocks=B, num_slabs=S_,
+            num_items=meta[3], seed=7,
+            block_mass=state["block_mass"] if wbpr else None)
+    else:
+        plan, state, meta = BP.prepare_bpr_mxu(
+            fb, uniform_user=not wbpr, shuffle_seed=1, bitmask=True,
+            device=device)
+        order = plan.epoch_order(5)
+        order = (*order, *BP.epoch_negative_plan(
+            plan, state["nvalid"], order[0].cpu().numpy(), meta[3], 6,
+            block_mass=state["block_mass"] if wbpr else None))
+    if parts[0] == "prefix":
+        order = tuple(t[:4096].contiguous() for t in order)
+        assert order[0].numel() == 4096
+    nc = order[0].numel()
+    bits = _np_bits(nc, meta[2], plan.chunk, 11).to(device)
+    W, H = _bpr_tables(device, plan, fb.num_users, fb.num_items, 40, 1)
+    rates = BP.bpr_mxu_column_rates(40, W.shape[1], 0.05, 0.0025, 0.0025,
+                                    0.00025, 0.01, True, device=device)
+    kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+              soft_margin=sm, wbpr=wbpr)
+    if tiled:
+        kw.update(slab_blocks=B, subkeys=True)
+        return (bpr_epoch_tiled, W, H,
+                (plan.packed, state["subkeys_tbl"], state["cdf_tbl"], bits,
+                 order, rates), kw)
+    kw["bitmask_tbl"] = state["bitmask_tbl"] if form == "bitmask" else None
+    return (bpr_epoch, W, H,
+            (plan.packed, state["keys_tbl"], state["cdf_tbl"], bits,
+             order[:3], *order[3:], rates), kw)
+
+
+def _bpr_run(case):
+    epoch, W, H, args, kw = case
+    Wk, Hk = W.clone(), H.clone()
+    epoch(Wk, Hk, *args, **kw)
+    return Wk, Hk
+
+
+def _bpr_mesh_run(device, tiled):
+    """W shards and H partitions after one sharded BPR epoch on a rig of
+    the card named 4 times (test_bpr_sharded_matches_reference's
+    inputs)."""
+    from mymedialite_tpu_torch.ops.bpr_epoch import (
+        bpr_epoch_sharded, bpr_epoch_sharded_tiled,
+    )
+    fb = posonly_from_ratings(synthetic_ratings(
+        num_users=2000, num_items=3000, num_ratings=100_000, seed=5))
+    mesh = _rig(device)
+    if tiled:
+        plan, state, meta = BP.prepare_bpr_mxu_sharded_tiled(
+            fb, 4, uniform_user=True, slab_blocks=1, shuffle_seed=2,
+            device=device)
+        order = BP.bpr_sharded_tiled_epoch_order(plan, state["nvalid"], 3)
+    else:
+        plan, state, meta = BP.prepare_bpr_mxu_sharded(
+            fb, 4, uniform_user=True, shuffle_seed=2, device=device)
+        order = BP.bpr_sharded_epoch_order(plan, state["nvalid"], 3)
+    bits = _np_bits(16 * plan.nc_pad, meta[2], plan.chunk, 6).view(
+        4, 4, plan.nc_pad, meta[2], plan.chunk).to(device)
+    W, H = _bpr_tables(device, plan, fb.num_users, fb.num_items, 40, 1)
+    Ws, Hs = mesh.shard_rows(W), mesh.shard_rows(H)
+    rates = BP.bpr_mxu_column_rates(40, 64, 0.05, 0.0025, 0.0025, 0.00025,
+                                    0.0, True, device=device)
+    kw = dict(part_blocks=plan.part_blocks, user_block=plan.user_block,
+              item_block=plan.item_block)
+    if tiled:
+        bpr_epoch_sharded_tiled(mesh, Ws, Hs, plan.packed,
+                                state["subkeys_tbl"], state["cdf_tbl"], bits,
+                                order, plan.cell_counts, rates,
+                                slab_blocks=plan.slab_blocks, **kw)
+    else:
+        bpr_epoch_sharded(mesh, Ws, Hs, plan.packed, state["keys_tbl"],
+                          state["cdf_tbl"], bits, order, plan.cell_counts,
+                          rates, bitmask_tbl=state.get("bitmask_tbl"), **kw)
+    return mesh.gather_rows(Ws), mesh.gather_rows(Hs)
+
+
+def bpr_case_names():
+    fm = {False: "uniform", True: "wbpr"}
+    return (["zipf-epoch-resident", "zipf-epoch-tiled"]
+            + [f"prefix-resident-{'hinge' if sm else 'logistic'}-{fm[w]}-"
+               f"{form}" for sm, w, form in BPR_PREFIX]
+            + [f"prefix-tiled-{'hinge' if sm else 'logistic'}-{fm[w]}-subkeys"
+               for sm, w in BPR_TILED_PREFIX]
+            + ["mesh-resident", "mesh-tiled"])
+
+
+def bpr_case_digest(device, name):
+    if name.startswith("mesh"):
+        return _digest(_bpr_mesh_run(device, name.endswith("tiled")))
+    return _digest(_bpr_run(_bpr_case(device, name)))
+
+
+# (label, sigmoid, loss, use_p): SVDPlusPlus, SigmoidSVDPlusPlus with the
+# RMSE and the MAE loss, and the asymmetric factor models (no p)
+SVDPP_DIGEST_VARIANTS = (("plain", False, S.LOSS_RMSE, True),
+                         ("sigmoid-rmse", True, S.LOSS_RMSE, True),
+                         ("sigmoid-mae", True, S.LOSS_MAE, True),
+                         ("no-p", True, S.LOSS_RMSE, False))
+# the widths and, for each, the accumulator variants a launch can take
+SVDPP_DIGEST_WIDTHS = ((20, ("shared", "global")), (50, ("shared", "global")),
+                       (100, ("global",)))
+
+
+def _svdpp_case(device, name):
+    """(tables, packed, schedule, hp, rates, kw, variant) of a named case:
+    ``zipf-epoch-k{20|100}`` (test_svdpp_kernel_repeats_bit_for_bit's
+    duplicate-users-items chunks, one epoch, the wrapper's variant) and
+    ``prefix-{variant}-k{f}-{shared|global}`` (the steps of the first 64
+    user blocks of an epoch at 48,000 x 17,770 x 2M, the accumulator
+    variant forced)."""
+    parts = name.split("-")
+    f = int(parts[-2 if parts[0] == "prefix" else -1][1:])
+    if parts[0] == "zipf":
+        rng = np.random.default_rng(8)
+        U, I, n = 1100, 8, 12000
+        inputs = ((rng.zipf(1.2, n) % U).astype(np.int32),
+                  rng.integers(0, I, n).astype(np.int32),
+                  rng.integers(1, 11, n).astype(np.float32) / 2, U, I)
+        label, variant = "sigmoid-rmse", None
+    else:
+        U, I = 48_000, 17_770
+        data = synthetic_ratings(num_users=U, num_items=I,
+                                 num_ratings=2_000_000, seed=1)
+        inputs = (data.users, data.items, data.values, U, I)
+        label, variant = "-".join(parts[1:-2]), parts[-1]
+    _, sigmoid, loss, use_p = next(v for v in SVDPP_DIGEST_VARIANTS
+                                   if v[0] == label)
+    plan, tables = _svdpp_setup(device, *inputs, f=f, seed=2)
+    hp, rates, kw = _svdpp_args(plan, device, sigmoid, loss, use_p, f=f,
+                                lr=0.01)
+    schedule = plan.schedule
+    if parts[0] == "prefix":
+        end = _block_slices(plan)[63][1]
+        schedule = tuple(t[:end].contiguous() for t in schedule)
+    return tables(use_p), plan.packed, schedule, hp, rates, kw, variant
+
+
+def _svdpp_run(case):
+    tabs, packed, schedule, hp, rates, kw, variant = case
+    out = tuple(t.clone() for t in tabs)
+    real = SE.accumulator_variant
+    if variant is not None:
+        SE.accumulator_variant = lambda *a, **k: variant
+    try:
+        svdpp_epoch(*out, packed, schedule, hp, rates, **kw)
+    finally:
+        SE.accumulator_variant = real
+    return out
+
+
+def svdpp_case_names():
+    return (["zipf-epoch-k20", "zipf-epoch-k100"]
+            + [f"prefix-{label}-k{f}-{v}" for label, *_ in
+               SVDPP_DIGEST_VARIANTS for f, vs in SVDPP_DIGEST_WIDTHS
+               for v in vs])
+
+
+def svdpp_case_digest(device, name):
+    return _digest(_svdpp_run(_svdpp_case(device, name)))
+
+
+# bpr_case_digest and svdpp_case_digest of each case, recorded on an H100
+# from `git archive` of the commit before the cluster walks of kernels 3-5
+# (python3 tests/test_torch_cuda.py --bpr-digests / --svdpp-digests with
+# that tree's root first on PYTHONPATH)
+BPR_ONE_BLOCK_SHA256 = {
+    "zipf-epoch-resident":
+        "c4907cd2180cc444db10ee3fea4b0931887b894d4d258a661ab179c0d665e5dc",
+    "zipf-epoch-tiled":
+        "ffffc975fb0692f3cbe387daf89622a520f9e87ff1cf2309af12bda47c69aa95",
+    "prefix-resident-logistic-uniform-keys":
+        "fd5715a5687110fe25922b4842867a1de7816086f11b807e42f03dbba05b1243",
+    "prefix-resident-logistic-uniform-bitmask":
+        "fd5715a5687110fe25922b4842867a1de7816086f11b807e42f03dbba05b1243",
+    "prefix-resident-logistic-wbpr-keys":
+        "a7f3cc7ef258413356026ce17fab250d4473ebb18f42bcdaf395ea4e8a077b58",
+    "prefix-resident-logistic-wbpr-bitmask":
+        "a7f3cc7ef258413356026ce17fab250d4473ebb18f42bcdaf395ea4e8a077b58",
+    "prefix-resident-hinge-uniform-keys":
+        "292ed5404ffe2559a30a76c1c65eb9f89a2c36f59a5f506b60b4efc559383360",
+    "prefix-resident-hinge-uniform-bitmask":
+        "292ed5404ffe2559a30a76c1c65eb9f89a2c36f59a5f506b60b4efc559383360",
+    "prefix-resident-hinge-wbpr-keys":
+        "3b669e6c141939d89aefabfb1e0b3c6f51a1fc4ff83a0542b57461178e72239d",
+    "prefix-resident-hinge-wbpr-bitmask":
+        "3b669e6c141939d89aefabfb1e0b3c6f51a1fc4ff83a0542b57461178e72239d",
+    "prefix-tiled-logistic-uniform-subkeys":
+        "811c1c25724a53a88a0af3c2969a81734e3c5103137efb150e79e921bbe42c66",
+    "prefix-tiled-logistic-wbpr-subkeys":
+        "02180b4f2e89d1637dee5aa112f5eb65044660f3d7bea34f6c757957a83a2571",
+    "prefix-tiled-hinge-uniform-subkeys":
+        "793858473c98fa1f844fc2eb92eaf199f5691c8b0e163c47a90807cb623824d5",
+    "prefix-tiled-hinge-wbpr-subkeys":
+        "aa845bf3a6a4defd893fd3ab91e161676b8dd2615884ff355d4b37b1ca871b9c",
+    "mesh-resident":
+        "338d95ea1b3fd2ef1adc0ee795e121154763bd8bea96da9f62197b0c68e0efb2",
+    "mesh-tiled":
+        "34be15204f45b17f6c15538dd0b67b4247ea88c31656962ae38022a1f7bc0b00",
+}
+SVDPP_ONE_BLOCK_SHA256 = {
+    "zipf-epoch-k20":
+        "9b7d646af9d4ba3339aa729eca68dec728c215eac1ee87d914edf70cd4e4fd11",
+    "zipf-epoch-k100":
+        "366897f83db521de251cd1d062ae262d39cd8f5dafcab72111a8577bae92e18d",
+    "prefix-plain-k20-shared":
+        "9431d49f69e604b44830d4498b632773c01f6f672db0942fc50b7a6383f7d873",
+    "prefix-plain-k20-global":
+        "9431d49f69e604b44830d4498b632773c01f6f672db0942fc50b7a6383f7d873",
+    "prefix-plain-k50-shared":
+        "7da06175fa3661a8fb104ea6003e615a0b5030581ecb9567b635d0297038816e",
+    "prefix-plain-k50-global":
+        "7da06175fa3661a8fb104ea6003e615a0b5030581ecb9567b635d0297038816e",
+    "prefix-plain-k100-global":
+        "a5ba4ba9463631a1ff883cf16d328ea61780ad7442684fc9610866e4ad318eb5",
+    "prefix-sigmoid-rmse-k20-shared":
+        "3da7fa8943de98dba6d59bdc063cb96732c42fa07ab42b764645bd73b5384449",
+    "prefix-sigmoid-rmse-k20-global":
+        "3da7fa8943de98dba6d59bdc063cb96732c42fa07ab42b764645bd73b5384449",
+    "prefix-sigmoid-rmse-k50-shared":
+        "87391d4cc0f32dd8a3901c986af21b08f95a877f4fefba4e1a682ba2dbbda544",
+    "prefix-sigmoid-rmse-k50-global":
+        "87391d4cc0f32dd8a3901c986af21b08f95a877f4fefba4e1a682ba2dbbda544",
+    "prefix-sigmoid-rmse-k100-global":
+        "3338389e16f614e2a9cc8265995d8c832976a753b84b7bf639398595fd9ac0da",
+    "prefix-sigmoid-mae-k20-shared":
+        "0bab73a326e6d23e95bf0f5c94b25825c718b9340a45ce98d8bd1de274de6d59",
+    "prefix-sigmoid-mae-k20-global":
+        "0bab73a326e6d23e95bf0f5c94b25825c718b9340a45ce98d8bd1de274de6d59",
+    "prefix-sigmoid-mae-k50-shared":
+        "4c6f362b817aa1f98d0df12717f392d767ab9fd88c66f351fdbf73c8d5615be8",
+    "prefix-sigmoid-mae-k50-global":
+        "4c6f362b817aa1f98d0df12717f392d767ab9fd88c66f351fdbf73c8d5615be8",
+    "prefix-sigmoid-mae-k100-global":
+        "d8607f5c3fe39eb7f2b61be5096a36a52ef1e82bd433a7b11cbcc8d8bbaf710b",
+    "prefix-no-p-k20-shared":
+        "4aa1e5440a3b28c44f9306b2d1c0c32233f8f5ee71b6379f65282b81f14bec93",
+    "prefix-no-p-k20-global":
+        "4aa1e5440a3b28c44f9306b2d1c0c32233f8f5ee71b6379f65282b81f14bec93",
+    "prefix-no-p-k50-shared":
+        "89b8d16383ac86a8c332dc2b9ab3e698c9f4485dba0d574da546f79fc1fb1a8b",
+    "prefix-no-p-k50-global":
+        "89b8d16383ac86a8c332dc2b9ab3e698c9f4485dba0d574da546f79fc1fb1a8b",
+    "prefix-no-p-k100-global":
+        "721634b02decf7396383dcb478ad3f9aa149451ca63964093650e4b8f7411361",
+}
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["resident", "tiled"])
+def test_bpr_kernels_over_zipf_orders(cuda, tiled):
+    """Kernel 3 (keys) and 4 (sub-bucketed keys) over an epoch of
+    test_bpr_kernels_repeat_bit_for_bit's duplicate-heavy chunks (a
+    Zipf(1.3) catalog): equal to a second launch bit for bit, and to the
+    one-block kernel's tables."""
+    name = f"zipf-epoch-{'tiled' if tiled else 'resident'}"
+    case = _bpr_case(cuda, name)
+    got, again = _bpr_run(case), _bpr_run(case)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _digest(got) == BPR_ONE_BLOCK_SHA256[name]
+
+
+@pytest.mark.parametrize("name", [n for n in bpr_case_names()
+                                  if n.startswith("prefix")])
+def test_bpr_prefix_equals_the_one_block_kernel(cuda, name):
+    """The first 4,096 chunks of an epoch of kernel 3 (chunks of 640) and
+    4 (one-block slabs) at 48,000 x 17,770 x 3M, for each loss (logistic,
+    hinge), sampler (uniform, WBPR) and membership form (keys, bitmask;
+    sub-bucketed keys on the tiled schedule): the one-block kernel's
+    tables bit for bit."""
+    assert bpr_case_digest(cuda, name) == BPR_ONE_BLOCK_SHA256[name]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["sharded",
+                                                      "sharded-tiled"])
+def test_bpr_mesh_cells_equal_the_one_block_kernel(cuda, tiled):
+    """A sharded BPR epoch on the rig (kernel 3 or 4 once a cell): the
+    one-block kernel's tables bit for bit."""
+    name = f"mesh-{'tiled' if tiled else 'resident'}"
+    assert bpr_case_digest(cuda, name) == BPR_ONE_BLOCK_SHA256[name]
+
+
+@pytest.mark.parametrize("name", svdpp_case_names())
+def test_svdpp_equals_the_one_block_kernel(cuda, name):
+    """Kernel 5 over an epoch of test_svdpp_kernel_repeats_bit_for_bit's
+    duplicate users and items (k = 20, 100), and over the steps of the
+    first 64 user blocks at 48,000 x 17,770 x 2M for each variant (plain,
+    sigmoid RMSE and MAE, no p) and width (20, 50, 100 factors), with the
+    sums read on chip and through L2 wherever a launch takes them: the
+    one-block kernel's tables bit for bit, and a second launch's."""
+    case = _svdpp_case(cuda, name)
+    got = _svdpp_run(case)
+    again = _svdpp_run(case)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _digest(got) == SVDPP_ONE_BLOCK_SHA256[name]
+
+
+DIGESTS = {"--sgd-digests": (sgd_case_names, sgd_case_digest),
+           "--bpr-digests": (bpr_case_names, bpr_case_digest),
+           "--svdpp-digests": (svdpp_case_names, svdpp_case_digest)}
+
+
 if __name__ == "__main__":
     import json
     import sys
-    if sys.argv[1:] != ["--sgd-digests"]:
-        sys.exit("usage: python3 tests/test_torch_cuda.py --sgd-digests")
+    if len(sys.argv) != 2 or sys.argv[1] not in DIGESTS:
+        sys.exit("usage: python3 tests/test_torch_cuda.py "
+                 f"{'|'.join(DIGESTS)}")
     dev = torch.device("cuda")
-    print(json.dumps({name: sgd_case_digest(dev, name)
-                      for name in sgd_case_names()}, indent=1))
+    names, digest = DIGESTS[sys.argv[1]]
+    print(json.dumps({name: digest(dev, name) for name in names()},
+                     indent=1))

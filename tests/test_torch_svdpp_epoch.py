@@ -140,15 +140,18 @@ def test_wrapper_rejects_bad_input(setup):
 
 
 def test_accumulator_variant_at_model_shapes():
-    """R and Y read s, c and n from a copy in shared memory where UB (Fp
-    + 4) floats fit beside the rates, two chunks, their segment tables
-    and 512 list positions of the owner scatter's widest stage in 227 KB:
-    at the models' plan (UB 512, C 512) up to 28 factors, quality.py's
-    k=20 among them, and through L2 past that; a smaller block or chunk
-    keeps the copy on chip longer."""
+    """R and Y read s, c and n from a copy in each CTA's shared memory
+    where UB (Fp + 4) floats fit beside the rates, two chunks, their
+    segment tables and the CTA's part of a step whose every entry lies in
+    a run (``stage_need``; at most 512 list positions of the widest step,
+    what one block kept) in 227 KB less 1 KB: at the models' plan (UB
+    512, C 512, a cluster of 8) up to 64 factors, quality.py's k=20 and
+    the k=50 width among them, and through L2 past that; a smaller block
+    or chunk keeps the copy on chip longer."""
     from mymedialite_tpu_torch.ops import svdpp_epoch as se
+    assert se.cluster_size(512) == 8
     for f in range(1, 254):
-        want = "shared" if f <= 28 else "global"
+        want = "shared" if f <= 64 else "global"
         assert se.accumulator_variant(512, f, 512, SP.svdpp_fe(f)) == want
     # rates, packed rows, runs and codes [2, 1544 + 2 * 512], the live
     # float4 lists and their inverse, one row of the widest stage (W 32 +
