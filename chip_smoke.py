@@ -2848,12 +2848,24 @@ def prefix_line(label, err, f32):
             f"{err:.3e} (tol {KERNEL_TOL}; the CPU float32 run {f32:.3e})")
 
 
+def device_busy(averages):
+    """(device us, device operations) of the rows of ``key_averages()``:
+    the self device time of the kernels, copies and sets, and no user
+    annotation's (a ``record_function`` range, such as the port's
+    ``mml.*`` spans, has a device row that spans the work launched in
+    it)."""
+    rows = [ev for ev in averages if ev.self_device_time_total
+            and not getattr(ev, "is_user_annotation", False)]
+    return (sum(ev.self_device_time_total for ev in rows),
+            sum(ev.count for ev in rows))
+
+
 def profiled_busy(fn):
     """Run ``fn()`` once under torch.profiler: (device ms, wall ms, device
     operations), the device ms summed over the kernels, copies and sets
-    the profiler saw (one stream, so they do not overlap), the operations
-    counted one per launch; the wall clock includes the profiler's own
-    cost."""
+    the profiler saw (one stream, so they do not overlap; ``device_busy``),
+    the operations counted one per launch; the wall clock includes the
+    profiler's own cost."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2861,9 +2873,8 @@ def profiled_busy(fn):
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    events = [ev for ev in prof.key_averages() if ev.self_device_time_total]
-    busy = sum(ev.self_device_time_total for ev in events)
-    return busy / 1e3, wall, sum(ev.count for ev in events)
+    busy, ops = device_busy(prof.key_averages())
+    return busy / 1e3, wall, ops
 
 
 def phase_svdpp_grouped(dev, train, test):

@@ -49,6 +49,7 @@ import math
 import numpy as np
 import torch
 
+from mymedialite_tpu_torch import trace
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.models.base import (
@@ -558,69 +559,82 @@ class BPRMF(ItemMF, FoldInItemRecommender):
     def iterate(self):
         """One epoch through ``bpr_epoch`` (or ``bpr_epoch_tiled``) on the
         resident kernel-layout tables (JAX: ``_iterate_mxu``), or the
-        minibatch epoch past the tiled bound."""
-        self._ensure_epoch_ready()
-        if self._plan is None and self._sampler is None:
-            self._prepare_plan()
-        if self._sampler is not None:
-            return self._iterate_minibatch()
-        plan = self._plan
-        f = self.num_factors
-        fe = fused_width(f)
-        mesh = self._mesh
-        if self._mxu_tables is not None:
-            We, He = self._mxu_tables
-        else:
-            p = self._params
-            self._mxu_num_users = p["user_factors"].shape[0]
-            self._mxu_std_device = p["user_factors"].device
-            We, He = bpr_plan.bpr_tables_to_mxu(
-                p["user_factors"], p["item_factors"], p["item_bias"],
-                self._new_of_old, u_pad=plan.u_pad, i_pad=plan.i_pad, fe=fe)
+        minibatch epoch past the tiled bound. Inside the span
+        ``step.iterate`` (``trace.py``; attrs ``route`` and, on the kernel
+        routes, ``epoch``)."""
+        with trace.span("step.iterate") as step:
+            self._ensure_epoch_ready()
+            if self._plan is None and self._sampler is None:
+                self._prepare_plan()
+            if self._sampler is not None:
+                step.set(route="minibatch")
+                return self._iterate_minibatch()
+            plan = self._plan
+            f = self.num_factors
+            fe = fused_width(f)
+            mesh = self._mesh
+            if self._mxu_tables is not None:
+                We, He = self._mxu_tables
+            else:
+                with trace.span("step.tables"):
+                    p = self._params
+                    self._mxu_num_users = p["user_factors"].shape[0]
+                    self._mxu_std_device = p["user_factors"].device
+                    We, He = bpr_plan.bpr_tables_to_mxu(
+                        p["user_factors"], p["item_factors"], p["item_bias"],
+                        self._new_of_old, u_pad=plan.u_pad, i_pad=plan.i_pad,
+                        fe=fe)
+                    if mesh is not None:
+                        We, He = mesh.shard_rows(We), mesh.shard_rows(He)
+            rates = bpr_plan.bpr_mxu_column_rates(
+                f, fe, self.learn_rate, self.reg_u, self.reg_i, self.reg_j,
+                self.bias_reg, self.update_j, device=plan.packed.device)
+            self._epoch_counter += 1
+            step.set(route="mesh" if mesh is not None else "tiled"
+                     if self._tiled is not None else "resident",
+                     epoch=self._epoch_counter)
+            trials, num_items = self._neg_meta[2], self._neg_meta[3]
+            seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
+            state = self._neg_state
+            block_mass = state["block_mass"] if self.MXU_POPULARITY else None
             if mesh is not None:
-                We, He = mesh.shard_rows(We), mesh.shard_rows(He)
-        rates = bpr_plan.bpr_mxu_column_rates(
-            f, fe, self.learn_rate, self.reg_u, self.reg_i, self.reg_j,
-            self.bias_reg, self.update_j, device=plan.packed.device)
-        self._epoch_counter += 1
-        trials, num_items = self._neg_meta[2], self._neg_meta[3]
-        seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
-        state = self._neg_state
-        block_mass = state["block_mass"] if self.MXU_POPULARITY else None
-        if mesh is not None:
-            self._iterate_sharded(We, He, seed, trials, rates, block_mass)
+                self._iterate_sharded(We, He, seed, trials, rates, block_mass)
+                self._mxu_tables = (We, He)
+                if mesh.process_count > 1:
+                    # every process holds the whole tables after each
+                    # epoch, so that each can predict, save and serve alone
+                    self._gather_tables()
+                return
+            with trace.span("step.bits"):
+                bits = self._epoch_bits(seed, plan.num_chunks, trials,
+                                        plan.chunk)
+            if self._tiled is not None:
+                tl = self._tiled
+                order = bpr_plan.bpr_tiled_epoch_order(
+                    plan, state["nvalid"], tl["slab_items"],
+                    slab_blocks=tl["slab_blocks"], num_slabs=tl["num_slabs"],
+                    num_items=num_items, seed=seed, block_mass=block_mass)
+                bpr_epoch_tiled(
+                    We, He, plan.packed, state["subkeys_tbl"],
+                    state["cdf_tbl"], bits, order, rates,
+                    slab_blocks=tl["slab_blocks"], user_block=plan.user_block,
+                    item_block=plan.item_block, soft_margin=self.SOFT_MARGIN,
+                    wbpr=self.MXU_POPULARITY, subkeys=True)
+                self._mxu_tables = (We, He)
+                return
+            order = plan.epoch_order(seed)
+            with trace.span("copy.order_back"):
+                ub_visit = order[0].cpu().numpy()
+            jb, nval, bkt = bpr_plan.epoch_negative_plan(
+                plan, state["nvalid"], ub_visit, num_items,
+                (self.random_seed + 7) * 999_983 + self._epoch_counter,
+                block_mass=block_mass)
+            bpr_epoch(We, He, plan.packed, state["keys_tbl"],
+                      state["cdf_tbl"], bits, order, jb, nval, bkt, rates,
+                      user_block=plan.user_block, item_block=plan.item_block,
+                      soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
+                      bitmask_tbl=state.get("bitmask_tbl"))
             self._mxu_tables = (We, He)
-            if mesh.process_count > 1:
-                # every process holds the whole tables after each epoch,
-                # so that each can predict, save and serve alone
-                self._gather_tables()
-            return
-        bits = self._epoch_bits(seed, plan.num_chunks, trials, plan.chunk)
-        if self._tiled is not None:
-            tl = self._tiled
-            order = bpr_plan.bpr_tiled_epoch_order(
-                plan, state["nvalid"], tl["slab_items"],
-                slab_blocks=tl["slab_blocks"], num_slabs=tl["num_slabs"],
-                num_items=num_items, seed=seed, block_mass=block_mass)
-            bpr_epoch_tiled(
-                We, He, plan.packed, state["subkeys_tbl"], state["cdf_tbl"],
-                bits, order, rates, slab_blocks=tl["slab_blocks"],
-                user_block=plan.user_block, item_block=plan.item_block,
-                soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
-                subkeys=True)
-            self._mxu_tables = (We, He)
-            return
-        order = plan.epoch_order(seed)
-        jb, nval, bkt = bpr_plan.epoch_negative_plan(
-            plan, state["nvalid"], order[0].cpu().numpy(), num_items,
-            (self.random_seed + 7) * 999_983 + self._epoch_counter,
-            block_mass=block_mass)
-        bpr_epoch(We, He, plan.packed, state["keys_tbl"], state["cdf_tbl"],
-                  bits, order, jb, nval, bkt, rates,
-                  user_block=plan.user_block, item_block=plan.item_block,
-                  soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
-                  bitmask_tbl=state.get("bitmask_tbl"))
-        self._mxu_tables = (We, He)
 
     def _cell_bits(self, seed: int, trials: int) -> list:
         """[g][k] int32 random bits [n, trials, C] of each cell's n chunks

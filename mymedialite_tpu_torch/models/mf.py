@@ -58,6 +58,7 @@ import math
 import numpy as np
 import torch
 
+from mymedialite_tpu_torch import trace
 from mymedialite_tpu_torch.io.model_io import ModelReader, ModelWriter
 from mymedialite_tpu_torch.device import exact_float32, resolve_device
 from mymedialite_tpu_torch.models.base import (
@@ -482,48 +483,56 @@ class MatrixFactorization(IncrementalRatingPredictor, IterativeModel,
         resident kernel-layout tables (JAX: ``_iterate_mxu``), on a mesh
         through ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` on
         the W shards and item partitions, or the blocked epoch on the std
-        tables."""
-        self._ensure_epoch_ready()
-        if self._blocked is not None:
-            return self._iterate_blocked(update_user, update_item)
-        plan = self._plan
-        mesh = self._mesh
-        if self._mxu_tables is not None:
-            We, He = self._mxu_tables
-        else:
-            self._mxu_std_shape = tuple(self._W_ext.shape)
-            self._mxu_std_device = self._W_ext.device
-            We, He = mxu.tables_std_to_mxu(
-                self._W_ext, self._H_ext, self._new_of_old, u_pad=plan.u_pad,
-                i_pad=plan.i_pad, fe_mxu=mxu.fused_width(self.num_factors))
+        tables. Inside the span ``step.iterate`` (``trace.py``; attrs
+        ``route`` and, on the kernel routes, ``epoch``)."""
+        with trace.span("step.iterate") as step:
+            self._ensure_epoch_ready()
+            if self._blocked is not None:
+                step.set(route="blocked")
+                return self._iterate_blocked(update_user, update_item)
+            plan = self._plan
+            mesh = self._mesh
+            if self._mxu_tables is not None:
+                We, He = self._mxu_tables
+            else:
+                with trace.span("step.tables"):
+                    self._mxu_std_shape = tuple(self._W_ext.shape)
+                    self._mxu_std_device = self._W_ext.device
+                    We, He = mxu.tables_std_to_mxu(
+                        self._W_ext, self._H_ext, self._new_of_old,
+                        u_pad=plan.u_pad, i_pad=plan.i_pad,
+                        fe_mxu=mxu.fused_width(self.num_factors))
+                    if mesh is not None:
+                        We, He = mesh.shard_rows(We), mesh.shard_rows(He)
+            rates = self._epoch_rates(update_user, update_item)
+            hp = (self.global_bias, self.min_rating, self._rating_range())
+            self._epoch_counter += 1
+            step.set(route="mesh" if mesh is not None else "tiled"
+                     if isinstance(plan, mxu.MxuTiledPlan) else "resident",
+                     epoch=self._epoch_counter)
+            seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
+            kw = dict(user_block=plan.user_block, item_block=plan.item_block,
+                      loss=self.loss_id, biased=self.BIASED)
             if mesh is not None:
-                We, He = mesh.shard_rows(We), mesh.shard_rows(He)
-        rates = self._epoch_rates(update_user, update_item)
-        hp = (self.global_bias, self.min_rating, self._rating_range())
-        self._epoch_counter += 1
-        seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
-        kw = dict(user_block=plan.user_block, item_block=plan.item_block,
-                  loss=self.loss_id, biased=self.BIASED)
-        if mesh is not None:
-            sharded = (sgd_epoch_sharded_tiled
-                       if isinstance(plan, mxu.MxuShardedTiledPlan)
-                       else sgd_epoch_sharded)
-            if sharded is sgd_epoch_sharded_tiled:
-                kw["slab_blocks"] = plan.slab_blocks
-            sharded(mesh, We, He, self._packed, plan.epoch_order(seed),
-                    plan.cell_counts, hp, rates, **kw)
-        elif isinstance(plan, mxu.MxuTiledPlan):
-            sgd_epoch_tiled(We, He, plan.packed, plan.epoch_order(seed), hp,
-                            rates, slab_blocks=plan.slab_blocks, **kw)
-        else:
-            sgd_epoch(We, He, plan.packed, plan.epoch_order(seed), hp, rates,
-                      **kw)
-        self._mxu_tables = (We, He)
-        if mesh is not None and mesh.process_count > 1:
-            # every process holds the whole tables after each epoch, so
-            # that each can predict, save and serve alone
-            self._gather_tables()
-        self.update_learn_rate()
+                sharded = (sgd_epoch_sharded_tiled
+                           if isinstance(plan, mxu.MxuShardedTiledPlan)
+                           else sgd_epoch_sharded)
+                if sharded is sgd_epoch_sharded_tiled:
+                    kw["slab_blocks"] = plan.slab_blocks
+                sharded(mesh, We, He, self._packed, plan.epoch_order(seed),
+                        plan.cell_counts, hp, rates, **kw)
+            elif isinstance(plan, mxu.MxuTiledPlan):
+                sgd_epoch_tiled(We, He, plan.packed, plan.epoch_order(seed),
+                                hp, rates, slab_blocks=plan.slab_blocks, **kw)
+            else:
+                sgd_epoch(We, He, plan.packed, plan.epoch_order(seed), hp,
+                          rates, **kw)
+            self._mxu_tables = (We, He)
+            if mesh is not None and mesh.process_count > 1:
+                # every process holds the whole tables after each epoch, so
+                # that each can predict, save and serve alone
+                self._gather_tables()
+            self.update_learn_rate()
 
     def update_learn_rate(self):
         self.current_learnrate *= self.learn_rate_decay

@@ -15,11 +15,12 @@ the tiled wrapper passes the absolute positive blocks isl * slab_blocks
 + ibr and the order's absolute negative blocks jb) or raise, also where
 the card cannot place the cluster; on CPU tensors they run
 ``bpr_epoch_reference`` / ``bpr_epoch_tiled_reference``. Each counts its
-own calls. ``bpr_epoch_sharded`` / ``bpr_epoch_sharded_tiled``
-(``pallas_bpr.py:1519``, ``:1860``) run one epoch over a device mesh: the
-same wrapper once for each non-empty (device, sub-epoch) cell of this
-process, its negatives drawn within the item partition the device holds
-(across processes too: ``parallel/mesh.py diagonal_epoch``).
+own calls, and runs inside the span ``kernel.<wrapper>``.
+``bpr_epoch_sharded`` / ``bpr_epoch_sharded_tiled`` (``pallas_bpr.py:1519``,
+``:1860``) run one epoch over a device mesh: the same wrapper once for
+each non-empty (device, sub-epoch) cell of this process, its negatives
+drawn within the item partition the device holds (across processes too:
+``parallel/mesh.py diagonal_epoch``).
 
 Arguments shared by both (``ops/bpr_plan.py`` builds them):
 
@@ -61,6 +62,7 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch import trace
 from mymedialite_tpu_torch.ops import cluster as _cluster
 from mymedialite_tpu_torch.ops.bpr_plan import SUBKEY_BUCKETS
 from mymedialite_tpu_torch.ops.cluster import (
@@ -379,14 +381,15 @@ def bpr_epoch(W, H, packed, keys_tbl, cdf_tbl, bits, order, jb, nval, bkt,
            (*order, jb, nval, bkt), rates, item_block, wbpr, subkeys)
     kw = dict(soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
               subkeys=subkeys, return_negatives=return_negatives)
-    if W.device.type == "cpu":
-        return bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits,
-                                   order, jb, nval, bkt, rates,
-                                   user_block=user_block,
-                                   item_block=item_block, **kw)
-    neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
-                  (*order, jb, nval, bkt), rates, user_block=user_block,
-                  item_block=item_block, **kw)
+    with trace.span("kernel.bpr_epoch"):
+        if W.device.type == "cpu":
+            return bpr_epoch_reference(W, H, packed, keys_tbl, cdf_tbl, bits,
+                                       order, jb, nval, bkt, rates,
+                                       user_block=user_block,
+                                       item_block=item_block, **kw)
+        neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
+                      (*order, jb, nval, bkt), rates, user_block=user_block,
+                      item_block=item_block, **kw)
     bpr_epoch.launches += 1
     return W, H, neg
 
@@ -402,14 +405,15 @@ def bpr_epoch_tiled(W, H, packed, keys_tbl, cdf_tbl, bits, order, rates, *,
            item_block, wbpr, subkeys)
     kw = dict(soft_margin=soft_margin, wbpr=wbpr, bitmask_tbl=bitmask_tbl,
               subkeys=subkeys, return_negatives=return_negatives)
-    if W.device.type == "cpu":
-        return bpr_epoch_tiled_reference(
-            W, H, packed, keys_tbl, cdf_tbl, bits, order, rates,
-            slab_blocks=slab_blocks, user_block=user_block,
-            item_block=item_block, **kw)
-    neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
-                  tiled_cols(order, slab_blocks), rates,
-                  user_block=user_block, item_block=item_block, **kw)
+    with trace.span("kernel.bpr_epoch_tiled"):
+        if W.device.type == "cpu":
+            return bpr_epoch_tiled_reference(
+                W, H, packed, keys_tbl, cdf_tbl, bits, order, rates,
+                slab_blocks=slab_blocks, user_block=user_block,
+                item_block=item_block, **kw)
+        neg = _launch(W, H, packed, keys_tbl, cdf_tbl, bits,
+                      tiled_cols(order, slab_blocks), rates,
+                      user_block=user_block, item_block=item_block, **kw)
     bpr_epoch_tiled.launches += 1
     return W, H, neg
 

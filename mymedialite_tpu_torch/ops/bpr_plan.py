@@ -49,9 +49,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from mymedialite_tpu_torch import trace
 from mymedialite_tpu_torch.ops.plan import (  # noqa: F401  (re-exported)
     MxuPlan, MxuShardedPlan, MxuShardedTiledPlan, _round_up, mxu_supported,
-    prepare_mxu_data, shard_plan,
+    planned, prepare_mxu_data, shard_plan, to_device,
 )
 
 BITMASK_HBM_BYTES = 2 * 1024 ** 3
@@ -62,6 +63,7 @@ SUBKEY_BUCKETS = 8
 MAX_KEY_CORRUPTION = 1e-3
 
 
+@planned
 def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
                     item_block: int = 1024, chunk=640, shuffle_seed=0,
                     num_neg_trials: int = 8, kcap=None,
@@ -102,116 +104,119 @@ def prepare_bpr_mxu(feedback, *, uniform_user: bool, user_block: int = 512,
                             user_block=user_block, item_block=item_block,
                             chunk=chunk, shuffle_seed=shuffle_seed,
                             chunk_overhead=chunk_overhead, device="cpu")
-    n_ib, IB, UB = plan.n_iblocks, plan.item_block, plan.user_block
-    # real items per block: the popularity round robin fills block b's
-    # first nvalid_b slots
-    b_of_new = np.arange(plan.i_pad) // IB
-    nvalid = np.bincount(b_of_new, weights=(plan.old_of_new >= 0),
-                         minlength=n_ib).astype(np.int32)
+    with trace.phase("plan.membership"):
+        n_ib, IB, UB = plan.n_iblocks, plan.item_block, plan.user_block
+        # real items per block: the popularity round robin fills block b's
+        # first nvalid_b slots
+        b_of_new = np.arange(plan.i_pad) // IB
+        nvalid = np.bincount(b_of_new, weights=(plan.old_of_new >= 0),
+                             minlength=n_ib).astype(np.int32)
 
-    packed = plan.packed.numpy()                          # [nc, 4, C]
-    u_loc, i_loc = packed[:, 0], packed[:, 1]
-    real = packed[:, 3].view(np.float32) > 0
-    bkt_c = plan.ub_c.astype(np.int64) * n_ib + plan.ib_c
-    n_bkt = plan.n_ublocks * n_ib
-    keys = (u_loc.astype(np.int64) * IB + i_loc)[real].astype(np.int32)
-    bkt_raw = np.broadcast_to(bkt_c[:, None], u_loc.shape)[real]
-    # membership is a set test: one key per distinct (bucket, key), in
-    # np.unique's order. One sort and a mask: np.unique hashes before it
-    # sorts since numpy 2.3, several times slower on 10^7 keys
-    uniq = np.sort(bkt_raw * (UB * IB) + keys)
-    uniq = uniq[np.r_[True, uniq[1:] != uniq[:-1]]]
-    bkt_r = uniq // (UB * IB)
-    keys = (uniq % (UB * IB)).astype(np.int32)
-    cnt = np.bincount(bkt_r, minlength=n_bkt)
-    Kcap = _round_up(max(int(cnt.max()) if cnt.size else 1, 1), 128)
-    if kcap is not None and Kcap > kcap:
-        Kcap = _round_up(kcap, 128)
-    # uniq is sorted, so each bucket's keys are one ascending run
-    within = np.arange(keys.size) - np.concatenate([[0], np.cumsum(cnt)])[bkt_r]
-    keep = within < Kcap
-    keys_tbl = np.full((_round_up(n_bkt, 8), Kcap), -1, np.int32)
-    keys_tbl[bkt_r[keep], within[keep]] = keys[keep]
+        packed = plan.packed.numpy()                          # [nc, 4, C]
+        u_loc, i_loc = packed[:, 0], packed[:, 1]
+        real = packed[:, 3].view(np.float32) > 0
+        bkt_c = plan.ub_c.astype(np.int64) * n_ib + plan.ib_c
+        n_bkt = plan.n_ublocks * n_ib
+        keys = (u_loc.astype(np.int64) * IB + i_loc)[real].astype(np.int32)
+        bkt_raw = np.broadcast_to(bkt_c[:, None], u_loc.shape)[real]
+        # membership is a set test: one key per distinct (bucket, key), in
+        # np.unique's order. One sort and a mask: np.unique hashes before it
+        # sorts since numpy 2.3, several times slower on 10^7 keys
+        uniq = np.sort(bkt_raw * (UB * IB) + keys)
+        uniq = uniq[np.r_[True, uniq[1:] != uniq[:-1]]]
+        bkt_r = uniq // (UB * IB)
+        keys = (uniq % (UB * IB)).astype(np.int32)
+        cnt = np.bincount(bkt_r, minlength=n_bkt)
+        Kcap = _round_up(max(int(cnt.max()) if cnt.size else 1, 1), 128)
+        if kcap is not None and Kcap > kcap:
+            Kcap = _round_up(kcap, 128)
+        # uniq is sorted, so each bucket's keys are one ascending run
+        within = np.arange(keys.size) - np.concatenate(
+            [[0], np.cumsum(cnt)])[bkt_r]
+        keep = within < Kcap
+        keys_tbl = np.full((_round_up(n_bkt, 8), Kcap), -1, np.int32)
+        keys_tbl[bkt_r[keep], within[keep]] = keys[keep]
 
-    def corruption_rate(dropped_keys, dropped_bkt):
-        """Expected fraction of triples whose negative is a dropped key:
-        sum over users of |events_u| * dropped(u) / (|events| * I)."""
-        if dropped_keys.size == 0:
-            return 0.0
-        g_user = (dropped_bkt // n_ib) * UB + dropped_keys // IB
-        du = np.bincount(g_user, minlength=max(U, 1))
-        ev = np.zeros(max(U, 1), np.float64)
-        ev[:counts.shape[0]] = counts
-        return float((ev * du[:ev.shape[0]]).sum()) / (
-            max(len(users), 1) * max(I, 1))
+        def corruption_rate(dropped_keys, dropped_bkt):
+            """Expected fraction of triples whose negative is a dropped key:
+            sum over users of |events_u| * dropped(u) / (|events| * I)."""
+            if dropped_keys.size == 0:
+                return 0.0
+            g_user = (dropped_bkt // n_ib) * UB + dropped_keys // IB
+            du = np.bincount(g_user, minlength=max(U, 1))
+            ev = np.zeros(max(U, 1), np.float64)
+            ev[:counts.shape[0]] = counts
+            return float((ev * du[:ev.shape[0]]).sum()) / (
+                max(len(users), 1) * max(I, 1))
 
-    dropped = 1.0 - float(keep.sum()) / max(keys.size, 1)
-    corrupt = corruption_rate(keys[~keep], bkt_r[~keep])
-    if corrupt > MAX_KEY_CORRUPTION and not subkeys:
-        import warnings
-        warnings.warn(
-            f"prepare_bpr_mxu: membership-key cap Kcap={Kcap} drops "
-            f"{dropped:.2%} of unique keys; estimated corrupted-triple "
-            f"rate {corrupt:.2e} exceeds 1e-3 — raise kcap",
-            RuntimeWarning)
+        dropped = 1.0 - float(keep.sum()) / max(keys.size, 1)
+        corrupt = corruption_rate(keys[~keep], bkt_r[~keep])
+        if corrupt > MAX_KEY_CORRUPTION and not subkeys:
+            import warnings
+            warnings.warn(
+                f"prepare_bpr_mxu: membership-key cap Kcap={Kcap} drops "
+                f"{dropped:.2%} of unique keys; estimated corrupted-triple "
+                f"rate {corrupt:.2e} exceeds 1e-3 — raise kcap",
+                RuntimeWarning)
 
-    # per-block popularity CDF over local slots; padding slots get 1.0 so
-    # the inverse CDF never lands on them
-    cnt_new = np.zeros(plan.i_pad, np.float64)
-    valid_slots = plan.old_of_new >= 0
-    cnt_new[valid_slots] = np.asarray(feedback.count_by_item,
-                                      dtype=np.float64)[
-        plan.old_of_new[valid_slots]]
-    cnt_blk = cnt_new.reshape(n_ib, IB)
-    block_mass = cnt_blk.sum(axis=1)
-    cdf = np.ones((_round_up(n_ib, 8), IB), np.float32)
-    nz = block_mass > 0
-    cdf[:n_ib][nz] = (np.cumsum(cnt_blk[nz], axis=1)
-                      / block_mass[nz, None]).astype(np.float32)
+        # per-block popularity CDF over local slots; padding slots get 1.0 so
+        # the inverse CDF never lands on them
+        cnt_new = np.zeros(plan.i_pad, np.float64)
+        valid_slots = plan.old_of_new >= 0
+        cnt_new[valid_slots] = np.asarray(feedback.count_by_item,
+                                          dtype=np.float64)[
+            plan.old_of_new[valid_slots]]
+        cnt_blk = cnt_new.reshape(n_ib, IB)
+        block_mass = cnt_blk.sum(axis=1)
+        cdf = np.ones((_round_up(n_ib, 8), IB), np.float32)
+        nz = block_mass > 0
+        cdf[:n_ib][nz] = (np.cumsum(cnt_blk[nz], axis=1)
+                          / block_mass[nz, None]).astype(np.float32)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    neg_state = dict(keys_tbl=dev(keys_tbl), nvalid=nvalid,
-                     cdf_tbl=dev(cdf), block_mass=block_mass,
-                     key_truncation=dropped, key_corruption=corrupt)
-    if subkeys:
-        S = SUBKEY_BUCKETS
-        skey = bkt_r * S + ((keys // IB) & (S - 1))
-        scnt = np.bincount(skey, minlength=n_bkt * S)
-        Kmax = _round_up(max(int(scnt.max()) if scnt.size else 1, 1), 128)
-        Ksub = min(Kmax, _round_up(ksub_cap, 128)) if ksub_cap else Kmax
-        order2 = np.argsort(skey, kind="stable")
-        sk, skeys = skey[order2], keys[order2]
-        within2 = np.arange(keys.size) - np.concatenate(
-            [[0], np.cumsum(scnt)])[sk]
-        while True:
-            keep2 = within2 < Ksub
-            sub_dropped = 1.0 - float(keep2.sum()) / max(keys.size, 1)
-            sub_corrupt = corruption_rate(skeys[~keep2], sk[~keep2] // S)
-            if sub_corrupt <= MAX_KEY_CORRUPTION or Ksub >= Kmax:
-                break
-            # the cap bounds the compare cost; sampling bias is not traded
-            Ksub = min(Ksub * 2, Kmax)
-        sub_tbl = np.full((n_bkt * S, Ksub), -1, np.int32)
-        sub_tbl[sk[keep2], within2[keep2]] = skeys[keep2]
-        neg_state.update(subkeys_tbl=dev(sub_tbl), ksub=Ksub,
-                         subkey_truncation=sub_dropped,
-                         subkey_corruption=sub_corrupt)
-    if bitmask == "auto":
-        bitmask = n_bkt * UB * (IB // 8) <= BITMASK_HBM_BYTES
-    if bitmask:
-        # the unique keys sorted by (bucket, u_loc, i_loc) give byte
-        # offsets in nondecreasing order: OR the bits of each byte's run
-        bm = np.zeros(n_bkt * UB * (IB // 8), np.uint8)
-        byte = (bkt_r * UB + keys // IB) * (IB // 8) + (keys % IB >> 3)
-        bit = (1 << (keys % IB & 7)).astype(np.uint8)
-        if byte.size:
-            first = np.flatnonzero(np.r_[True, byte[1:] != byte[:-1]])
-            bm[byte[first]] = np.bitwise_or.reduceat(bit, first)
-        neg_state["bitmask_tbl"] = dev(
-            bm.view(np.int8).reshape(n_bkt, UB, IB // 8))
-    plan = dataclasses.replace(plan, packed=plan.packed.to(device))
+        # the tables, copied to the device after the phase
+        tables = dict(keys_tbl=keys_tbl, cdf_tbl=cdf)
+        neg_state = dict(nvalid=nvalid, block_mass=block_mass,
+                         key_truncation=dropped, key_corruption=corrupt)
+        if subkeys:
+            S = SUBKEY_BUCKETS
+            skey = bkt_r * S + ((keys // IB) & (S - 1))
+            scnt = np.bincount(skey, minlength=n_bkt * S)
+            Kmax = _round_up(max(int(scnt.max()) if scnt.size else 1, 1), 128)
+            Ksub = min(Kmax, _round_up(ksub_cap, 128)) if ksub_cap else Kmax
+            order2 = np.argsort(skey, kind="stable")
+            sk, skeys = skey[order2], keys[order2]
+            within2 = np.arange(keys.size) - np.concatenate(
+                [[0], np.cumsum(scnt)])[sk]
+            while True:
+                keep2 = within2 < Ksub
+                sub_dropped = 1.0 - float(keep2.sum()) / max(keys.size, 1)
+                sub_corrupt = corruption_rate(skeys[~keep2], sk[~keep2] // S)
+                if sub_corrupt <= MAX_KEY_CORRUPTION or Ksub >= Kmax:
+                    break
+                # the cap bounds the compare cost; sampling bias is not traded
+                Ksub = min(Ksub * 2, Kmax)
+            sub_tbl = np.full((n_bkt * S, Ksub), -1, np.int32)
+            sub_tbl[sk[keep2], within2[keep2]] = skeys[keep2]
+            tables["subkeys_tbl"] = sub_tbl
+            neg_state.update(ksub=Ksub, subkey_truncation=sub_dropped,
+                             subkey_corruption=sub_corrupt)
+        if bitmask == "auto":
+            bitmask = n_bkt * UB * (IB // 8) <= BITMASK_HBM_BYTES
+        if bitmask:
+            # the unique keys sorted by (bucket, u_loc, i_loc) give byte
+            # offsets in nondecreasing order: OR the bits of each byte's run
+            bm = np.zeros(n_bkt * UB * (IB // 8), np.uint8)
+            byte = (bkt_r * UB + keys // IB) * (IB // 8) + (keys % IB >> 3)
+            bit = (1 << (keys % IB & 7)).astype(np.uint8)
+            if byte.size:
+                first = np.flatnonzero(np.r_[True, byte[1:] != byte[:-1]])
+                bm[byte[first]] = np.bitwise_or.reduceat(bit, first)
+            tables["bitmask_tbl"] = bm.view(np.int8).reshape(n_bkt, UB,
+                                                             IB // 8)
+    with trace.phase("copy.plan"):
+        neg_state.update({k: torch.from_numpy(np.ascontiguousarray(a))
+                          .to(device) for k, a in tables.items()})
+        plan = dataclasses.replace(plan, packed=plan.packed.to(device))
     return plan, neg_state, (n_ib, Kcap, num_neg_trials, I, IB)
 
 
@@ -223,20 +228,20 @@ def epoch_negative_plan(plan: MxuPlan, nvalid: np.ndarray,
     nvalid_b / num_items), WBPR draws jb by popularity mass. Returns
     int32 tensors (jb, nval, bkt) on the plan's device; bkt indexes the
     membership tables."""
-    rng = np.random.default_rng(seed)
-    nc = plan.num_chunks
-    if block_mass is not None:
-        p = np.asarray(block_mass, dtype=np.float64)
-        p = p / p.sum()
-        jb = rng.choice(plan.n_iblocks, size=nc, p=p).astype(np.int32)
-    else:
-        r = rng.integers(0, max(num_items, 1), nc)
-        jb = (r % plan.n_iblocks).astype(np.int32)
-    nval = np.maximum(nvalid[jb], 1).astype(np.int32)
-    bkt = (np.asarray(ub_visit, dtype=np.int64)
-           * plan.n_iblocks + jb).astype(np.int32)
-    dev = plan.packed.device
-    return tuple(torch.from_numpy(a).to(dev) for a in (jb, nval, bkt))
+    with trace.span("step.negatives"):
+        rng = np.random.default_rng(seed)
+        nc = plan.num_chunks
+        if block_mass is not None:
+            p = np.asarray(block_mass, dtype=np.float64)
+            p = p / p.sum()
+            jb = rng.choice(plan.n_iblocks, size=nc, p=p).astype(np.int32)
+        else:
+            r = rng.integers(0, max(num_items, 1), nc)
+            jb = (r % plan.n_iblocks).astype(np.int32)
+        nval = np.maximum(nvalid[jb], 1).astype(np.int32)
+        bkt = (np.asarray(ub_visit, dtype=np.int64)
+               * plan.n_iblocks + jb).astype(np.int32)
+    return to_device((jb, nval, bkt), plan.packed.device, "copy.negatives")
 
 
 def bpr_tiled_plan(plan: MxuPlan, nvalid: np.ndarray, *, slab_blocks: int):
@@ -268,56 +273,56 @@ def bpr_tiled_epoch_order(plan: MxuPlan, nvalid: np.ndarray,
     resident path; WBPR draws both by popularity mass. The chunk's
     positive block is isl * B + ibr, its negative block jb = jsl * B +
     jbr, and bkt = ub * n_ib + jb its membership bucket."""
-    rng = np.random.default_rng(seed)
-    nc = plan.num_chunks
-    B = min(slab_blocks, plan.n_iblocks)
-    n_ib, n_ub = plan.n_iblocks, plan.n_ublocks
-    isl_c = (plan.ib_c // B).astype(np.int32)
-    ibr_c = (plan.ib_c - isl_c * B).astype(np.int32)
+    with trace.span("step.order"):
+        rng = np.random.default_rng(seed)
+        nc = plan.num_chunks
+        B = min(slab_blocks, plan.n_iblocks)
+        n_ib, n_ub = plan.n_iblocks, plan.n_ublocks
+        isl_c = (plan.ib_c // B).astype(np.int32)
+        ibr_c = (plan.ib_c - isl_c * B).astype(np.int32)
 
-    # one negative slab per (isl, user block) group
-    gid = isl_c.astype(np.int64) * n_ub + plan.ub_c
-    uniq, inv = np.unique(gid, return_inverse=True)
-    if block_mass is not None:
-        pm = np.concatenate([np.asarray(block_mass, dtype=np.float64),
-                             np.zeros(num_slabs * B - n_ib)])
-        sm = pm.reshape(num_slabs, B).sum(axis=1)
-        jsl_g = rng.choice(num_slabs, size=uniq.size,
-                           p=sm / sm.sum()).astype(np.int32)
-    else:
-        r = rng.integers(0, max(num_items, 1), uniq.size)
-        jsl_g = ((r % n_ib) // B).astype(np.int32)
-    jsl_c = jsl_g[inv]
+        # one negative slab per (isl, user block) group
+        gid = isl_c.astype(np.int64) * n_ub + plan.ub_c
+        uniq, inv = np.unique(gid, return_inverse=True)
+        if block_mass is not None:
+            pm = np.concatenate([np.asarray(block_mass, dtype=np.float64),
+                                 np.zeros(num_slabs * B - n_ib)])
+            sm = pm.reshape(num_slabs, B).sum(axis=1)
+            jsl_g = rng.choice(num_slabs, size=uniq.size,
+                               p=sm / sm.sum()).astype(np.int32)
+        else:
+            r = rng.integers(0, max(num_items, 1), uniq.size)
+            jsl_g = ((r % n_ib) // B).astype(np.int32)
+        jsl_c = jsl_g[inv]
 
-    # one negative block per chunk within its group's slab
-    if block_mass is not None:
-        jbr_c = np.zeros(nc, np.int32)
-        for s in range(num_slabs):
-            sel = np.nonzero(jsl_c == s)[0]
-            if sel.size == 0:
-                continue
-            lo, hi = s * B, min((s + 1) * B, n_ib)
-            m = np.asarray(block_mass[lo:hi], dtype=np.float64)
-            jbr_c[sel] = rng.choice(hi - lo, size=sel.size,
-                                    p=m / m.sum()).astype(np.int32)
-    else:
-        si = np.maximum(slab_items[jsl_c], 1)
-        r2 = (rng.random(nc) * si).astype(np.int64)
-        n_blocks_of = np.minimum((jsl_c + 1) * B, n_ib) - jsl_c * B
-        jbr_c = (r2 % n_blocks_of).astype(np.int32)
-    jb_c = (jsl_c * B + jbr_c).astype(np.int32)
+        # one negative block per chunk within its group's slab
+        if block_mass is not None:
+            jbr_c = np.zeros(nc, np.int32)
+            for s in range(num_slabs):
+                sel = np.nonzero(jsl_c == s)[0]
+                if sel.size == 0:
+                    continue
+                lo, hi = s * B, min((s + 1) * B, n_ib)
+                m = np.asarray(block_mass[lo:hi], dtype=np.float64)
+                jbr_c[sel] = rng.choice(hi - lo, size=sel.size,
+                                        p=m / m.sum()).astype(np.int32)
+        else:
+            si = np.maximum(slab_items[jsl_c], 1)
+            r2 = (rng.random(nc) * si).astype(np.int64)
+            n_blocks_of = np.minimum((jsl_c + 1) * B, n_ib) - jsl_c * B
+            jbr_c = (r2 % n_blocks_of).astype(np.int32)
+        jb_c = (jsl_c * B + jbr_c).astype(np.int32)
 
-    perm = np.argsort(
-        isl_c.astype(np.float64) * (2.0 * num_slabs * n_ub)
-        + jsl_c * (2.0 * n_ub) + plan.ub_c * 2.0 + rng.random(nc),
-        kind="stable")
-    nval_c = np.maximum(nvalid[jb_c], 1).astype(np.int32)
-    bkt_c = (plan.ub_c.astype(np.int64) * n_ib + jb_c).astype(np.int32)
-    dev = plan.packed.device
-    return tuple(torch.from_numpy(np.ascontiguousarray(a[perm], np.int32))
-                 .to(dev)
-                 for a in (plan.ub_c, ibr_c, isl_c, jb_c, jbr_c, jsl_c,
-                           nval_c, bkt_c, np.arange(nc)))
+        perm = np.argsort(
+            isl_c.astype(np.float64) * (2.0 * num_slabs * n_ub)
+            + jsl_c * (2.0 * n_ub) + plan.ub_c * 2.0 + rng.random(nc),
+            kind="stable")
+        nval_c = np.maximum(nvalid[jb_c], 1).astype(np.int32)
+        bkt_c = (plan.ub_c.astype(np.int64) * n_ib + jb_c).astype(np.int32)
+        cols = [np.ascontiguousarray(a[perm], np.int32)
+                for a in (plan.ub_c, ibr_c, isl_c, jb_c, jbr_c, jsl_c, nval_c,
+                          bkt_c, np.arange(nc))]
+    return to_device(cols, plan.packed.device, "copy.order")
 
 
 def prepare_bpr_mxu_sharded(feedback, num_devices: int, *, uniform_user: bool,
@@ -526,7 +531,7 @@ def bpr_mxu_column_rates(num_factors: int, fe: int, learn_rate, reg_u,
         out[f, 4] = lr
         out[:f, 5] = float(reg_j)
         out[f, 5] = float(bias_reg)
-    return torch.from_numpy(out).to(device)
+    return to_device([out], device, "copy.rates")[0]
 
 
 def bpr_tables_to_mxu(user_factors, item_factors, item_bias, new_of_old, *,

@@ -39,6 +39,7 @@ included, and the port visits only each cell's real chunks.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from dataclasses import dataclass, field
@@ -46,11 +47,31 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from mymedialite_tpu_torch import trace
+
 log = logging.getLogger("mymedialite_tpu_torch")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def planned(fn):
+    """``fn`` inside the phase ``plan.prepare`` (attr ``fn``: its name;
+    a plan function called by another counts in the outer one's)."""
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        with trace.phase("plan.prepare", fn=fn.__name__):
+            return fn(*args, **kwargs)
+    return inner
+
+
+def to_device(arrays, device, name: str) -> tuple:
+    """Each host array of ``arrays`` as a tensor on ``device``, inside
+    the span ``name`` (``copy.*``): a copy from pageable memory waits
+    for the device's stream."""
+    with trace.span(name):
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 # the JAX package keeps the whole item table resident (in VMEM) up to this
@@ -104,17 +125,19 @@ class MxuPlan:
         shuffled within each group. Returns (ub, ib, row) int32 tensors
         of length num_chunks on the device of ``packed``."""
         nc = self.num_chunks
-        if seed is None:
-            perm = np.arange(nc)
-        else:
-            rng = np.random.default_rng(seed)
-            perm = np.argsort(self.ub_c.astype(np.float64) * 2.0
-                              + rng.random(nc), kind="stable")
-        dev = self.packed.device
-        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-                     for a in (self.ub_c[perm], self.ib_c[perm], perm))
+        with trace.span("step.order"):
+            if seed is None:
+                perm = np.arange(nc)
+            else:
+                rng = np.random.default_rng(seed)
+                perm = np.argsort(self.ub_c.astype(np.float64) * 2.0
+                                  + rng.random(nc), kind="stable")
+            cols = [np.ascontiguousarray(a, np.int32)
+                    for a in (self.ub_c[perm], self.ib_c[perm], perm)]
+        return to_device(cols, self.packed.device, "copy.order")
 
 
+@planned
 def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
                      user_block: int = 512, item_block: int = 1024,
                      chunk=256, shuffle_seed=0, chunk_overhead: int = 0,
@@ -134,8 +157,9 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
     users = np.asarray(users, dtype=np.int32)
     items = np.asarray(items, dtype=np.int32)
     values = np.asarray(values, dtype=np.float32)
-    perm = (np.random.default_rng(shuffle_seed).permutation(n)
-            if shuffle_seed is not None and n > 1 else None)
+    with trace.phase("plan.shuffle"):
+        perm = (np.random.default_rng(shuffle_seed).permutation(n)
+                if shuffle_seed is not None and n > 1 else None)
 
     UB = min(user_block, _round_up(max(num_users, 1), 8))
     IB = min(item_block, _round_up(max(num_items, 1), 8))
@@ -146,16 +170,18 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
         new_of_old = np.asarray(item_perm, dtype=np.int32)
         assert new_of_old.shape[0] == num_items
     else:
-        # popularity round-robin: the j-th most rated item goes to block
-        # j % n_ib, so every item block gets about equal rating mass
-        counts = native.count_items(items, num_items) if n else None
-        if counts is None:
-            counts = np.bincount(items, minlength=num_items) if n else \
-                np.zeros(num_items, np.int64)
-        rank = np.argsort(-counts, kind="stable")
-        j = np.arange(num_items)
-        new_of_old = np.empty(num_items, np.int32)
-        new_of_old[rank] = ((j % n_ib) * IB + j // n_ib).astype(np.int32)
+        with trace.phase("plan.popularity"):
+            # popularity round-robin: the j-th most rated item goes to
+            # block j % n_ib, so every item block gets about equal rating
+            # mass
+            counts = native.count_items(items, num_items) if n else None
+            if counts is None:
+                counts = np.bincount(items, minlength=num_items) if n else \
+                    np.zeros(num_items, np.int64)
+            rank = np.argsort(-counts, kind="stable")
+            j = np.arange(num_items)
+            new_of_old = np.empty(num_items, np.int32)
+            new_of_old[rank] = ((j % n_ib) * IB + j // n_ib).astype(np.int32)
     old_of_new = np.full(n_ib * IB, -1, np.int32)
     old_of_new[new_of_old] = np.arange(num_items, dtype=np.int32)
 
@@ -171,56 +197,60 @@ def prepare_mxu_data(users, items, values, num_users: int, num_items: int, *,
         lo = min(tots)
         return max(c for c, t in zip(cands, tots) if t <= 1.03 * lo)
 
-    nat = native.mxu_bucketize(users, items, values, perm, new_of_old,
-                               UB, IB, n_ib, nbkt, pick_chunk) if n else None
-    if nat is not None:
-        packed_np, bcount, pcount, chunk = nat
-        nc = packed_np.shape[0]
-    else:
-        if perm is not None:
-            users, items, values = users[perm], items[perm], values[perm]
-        i_new = new_of_old[items]
-        bucket = (users // UB).astype(np.int64) * n_ib + i_new // IB
-        order = np.argsort(bucket, kind="stable")
-        users, i_new, values = users[order], i_new[order], values[order]
-        bucket = bucket[order]
+    with trace.phase("plan.bucketize"):
+        nat = native.mxu_bucketize(users, items, values, perm, new_of_old,
+                                   UB, IB, n_ib, nbkt, pick_chunk) \
+            if n else None
+        if nat is not None:
+            packed_np, bcount, pcount, chunk = nat
+            nc = packed_np.shape[0]
+        else:
+            if perm is not None:
+                users, items, values = users[perm], items[perm], values[perm]
+            i_new = new_of_old[items]
+            bucket = (users // UB).astype(np.int64) * n_ib + i_new // IB
+            order = np.argsort(bucket, kind="stable")
+            users, i_new, values = users[order], i_new[order], values[order]
+            bucket = bucket[order]
 
-        bcount = np.bincount(bucket, minlength=nbkt) if n else \
-            np.zeros(nbkt, np.int64)
-        chunk = pick_chunk(bcount)
-        pcount = ((bcount + chunk - 1) // chunk) * chunk
-        poff = np.concatenate([[0], np.cumsum(pcount)])
-        nc = max(int(poff[-1]) // chunk, 1)
-        total = nc * chunk
+            bcount = np.bincount(bucket, minlength=nbkt) if n else \
+                np.zeros(nbkt, np.int64)
+            chunk = pick_chunk(bcount)
+            pcount = ((bcount + chunk - 1) // chunk) * chunk
+            poff = np.concatenate([[0], np.cumsum(pcount)])
+            nc = max(int(poff[-1]) // chunk, 1)
+            total = nc * chunk
 
-        u_loc = np.zeros(total, np.int32)
-        i_loc = np.zeros(total, np.int32)
-        v = np.zeros(total, np.float32)
-        w = np.zeros(total, np.float32)
-        if n:
-            boff = np.concatenate([[0], np.cumsum(bcount)])
-            out_idx = poff[bucket] + np.arange(n) - boff[bucket]
-            u_loc[out_idx] = users % UB
-            i_loc[out_idx] = i_new % IB
-            v[out_idx] = values
-            w[out_idx] = 1.0
-        packed_np = np.stack([
-            u_loc.reshape(nc, chunk), i_loc.reshape(nc, chunk),
-            v.reshape(nc, chunk).view(np.int32),
-            w.reshape(nc, chunk).view(np.int32)], axis=1)
+            u_loc = np.zeros(total, np.int32)
+            i_loc = np.zeros(total, np.int32)
+            v = np.zeros(total, np.float32)
+            w = np.zeros(total, np.float32)
+            if n:
+                boff = np.concatenate([[0], np.cumsum(bcount)])
+                out_idx = poff[bucket] + np.arange(n) - boff[bucket]
+                u_loc[out_idx] = users % UB
+                i_loc[out_idx] = i_new % IB
+                v[out_idx] = values
+                w[out_idx] = 1.0
+            packed_np = np.stack([
+                u_loc.reshape(nc, chunk), i_loc.reshape(nc, chunk),
+                v.reshape(nc, chunk).view(np.int32),
+                w.reshape(nc, chunk).view(np.int32)], axis=1)
 
-    chunks_per_bucket = (pcount // chunk).astype(np.int64)
-    bkt_of_chunk = np.repeat(np.arange(nbkt), chunks_per_bucket)
-    if bkt_of_chunk.size == 0:
-        bkt_of_chunk = np.zeros(1, np.int64)
-    ub_c = (bkt_of_chunk // n_ib).astype(np.int32)
-    ib_c = (bkt_of_chunk % n_ib).astype(np.int32)
+        chunks_per_bucket = (pcount // chunk).astype(np.int64)
+        bkt_of_chunk = np.repeat(np.arange(nbkt), chunks_per_bucket)
+        if bkt_of_chunk.size == 0:
+            bkt_of_chunk = np.zeros(1, np.int64)
+        ub_c = (bkt_of_chunk // n_ib).astype(np.int32)
+        ib_c = (bkt_of_chunk % n_ib).astype(np.int32)
 
+    with trace.phase("copy.plan"):
+        packed = torch.from_numpy(np.ascontiguousarray(packed_np)).to(device)
     return MxuPlan(
         num_chunks=nc, chunk=chunk, user_block=UB, item_block=IB,
         n_ublocks=n_ub, n_iblocks=n_ib, num_users=num_users,
         num_items=num_items, n_ratings=n,
-        packed=torch.from_numpy(np.ascontiguousarray(packed_np)).to(device),
+        packed=packed,
         ub_c=ub_c, ib_c=ib_c, new_of_old=new_of_old, old_of_new=old_of_new)
 
 
@@ -372,20 +402,21 @@ class MxuTiledPlan:
         is sl * slab_blocks + ibr. With one slab the order is the
         resident plan's."""
         nc = self.num_chunks
-        sl_c = (self.ib_c // self.slab_blocks).astype(np.int32)
-        key = sl_c.astype(np.float64) * (2.0 * self.n_ublocks) \
-            + self.ub_c * 2.0
-        if seed is not None:
-            key = key + np.random.default_rng(seed).random(nc)
-        perm = np.argsort(key, kind="stable")
-        sl = sl_c[perm]
-        cols = (self.ub_c[perm], self.ib_c[perm] - sl * self.slab_blocks,
-                sl, perm)
-        dev = self.packed.device
-        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                     .to(dev) for a in cols)
+        with trace.span("step.order"):
+            sl_c = (self.ib_c // self.slab_blocks).astype(np.int32)
+            key = sl_c.astype(np.float64) * (2.0 * self.n_ublocks) \
+                + self.ub_c * 2.0
+            if seed is not None:
+                key = key + np.random.default_rng(seed).random(nc)
+            perm = np.argsort(key, kind="stable")
+            sl = sl_c[perm]
+            cols = [np.ascontiguousarray(a, np.int32) for a in (
+                self.ub_c[perm], self.ib_c[perm] - sl * self.slab_blocks,
+                sl, perm)]
+        return to_device(cols, self.packed.device, "copy.order")
 
 
+@planned
 def prepare_mxu_tiled(users, items, values, num_users: int, num_items: int,
                       *, user_block: int = 512, item_block: int = 1024,
                       chunk=None, slab_blocks: int = 8, shuffle_seed=0,
@@ -667,7 +698,7 @@ def mxu_column_rates(num_factors: int, fe: int, learn_rate, reg_u, reg_i,
         out[:, 0] = 0.0
     if not update_item:
         out[:, 2] = 0.0
-    return torch.from_numpy(out).to(device)
+    return to_device([out], device, "copy.rates")[0]
 
 
 def tables_std_to_mxu(W_std, H_std, new_of_old, *, u_pad: int, i_pad: int,

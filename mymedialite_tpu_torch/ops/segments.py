@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch import trace
+
 DEAD = -1
 START = 0x8000
 ID_MASK = 0x3FFF
@@ -172,7 +174,8 @@ def segments_of(packed):
         _CACHE = WeakTensorKeyDictionary()
     hit = _CACHE.get(packed)
     if hit is None or hit[0] != packed._version:
-        hit = (packed._version, chunk_segments(packed))
+        with trace.span("kernel.segments"):
+            hit = (packed._version, chunk_segments(packed))
         _CACHE[packed] = hit
     return hit[1]
 

@@ -20,7 +20,8 @@ The kernel adds each row's deltas in slot order, as
 ``ops/segments.py`` (built on the card once per ``packed``), so two runs
 give the same tables bit for bit, whatever the cluster.
 On CPU tensors they run ``sgd_epoch_reference`` /
-``sgd_epoch_tiled_reference``. Each counts its own launches.
+``sgd_epoch_tiled_reference``. Each counts its own launches, and runs
+inside the span ``kernel.<wrapper>``.
 ``sgd_epoch_sharded`` / ``sgd_epoch_sharded_tiled`` (``pallas_sgd.py
 :1126``, ``:1354``) run one epoch over a device mesh: the same wrapper
 once for each non-empty (device, sub-epoch) cell of this process, on
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from mymedialite_tpu_torch import trace
 from mymedialite_tpu_torch.ops import cluster as _cluster
 from mymedialite_tpu_torch.ops.cluster import (
     DYNAMIC_SHARED_BYTES, MAX_SHARED_BYTES, check_cluster_launch,
@@ -189,9 +191,10 @@ def sgd_epoch(W, H, packed, order, hp, rates, *, user_block: int,
     _check(W, H, packed, order, rates)
     kw = dict(user_block=user_block, item_block=item_block, loss=loss,
               biased=biased)
-    if W.device.type == "cpu":
-        return sgd_epoch_reference(W, H, packed, order, hp, rates, **kw)
-    _launch(W, H, packed, order, hp, rates, **kw)
+    with trace.span("kernel.sgd_epoch"):
+        if W.device.type == "cpu":
+            return sgd_epoch_reference(W, H, packed, order, hp, rates, **kw)
+        _launch(W, H, packed, order, hp, rates, **kw)
     sgd_epoch.launches += 1
     return W, H
 
@@ -204,11 +207,13 @@ def sgd_epoch_tiled(W, H, packed, order, hp, rates, *, slab_blocks: int,
     _check(W, H, packed, order, rates)
     kw = dict(user_block=user_block, item_block=item_block, loss=loss,
               biased=biased)
-    if W.device.type == "cpu":
-        return sgd_epoch_tiled_reference(W, H, packed, order, hp, rates,
-                                         slab_blocks=slab_blocks, **kw)
-    ub, ibr, sl, row = order
-    _launch(W, H, packed, (ub, sl * slab_blocks + ibr, row), hp, rates, **kw)
+    with trace.span("kernel.sgd_epoch_tiled"):
+        if W.device.type == "cpu":
+            return sgd_epoch_tiled_reference(W, H, packed, order, hp, rates,
+                                             slab_blocks=slab_blocks, **kw)
+        ub, ibr, sl, row = order
+        _launch(W, H, packed, (ub, sl * slab_blocks + ibr, row), hp, rates,
+                **kw)
     sgd_epoch_tiled.launches += 1
     return W, H
 
